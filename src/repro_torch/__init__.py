@@ -1,0 +1,23 @@
+"""PyTorch/CUDA port of the enforced-sparse NMF system.
+
+A second package beside the JAX reference (``repro``), mirroring it module
+for module: ``repro_torch.kernels.fused`` is the counterpart of
+``repro.kernels.fused`` and so on.  The Pallas TPU kernels of the main path
+are hand-written for Hopper (``sm_90a``): the BSR products in CUDA C++
+(``csrc/bsr_spmm.cu``), the Gram and the relu + threshold mask in Triton.
+On CPU tensors every kernel wrapper runs its plain PyTorch version instead
+(``kernels/ref.py``), which is how the CPU test suite holds the port against
+the reference.
+
+Entry points run on the card unless the caller asks for the CPU::
+
+    from repro_torch.nmf import EnforcedNMF, NMFConfig, Sparsity
+
+    model = EnforcedNMF(NMFConfig(k=5, sparsity=Sparsity(t_u=2011, t_v=751)))
+    model.fit(scipy_term_document_matrix)       # device="cuda" by default
+
+This package never imports ``jax`` or the reference package.
+"""
+from repro_torch.device import default_device, resolve_device
+
+__all__ = ["default_device", "resolve_device"]

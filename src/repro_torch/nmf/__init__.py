@@ -1,0 +1,18 @@
+"""Estimator front door of the port (port of ``repro.nmf``)::
+
+    from repro_torch.nmf import EnforcedNMF, NMFConfig, Sparsity
+
+    model = EnforcedNMF(NMFConfig(k=5, sparsity=Sparsity(t_u=55)))
+    model.fit(a)                  # on the card; device="cpu" to ask for CPU
+    v_new = model.transform(a2)   # fold-in: topic inference, U frozen
+"""
+from repro_torch.nmf.config import NMFConfig, Sparsity
+from repro_torch.nmf.estimator import EnforcedNMF
+from repro_torch.nmf.registry import available_solvers, get_solver, register_solver
+from repro_torch.nmf.result import FitResult
+from repro_torch.nmf import solvers as _solvers  # noqa: F401 — registers solvers
+
+__all__ = [
+    "EnforcedNMF", "NMFConfig", "Sparsity", "FitResult",
+    "register_solver", "get_solver", "available_solvers",
+]

@@ -1,0 +1,96 @@
+"""The port's kernels on the card against their plain versions, at small
+shapes.  Marked ``cuda``: they skip where no CUDA device is visible and run
+on a machine with an NVIDIA card with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels import _build, bsr, ref
+from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_t
+from repro_torch.kernels.fused import bsr_spmm_gram
+from repro_torch.kernels.gram import gram
+from repro_torch.kernels.project_mask import project_mask
+from repro_torch.nmf import EnforcedNMF, NMFConfig, Sparsity
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: no CUDA device is visible")
+    return resolve_device("cuda")
+
+
+def _rand_sparse(rng, n, m, density=0.05):
+    a = rng.random((n, m)).astype(np.float32)
+    a[rng.random((n, m)) > density] = 0
+    return a
+
+
+@pytest.mark.parametrize("n,m,k,bm", [(257, 129, 5, 32), (300, 200, 33, 64),
+                                      (128, 256, 7, 128)])
+def test_bsr_kernels_match_plain_versions(card, n, m, k, bm):
+    rng = np.random.default_rng(n + m + k)
+    a = _rand_sparse(rng, n, m)
+    op = bsr.bsr_operand(a, bm=bm, bk=bm, device=card)
+    v = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(card)
+    u = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)).to(card)
+    _build.reset_launch_counts()
+    y = bsr_spmm(op.bsr, v)
+    torch.testing.assert_close(y, ref.bsr_spmm_ref(op.bsr, v), rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(bsr_spmm_t(op, u),
+                               ref.bsr_spmm_ref(op.bsr_t, u), rtol=1e-4,
+                               atol=1e-4)
+    y_f, g_f = bsr_spmm_gram(op.bsr, v)
+    torch.cuda.synchronize()
+    assert torch.equal(y_f, y)
+    torch.testing.assert_close(g_f, ref.gram_ref(v), rtol=1e-5, atol=1e-4)
+    counts = _build.launch_counts()
+    assert counts["bsr_spmm"] == 2 and counts["bsr_spmm_gram"] == 1
+
+
+def test_gram_and_mask_match_plain_versions(card):
+    gen = torch.Generator().manual_seed(0)
+    for n, k in ((513, 40), (64, 5), (20112, 5)):
+        u = torch.randn((n, k), generator=gen).to(card)
+        torch.testing.assert_close(gram(u), ref.gram_ref(u), rtol=1e-4,
+                                   atol=1e-3)
+    x = torch.randn((1001, 5), generator=gen).to(card)
+    for tau in (0.0, 0.5, 2.0):
+        t = torch.tensor(tau, device=card)
+        assert torch.equal(project_mask(x, t), ref.project_mask_ref(x, t))
+
+
+def test_fused_unreferenced_blocks_on_card(card):
+    rng = np.random.default_rng(4)
+    a = np.zeros((128, 256), np.float32)
+    a[:64, :64] = rng.random((64, 64))
+    b = bsr.bsr_from_dense(a, bm=64, bk=64, device=card)
+    u = torch.from_numpy(rng.standard_normal((256, 7)).astype(np.float32)).to(card)
+    y, g = bsr_spmm_gram(b, u)
+    torch.testing.assert_close(g, ref.gram_ref(u), rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(y, ref.bsr_spmm_ref(b, u), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_fit_on_card_matches_cpu(card):
+    from repro_torch.data import synthetic_journal_corpus
+    from repro_torch.sparse import to_scipy
+
+    a, _ = synthetic_journal_corpus(n_terms=300, n_docs=200, seed=1)
+    sp = to_scipy(a)
+    u0 = np.random.default_rng(0).random((300, 5)).astype(np.float32)
+    cfg = NMFConfig(k=5, iters=8, sparsity=Sparsity(t_u=55, t_v=600),
+                    backend="cuda-bsr")
+    on_card = EnforcedNMF(cfg, device=card).fit(sp, u0=u0)
+    on_cpu = EnforcedNMF(cfg, device="cpu").fit(sp, u0=u0)
+    torch.testing.assert_close(on_card.result_.error.cpu(),
+                               on_cpu.result_.error, rtol=0, atol=1e-4)
+    assert torch.equal(on_card.result_.nnz_u.cpu(), on_cpu.result_.nnz_u)
+    assert int(on_card.result_.health) == -1
