@@ -23,7 +23,23 @@ Phases (any failed check raises, and the script exits non-zero):
 7. timings with CUDA events: each kernel, its plain version, its bound, the
    one PyTorch call that computes the same function where there is one, the
    fit's time per iteration and the bisection epilogue's share of it; a
-   profiler window gives the card's busy share.
+   profiler window gives the card's busy share;
+8. the flash-attention kernel against its plain version: the llama3.2-1b
+   prefill shape (B=4, H=32, Hkv=8, S=T=4096, hd=64, causal), a non-causal
+   Sq != T case and an odd S = 1000, each in bf16 (rtol 1e-2, atol 2e-3)
+   and f32 (rtol 1e-4, atol 1e-5);
+9. the LM prefill at full width: llama3.2-1b drawn on the card from a seed,
+   ``make_prefill_step`` on 4 x 4096 tokens (finite next-token logits, the
+   flash kernel launched exactly n_layers = 16 times), one 1 x 32768
+   prefill (finite, peak memory), and an f32 forward over 64 tokens against
+   64 f32 decode steps (last-position logits within 2e-3);
+10. serving: a full-width ``ServingEngine`` (max_batch 8, max_seq 512)
+    drains 16 requests of 32-token prompts, max_new 32, and reports
+    tokens/s;
+11. LM timings: the flash kernel, its plain version and
+    ``F.scaled_dot_product_attention`` at the prefill shape, its bound; the
+    prefill's time and tokens/s, a decode tick, and the card's busy share
+    in a profiler window around one prefill.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -38,32 +54,363 @@ from pathlib import Path
 
 import numpy as np
 
-#: published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
-#: float32 FLOP/s outside the tensor cores
+#: published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s,
+#: float32 FLOP/s outside the tensor cores, dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 N_TERMS, N_DOCS, K, ITERS = 20112, 7510, 5, 50
 T_U, T_V = N_TERMS * K // 50, N_DOCS * K // 50     # 2% of dense: 2011, 751
 DENSE_ITERS, UNFUSED_ITERS, NEW_DOCS = 8, 5, 751
 DEVICE = "cuda"
 
+#: the LM slice: llama3.2-1b at full width (src/repro/configs/llama3_2_1b.py)
+LM_ARCH = "llama3.2-1b"
+PREFILL_B, PREFILL_S = 4, 4096
+LONG_S = 32768          # prefill_32k's length (configs/__init__.py:51), B=1
+DECODE_CHECK_S = 64
+SERVE = dict(max_batch=8, max_seq=512, requests=16, prompt=32, max_new=32)
+#: flash kernel checks: (B, H, Hkv, Sq, T, hd, causal)
+FLASH_CASES = {
+    "prefill": (PREFILL_B, 32, 8, PREFILL_S, PREFILL_S, 64, True),
+    "Sq!=T": (1, 8, 2, 192, 320, 64, False),
+    "odd S": (1, 32, 8, 1000, 1000, 64, True),
+}
+#: (rtol, atol) of the flash kernel against its plain version.  In bf16
+#: both round p to bf16, the kernel against its running max and the plain
+#: version against the row's final max, then round the output: one bf16
+#: step (2^-8 to 2^-7 of |out|) plus a few 1e-4 where p's rounding differs.
+#: Typical outputs are 0.02-0.09 in size, so these limits are a few percent
+#: of them.  In f32 only the order of the sums differs.
+FLASH_TOL = {"bfloat16": (1e-2, 2e-3), "float32": (1e-4, 1e-5)}
+
 REPLACES = {
     "project_mask": "src/repro/kernels/project_mask.py:29",
     "gram": "src/repro/kernels/gram.py:33",
     "bsr_spmm": "src/repro/kernels/bsr_spmm.py:67",
     "bsr_spmm_gram": "src/repro/kernels/fused.py:86",
+    "flash_attention": "src/repro/kernels/flash_attention.py:73",
 }
 SOURCES = {
     "project_mask": ("triton", "src/repro_torch/kernels/project_mask.py"),
     "gram": ("triton", "src/repro_torch/kernels/gram.py"),
     "bsr_spmm": ("cuda", "src/repro_torch/csrc/bsr_spmm.cu"),
     "bsr_spmm_gram": ("cuda", "src/repro_torch/csrc/bsr_spmm.cu"),
+    "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu"),
 }
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def close(name, got, want, rtol, atol):
+    """Max abs error of ``got`` against ``want``; raises unless every entry
+    is within ``atol + rtol * |want|`` (a NaN on either side fails)."""
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    if not bool((diff <= atol + rtol * want.float().abs()).all()):
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version (max abs err {err:.3e}, rtol "
+                             f"{rtol}, atol {atol})")
+    return err
+
+
+def cuda_ms(fn, reps=20, warmup=3):
+    """Mean device time of ``fn`` in ms: CUDA events around ``reps`` calls
+    after ``warmup`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes, flops, peak_flops=F32_FLOPS):
+    """The least time the card could take: bytes at the HBM rate or
+    operations at ``peak_flops``, whichever is longer, and which it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def flash_flops(b, h, sq, t, hd, causal):
+    """Multiply-add FLOPs of Q K^T and P V over the (row, key) pairs the
+    mask keeps: with absolute indices, row i keeps keys 0..min(i, T - 1)."""
+    if causal:
+        pairs = sum(min(i + 1, t) for i in range(sq))
+    else:
+        pairs = sq * t
+    return 4.0 * b * h * hd * pairs
+
+
+def profiled(name, fn, calls=1):
+    """Device busy share and kernels per call in a profiler window of
+    ``calls`` calls of ``fn``; logs the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+    by_kernel = []
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            t_us = getattr(evt, "self_device_time_total", None)
+            if t_us is None:
+                t_us = evt.self_cuda_time_total
+            by_kernel.append((t_us, evt.count, evt.key))
+    by_kernel.sort(reverse=True)
+    dev_us = sum(x for x, _, _ in by_kernel)
+    n_kernels = sum(c for _, c, _ in by_kernel)
+    busy = dev_us / (window_s * 1e6)
+    log(f"[profile] {name}, {calls} call(s): window {window_s * 1e3:.2f} ms, "
+        f"device busy {dev_us / 1e3:.2f} ms ({100 * busy:.1f}%, idle "
+        f"{100 * (1 - busy):.1f}%), {n_kernels / calls:.0f} device kernels "
+        "per call")
+    for x, c, k in by_kernel[:8]:
+        log(f"[profile]   {x / 1e3:8.3f} ms in {c:5d} launches: {k[:90]}")
+    return dict(window_s=window_s, device_busy_us=dev_us,
+                device_busy_share=busy, kernels_per_call=n_kernels / calls,
+                top_kernels=[dict(us=x, count=c, name=k[:120])
+                             for x, c, k in by_kernel[:10]])
+
+
+def run_lm_slice(dev, paths, checks, rows, results):
+    """Phases 8-11: the flash kernel against its plain version, the
+    full-width llama3.2-1b prefill (the path that launches it), prefill
+    against decode, the serving engine, and the timings."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import ARCHS, ShapeSpec
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import api, transformer
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = ARCHS[LM_ARCH]
+    lm = {}
+
+    # -- 8. the flash kernel against its plain version ------------------------
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def qkv(b, h, hkv, sq, t, hd, dtype):
+        return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                     for shape in ((b, h, sq, hd), (b, hkv, t, hd),
+                                   (b, hkv, t, hd)))
+
+    errs, sizes, used = {}, {}, {}
+    for name, (b, h, hkv, sq, t, hd, causal) in FLASH_CASES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            rtol, atol = FLASH_TOL[dname]
+            q, k, v = qkv(b, h, hkv, sq, t, hd, dtype)
+            got = flash_attention(q, k, v, causal=causal, groups=h // hkv)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                           groups=h // hkv)
+            key = f"{name} {dname}"
+            errs[key] = close(f"flash_attention {key}", got, want, rtol, atol)
+            wabs = want.float().abs()
+            sizes[key] = float(wabs.median())
+            used[key] = float(((got.float() - want.float()).abs()
+                               / (atol + rtol * wabs)).max())
+            log(f"[check] flash_attention {key} (B={b}, H={h}, Hkv={hkv}, "
+                f"Sq={sq}, T={t}, hd={hd}, causal={causal}): kernel == "
+                f"plain version within rtol {rtol}, atol {atol} (max abs "
+                f"err {errs[key]:.3e}, {100 * used[key]:.1f}% of the limit "
+                f"at worst; median |out| {sizes[key]:.4f})")
+            del q, k, v, got, want, wabs
+    checks["flash_attention"] = max(errs.values())
+    lm.update(flash_checks=errs, flash_median_abs_out=sizes,
+              flash_limit_used=used)
+
+    # -- 9. prefill at full width ----------------------------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[lm] {cfg.name} at full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, vocab "
+        f"{cfg.vocab}): {n_params} parameters in f32, drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    step = api.make_prefill_step(cfg)
+    batch = api.make_batch(cfg, ShapeSpec("prefill", PREFILL_S, PREFILL_B,
+                                          "prefill"), seed=1, device=dev)
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits = step(model, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    paths["prefill"] = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(logits).all())
+    log(f"[prefill] B={PREFILL_B} x S={PREFILL_S}: next-token logits "
+        f"{tuple(logits.shape)} {logits.dtype}, finite {finite}, first call "
+        f"{first_s:.3f} s (weights cast to bf16 included), peak memory "
+        f"{peak / 1e9:.3f} GB, launches {paths['prefill']}")
+    if tuple(logits.shape) != (PREFILL_B, cfg.vocab) or not finite:
+        raise AssertionError("prefill logits are not finite (B, vocab)")
+    if paths["prefill"]["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"prefill launched the flash kernel "
+                             f"{paths['prefill']['flash_attention']} times, "
+                             f"not n_layers = {cfg.n_layers}")
+    lm.update(prefill_first_s=first_s, prefill_peak_mem_bytes=peak)
+
+    long_batch = {"tokens": torch.randint(
+        0, cfg.vocab, (1, LONG_S), generator=gen, device=dev,
+        dtype=torch.int32)}
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    long_logits = step(model, long_batch)
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t0
+    long_peak = torch.cuda.max_memory_allocated()
+    long_finite = bool(torch.isfinite(long_logits).all())
+    paths["prefill_32k"] = _build.launch_counts()
+    log(f"[prefill] B=1 x S={LONG_S}: logits {tuple(long_logits.shape)} "
+        f"finite {long_finite}, {long_s:.3f} s, peak memory "
+        f"{long_peak / 1e9:.3f} GB (the (1, S, vocab) logits are held, as in"
+        f" the reference), flash launches "
+        f"{paths['prefill_32k']['flash_attention']}")
+    if not long_finite:
+        raise AssertionError("32k prefill logits are not finite")
+    lm.update(long_prefill_s=long_s, long_prefill_peak_mem_bytes=long_peak)
+    del long_logits, long_batch
+
+    toks = torch.randint(0, cfg.vocab, (2, DECODE_CHECK_S), generator=gen,
+                         device=dev, dtype=torch.int32)
+    with torch.no_grad():
+        full = transformer.forward(model, toks, cfg,
+                                   compute_dtype=torch.float32)[:, -1]
+    cache = transformer.init_cache(cfg, 2, DECODE_CHECK_S,
+                                   dtype=torch.float32, device=dev)
+    for t in range(DECODE_CHECK_S):
+        last, cache = transformer.decode_step(model, cache, toks[:, t], t,
+                                              cfg, compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    dec_err = close("prefill vs decode", last, full, 2e-3, 2e-3)
+    log(f"[prefill] f32 forward over {DECODE_CHECK_S} tokens vs "
+        f"{DECODE_CHECK_S} f32 decode steps: last-position logits agree "
+        f"within 2e-3 (max abs err {dec_err:.3e})")
+    lm["prefill_vs_decode_err"] = dec_err
+    del cache, full, last
+
+    # -- 10. serving -----------------------------------------------------------
+    rng = np.random.default_rng(2)
+    engine = ServingEngine(cfg, model, max_batch=SERVE["max_batch"],
+                           max_seq=SERVE["max_seq"], device=dev)
+    reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab,
+                                               SERVE["prompt"]).tolist(),
+                    max_new=SERVE["max_new"])
+            for i in range(SERVE["requests"])]
+    for r in reqs:
+        engine.submit(r)
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = engine.run_until_drained()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    paths["serve"] = _build.launch_counts()
+    emitted = sum(len(r.out) for r in reqs)
+    log(f"[serve] ServingEngine (max_batch {SERVE['max_batch']}, max_seq "
+        f"{SERVE['max_seq']}) drained {len(done)} of {len(reqs)} requests "
+        f"({SERVE['prompt']}-token prompts, max_new {SERVE['max_new']}): "
+        f"{emitted} tokens emitted in {serve_s:.3f} s, "
+        f"{emitted / serve_s:.1f} tokens/s (prompt tokens, fed one decode "
+        f"step each, not counted), launches {paths['serve']}")
+    if len(done) != len(reqs) or any(r.error or not r.out for r in reqs):
+        raise AssertionError("the serving engine did not drain every "
+                             "request with tokens")
+    lm.update(serve_s=serve_s, serve_tokens=emitted,
+              serve_tokens_per_s=emitted / serve_s)
+    del engine
+
+    # -- 11. timings -------------------------------------------------------------
+    b, h, hkv, sq, t, hd, causal = FLASH_CASES["prefill"]
+    groups = h // hkv
+    timing = {}
+    for dtype, peak_flops in ((torch.bfloat16, BF16_FLOPS),
+                              (torch.float32, F32_FLOPS)):
+        q, k, v = qkv(b, h, hkv, sq, t, hd, dtype)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        bound, by = bound_ms(nbytes, flash_flops(b, h, sq, t, hd, causal),
+                             peak_flops)
+        name = str(dtype).split(".")[-1]
+        timing[name] = dict(
+            ms=cuda_ms(lambda: flash_attention(q, k, v, causal=causal,
+                                               groups=groups), reps=10),
+            plain_ms=cuda_ms(lambda: ref.flash_attention_ref(
+                q, k, v, causal=causal, groups=groups), reps=3, warmup=1),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True), reps=10),
+            bound_ms=bound, bound_by=by)
+        tm = timing[name]
+        log(f"[time] flash_attention {name} B={b} H={h} Hkv={hkv} S={sq} "
+            f"hd={hd}: {tm['ms']:.4f} ms (plain {tm['plain_ms']:.4f} ms, "
+            f"scaled_dot_product_attention {tm['library_ms']:.4f} ms, bound "
+            f"{bound:.4f} ms by {by})")
+        del q, k, v
+    lm["flash_timing"] = timing
+    rows["flash_attention"] = dict(timing["bfloat16"],
+                                   library_call="F.scaled_dot_product_"
+                                   "attention(is_causal=True, "
+                                   "enable_gqa=True)")
+
+    prefill_runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(model, batch)
+        torch.cuda.synchronize()
+        prefill_runs.append(time.perf_counter() - t0)
+    prefill_s = float(np.median(prefill_runs))
+    n_tok = PREFILL_B * PREFILL_S
+    flash_share = cfg.n_layers * timing["bfloat16"]["ms"] / (1e3 * prefill_s)
+    log(f"[time] prefill B={PREFILL_B} x S={PREFILL_S}: {prefill_s * 1e3:.2f}"
+        f" ms (median of {[round(1e3 * x, 2) for x in prefill_runs]} ms), "
+        f"{n_tok / prefill_s:.0f} tokens/s; {cfg.n_layers} flash launches "
+        f"take {100 * flash_share:.1f}% of it")
+
+    cache = transformer.init_cache(cfg, SERVE["max_batch"], SERVE["max_seq"],
+                                   device=dev)
+    tok = torch.randint(0, cfg.vocab, (SERVE["max_batch"],), generator=gen,
+                        device=dev, dtype=torch.int32)
+    decode = api.make_decode_step(cfg)
+    decode_ms = cuda_ms(lambda: decode(model, cache, tok, 64), reps=20)
+    log(f"[time] decode tick (batch {SERVE['max_batch']}, cache "
+        f"{SERVE['max_seq']}): {decode_ms:.3f} ms")
+
+    lm["prefill_profile"] = profiled(
+        f"prefill B={PREFILL_B} x S={PREFILL_S}", lambda: step(model, batch))
+    lm["decode_profile"] = profiled(
+        f"decode tick (batch {SERVE['max_batch']})",
+        lambda: decode(model, cache, tok, 64), calls=5)
+    lm.update(prefill_s=prefill_s, prefill_runs_s=prefill_runs,
+              prefill_tokens_per_s=n_tok / prefill_s,
+              flash_share_of_prefill=flash_share, decode_tick_ms=decode_ms)
+    results["lm"] = lm
 
 
 def main(argv=None) -> int:
@@ -145,15 +492,6 @@ def main(argv=None) -> int:
 
     # -- 2. per-kernel checks at PubMed shapes -------------------------------
     checks = {}
-
-    def close(name, got, want, rtol, atol):
-        err = float((got - want).abs().max())
-        bad = (got - want).abs() > atol + rtol * want.abs()
-        if bool(bad.any()):
-            raise AssertionError(f"{name}: kernel disagrees with its plain "
-                                 f"version (max abs err {err:.3e}, rtol "
-                                 f"{rtol}, atol {atol})")
-        return err
 
     t0 = time.perf_counter()
     x = torch.randn((N_TERMS, K), generator=gen).to(dev)
@@ -284,24 +622,6 @@ def main(argv=None) -> int:
     results["paths"] = paths
 
     # -- 7. timings ------------------------------------------------------------
-    def cuda_ms(fn, reps=20, warmup=3):
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-
-    def bound_ms(nbytes, flops):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
-        return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                           else "operations")
-
     u_fit, v_fit = model.u_, model.v_
     timing = {}
     # the BSR products: one call per orientation per half-step, so each
@@ -406,7 +726,6 @@ def main(argv=None) -> int:
                                                  for i in items])),
         bound_by=items[0]["bound"][1])
 
-    # the fit itself, on the already-ingested operand
     # the fit itself, on the already-ingested operand: one warm-up, then
     # three timed fits (host clock, ending in a synchronize)
     timed = EnforcedNMF(cfg, device=dev)
@@ -439,44 +758,22 @@ def main(argv=None) -> int:
         f"GB resident before it)")
 
     # profiler window: device busy share and kernel launches per iteration
-    from torch.profiler import ProfilerActivity, profile
-
     prof_iters = 5
     prof_cfg = cfg.replace(iters=prof_iters)
     EnforcedNMF(prof_cfg, device=dev).fit(op, u0=u0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        EnforcedNMF(prof_cfg, device=dev).fit(op, u0=u0)
-        torch.cuda.synchronize()
-        window_s = time.perf_counter() - t0
-    by_kernel = []
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            t_us = getattr(evt, "self_device_time_total", None)
-            if t_us is None:
-                t_us = evt.self_cuda_time_total
-            by_kernel.append((t_us, evt.count, evt.key))
-    by_kernel.sort(reverse=True)
-    dev_us = sum(t for t, _, _ in by_kernel)
-    n_kernels = sum(c for _, c, _ in by_kernel)
-    busy = dev_us / (window_s * 1e6)
-    timing.update(profile_window_s=window_s, device_busy_us=dev_us,
-                  device_busy_share=busy, device_kernels=n_kernels,
-                  kernels_per_iter=n_kernels / prof_iters,
-                  top_kernels=[dict(us=t, count=c, name=k[:120])
-                               for t, c, k in by_kernel[:10]])
-    log(f"[profile] {prof_iters}-iteration fit: window {window_s * 1e3:.2f} "
-        f"ms, device busy {dev_us / 1e3:.2f} ms ({100 * busy:.1f}%, idle "
-        f"{100 * (1 - busy):.1f}%), {n_kernels} device kernels "
-        f"({n_kernels / prof_iters:.0f} per iteration, set-up included)")
-    for t, c, k in by_kernel[:10]:
-        log(f"[profile]   {t / 1e3:8.3f} ms in {c:5d} launches: {k[:90]}")
+    prof = profiled(f"{prof_iters}-iteration fit (set-up included)",
+                    lambda: EnforcedNMF(prof_cfg, device=dev).fit(op, u0=u0))
+    timing.update(profile=prof,
+                  kernels_per_iter=prof["kernels_per_call"] / prof_iters)
     results["timing"] = timing
 
+    # -- 8.-11. the LM serving slice ----------------------------------------------
+    run_lm_slice(dev, paths, checks, rows, results)
+
     owner = {"project_mask": "fit", "bsr_spmm_gram": "fit",
-             "bsr_spmm": "transform", "gram": "unfused_fit"}
+             "bsr_spmm": "transform", "gram": "unfused_fit",
+             "flash_attention": "prefill"}
     kernels = []
     for name in _build.KERNELS:
         route, source = SOURCES[name]

@@ -2,9 +2,12 @@
 
 A second package beside the JAX reference (``repro``), mirroring it module
 for module: ``repro_torch.kernels.fused`` is the counterpart of
-``repro.kernels.fused`` and so on.  The Pallas TPU kernels of the main path
-are hand-written for Hopper (``sm_90a``): the BSR products in CUDA C++
-(``csrc/bsr_spmm.cu``), the Gram and the relu + threshold mask in Triton.
+``repro.kernels.fused`` and so on.  The Pallas TPU kernels are hand-written
+for Hopper (``sm_90a``): the BSR products in CUDA C++
+(``csrc/bsr_spmm.cu``), the Gram and the relu + threshold mask in Triton,
+and the LM substrate's flash attention in CUDA C++
+(``csrc/flash_attention.cu``), which the serving path's prefill runs
+(``models/``, ``serving/``, ``launch/serve.py``).
 On CPU tensors every kernel wrapper runs its plain PyTorch version instead
 (``kernels/ref.py``), which is how the CPU test suite holds the port against
 the reference.

@@ -1,0 +1,69 @@
+"""Architecture registry and assigned input shapes (port of
+``repro.configs``), for the families the port runs: the dense decoders and
+the internvl2 language model (``vlm``).
+
+Each architecture has its own module (``repro_torch.configs.<id>`` with
+dashes mapped to underscores) exporting ``CONFIG``, field for field the
+reference's.  ``smoke_config`` gives the same reduced variants as the
+reference's for these families.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+from repro_torch.models.common import ArchConfig
+
+from repro_torch.configs.codeqwen1_5_7b import CONFIG as codeqwen1_5_7b
+from repro_torch.configs.llama3_2_1b import CONFIG as llama3_2_1b
+from repro_torch.configs.phi4_mini_3_8b import CONFIG as phi4_mini_3_8b
+from repro_torch.configs.deepseek_coder_33b import CONFIG as deepseek_coder_33b
+from repro_torch.configs.internvl2_76b import CONFIG as internvl2_76b
+
+ARCHS: Dict[str, ArchConfig] = {
+    c.name: c
+    for c in [
+        codeqwen1_5_7b,
+        llama3_2_1b,
+        phi4_mini_3_8b,
+        deepseek_coder_33b,
+        internvl2_76b,
+    ]
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def smoke_config(cfg: ArchConfig) -> ArchConfig:
+    """Reduced same-family config for CPU smoke tests."""
+    kv_ratio = max(cfg.n_heads // cfg.n_kv_heads, 1)
+    n_heads = 4
+    overrides = dict(
+        n_layers=2,
+        d_model=64,
+        n_heads=n_heads,
+        n_kv_heads=max(n_heads // kv_ratio, 1),
+        d_ff=128 if cfg.d_ff else 0,
+        vocab=256,
+        head_dim=16,
+    )
+    if cfg.family == "vlm":
+        overrides.update(n_patches=8)
+    return dataclasses.replace(cfg, **overrides)
+
+
+__all__ = ["ARCHS", "SHAPES", "ShapeSpec", "smoke_config"]

@@ -1,0 +1,17 @@
+"""codeqwen1.5-7b [dense] — 32L d_model=4096 32H (kv=32) d_ff=13440
+vocab=92416  [hf:Qwen/CodeQwen1.5-7B].  Qwen1.5 arch: MHA with QKV bias."""
+from repro_torch.models.common import ArchConfig
+
+CONFIG = ArchConfig(
+    name="codeqwen1.5-7b",
+    family="dense",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=32,
+    d_ff=13440,
+    vocab=92416,
+    head_dim=128,
+    qkv_bias=True,
+    rope_theta=1000000.0,
+)

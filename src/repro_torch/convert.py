@@ -10,20 +10,26 @@ the reference package:
   identically;
 * the initial guess crosses as numpy too: ``EnforcedNMF.fit(a, u0=u0)``
   takes a numpy ``u0``.  ``jax.random`` cannot be reproduced in torch, so
-  parity checks hand both packages one numpy ``u0``.
+  parity checks hand both packages one numpy ``u0``;
+* :func:`transformer_from_reference` — an LM parameter pytree
+  (``jax.tree.map(np.asarray, params)``) as the port's ``Transformer``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.bsr import BSR, _make_bsr
+from repro_torch.models.common import ArchConfig, attention_shapes, mlp_shapes
+from repro_torch.models.transformer import Transformer
 from repro_torch.nmf.config import NMFConfig
 from repro_torch.nmf.estimator import EnforcedNMF
 
-__all__ = ["bsr_from_reference", "estimator_from_reference"]
+__all__ = ["bsr_from_reference", "estimator_from_reference",
+           "transformer_from_reference"]
 
 
 def bsr_from_reference(tiles, block_cols, shape: Tuple[int, int],
@@ -45,4 +51,65 @@ def estimator_from_reference(u, v, m_ref: int, config: NMFConfig,
     model.n_features_ = model.u_.shape[0]
     model.n_docs_seen_ = int(m_ref)
     model._m_ref = int(m_ref)
+    return model
+
+
+def _reference_leaves(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+    """Path ("layers/attn/wq", …) -> shape of every leaf of the reference's
+    dense parameter pytree; per-layer leaves are stacked along L."""
+    L = cfg.n_layers
+    shapes = {"embed": (cfg.vocab, cfg.d_model), "norm_f": (cfg.d_model,),
+              "layers/norm_attn": (L, cfg.d_model),
+              "layers/norm_mlp": (L, cfg.d_model)}
+    for block, leaves in (("attn", attention_shapes(cfg)),
+                          ("mlp", mlp_shapes(cfg))):
+        for name, shape in leaves.items():
+            shapes[f"layers/{block}/{name}"] = (L,) + shape
+    if not cfg.tie_embeddings:
+        shapes["unembed"] = (cfg.d_model, cfg.vocab)
+    return shapes
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, object]:
+    if isinstance(tree, dict):
+        out = {}
+        for key, sub in tree.items():
+            out.update(_flatten(sub, f"{prefix}{key}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def transformer_from_reference(params, cfg: ArchConfig,
+                               device: DeviceLike = None) -> Transformer:
+    """The port's :class:`Transformer` holding the reference's dense
+    parameters: ``params`` is the reference's pytree with numpy leaves.
+    The stacked ``(L, ...)`` layer leaves are unstacked into the layer list;
+    nothing is transposed (both keep ``(in, out)``).  Raises ``ValueError``
+    when the tree's leaves or shapes are not those of ``cfg``."""
+    want = _reference_leaves(cfg)
+    got = _flatten(params)
+    if set(got) != set(want):
+        raise ValueError(
+            f"parameter tree does not match {cfg.name}: missing "
+            f"{sorted(set(want) - set(got))}, unexpected "
+            f"{sorted(set(got) - set(want))}")
+    for path, shape in want.items():
+        if tuple(np.shape(got[path])) != shape:
+            raise ValueError(f"{path}: shape {tuple(np.shape(got[path]))}, "
+                             f"{cfg.name} needs {shape}")
+    dev = resolve_device(device)
+    model = Transformer(cfg, torch.float32, dev)
+
+    def leaf(path, index=None):
+        x = np.asarray(got[path], dtype=np.float32)
+        return torch.from_numpy(np.array(x if index is None else x[index]))
+
+    with torch.no_grad():
+        model.embed.copy_(leaf("embed"))
+        model.norm_f.copy_(leaf("norm_f"))
+        if not cfg.tie_embeddings:
+            model.unembed.copy_(leaf("unembed"))
+        for i, layer in enumerate(model.layers):
+            for name, p in layer.named_parameters():
+                p.copy_(leaf(f"layers/{name.replace('.', '/')}", i))
     return model

@@ -31,8 +31,9 @@ import torch
 __all__ = ["KERNELS", "count_launch", "launch_counts", "reset_launch_counts",
            "on_card", "check_rc", "library", "build_all", "stream_ptr"]
 
-#: the kernels of the main path, by wrapper name
-KERNELS = ("project_mask", "gram", "bsr_spmm", "bsr_spmm_gram")
+#: the port's kernels, by wrapper name
+KERNELS = ("project_mask", "gram", "bsr_spmm", "bsr_spmm_gram",
+           "flash_attention")
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"

@@ -1,0 +1,148 @@
+"""Per-architecture API of the LM substrate (port of ``repro.models.api``):
+init, input specs, random batches and the serving steps.
+
+Only the families backed by ``models/transformer.py`` are ported: ``dense``
+and ``vlm``.  The others raise ``NotImplementedError`` from
+:func:`module_for`.  The sharding specs (one card, no mesh) and
+``make_train_step`` (training) are not ported.
+"""
+from __future__ import annotations
+
+from typing import TYPE_CHECKING, Callable, Dict, NamedTuple, Union
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import transformer
+from repro_torch.models.common import ArchConfig
+
+if TYPE_CHECKING:  # repro_torch.configs imports this package
+    from repro_torch.configs import ShapeSpec
+
+__all__ = ["FAMILY", "TensorSpec", "module_for", "input_specs", "make_batch",
+           "make_prefill_step", "make_decode_step", "init_params",
+           "init_decode_cache"]
+
+FAMILY = {
+    "dense": transformer,
+    "vlm": transformer,
+}
+
+#: ROADMAP (queue 1, item 15) entry of each family still to port
+_NOT_PORTED = {
+    "moe": "models/moe.py",
+    "hybrid": "models/hybrid.py and models/mamba.py",
+    "ssm": "models/xlstm.py",
+    "encdec": "models/encdec.py",
+}
+
+
+def module_for(cfg: ArchConfig):
+    if cfg.family in FAMILY:
+        return FAMILY[cfg.family]
+    where = _NOT_PORTED.get(cfg.family, "an unknown family")
+    raise NotImplementedError(
+        f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
+        f"{where}, ROADMAP queue 1 item 15")
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of one input (the port's ``ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, TensorSpec]:
+    module_for(cfg)
+    b, s = shape.global_batch, shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+    if cfg.family == "vlm":
+        text = s - cfg.n_patches
+        patches = TensorSpec((b, cfg.n_patches, cfg.d_model), bf16)
+        if shape.kind == "train":
+            return {"tokens": TensorSpec((b, text), i32),
+                    "labels": TensorSpec((b, text), i32),
+                    "patch_embeds": patches}
+        if shape.kind == "prefill":
+            return {"tokens": TensorSpec((b, text), i32),
+                    "patch_embeds": patches}
+        return {"token": TensorSpec((b,), i32)}
+    if shape.kind == "train":
+        return {"tokens": TensorSpec((b, s), i32),
+                "labels": TensorSpec((b, s), i32)}
+    if shape.kind == "prefill":
+        return {"tokens": TensorSpec((b, s), i32)}
+    return {"token": TensorSpec((b,), i32)}       # decode: one new token
+
+
+def _generator(seed: Union[int, torch.Generator], device: torch.device
+               ) -> torch.Generator:
+    if isinstance(seed, torch.Generator):
+        return seed
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def make_batch(cfg: ArchConfig, shape: ShapeSpec,
+               seed: Union[int, torch.Generator] = 0,
+               device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Random concrete batch matching :func:`input_specs`: token ids
+    uniform in [0, vocab), embeddings standard normal cast to their dtype.
+    ``seed`` is an int or a ``torch.Generator`` (drawn on its device)."""
+    dev = resolve_device(device)
+    gen = _generator(seed, dev)
+    out = {}
+    for name, spec in input_specs(cfg, shape).items():
+        if spec.dtype == torch.int32:
+            x = torch.randint(0, cfg.vocab, spec.shape, generator=gen,
+                              device=gen.device, dtype=torch.int32)
+        else:
+            x = torch.randn(spec.shape, generator=gen,
+                            device=gen.device).to(spec.dtype)
+        out[name] = x.to(dev)
+    return out
+
+
+def make_prefill_step(cfg: ArchConfig) -> Callable:
+    """``prefill_step(params, batch)`` -> next-token logits (B, vocab) in
+    f32: the full forward in bf16 without autograd, last position."""
+    mod = module_for(cfg)
+
+    def prefill_step(params, batch):
+        with torch.no_grad():
+            logits = mod.forward(params, batch["tokens"], cfg,
+                                 extra_embeds=batch.get("patch_embeds"))
+            return logits[:, -1, :].clone()   # frees the (B, S, vocab) rest
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ArchConfig) -> Callable:
+    """``decode_step(params, cache, token, pos)`` -> (logits, cache), without
+    autograd; the cache is updated in place."""
+    mod = module_for(cfg)
+
+    def decode_step(params, cache, token, pos):
+        return mod.decode_step(params, cache, token, pos, cfg)
+
+    return decode_step
+
+
+def init_params(cfg: ArchConfig, seed: Union[int, torch.Generator] = 0,
+                dtype=torch.float32, device: DeviceLike = None):
+    """Random parameters (the reference initialises at random too; nothing
+    is downloaded), drawn on ``device`` (the card unless the CPU is asked
+    for) from ``seed``: an int, or a generator on that device."""
+    dev = resolve_device(device)
+    gen = _generator(seed, dev)
+    if gen.device.type != dev.type:
+        raise ValueError(f"generator on {gen.device}, parameters asked for "
+                         f"on {dev}")
+    return module_for(cfg).init_params(gen, cfg, dtype)
+
+
+def init_decode_cache(cfg: ArchConfig, shape: ShapeSpec,
+                      dtype=torch.bfloat16, device: DeviceLike = None):
+    """Zeroed KV cache for a shape cell: (L, B, seq_len, Hkv, hd) each."""
+    return module_for(cfg).init_cache(cfg, shape.global_batch, shape.seq_len,
+                                      dtype=dtype,
+                                      device=resolve_device(device))

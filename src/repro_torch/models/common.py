@@ -1,0 +1,254 @@
+"""Shared building blocks of the LM substrate (port of
+``repro.models.common``).
+
+Functional style, as in the reference: each apply function takes a mapping
+of parameter tensors (``p["wq"]`` …), already cast to the compute dtype by
+the caller.  The modules of ``models/transformer.py`` hold the parameters
+and call these.  Weights keep the reference's ``(in, out)`` orientation, so
+``x @ p["wq"]`` is the reference's product.
+
+Full-sequence attention always goes through the flash kernel's wrapper
+(``kernels/flash_attention.py``): a kernel launch on CUDA tensors, the plain
+version on CPU tensors.  The reference's ``USE_FLASH_KERNEL`` switch and its
+q-chunked XLA path have no counterpart; the port's ``attention`` is the
+reference's with the flash kernel on.  ``constrain`` (a sharding hint, a
+no-op on one device) and the training-only ``chunked_lm_loss`` are not
+ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Mapping, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import flash_attention
+
+__all__ = ["ArchConfig", "dense_init", "attention_shapes", "mlp_shapes",
+           "init_attention", "init_mlp", "rmsnorm", "rope_freqs", "apply_rope",
+           "swiglu", "attention", "attention_decode", "mlp"]
+
+Params = Mapping[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                  # dense | moe | hybrid | ssm | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None      # defaults to d_model // n_heads
+    # MoE
+    n_experts: int = 0
+    moe_top_k: int = 0
+    # SSM / hybrid
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    attn_every: int = 0          # hybrid: shared attn block period
+    # enc-dec
+    n_enc_layers: int = 0        # encdec family: encoder depth (n_layers = decoder)
+    dec_ratio: int = 8           # encdec: dec_len = seq // dec_ratio
+    # frontend stub
+    frontend: Optional[str] = None      # None | "audio" | "vision"
+    n_patches: int = 1024        # vlm: image patch embeddings prepended
+    # misc
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
+    # xLSTM
+    slstm_at: Tuple[int, ...] = ()
+    # shapes that need sub-quadratic support
+    supports_long: bool = False
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.hd
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.hd
+
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+def dense_init(generator: torch.Generator, shape, dtype=torch.float32,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """Normal(0, 1) * scale (default ``fan_in ** -0.5``), drawn from
+    ``generator`` on the generator's device."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    s = scale if scale is not None else fan_in ** -0.5
+    x = torch.randn(tuple(shape), generator=generator,
+                    device=generator.device)
+    return (x * s).to(dtype)
+
+
+def attention_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+    """Leaf name -> shape of one attention block's parameters."""
+    shapes = {"wq": (cfg.d_model, cfg.q_dim), "wk": (cfg.d_model, cfg.kv_dim),
+              "wv": (cfg.d_model, cfg.kv_dim), "wo": (cfg.q_dim, cfg.d_model)}
+    if cfg.qkv_bias:
+        shapes.update(bq=(cfg.q_dim,), bk=(cfg.kv_dim,), bv=(cfg.kv_dim,))
+    return shapes
+
+
+def mlp_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+    """Leaf name -> shape of one SwiGLU block's parameters."""
+    return {"w_gate": (cfg.d_model, cfg.d_ff), "w_up": (cfg.d_model, cfg.d_ff),
+            "w_down": (cfg.d_ff, cfg.d_model)}
+
+
+def init_attention(generator: torch.Generator, cfg: ArchConfig,
+                   dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """Projections from :func:`dense_init`, biases (``qkv_bias``) zero."""
+    return {name: (dense_init(generator, shape, dtype) if len(shape) == 2
+                   else torch.zeros(shape, dtype=dtype,
+                                    device=generator.device))
+            for name, shape in attention_shapes(cfg).items()}
+
+
+def init_mlp(generator: torch.Generator, cfg: ArchConfig,
+             dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    return {name: dense_init(generator, shape, dtype)
+            for name, shape in mlp_shapes(cfg).items()}
+
+
+# ---------------------------------------------------------------------------
+# Primitive layers
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
+            ) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return ((x32 * torch.rsqrt(var + eps)) * w.float()).to(x.dtype)
+
+
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: (..., S).  Rotates the two halves of
+    the head (split and concatenate, not interleaved pairs), in f32."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                     # (hd/2,)
+    angles = positions[..., :, None, None].float() * freqs      # (...,S,1,hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    h = F.silu(x @ w_gate) * (x @ w_up)
+    return h @ w_down
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA + RoPE), full-sequence and single-token-decode forms
+# ---------------------------------------------------------------------------
+
+def _qkv(p: Params, x: torch.Tensor, cfg: ArchConfig):
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    B, S = x.shape[0], x.shape[1]
+    q = q.reshape(B, S, cfg.n_heads, cfg.hd)
+    k = k.reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    v = v.reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    return q, k, v
+
+
+def _expand_kv(k: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """(B,T,Hkv,hd) -> (B,T,H,hd): each KV head repeated over its query
+    group (query head h reads KV head h // groups)."""
+    groups = cfg.n_heads // cfg.n_kv_heads
+    if groups == 1:
+        return k
+    return torch.repeat_interleave(k, groups, dim=2)
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor, cfg: ArchConfig
+                ) -> torch.Tensor:
+    """q: (B,S,H,hd) k: (B,T,Hkv,hd) -> scores (B,H,S,T) in q's dtype,
+    divided by ``sqrt(hd)`` rounded to that dtype (a host number, so no
+    copy to the card)."""
+    hd = q.shape[-1]
+    kf = _expand_kv(k, cfg)
+    root = float(torch.tensor(math.sqrt(hd), dtype=torch.float32).to(q.dtype))
+    return torch.einsum("bshd,bthd->bhst", q, kf) / root
+
+
+def attention(p: Params, x: torch.Tensor, cfg: ArchConfig,
+              positions: torch.Tensor, causal: bool = True,
+              kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+              ) -> torch.Tensor:
+    """Full-sequence attention through the flash kernel's wrapper.  ``kv``
+    is a cross-attention memory (no rope, not causal)."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, x, cfg)
+    if kv is not None:
+        k, v = kv
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    groups = cfg.n_heads // cfg.n_kv_heads
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=causal and kv is None,
+                          groups=groups)
+    return out.transpose(1, 2).reshape(B, S, cfg.q_dim) @ p["wo"]
+
+
+def attention_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One token per row of x (B, 1, d) at position ``pos`` against the
+    (B, T, Hkv, hd) cache, in the reference's numerics: scores in the
+    compute dtype, the ``finfo.min`` mask over ``arange(T) <= pos``, softmax
+    in f32, probabilities cast back.  Writes row ``pos`` of the cache in
+    place (the reference returns updated copies) and returns the cache
+    tensors themselves."""
+    B = x.shape[0]
+    T = cache_k.shape[1]
+    q, k, v = _qkv(p, x, cfg)
+    positions = torch.full((B, 1), int(pos), dtype=torch.int32,
+                           device=x.device)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    row = min(max(int(pos), 0), T - 1)   # dynamic_update_slice clamps
+    cache_k[:, row] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, row] = v[:, 0].to(cache_v.dtype)
+    scores = _gqa_scores(q, cache_k.to(x.dtype), cfg)           # (B,H,1,T)
+    valid = torch.arange(T, device=x.device) <= int(pos)
+    scores = scores.masked_fill(~valid, torch.finfo(scores.dtype).min)
+    probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
+    vf = _expand_kv(cache_v.to(x.dtype), cfg)
+    out = torch.einsum("bhst,bthd->bshd", probs, vf)
+    out = out.reshape(B, 1, cfg.q_dim) @ p["wo"]
+    return out, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# Dense FFN block
+# ---------------------------------------------------------------------------
+
+def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])

@@ -6,6 +6,7 @@
 * Without a card, an entry point that was not asked for the CPU raises.
 * A kernel wrapper handed CUDA tensors launches its kernel (here: fails to,
   since there is no nvcc / triton / card) and never runs its plain version.
+  That holds for the LM path's flash-attention wrapper too.
 """
 import ast
 from pathlib import Path
@@ -17,12 +18,17 @@ from repro_torch import default_device, resolve_device
 from repro_torch.kernels import _build, bsr, ref
 from repro_torch.kernels import bsr_spmm as spmm_mod
 from repro_torch.kernels import gram as gram_mod
+from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import project_mask as mask_mod
 from repro_torch.kernels.bsr_spmm import bsr_spmm
 from repro_torch.kernels.fused import bsr_spmm_gram
 from repro_torch.kernels.gram import gram
 from repro_torch.kernels.project_mask import project_mask
+from repro_torch.configs import ARCHS, SHAPES, smoke_config
+from repro_torch.launch import serve
+from repro_torch.models import api
 from repro_torch.nmf import EnforcedNMF
+from repro_torch.serving import ServingEngine
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
@@ -84,9 +90,10 @@ def on_card(monkeypatch):
     plain version is then observable."""
     monkeypatch.setattr(_build, "on_card", lambda *tensors: True)
     for name in ("bsr_spmm_ref", "bsr_spmm_gram_ref", "gram_ref",
-                 "project_mask_ref"):
+                 "project_mask_ref", "flash_attention_ref"):
         monkeypatch.setattr(ref, name, _plain)
     monkeypatch.setattr(spmm_mod, "_lib", _launch)
+    monkeypatch.setattr(flash_mod, "_lib", _launch)
     monkeypatch.setattr(gram_mod, "_kernels", _launch)
     monkeypatch.setattr(mask_mod, "_kernel", _launch)
 
@@ -129,3 +136,31 @@ def test_wrapper_rejects_mixed_devices():
     a, u = _operand()
     with pytest.raises(ValueError, match="several devices"):
         bsr_spmm(a, u.to("meta"))
+
+
+def test_flash_wrapper_never_runs_plain_version_on_card(on_card):
+    q = torch.zeros((1, 4, 8, 16))
+    kv = torch.zeros((1, 2, 8, 16))
+    with pytest.raises(_Launched):
+        flash_mod.flash_attention(q, kv, kv, groups=2)
+    with pytest.raises(ValueError, match="head size"):
+        flash_mod.flash_attention(q[..., :8], kv[..., :8], kv[..., :8],
+                                  groups=2)
+    with pytest.raises(NotImplementedError, match="backward"):
+        flash_mod.flash_attention(q.requires_grad_(), kv, kv, groups=2)
+    assert _build.launch_counts()["flash_attention"] == 0
+
+
+def test_lm_entry_points_raise_without_a_card(monkeypatch):
+    cfg = smoke_config(ARCHS["llama3.2-1b"])
+    model = api.init_params(cfg, 0, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(cfg, model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.init_params(cfg, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.make_batch(cfg, SHAPES["prefill_32k"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--requests", "1"])
+    assert ServingEngine(cfg, model, device="cpu").device.type == "cpu"
