@@ -10,7 +10,8 @@ Phases (any failed check raises, and the script exits non-zero):
    together) and print the build time and ``ptxas`` report;
 2. per-kernel checks at the paper's PubMed shapes — every kernel against its
    plain version on the card (``project_mask`` bitwise, the BSR products to
-   rtol/atol 1e-4, the Gram to 1e-4/1e-3, the fused Gram to 1e-5/1e-4);
+   rtol/atol 1e-4, the Gram to 1e-4/1e-3 with one launch per call and
+   bitwise repeatable, the fused Gram to 1e-5/1e-4);
 3. the main path — ``EnforcedNMF(...backend="cuda-bsr").fit`` of the
    synthetic PubMed corpus (20,112 terms x 7,510 documents, k=5, 50
    iterations, 2% of dense kept in each factor), with launch counts read
@@ -24,10 +25,13 @@ Phases (any failed check raises, and the script exits non-zero):
    one PyTorch call that computes the same function where there is one, the
    fit's time per iteration and the bisection epilogue's share of it; a
    profiler window gives the card's busy share;
-8. the flash-attention kernel against its plain version: the llama3.2-1b
+8. the flash-attention kernels against their plain version: the llama3.2-1b
    prefill shape (B=4, H=32, Hkv=8, S=T=4096, hd=64, causal), a non-causal
-   Sq != T case and an odd S = 1000, each in bf16 (rtol 1e-2, atol 2e-3)
-   and f32 (rtol 1e-4, atol 1e-5);
+   Sq != T case, an odd S = 1000 and phi4-mini-3.8b's heads (H=24, Hkv=8,
+   hd=128, S=2048), each in bf16 (the tensor-core kernel, rtol 1e-2, atol
+   2e-3) and f32 (the CUDA-core kernel, rtol 1e-4, atol 1e-5); two bf16
+   calls must be bitwise equal; the tensor-core instructions (HGMMA) in the
+   built library's SASS are counted, and the bf16 kernel must have some;
 9. the LM prefill at full width: llama3.2-1b drawn on the card from a seed,
    ``make_prefill_step`` on 4 x 4096 tokens (finite next-token logits, the
    flash kernel launched exactly n_layers = 16 times), one 1 x 32768
@@ -37,7 +41,8 @@ Phases (any failed check raises, and the script exits non-zero):
     drains 16 requests of 32-token prompts, max_new 32, and reports
     tokens/s;
 11. LM timings: the flash kernel, its plain version and
-    ``F.scaled_dot_product_attention`` at the prefill shape, its bound; the
+    ``F.scaled_dot_product_attention`` at the prefill shape (and the bf16
+    kernel against the library call at the hd 128 shape), its bound; the
     prefill's time and tokens/s, a decode tick, and the card's busy share
     in a profiler window around one prefill.
 
@@ -76,6 +81,8 @@ FLASH_CASES = {
     "prefill": (PREFILL_B, 32, 8, PREFILL_S, PREFILL_S, 64, True),
     "Sq!=T": (1, 8, 2, 192, 320, 64, False),
     "odd S": (1, 32, 8, 1000, 1000, 64, True),
+    # phi4-mini-3.8b's heads (src/repro/configs/phi4_mini_3_8b.py)
+    "hd 128": (1, 24, 8, 2048, 2048, 128, True),
 }
 #: (rtol, atol) of the flash kernel against its plain version.  In bf16
 #: both round p to bf16, the kernel against its running max and the plain
@@ -94,7 +101,7 @@ REPLACES = {
 }
 SOURCES = {
     "project_mask": ("triton", "src/repro_torch/kernels/project_mask.py"),
-    "gram": ("triton", "src/repro_torch/kernels/gram.py"),
+    "gram": ("cuda", "src/repro_torch/csrc/gram.cu"),
     "bsr_spmm": ("cuda", "src/repro_torch/csrc/bsr_spmm.cu"),
     "bsr_spmm_gram": ("cuda", "src/repro_torch/csrc/bsr_spmm.cu"),
     "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu"),
@@ -189,6 +196,26 @@ def profiled(name, fn, calls=1):
                              for x, c, k in by_kernel[:10]])
 
 
+def sass_counts(library):
+    """Tensor-core instructions per kernel in a built library's SASS
+    (``cuobjdump -sass``): ``{function: {"HGMMA": n, "HMMA": n}}``."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library)],
+                          check=True, capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn is not None:
+            for op in ("HGMMA", "HMMA"):
+                if op + "." in line:
+                    counts[fn][op] += 1
+    return counts
+
+
 def run_lm_slice(dev, paths, checks, rows, results):
     """Phases 8-11: the flash kernel against its plain version, the
     full-width llama3.2-1b prefill (the path that launches it), prefill
@@ -213,7 +240,16 @@ def run_lm_slice(dev, paths, checks, rows, results):
                      for shape in ((b, h, sq, hd), (b, hkv, t, hd),
                                    (b, hkv, t, hd)))
 
-    errs, sizes, used = {}, {}, {}
+    sass = sass_counts(_build.library_path("flash_attention"))
+    wgmma_fns = {f: c for f, c in sass.items() if "flash_fwd_bf16_wgmma" in f}
+    for f, c in sass.items():
+        log(f"[sass] {f[:72]}: {c['HGMMA']} HGMMA, {c['HMMA']} HMMA")
+    if not wgmma_fns or any(c["HGMMA"] == 0 for c in wgmma_fns.values()):
+        raise AssertionError("the bf16 flash kernel has no HGMMA (tensor-"
+                             "core) instruction in its SASS")
+    lm["flash_sass"] = sass
+
+    errs, sizes, used, repeat = {}, {}, {}, {}
     for name, (b, h, hkv, sq, t, hd, causal) in FLASH_CASES.items():
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[-1]
@@ -224,6 +260,13 @@ def run_lm_slice(dev, paths, checks, rows, results):
             want = ref.flash_attention_ref(q, k, v, causal=causal,
                                            groups=h // hkv)
             key = f"{name} {dname}"
+            if dtype == torch.bfloat16:
+                repeat[key] = torch.equal(
+                    flash_attention(q, k, v, causal=causal, groups=h // hkv),
+                    got)
+                if not repeat[key]:
+                    raise AssertionError(f"flash_attention {key}: two calls "
+                                         "are not bitwise equal")
             errs[key] = close(f"flash_attention {key}", got, want, rtol, atol)
             wabs = want.float().abs()
             sizes[key] = float(wabs.median())
@@ -236,8 +279,10 @@ def run_lm_slice(dev, paths, checks, rows, results):
                 f"at worst; median |out| {sizes[key]:.4f})")
             del q, k, v, got, want, wabs
     checks["flash_attention"] = max(errs.values())
+    log(f"[check] flash_attention bf16: two calls bitwise equal in "
+        f"{sorted(repeat)}")
     lm.update(flash_checks=errs, flash_median_abs_out=sizes,
-              flash_limit_used=used)
+              flash_limit_used=used, flash_bitwise_repeat=repeat)
 
     # -- 9. prefill at full width ----------------------------------------------
     torch.cuda.synchronize()
@@ -372,6 +417,22 @@ def run_lm_slice(dev, paths, checks, rows, results):
             f"scaled_dot_product_attention {tm['library_ms']:.4f} ms, bound "
             f"{bound:.4f} ms by {by})")
         del q, k, v
+    b4, h4, hkv4, sq4, t4, hd4, causal4 = FLASH_CASES["hd 128"]
+    q, k, v = qkv(b4, h4, hkv4, sq4, t4, hd4, torch.bfloat16)
+    bound4, by4 = bound_ms(
+        (2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
+        flash_flops(b4, h4, sq4, t4, hd4, causal4), BF16_FLOPS)
+    timing["bfloat16 hd 128"] = dict(
+        ms=cuda_ms(lambda: flash_attention(q, k, v, causal=causal4,
+                                           groups=h4 // hkv4), reps=10),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal4, enable_gqa=True), reps=10),
+        bound_ms=bound4, bound_by=by4)
+    tm = timing["bfloat16 hd 128"]
+    log(f"[time] flash_attention bfloat16 B={b4} H={h4} Hkv={hkv4} S={sq4} "
+        f"hd={hd4}: {tm['ms']:.4f} ms (scaled_dot_product_attention "
+        f"{tm['library_ms']:.4f} ms, bound {bound4:.4f} ms by {by4})")
+    del q, k, v
     lm["flash_timing"] = timing
     rows["flash_attention"] = dict(timing["bfloat16"],
                                    library_call="F.scaled_dot_product_"
@@ -502,11 +563,17 @@ def main(argv=None) -> int:
     if not torch.equal(got, ref.project_mask_ref(x, tau)):
         raise AssertionError("project_mask is not bitwise its plain version")
     checks["project_mask"] = 0.0
-    t0 = time.perf_counter()
-    errs = [close("gram", gram(w), ref.gram_ref(w), 1e-4, 1e-3)
-            for w in (u0, v_test)]
-    torch.cuda.synchronize()
-    triton_first_s += time.perf_counter() - t0
+    errs = []
+    for w in (u0, v_test):
+        _build.reset_launch_counts()
+        g1 = gram(w)
+        if _build.launch_counts()["gram"] != 1:
+            raise AssertionError(f"gram launched "
+                                 f"{_build.launch_counts()['gram']} kernels "
+                                 "in one call, not 1")
+        if not torch.equal(gram(w), g1):
+            raise AssertionError("gram is not bitwise repeatable")
+        errs.append(close("gram", g1, ref.gram_ref(w), 1e-4, 1e-3))
     checks["gram"] = max(errs)
     errs = []
     for b, w in ((op.bsr, v_test), (op.bsr_t, u0)):
@@ -529,8 +596,8 @@ def main(argv=None) -> int:
     for name, err in checks.items():
         log(f"[check] {name}: kernel == plain version at PubMed shapes "
             f"(max abs err {err:.3e})")
-    log(f"[build] Triton kernels compiled at first launch in "
-        f"{triton_first_s:.2f} s")
+    log(f"[build] the Triton kernel (project_mask) compiled at first launch "
+        f"in {triton_first_s:.2f} s")
     results["checks"] = checks
 
     # -- 3. the main path: PubMed fit on cuda-bsr -----------------------------
@@ -695,19 +762,34 @@ def main(argv=None) -> int:
     rows["bsr_spmm"]["library_call"] = lib_calls
     rows["bsr_spmm_gram"]["library_ms"] = None
 
+    # gram and u.T @ u are host-bound per call: 200 calls each, in turns
+    # (kernel, library, library, kernel), so both see the same host load
     items = []
-    for w in (u_fit, v_fit):
+    for name, w in (("U", u_fit), ("V", v_fit)):
         n = w.shape[0]
-        items.append(dict(ms=cuda_ms(lambda: gram(w)),
-                          plain_ms=cuda_ms(lambda: ref.gram_ref(w)),
-                          lib=cuda_ms(lambda: w.T @ w),
-                          bound=bound_ms(4 * (n * K + K * K), 2.0 * n * K * K)))
+        turns = [cuda_ms(lambda: gram(w), reps=200),
+                 cuda_ms(lambda: w.T @ w, reps=200),
+                 cuda_ms(lambda: w.T @ w, reps=200),
+                 cuda_ms(lambda: gram(w), reps=200)]
+        item = dict(ms=(turns[0] + turns[3]) / 2,
+                    lib=(turns[1] + turns[2]) / 2,
+                    plain_ms=cuda_ms(lambda: ref.gram_ref(w)),
+                    bound=bound_ms(4 * (n * K + K * K), 2.0 * n * K * K),
+                    turns_ms=turns)
+        items.append(item)
+        log(f"[time] gram {name} ({n} x {K}): {item['ms']:.5f} ms, u.T @ u "
+            f"{item['lib']:.5f} ms ({item['ms'] / item['lib']:.3f}x; turns "
+            f"{[round(x, 5) for x in turns]} ms), plain "
+            f"{item['plain_ms']:.5f} ms, bound {item['bound'][0]:.6f} ms")
     rows["gram"] = dict(ms=float(np.mean([i["ms"] for i in items])),
                         plain_ms=float(np.mean([i["plain_ms"] for i in items])),
                         library_ms=float(np.mean([i["lib"] for i in items])),
                         library_call="u.T @ u",
                         bound_ms=float(np.mean([i["bound"][0] for i in items])),
-                        bound_by=items[0]["bound"][1])
+                        bound_by=items[0]["bound"][1],
+                        by_shape={nm: {"ms": i["ms"], "library_ms": i["lib"],
+                                       "turns_ms": i["turns_ms"]}
+                                  for nm, i in zip(("U", "V"), items)})
     items = []
     epilogue = []
     for w, t in ((u_fit, T_U), (v_fit, T_V)):

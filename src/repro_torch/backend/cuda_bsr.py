@@ -2,7 +2,7 @@
 (port of ``repro.backend.pallas_bsr``).
 
 ``matmul`` / ``matmul_t`` run the CUDA ``bsr_spmm`` kernel on the two BSR
-orientations built once at ingest; ``gram`` runs the Triton Gram kernel.
+orientations built once at ingest; ``gram`` runs the CUDA Gram kernel.
 The half-step hooks ``matmul_with_gram`` / ``matmul_t_with_gram`` run the
 fused CUDA spmm + Gram kernel, one sweep for the product and the Gram.  The
 epilogue is the fused relu + threshold mask (Triton ``project_mask``).

@@ -5,8 +5,8 @@ compiled at first use by ``nvcc`` for ``sm_90a`` into a shared library with a
 plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds).  Libraries land in ``build/kernels/`` at the repository root,
 named by a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is reused.  Triton kernels compile through Triton's own
-cache at first launch.
+and an unchanged one is reused.  The one Triton kernel (``project_mask``)
+compiles through Triton's own cache at first launch.
 
 Every wrapper counts its kernel launches here (:func:`count_launch`), so a
 run can show that the main path went through the kernels and not through
@@ -29,7 +29,8 @@ from typing import Dict
 import torch
 
 __all__ = ["KERNELS", "count_launch", "launch_counts", "reset_launch_counts",
-           "on_card", "check_rc", "library", "build_all", "stream_ptr"]
+           "on_card", "check_rc", "library", "library_path", "build_all",
+           "stream_ptr"]
 
 #: the port's kernels, by wrapper name
 KERNELS = ("project_mask", "gram", "bsr_spmm", "bsr_spmm_gram",
@@ -84,8 +85,11 @@ def check_rc(rc: int, kernel: str) -> None:
 
 
 def stream_ptr(device: torch.device) -> int:
-    """PyTorch's current stream on ``device``, as an integer handle."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current stream on ``device`` (a CUDA device with its
+    index), as an integer handle.  This is the raw getter Triton's launcher
+    uses: the public ``torch.cuda.current_stream(device).cuda_stream``
+    builds a Stream object, a few microseconds more per launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _nvcc() -> str:
@@ -148,9 +152,14 @@ def build_all() -> Dict[str, dict]:
     return report
 
 
+def library_path(name: str) -> Path:
+    """The shared library built from ``csrc/<name>.cu`` (built if needed)."""
+    source = CSRC_DIR / f"{name}.cu"
+    _finish_build(source, _start_build(source))
+    return _target(source)
+
+
 @functools.cache
 def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of ``csrc/<name>.cu``, built if needed."""
-    source = CSRC_DIR / f"{name}.cu"
-    _finish_build(source, _start_build(source))
-    return ctypes.CDLL(str(_target(source)))
+    return ctypes.CDLL(str(library_path(name)))

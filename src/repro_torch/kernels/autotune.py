@@ -26,13 +26,11 @@ FUSED_MAX_K = 32
 
 @dataclasses.dataclass(frozen=True)
 class TileConfig:
-    """``bm`` / ``bk``: BSR tile dims (fixed at ingest); ``gram_bm``: rows
-    of U each program of the Triton Gram kernel reduces; ``mask_block``:
+    """``bm`` / ``bk``: BSR tile dims (fixed at ingest); ``mask_block``:
     elements each program of the Triton mask kernel handles."""
 
     bm: int = 128
     bk: int = 128
-    gram_bm: int = 512
     mask_block: int = 1024
 
 

@@ -2,19 +2,24 @@
 of ``repro.kernels.flash_attention``).
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py::
-_flash_kernel`` (launched by ``flash_attention``) with the CUDA C++ kernel
+_flash_kernel`` (launched by ``flash_attention``) with two CUDA C++ kernels
 in ``csrc/flash_attention.cu``, built for ``sm_90a`` and called through
-``ctypes``.  It is bound by operations (0.275 TFLOP at the llama3.2-1b
-prefill shape, done as f32 FMAs on the CUDA cores in this first version);
-the design notes are in the source.  For CPU tensors the wrapper runs the
-plain version (``kernels.ref.flash_attention_ref``); for CUDA tensors it
-launches the kernel or raises.  The kernel has no backward (the reference
-has none either), so the wrapper refuses operands that need a gradient.
+``ctypes``.  The work is bound by operations (0.275 TFLOP at the llama3.2-1b
+prefill shape).  bf16, the model's type, runs on the tensor cores: wgmma for
+Q K^T and P V, TMA copies of Q, K and V from a producer warp into a
+two-stage ring.  f32 runs on the CUDA cores in IEEE f32 (tensor-core f32
+would be TF32).  The design notes are in the source.  For CPU tensors the
+wrapper runs the plain version (``kernels.ref.flash_attention_ref``); for
+CUDA tensors it launches a kernel or raises.  The kernels have no backward
+(the reference has none either), so the wrapper refuses operands that need
+a gradient.
 
-The kernel reads q, k and v through their strides, so the model hands it
+The kernels read q, k and v through their strides, so the model hands them
 the transposed views of its (B, S, H, hd) projections without a copy, and
 the output is allocated as (B, Sq, H, hd) and returned as its (B, H, Sq, hd)
-view: the model's transpose back is free.
+view: the model's transpose back is free.  TMA takes such views as they are
+if each base pointer is 16-byte aligned and every stride but the last is a
+multiple of 16 bytes; the wrapper refuses bf16 operands that are not.
 """
 from __future__ import annotations
 
@@ -45,9 +50,11 @@ def _lib() -> ctypes.CDLL:
 
 def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    groups: int) -> None:
-    """What the kernel takes: q (B, H, Sq, hd), k and v (B, Hkv, T, hd)
+    """What the kernels take: q (B, H, Sq, hd), k and v (B, Hkv, T, hd)
     with ``H == groups * Hkv`` and T >= 1, one dtype (float32 or bfloat16),
-    ``hd`` in :data:`HEAD_DIMS`, the last axis contiguous."""
+    ``hd`` in :data:`HEAD_DIMS`, the last axis contiguous; in bfloat16 (the
+    TMA copies) each base pointer 16-byte aligned and every other stride a
+    multiple of 16 bytes."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q must be (B, H, Sq, hd) and k, v (B, Hkv, T, hd),"
                          f" got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -69,6 +76,16 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if x.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous along its last "
                              "axis")
+        if x.dtype != torch.bfloat16:
+            continue
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}'s base pointer is not 16-byte aligned,"
+                             " which the TMA copies need")
+        nbytes = [st * x.element_size() for st in x.stride()[:3]]
+        if any(st % 16 for st in nbytes):
+            raise ValueError(f"{name}'s batch, head and row strides "
+                             f"{nbytes} bytes are not all multiples of 16, "
+                             "which the TMA copies need")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

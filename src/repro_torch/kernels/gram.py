@@ -1,64 +1,62 @@
-"""Gram matrix G = U^T U on the card, in Triton (port of
+"""Gram matrix G = U^T U on the card, in one CUDA launch (port of
 ``repro.kernels.gram``).
 
 Replaces the Pallas TPU kernel ``repro/kernels/gram.py::_gram_kernel``
 (launched by ``_gram_impl``), which streamed (bm, k) row slabs through VMEM
-and accumulated into one k x k output across its sequential grid.  U is tall
-and skinny (n rows, k of about 5), so the product is bound by one read of U:
-at PubMed size 0.4 MB, a fraction of a microsecond at 3.35 TB/s, which
-means launch time dominates.  Blocks on the card run in no order, so each
-Triton program reduces a ``gram_bm``-row slab (k padded to a power of two
-and masked) into its own f32 partial, and a second launch sums the partials
-in program order: deterministic, with no float atomics.  For CPU tensors the
-wrapper runs ``kernels.ref.gram_ref``; for CUDA tensors it launches or
-raises.
+and accumulated into one k x k output across its sequential grid, with the
+CUDA C++ kernel in ``csrc/gram.cu``, built for ``sm_90a`` and called through
+``ctypes``.  U is tall and skinny (n rows, k of about 5), so the product is
+bound by one read of U: at PubMed size 0.4 MB, a fraction of a microsecond
+at 3.35 TB/s, which means the host's cost per call dominates.  So the call
+is one launch: blocks reduce their rows into f32 partials, and the last
+block to take an integer ticket sums them in block order (deterministic,
+no float atomics; design notes in the source).  The wrapper keeps the ticket
+and the partials' scratch per device and allocates only G.  For CPU tensors
+it runs ``kernels.ref.gram_ref``; for CUDA tensors it launches or raises.
 """
+from __future__ import annotations
+
+import ctypes
 import functools
+from typing import Dict
 
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.autotune import DEFAULT_TILES
 
-__all__ = ["gram"]
+__all__ = ["gram", "MAX_K"]
 
-#: triton.language, bound at the first launch (the package imports no
-#: triton at import time, so the CPU test suite can import it)
-tl = None
+#: widest U the kernel takes: its k x k f32 partial, a pass's group sums and
+#: a 16 KB chunk of U fit in the 227 KB of shared memory a block may hold
+MAX_K = 224
+
+#: per CUDA device: [ticket (one int32, 0 between calls), partials' scratch,
+#: SM count]
+_SCRATCH: Dict[torch.device, list] = {}
 
 
 @functools.cache
-def _kernels():
-    global tl
-    import triton
-    import triton.language as tl
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("gram")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.gram_f32.argtypes = [p, p, p, p, i, i, i, p]
+    lib.gram_f32.restype = i
+    return lib
 
-    @triton.jit
-    def gram_partial_kernel(u_ptr, part_ptr, n, k, BLOCK_N: tl.constexpr,
-                            SUB: tl.constexpr, KP: tl.constexpr):
-        pid = tl.program_id(0)
-        cols = tl.arange(0, KP)
-        acc = tl.zeros((KP, KP), dtype=tl.float32)
-        for r0 in range(0, BLOCK_N, SUB):
-            rows = pid * BLOCK_N + r0 + tl.arange(0, SUB)
-            x = tl.load(u_ptr + rows[:, None] * k + cols[None, :],
-                        mask=(rows[:, None] < n) & (cols[None, :] < k),
-                        other=0.0)
-            acc += tl.sum(x[:, :, None] * x[:, None, :], axis=0)
-        tl.store(part_ptr + pid * KP * KP + cols[:, None] * KP
-                 + cols[None, :], acc)
 
-    @triton.jit
-    def gram_reduce_kernel(part_ptr, out_ptr, nparts, k, KP: tl.constexpr):
-        cols = tl.arange(0, KP)
-        offs = cols[:, None] * KP + cols[None, :]
-        acc = tl.zeros((KP, KP), dtype=tl.float32)
-        for p in range(0, nparts):
-            acc += tl.load(part_ptr + p * KP * KP + offs)
-        tl.store(out_ptr + cols[:, None] * k + cols[None, :], acc,
-                 mask=(cols[:, None] < k) & (cols[None, :] < k))
-
-    return gram_partial_kernel, gram_reduce_kernel
+def _scratch(dev: torch.device, k: int) -> list:
+    """The ticket, a scratch of at least one k x k partial per SM, and the
+    SM count of ``dev``; created at the first call, grown when k grows."""
+    entry = _SCRATCH.get(dev)
+    if entry is None:
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        entry = _SCRATCH[dev] = [
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.empty(0, dtype=torch.float32, device=dev), n_sm]
+    if entry[1].numel() < entry[2] * k * k:
+        entry[1] = torch.empty(entry[2] * k * k, dtype=torch.float32,
+                               device=dev)
+    return entry
 
 
 def _check(u: torch.Tensor) -> None:
@@ -68,6 +66,9 @@ def _check(u: torch.Tensor) -> None:
         raise TypeError(f"u must be float32, got {u.dtype}")
     if u.dim() != 2 or u.shape[1] < 1:
         raise ValueError(f"u must be (n, k>=1), got {tuple(u.shape)}")
+    if u.shape[1] > MAX_K:
+        raise ValueError(f"the gram kernel takes k <= {MAX_K}, got "
+                         f"{u.shape[1]}")
     if not u.is_contiguous():
         raise ValueError("u must be contiguous")
 
@@ -77,21 +78,13 @@ def gram(u: torch.Tensor) -> torch.Tensor:
     if not _build.on_card(u):
         return ref.gram_ref(u)
     _check(u)
+    lib = _lib()
     n, k = u.shape
-    block_n = DEFAULT_TILES.gram_bm
-    kp = max(triton_next_pow2(k), 2)
-    # rows per inner step: keep the (SUB, KP, KP) product near 4096 values
-    sub = max(min(block_n, 4096 // (kp * kp)), 1)
-    partial_kernel, reduce_kernel = _kernels()
-    nprog = max(-(-n // block_n), 1)
-    part = torch.empty((nprog, kp, kp), dtype=torch.float32, device=u.device)
-    out = torch.empty((k, k), dtype=torch.float32, device=u.device)
-    partial_kernel[(nprog,)](u, part, n, k, BLOCK_N=block_n, SUB=sub, KP=kp)
-    reduce_kernel[(1,)](part, out, nprog, k, KP=kp)
+    ticket, part, n_sm = _scratch(u.device, k)
+    g = torch.empty((k, k), dtype=torch.float32, device=u.device)
+    rc = lib.gram_f32(u.data_ptr(), g.data_ptr(), part.data_ptr(),
+                      ticket.data_ptr(), n, k, n_sm,
+                      _build.stream_ptr(u.device))
+    _build.check_rc(rc, "gram")
     _build.count_launch("gram")
-    return out
-
-
-def triton_next_pow2(x: int) -> int:
-    """Smallest power of two >= ``x``."""
-    return 1 << max(int(x) - 1, 0).bit_length()
+    return g

@@ -103,22 +103,50 @@ def test_fit_on_card_matches_cpu(card):
     assert int(on_card.result_.health) == -1
 
 
-@pytest.mark.parametrize("b,h,hkv,s,t,hd,causal,dtype", [
-    (2, 4, 4, 128, 128, 32, True, torch.float32),
-    (1, 8, 2, 192, 320, 64, False, torch.float32),
-    (1, 8, 2, 1000, 1000, 64, True, torch.bfloat16),
-    (1, 4, 2, 100, 100, 128, True, torch.float32),
-    (2, 2, 1, 96, 33, 16, True, torch.bfloat16),
+def _qkv_on_card(card, b, h, hkv, s, t, hd, dtype, strided=False,
+                 seed=0):
+    """q (B, H, S, hd), k and v (B, Hkv, T, hd) drawn on the card; with
+    ``strided`` each is the (B, H, S, hd) view of a (B, S, H, hd) tensor,
+    as the model passes its projections."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    out = []
+    for (bb, hh, ss) in ((b, h, s), (b, hkv, t), (b, hkv, t)):
+        if strided:
+            x = torch.randn((bb, ss, hh, hd), generator=gen, device=card)
+            out.append(x.to(dtype).transpose(1, 2))
+        else:
+            x = torch.randn((bb, hh, ss, hd), generator=gen, device=card)
+            out.append(x.to(dtype))
+    return out
+
+
+@pytest.mark.parametrize("b,h,hkv,s,t,hd,causal,dtype,strided", [
+    (2, 4, 4, 128, 128, 32, True, torch.float32, False),
+    (1, 8, 2, 192, 320, 64, False, torch.float32, False),
+    (1, 8, 2, 1000, 1000, 64, True, torch.bfloat16, False),
+    (1, 4, 2, 100, 100, 128, True, torch.float32, False),
+    (2, 2, 1, 96, 33, 16, True, torch.bfloat16, False),
+    # bf16, the tensor-core kernel: every head size, non-causal, Sq != T,
+    # S not a multiple of 128, and the model's strided views
+    (2, 4, 2, 200, 200, 16, True, torch.bfloat16, False),
+    (1, 4, 4, 333, 333, 32, True, torch.bfloat16, False),
+    (1, 8, 2, 260, 260, 128, True, torch.bfloat16, False),
+    (1, 8, 2, 192, 320, 64, False, torch.bfloat16, False),
+    (2, 4, 1, 300, 130, 32, False, torch.bfloat16, False),
+    (1, 4, 2, 70, 450, 128, True, torch.bfloat16, False),
+    (1, 4, 2, 450, 70, 64, True, torch.bfloat16, False),
+    (2, 8, 2, 513, 513, 64, True, torch.bfloat16, True),
+    (1, 6, 2, 257, 257, 128, False, torch.bfloat16, True),
+    (2, 4, 4, 129, 129, 16, True, torch.bfloat16, True),
 ])
 def test_flash_kernel_matches_plain_version(card, b, h, hkv, s, t, hd,
-                                            causal, dtype):
+                                            causal, dtype, strided):
     """The flash kernel against its plain version on the same card tensors,
     one launch each.  In bf16 both round p to bf16 (against different
     maxima) and then the output: rtol 1e-2, atol 2e-3 against outputs of
     0.02-0.1.  In f32 only the order of the sums differs."""
-    gen = torch.Generator(device=card).manual_seed(s + t + hd)
-    q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype)
-               for shape in ((b, h, s, hd), (b, hkv, t, hd), (b, hkv, t, hd)))
+    q, k, v = _qkv_on_card(card, b, h, hkv, s, t, hd, dtype, strided,
+                           seed=s + t + hd)
     _build.reset_launch_counts()
     out = flash_attention(q, k, v, causal=causal, groups=h // hkv)
     torch.cuda.synchronize()
@@ -129,6 +157,36 @@ def test_flash_kernel_matches_plain_version(card, b, h, hkv, s, t, hd,
         out.float(), ref.flash_attention_ref(q, k, v, causal=causal,
                                              groups=h // hkv).float(),
         rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_bf16_kernel_is_deterministic(card, hd):
+    """No atomics and no split over keys: two calls give bitwise the same
+    output."""
+    q, k, v = _qkv_on_card(card, 2, 8, 2, 700, 700, hd, torch.bfloat16,
+                           strided=True, seed=hd)
+    first = flash_attention(q, k, v, causal=True, groups=4)
+    second = flash_attention(q, k, v, causal=True, groups=4)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("k", [1, 5, 33, 128])
+@pytest.mark.parametrize("n", [0, 1, 511, 20112])
+def test_gram_kernel_one_launch_repeatable(card, n, k):
+    """One launch per call, within rtol 1e-4 / atol 1e-3 of the plain
+    version, and bitwise the same from call to call (no float atomics)."""
+    u = torch.randn((n, k), generator=torch.Generator().manual_seed(n + k)
+                    ).to(card)
+    _build.reset_launch_counts()
+    first = gram(u)
+    assert _build.launch_counts()["gram"] == 1
+    second = gram(u)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["gram"] == 2
+    assert first.shape == (k, k) and first.dtype == torch.float32
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first, ref.gram_ref(u), rtol=1e-4, atol=1e-3)
 
 
 def test_prefill_on_card_matches_cpu(card):

@@ -134,3 +134,54 @@ def test_check_operands_refuses_what_the_kernel_cannot_take(case, exc):
         check_operands(q, k, v, groups)
     check_operands(torch.zeros((2, 4, 8, 64)), torch.zeros((2, 2, 8, 64)),
                    torch.zeros((2, 2, 8, 64)), 2)
+
+
+def _bf16_operands():
+    return (torch.zeros((2, 4, 8, 64), dtype=torch.bfloat16),
+            torch.zeros((2, 2, 8, 64), dtype=torch.bfloat16),
+            torch.zeros((2, 2, 8, 64), dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("operand", [0, 1, 2])
+def test_check_operands_refuses_misaligned_bf16_base_pointer(operand):
+    """The bf16 kernel's TMA copies need each base pointer 16-byte
+    aligned: a view two bytes into its storage is refused."""
+    ops = list(_bf16_operands())
+    shape = ops[operand].shape
+    flat = torch.zeros(ops[operand].numel() + 1, dtype=torch.bfloat16)
+    ops[operand] = flat[1:].view(shape)
+    assert ops[operand].data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        check_operands(*ops, 2)
+
+
+@pytest.mark.parametrize("operand", [0, 1, 2])
+def test_check_operands_refuses_bf16_row_stride_off_16_bytes(operand):
+    """A row stride of 68 bf16 values (136 bytes) is not a multiple of 16
+    bytes, which TMA needs; 72 values (144 bytes) is taken."""
+    for width, ok in ((68, False), (72, True)):
+        ops = list(_bf16_operands())
+        b, h, s, hd = ops[operand].shape
+        ops[operand] = torch.zeros((b, h, s, width),
+                                   dtype=torch.bfloat16)[..., :hd]
+        if ok:
+            check_operands(*ops, 2)
+        else:
+            with pytest.raises(ValueError, match="multiples of 16"):
+                check_operands(*ops, 2)
+
+
+def test_check_operands_takes_strided_views_of_the_model():
+    """The model's (B, S, H, hd) projections, transposed to (B, H, S, hd)
+    without a copy, meet TMA's alignment in bf16 and f32 alike."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros((2, 8, 4, 64), dtype=dtype).transpose(1, 2)
+        kv = torch.zeros((2, 8, 2, 64), dtype=dtype).transpose(1, 2)
+        check_operands(q, kv, kv, 2)
+
+
+def test_check_operands_leaves_f32_strides_to_the_cuda_core_kernel():
+    """f32 runs on the CUDA-core kernel, which reads any row stride."""
+    q = torch.zeros((2, 4, 8, 68))[..., :64]
+    kv = torch.zeros((2, 2, 8, 64))
+    check_operands(q, kv, kv, 2)

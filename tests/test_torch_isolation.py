@@ -94,7 +94,7 @@ def on_card(monkeypatch):
         monkeypatch.setattr(ref, name, _plain)
     monkeypatch.setattr(spmm_mod, "_lib", _launch)
     monkeypatch.setattr(flash_mod, "_lib", _launch)
-    monkeypatch.setattr(gram_mod, "_kernels", _launch)
+    monkeypatch.setattr(gram_mod, "_lib", _launch)
     monkeypatch.setattr(mask_mod, "_kernel", _launch)
 
 
@@ -130,6 +130,14 @@ def test_wrapper_rejects_bf16_and_bad_layout_on_card(on_card, kernel):
         calls[kernel](u.to(torch.bfloat16))
     with pytest.raises(ValueError, match="contiguous"):
         calls[kernel](torch.ones((3, 30)).T)
+
+
+def test_gram_wrapper_refuses_k_above_its_shared_memory(on_card):
+    with pytest.raises(ValueError, match="k <="):
+        gram(torch.ones((7, gram_mod.MAX_K + 1)))
+    with pytest.raises(_Launched):
+        gram(torch.ones((7, gram_mod.MAX_K)))
+    assert _build.launch_counts()["gram"] == 0
 
 
 def test_wrapper_rejects_mixed_devices():
