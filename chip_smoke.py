@@ -11,7 +11,8 @@ Phases (any failed check raises, and the script exits non-zero):
 2. per-kernel checks at the paper's PubMed shapes — every kernel against its
    plain version on the card (``project_mask`` bitwise, the BSR products to
    rtol/atol 1e-4, the Gram to 1e-4/1e-3 with one launch per call and
-   bitwise repeatable, the fused Gram to 1e-5/1e-4);
+   bitwise repeatable, the fused Gram to 1e-5/1e-4); the BSR products
+   bitwise repeatable and the fused Y bitwise the plain one;
 3. the main path — ``EnforcedNMF(...backend="cuda-bsr").fit`` of the
    synthetic PubMed corpus (20,112 terms x 7,510 documents, k=5, 50
    iterations, 2% of dense kept in each factor), with launch counts read
@@ -23,8 +24,13 @@ Phases (any failed check raises, and the script exits non-zero):
 6. a 5-iteration ``cuda-bsr-unfused`` fit (``bsr_spmm`` + ``gram``);
 7. timings with CUDA events: each kernel, its plain version, its bound, the
    one PyTorch call that computes the same function where there is one, the
-   fit's time per iteration and the bisection epilogue's share of it; a
-   profiler window gives the card's busy share;
+   BSR kernels' rate in GB/s per orientation beside a plain ``torch.sum``
+   over the same tiles and the spread of their blocks' end times (the
+   split's tail), the fit's time per iteration and the bisection
+   epilogue's share of it; a profiler window gives the card's busy time per
+   iteration; the BSR kernels' ``ptxas`` registers and spills, and their
+   asynchronous copies counted in the built library's SASS (bulk copies
+   and ``cp.async``: a kernel without them fails the run);
 8. the flash-attention kernels against their plain version: the llama3.2-1b
    prefill shape (B=4, H=32, Hkv=8, S=T=4096, hd=64, causal), a non-causal
    Sq != T case, an odd S = 1000 and phi4-mini-3.8b's heads (H=24, Hkv=8,
@@ -52,6 +58,7 @@ device it exits non-zero before printing any result.
 """
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -196,9 +203,9 @@ def profiled(name, fn, calls=1):
                              for x, c, k in by_kernel[:10]])
 
 
-def sass_counts(library):
-    """Tensor-core instructions per kernel in a built library's SASS
-    (``cuobjdump -sass``): ``{function: {"HGMMA": n, "HMMA": n}}``."""
+def sass_counts(library, ops=("HGMMA", "HMMA")):
+    """Instructions of the given opcodes per kernel in a built library's
+    SASS (``cuobjdump -sass``): ``{function: {op: n}}``."""
     from repro_torch.kernels import _build
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
@@ -208,12 +215,35 @@ def sass_counts(library):
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+            counts[fn] = {op: 0 for op in ops}
         elif fn is not None:
-            for op in ("HGMMA", "HMMA"):
-                if op + "." in line:
+            for op in ops:
+                if op + "." in line or op + " " in line:
                     counts[fn][op] += 1
     return counts
+
+
+def ptxas_report(log):
+    """``{function: {"registers": n, "stack_bytes": n, "spill_stores": n,
+    "spill_loads": n}}`` from an ``nvcc -Xptxas -v`` log."""
+    report, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            report[fn] = dict(registers=None, stack_bytes=0, spill_stores=0,
+                              spill_loads=0)
+            continue
+        if fn is None:
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("stack_bytes", r"(\d+) bytes (?:cumulative )?stack"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads")):
+            m = re.search(pat, line)
+            if m:
+                report[fn][key] = int(m.group(1))
+    return report
 
 
 def run_lm_slice(dev, paths, checks, rows, results):
@@ -512,6 +542,9 @@ def main(argv=None) -> int:
     results = {"card": smi, "phases": {}}
 
     # -- 1. build ------------------------------------------------------------
+    # a fresh build, so that ptxas reports every kernel of this checkout
+    for source in _build.CSRC_DIR.glob("*.cu"):
+        _build._target(source).unlink(missing_ok=True)
     t0 = time.perf_counter()
     report = _build.build_all()
     build_s = time.perf_counter() - t0
@@ -577,12 +610,17 @@ def main(argv=None) -> int:
     checks["gram"] = max(errs)
     errs = []
     for b, w in ((op.bsr, v_test), (op.bsr_t, u0)):
-        errs.append(close("bsr_spmm", bsr_spmm(b, w), ref.bsr_spmm_ref(b, w),
-                          1e-4, 1e-4))
+        y = bsr_spmm(b, w)
+        if not torch.equal(bsr_spmm(b, w), y):
+            raise AssertionError("bsr_spmm is not bitwise repeatable")
+        errs.append(close("bsr_spmm", y, ref.bsr_spmm_ref(b, w), 1e-4, 1e-4))
     checks["bsr_spmm"] = max(errs)
     errs = []
     for b, w in ((op.bsr, v_test), (op.bsr_t, u0)):
         y, g = bsr_spmm_gram(b, w)
+        y2, g2 = bsr_spmm_gram(b, w)
+        if not (torch.equal(y2, y) and torch.equal(g2, g)):
+            raise AssertionError("bsr_spmm_gram is not bitwise repeatable")
         if not torch.equal(y, bsr_spmm(b, w)):
             raise AssertionError("bsr_spmm_gram's product is not bitwise "
                                  "bsr_spmm's")
@@ -596,6 +634,8 @@ def main(argv=None) -> int:
     for name, err in checks.items():
         log(f"[check] {name}: kernel == plain version at PubMed shapes "
             f"(max abs err {err:.3e})")
+    log("[check] bsr_spmm and bsr_spmm_gram: two calls bitwise equal in "
+        "both orientations; the fused Y bitwise bsr_spmm's")
     log(f"[build] the Triton kernel (project_mask) compiled at first launch "
         f"in {triton_first_s:.2f} s")
     results["checks"] = checks
@@ -753,11 +793,74 @@ def main(argv=None) -> int:
                                 "bound_ms": i["bound"][0]}
                             for o, i in zip(("A@V", "A^T@U"), items)})
     for name in per:
-        for o, t in rows[name]["by_orientation"].items():
+        for (o, t), b, tiles in zip(rows[name]["by_orientation"].items(),
+                                    (op.bsr, op.bsr_t),
+                                    (occ["A"], occ["At"])):
+            t["gb_per_s"] = 4 * tiles * b.bm * b.bk / (t["ms"] * 1e6)
+            t["bound_share"] = t["bound_ms"] / t["ms"]
             log(f"[time] {name} {o}: {t['ms']:.4f} ms (plain "
-                f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms)")
+                f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms; "
+                f"{t['gb_per_s']:.1f} GB/s of occupied tiles, "
+                f"{100 * t['bound_share']:.1f}% of the byte bound)")
+    for o, t, lt in zip(("A@V", "A^T@U"), per["bsr_spmm"], lib_times):
+        rows["bsr_spmm"]["by_orientation"][o]["library_ms"] = lt
+        fused = rows["bsr_spmm_gram"]["by_orientation"][o]["ms"]
+        log(f"[time] bsr_spmm {o}: {t['ms'] / lt:.3f}x the library call; "
+            f"fused / plain {fused / t['ms']:.3f}")
     log(f"[time] library bsr_spmm {lib_calls}: "
         f"{[round(t, 4) for t in lib_times]} ms (A@V, A^T@U)")
+    # the split's tail: each block's start and end (%globaltimer) in one
+    # call per kernel and orientation
+    tails = {}
+    for name, fn in (("bsr_spmm", bsr_spmm), ("bsr_spmm_gram", bsr_spmm_gram)):
+        for o, b, w in (("A@V", op.bsr, v_fit), ("A^T@U", op.bsr_t, u_fit)):
+            st = torch.zeros((b.plan.runs, 2), dtype=torch.int64, device=dev)
+            fn(b, w, stamps=st)
+            torch.cuda.synchronize()
+            t = st.cpu().numpy()
+            end = (t[:, 1] - t[:, 0].min()) / 1e3
+            tails[f"{name} {o}"] = tl = dict(
+                runs=b.plan.runs, end_min_us=float(end.min()),
+                end_median_us=float(np.median(end)),
+                end_mean_us=float(end.mean()), end_max_us=float(end.max()),
+                start_spread_us=float((t[:, 0].max() - t[:, 0].min()) / 1e3))
+            log(f"[tail] {name} {o}: {tl['runs']} blocks end "
+                f"{tl['end_min_us']:.1f} / {tl['end_median_us']:.1f} / "
+                f"{tl['end_mean_us']:.1f} / {tl['end_max_us']:.1f} us (min /"
+                f" median / mean / max) after the first start; starts "
+                f"spread {tl['start_spread_us']:.1f} us; the mean end is "
+                f"{100 * (1 - tl['end_mean_us'] / tl['end_max_us']):.1f}% "
+                "short of the last")
+    timing["bsr_tails"] = tails
+
+    # a plain read of every stored tile: the rate this card reaches on
+    # these bytes without any product
+    read = [(cuda_ms(lambda: b.tiles.sum()), 4 * b.tiles.numel())
+            for b in (op.bsr, op.bsr_t)]
+    log(f"[time] torch.sum over the stored tiles (A, A^T): "
+        f"{[round(t, 4) for t, _ in read]} ms, "
+        f"{[round(nb / (t * 1e6), 1) for t, nb in read]} GB/s")
+    timing["tiles_sum_ms"] = [t for t, _ in read]
+
+    # what the BSR kernels were built into: registers and spills (ptxas),
+    # asynchronous copies in the SASS (bulk copy UBLKCP, TMA UTMALDG,
+    # cp.async LDGSTS); every kernel must stream through one of them
+    bsr_sass = sass_counts(_build.library_path("bsr_spmm"),
+                           ("UBLKCP", "UTMALDG", "LDGSTS"))
+    bsr_ptxas = ptxas_report(report["bsr_spmm"]["log"])
+    for fn, c in bsr_sass.items():
+        p = bsr_ptxas.get(fn, {})
+        log(f"[sass] {fn[-40:]}: {c['UBLKCP']} UBLKCP, {c['UTMALDG']} "
+            f"UTMALDG, {c['LDGSTS']} LDGSTS; ptxas: {p.get('registers')} "
+            f"registers, {p.get('stack_bytes')} bytes stack, "
+            f"{p.get('spill_stores')} / {p.get('spill_loads')} bytes spill "
+            "stores / loads")
+    if not bsr_sass or any(c["UBLKCP"] + c["UTMALDG"] == 0 or
+                           c["LDGSTS"] == 0 for c in bsr_sass.values()):
+        raise AssertionError("a BSR kernel has no bulk copy or no cp.async "
+                             "in its SASS")
+    results["bsr_sass"] = bsr_sass
+    results["bsr_ptxas"] = bsr_ptxas
     rows["bsr_spmm"]["library_ms"] = float(np.mean(lib_times))
     rows["bsr_spmm"]["library_call"] = lib_calls
     rows["bsr_spmm_gram"]["library_ms"] = None
@@ -846,7 +949,11 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     prof = profiled(f"{prof_iters}-iteration fit (set-up included)",
                     lambda: EnforcedNMF(prof_cfg, device=dev).fit(op, u0=u0))
-    timing.update(profile=prof,
+    busy_ms = prof["device_busy_us"] / 1e3 / prof_iters
+    log(f"[time] NMF iteration: device busy {busy_ms:.3f} ms per iteration "
+        f"(profiler window, set-up included) beside {per_iter_ms:.3f} ms of "
+        "wall time")
+    timing.update(profile=prof, busy_ms_per_iter=busy_ms,
                   kernels_per_iter=prof["kernels_per_call"] / prof_iters)
     results["timing"] = timing
 

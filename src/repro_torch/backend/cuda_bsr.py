@@ -13,8 +13,7 @@ Two registry entries share the class:
 * ``cuda-bsr-unfused`` — separate ``bsr_spmm`` and ``gram`` launches (alias
   ``pallas-bsr-unfused``), the reference the fusion is measured against.
   The fused backend also takes the separate launches when the factor is
-  wider than the fused kernel's shared memory or Gram registers hold
-  (``_fusable``).
+  wider than the fused kernel takes (``_fusable``).
 
 On CPU tensors every kernel wrapper runs its plain version.
 """
@@ -78,9 +77,10 @@ class CudaBsrBackend(LocalExecution):
         return gram_matrix(x).to(x.dtype)
 
     def _fusable(self, bsr, x: torch.Tensor) -> bool:
-        """The fused kernel stages full-rank slabs in shared memory and
-        keeps the k x k Gram in registers: take the separate launches when
-        either would not fit (or fusion is off)."""
+        """The fused kernel holds a ring of at least two (tile, full-rank
+        slab) stages and the k x k Gram partial in shared memory, and takes
+        k <= FUSED_MAX_K: take the separate launches otherwise (or when
+        fusion is off)."""
         if not self.fuse_halfstep:
             return False
         k = x.shape[1]

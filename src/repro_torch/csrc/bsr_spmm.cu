@@ -2,219 +2,587 @@
 // (A @ U, U^T U) of one ALS half-step.
 //
 // Replaces the Pallas TPU kernels repro/kernels/bsr_spmm.py::_spmm_kernel
-// (grid (row-block, k-tile, slot), slot axis sequential, accumulating in the
-// output block) and repro/kernels/fused.py::_spmm_gram_kernel (the same
-// sweep plus a k x k Gram accumulator fed by first-occurrence slabs).
+// (launched by _bsr_spmm_impl: grid (row-block, k-tile, slot), slot axis
+// sequential, accumulating in the output block) and
+// repro/kernels/fused.py::_spmm_gram_kernel (launched by bsr_spmm_gram: the
+// same sweep plus a k x k Gram accumulator fed by first-occurrence slabs).
 //
 // A is stored as tiles (nrb, bcap, bm, bk) f32 with block_cols (nrb, bcap)
 // int32; U is (m, k) f32 row-major; Y is (n, k) f32.
 //
 // What bounds it: every stored tile is read once and each tile element feeds
-// at most k multiply-adds, so the kernel is bound by the bytes of the tiles
-// (about 0.61 GB per orientation at the paper's PubMed size, 0.18 ms at
-// 3.35 TB/s); U and Y are a few hundred KB and stay in L2.
+// at most k multiply-adds, so the kernel is bound by the bytes of the tiles:
+// about 0.61 GB per orientation at the paper's PubMed size, 0.18 ms at
+// 3.35 TB/s.  U and Y are a few hundred KB and stay in L2.  Everything below
+// serves one aim: many tile bytes in flight on every SM, to the end.
 //
 // Design:
-//  * The TPU grid ran its slot axis in order on one core and carried the sum
-//    in the output block.  Here one block owns kRows rows of one row-block
-//    and one chunk of at most kCols factor columns, and loops over the bcap
-//    slots itself; the sum lives in registers.  Splitting each row-block
-//    over bm / kRows blocks puts more blocks on the 132 SMs than the
-//    row-block count alone would (59 row-blocks for A^T at PubMed).
-//  * The tile does not go through shared memory: lane l of a warp reads
-//    columns l, l+32, l+64, l+96 of its rows, so every warp load is one
-//    coalesced 128-byte line and every element is read exactly once.  Each
-//    lane keeps per-row partial sums over its own columns; one warp-shuffle
-//    tree per (row, column) at the end adds the 32 lanes in a fixed order.
-//  * The (bk, kc) U slab at block_cols[i, s] * bk is staged in shared
-//    memory once per slot (rows >= m read as zero, so U is never padded),
-//    with rows padded to kc + 1 words so that 32 lanes reading 32 different
-//    slab rows hit 32 different banks.
-//  * The fused kernel stages the full-rank slab.  The block that owns rows
-//    0..kRows-1 and column chunk 0 of each row-block also adds slab^T slab
-//    into per-thread Gram registers at every slot whose first-occurrence
-//    flag is set, and writes that row-block's partial Gram to a
-//    (nrb, k, k) scratch buffer.  A second launch sums the partials in
-//    row-block order: deterministic, with no float atomics.
-//  * The fused and the plain product share one template, so their Y is
-//    bitwise equal.
+//  * Stream split.  The (row-block, slot) pairs, flattened in row-block
+//    order, are cut into equal runs (their lengths differ by at most one
+//    slot), one run per block of a persistent grid of one block per SM; the
+//    plan (run bounds, and the first and last run of every row-block) is
+//    fixed on the host at ingest (kernels/bsr.py::split_plan).  A long
+//    row-block (A^T at PubMed: 59 row-blocks of 158 slots) spans several
+//    runs, so both orientations fill the card.  Factor ranks above kCols
+//    add a grid dimension of column chunks, each streaming the tiles again.
+//  * Tile ring.  One producer warp keeps up to kMaxStages stages in flight
+//    in shared memory (as many as fit: three at PubMed's 128 x 128 tiles).
+//    A stage is one slot's whole tile, a contiguous run of bm * bk f32,
+//    moved by one bulk copy (cp.async.bulk ... mbarrier::complete_tx::bytes,
+//    no tensor map), and that slot's (bk, w) U slab, moved by 4-byte
+//    cp.async with zero fill for rows at or past m (U is never padded).
+//    Both complete on the stage's full barrier: one expect_tx arrival for
+//    the tile's bytes plus one cp.async.mbarrier.arrive.noinc per producer
+//    lane.  The tile copies carry an L2 evict-first hint.  Each consumer
+//    warp arrives on the stage's empty barrier once it has read the
+//    stage; there is no __syncthreads in the loop.
+//  * Consumers.  Seven warps; a lane owns one quad of tile columns (4
+//    consecutive j) of up to kMaxRows rows of the row-block, reads the
+//    tile with 16-byte shared loads (a warp reads whole rows: no bank
+//    conflicts) and keeps the quad's slab entries in registers for the
+//    slot.  The slab is stored per quad, 4 * (w | 1) floats apart, so the
+//    lanes' slab reads do not conflict either.  Sums stay in registers
+//    across the slots of a row-block; at its end one shuffle tree per (row,
+//    column) adds the lanes of a row in a fixed order.
+//  * Deterministic fix-up.  A row-block that lies inside one run is written
+//    to Y directly.  A row-block cut by a run boundary leaves each of its
+//    runs' (bm, kc) partial in scratch (a run has at most two: its first
+//    and its last row-block); the run that takes the last integer ticket of
+//    that row-block adds the partials in run order and writes Y, then
+//    resets the ticket.  No float atomics: for a given plan the result is
+//    bitwise the same from run to run.
+//  * The Gram rides along.  In the fused kernel the blocks of column chunk 0
+//    hold the full-rank slab; when a slot carries its first-occurrence flag
+//    (fixed at ingest), the block's seven consumer warps add slab^T slab,
+//    four entries per warp at a time, each bk-long dot product split across
+//    the lanes and added by a shuffle tree, into a k x k partial in shared
+//    memory.  The runs' partials are added in run order by the run that
+//    takes the last Gram ticket.  Flagged slots are spread over the runs
+//    that stream them (at PubMed all flags sit in row-block 0, which A^T
+//    spreads over three runs) instead of falling to one block.
+//  * The fused and the plain product share one template and one plan, so
+//    their Y is bitwise equal.  f32 FMAs throughout (IEEE, no TF32).
+//
+// Limits (the wrapper refuses anything else): bm <= 128, bk <= 128 and a
+// multiple of 4 (tile rows are read as float4), tiles 16-byte aligned, the
+// fused kernel k * k floats of Gram next to a ring of at least two stages.
+//
+// Calls that share one ticket and scratch buffer must be ordered, as calls
+// on one stream are.  Given a (runs, 2) buffer, the kernels write each
+// block's start and end (%globaltimer, ns) there: the spread of the ends is
+// the tail of the split.
 //
 // C interface (loaded with ctypes): each entry point launches on the given
 // stream, does not synchronise, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerWarp = 2;
-constexpr int kRows = kWarps * kRowsPerWarp;  // tile rows per block
-constexpr int kCols = 8;                      // factor columns per block
-constexpr int kMaxJ = 4;                      // bk <= 32 * kMaxJ
-constexpr int kGramPerThread = 4;             // k * k <= kThreads * 4
+// Eight warps in all, two on each of the SM's four schedulers, so that a
+// thread may hold up to 255 registers (a ninth warp would cap it at 168).
+constexpr int kConsumerWarps = 7;
+constexpr int kConsumers = 32 * kConsumerWarps;
+constexpr int kThreads = kConsumers + 32;  // plus one producer warp
+constexpr int kMaxStages = 8;
+constexpr int kMaxBm = 128;
+constexpr int kMaxRows =                    // rows of a row-block per lane
+    (kMaxBm + kConsumerWarps - 1) / kConsumerWarps;
+constexpr int kMaxBk = 128;                 // 32 lanes x one quad
+constexpr int kCols = 8;                    // factor columns per block
+constexpr int kHeader = 256;        // barriers and the fix-up flag
+constexpr int kConsumerBarrier = 1; // named barrier of the consumers
+constexpr int kGramBatch = 4;       // Gram entries a warp takes at once
+constexpr int kLoadBatch = 8;       // partials read at once in a fix-up
 
-template <bool kGram>
-__global__ void __launch_bounds__(kThreads)
-spmm_kernel(const float* __restrict__ tiles,
-            const int* __restrict__ block_cols,
-            const int* __restrict__ flags,
-            const float* __restrict__ u,
-            float* __restrict__ y,
-            float* __restrict__ gram_part,
-            int n, int m, int k, int bcap, int bm, int bk, int row_splits) {
-  extern __shared__ float slab[];
-  const int i = blockIdx.x / row_splits;   // row-block
-  const int rs = blockIdx.x % row_splits;  // row chunk within the tile
-  const int c0 = blockIdx.y * kCols;       // first factor column
-  const int kc = min(kCols, k - c0);
-  // slab columns: every column for the fused kernel (its Gram needs them
-  // all), this block's chunk otherwise
-  const int s_c0 = kGram ? 0 : c0;
-  const int s_w = kGram ? k : kc;
-  const int ld = s_w + 1;
-  const int y_off = kGram ? c0 : 0;  // this chunk's first column in the slab
+__host__ __device__ __forceinline__ size_t round128(size_t x) {
+  return (x + 127) / 128 * 128;
+}
+
+// floats between two quads of slab rows: odd in 16-byte units
+__host__ __device__ __forceinline__ int slab_quad(int w) {
+  return 4 * (w | 1);
+}
+
+struct Args {
+  const float* tiles;
+  const int* block_cols;
+  const int* flags;
+  const float* u;
+  float* y;
+  float* part;       // (runs, 2, bm, k): partials of cut row-blocks
+  float* gram_part;  // (runs, k, k)
+  float* gram;
+  const int* bounds;   // (runs + 1): first slot of each run
+  const int* rb_runs;  // (nrb, 2): first and last run of each row-block
+  unsigned int* tickets;  // nrb * nchunks row-block tickets, then the Gram's
+  unsigned long long* stamps;  // optional (runs, 2): block start and end, ns
+  int n, m, k, nrb, bcap, bm, bk, runs, nchunks, stages, lpr;
+  unsigned int tile_bytes, slab_off, stage_bytes;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Returns once the phase of the given parity has completed.  A phase that
+// never completes (a transaction count that does not match the bytes sent)
+// traps after about 2^28 polls instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 28)) __trap();
+  }
+}
+
+// One contiguous run of `bytes` (a multiple of 16) into shared memory,
+// completing on `bar`'s transaction count.  The tiles are read once, so
+// they are marked first to go from L2, which keeps U, Y and the partials.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 policy;\n"
+      "createpolicy.fractional.L2::evict_first.b64 policy, 1.0;\n"
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], policy;\n}\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Four bytes, or four zero bytes when src_bytes is 0.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// An arrival on `bar` once this thread's earlier cp.async have landed; the
+// barrier's count includes it (.noinc).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(kConsumerBarrier), "n"(kConsumers)
+               : "memory");
+}
+
+// Takes the ticket `t` of `count` arrivals for the block's consumers after
+// they wrote their part; true in the block that took the last one (which
+// resets the ticket for the next call).
+__device__ __forceinline__ bool last_ticket(unsigned int* t, int count,
+                                            volatile int* flag) {
+  __threadfence();
+  consumer_sync();
+  if (threadIdx.x == 0) {
+    const unsigned int old = atomicAdd(t, 1u);
+    const bool last = old == static_cast<unsigned int>(count - 1);
+    if (last) *t = 0u;
+    *flag = last;
+  }
+  consumer_sync();
+  const bool last = *flag != 0;
+  if (last) __threadfence();
+  return last;
+}
+
+// s + p[0] + p[stride] + ... + p[(count - 1) * stride], added in that
+// order, read from L2 in batches of kLoadBatch independent loads
+__device__ __forceinline__ float sum_in_order(float s, const float* p,
+                                              size_t stride, int count) {
+  for (int i = 0; i < count; i += kLoadBatch) {
+    float v[kLoadBatch];
+#pragma unroll
+    for (int q = 0; q < kLoadBatch; ++q)
+      v[q] = i + q < count ? __ldcg(p + (i + q) * stride) : 0.f;
+#pragma unroll
+    for (int q = 0; q < kLoadBatch; ++q)
+      if (i + q < count) s += v[q];
+  }
+  return s;
+}
+
+template <int KC, bool kGram>
+__global__ void __launch_bounds__(kThreads, 1) spmm_kernel(const Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  volatile int* flag = reinterpret_cast<volatile int*>(smem + 16 * kMaxStages);
+  float* g_s = reinterpret_cast<float*>(smem + kHeader);
+  unsigned char* ring =
+      smem + kHeader + (kGram ? round128(sizeof(float) * a.k * a.k) : 0);
+
+  const int r = blockIdx.x;
+  const int ch = blockIdx.y;
+  const int c0 = ch * kCols;
+  const int kc = min(kCols, a.k - c0);
+  const int w = kGram ? a.k : kc;  // slab columns held
+  const int qs = slab_quad(w);
+  const int s_begin = a.bounds[r];
+  const int s_end = a.bounds[r + 1];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const bool gram_block = kGram && rs == 0 && blockIdx.y == 0;
+  const bool gram_block = kGram && ch == 0;
+  const int kk = a.k * a.k;
+  const uint32_t full0 = smem_u32(bars);
+  const uint32_t empty0 = smem_u32(bars + kMaxStages);
 
-  float acc[kRowsPerWarp][kCols];
-#pragma unroll
-  for (int t = 0; t < kRowsPerWarp; ++t)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[t][c] = 0.f;
-  float gacc[kGramPerThread];
-#pragma unroll
-  for (int g = 0; g < kGramPerThread; ++g) gacc[g] = 0.f;
-
-  const size_t tile_elems = static_cast<size_t>(bm) * bk;
-  for (int s = 0; s < bcap; ++s) {
-    const int slot = i * bcap + s;
-    const int col_block = block_cols[slot];
-    for (int e = threadIdx.x; e < bk * s_w; e += kThreads) {
-      const int j = e / s_w;
-      const int c = e - j * s_w;
-      const int row = col_block * bk + j;
-      slab[j * ld + c] =
-          row < m ? u[static_cast<size_t>(row) * k + s_c0 + c] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(full0 + 8 * s, 33);  // expect_tx + 32 producer lanes
+      mbar_init(empty0 + 8 * s, kConsumerWarps);
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (gram_block)
+    for (int e = threadIdx.x; e < kk; e += kThreads) g_s[e] = 0.f;
+  __syncthreads();
+  if (a.stamps != nullptr && threadIdx.x == 0 && ch == 0)
+    a.stamps[2 * r] = global_ns();
 
-    const float* tile = tiles + static_cast<size_t>(slot) * tile_elems;
-#pragma unroll
-    for (int t = 0; t < kRowsPerWarp; ++t) {
-      const int r = rs * kRows + warp * kRowsPerWarp + t;
-      if (r < bm) {
-#pragma unroll
-        for (int q = 0; q < kMaxJ; ++q) {
-          const int j = lane + 32 * q;
-          if (j < bk) {
-            const float a = tile[static_cast<size_t>(r) * bk + j];
-            const float* srow = slab + j * ld + y_off;
-#pragma unroll
-            for (int c = 0; c < kCols; ++c)
-              if (c < kc) acc[t][c] = fmaf(a, srow[c], acc[t][c]);
-          }
-        }
+  if (warp == kConsumerWarps) {
+    // ---- producer warp: tile by bulk copy, slab by cp.async ----------------
+    const int s_c0 = kGram ? 0 : c0;
+    const uint32_t ring_u32 = smem_u32(ring);
+    int cb_next = a.block_cols[s_begin];
+    for (int it = 0, slot = s_begin; slot < s_end; ++it, ++slot) {
+      const int st = it % a.stages;
+      const int cb = cb_next;
+      if (slot + 1 < s_end) cb_next = a.block_cols[slot + 1];
+      const uint32_t full = full0 + 8 * st;
+      mbar_wait(empty0 + 8 * st, ((it / a.stages) & 1) ^ 1);
+      const uint32_t dst = ring_u32 + st * a.stage_bytes;
+      if (lane == 0) {
+        mbar_expect_tx(full, a.tile_bytes);
+        bulk_copy(dst,
+                  a.tiles + static_cast<size_t>(slot) * (a.tile_bytes / 4),
+                  a.tile_bytes, full);
       }
-    }
-
-    if (gram_block && flags[slot] != 0) {
-#pragma unroll
-      for (int g = 0; g < kGramPerThread; ++g) {
-        const int e = threadIdx.x + g * kThreads;
-        if (e < k * k) {
-          const int c1 = e / k;
-          const int c2 = e - c1 * k;
-          float sum = 0.f;
-          for (int j = 0; j < bk; ++j)
-            sum = fmaf(slab[j * ld + c1], slab[j * ld + c2], sum);
-          gacc[g] += sum;
-        }
+      const uint32_t slab = dst + a.slab_off;
+      const int row0 = cb * a.bk;
+      for (int j = lane; j < a.bk; j += 32) {
+        const int row = row0 + j;
+        const bool in = row < a.m;
+        const float* src = a.u + (in ? static_cast<size_t>(row) * a.k + s_c0
+                                     : 0);
+        const uint32_t d = slab + 4 * ((j >> 2) * qs + (j & 3));
+        for (int c = 0; c < w; ++c) cp_async4(d + 16 * c, src + c, in ? 4 : 0);
       }
+      cp_async_arrive(full);
     }
-    __syncthreads();
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
   }
 
+  // ---- consumer warps ------------------------------------------------------
+  const int quads = a.bk / 4;
+  const int lpr = a.lpr;  // lanes per row: a power of two >= quads
+  const int t = lane & (lpr - 1);
+  const bool active = t < quads;
+  const int row_base = warp * (32 / lpr) + lane / lpr;
+  const int row_step = kConsumerWarps * (32 / lpr);
+  const int y_off = kGram ? c0 : 0;  // this chunk's first column in the slab
+
+  float acc[kMaxRows][KC];
 #pragma unroll
-  for (int t = 0; t < kRowsPerWarp; ++t) {
-    const int r = rs * kRows + warp * kRowsPerWarp + t;
-    const long row = static_cast<long>(i) * bm + r;
+  for (int i = 0; i < kMaxRows; ++i)
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      float v = acc[t][c];
+    for (int c = 0; c < KC; ++c) acc[i][c] = 0.f;
+
+  int cur_rb = s_begin / a.bcap;
+  for (int it = 0, slot = s_begin;; ++it, ++slot) {
+    const bool done = slot == s_end;
+    const int rb = done ? -1 : slot / a.bcap;
+    if (rb != cur_rb) {
+      // The row-block ends: add the lanes of each row and write its sums to
+      // Y, or, for a row-block cut by a run boundary, to this run's
+      // partial; the last of its runs to finish adds the partials in run
+      // order.
+      const int first = a.rb_runs[2 * cur_rb];
+      const int last = a.rb_runs[2 * cur_rb + 1];
+      const bool split = first != last;
+      const int nrow = min(a.bm, a.n - cur_rb * a.bm);
+      float* dst;
+      if (split) {
+        const int side = cur_rb == s_begin / a.bcap ? 0 : 1;
+        dst = a.part + static_cast<size_t>(2 * r + side) * a.bm * a.k + c0;
+      } else {
+        dst = a.y + static_cast<size_t>(cur_rb) * a.bm * a.k + c0;
+      }
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == 0 && c < kc && r < bm && row < n)
-        y[row * k + c0 + c] = v;
+      for (int i = 0; i < kMaxRows; ++i) {
+        const int row = row_base + i * row_step;
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          float v = acc[i][c];
+          for (int off = lpr / 2; off > 0; off >>= 1)
+            v += __shfl_xor_sync(0xffffffffu, v, off);
+          if (t == 0 && c < kc && row < (split ? a.bm : nrow))
+            dst[static_cast<size_t>(row) * a.k + c] = v;
+          acc[i][c] = 0.f;
+        }
+      }
+      if (split && last_ticket(a.tickets + cur_rb * a.nchunks + ch,
+                               last - first + 1, flag)) {
+        for (int e = threadIdx.x; e < nrow * kc; e += kConsumers) {
+          const int row = e / kc;
+          const int c = e - row * kc;
+          // run `first` holds the row-block as its last (side 1) unless it
+          // starts there; every later run holds it as its first (side 0)
+          const size_t plane = static_cast<size_t>(a.bm) * a.k;
+          const int side = a.bounds[first] / a.bcap == cur_rb ? 0 : 1;
+          const float* p0 = a.part + (2 * first + side) * plane +
+                            static_cast<size_t>(row) * a.k + c0 + c;
+          const float s = sum_in_order(
+              0.f + __ldcg(p0),
+              a.part + (2 * first + 2) * plane +
+                  static_cast<size_t>(row) * a.k + c0 + c,
+              2 * plane, last - first);
+          a.y[(static_cast<size_t>(cur_rb) * a.bm + row) * a.k + c0 + c] = s;
+        }
+      }
+      if (done) break;
+      cur_rb = rb;
     }
+    const int st = it % a.stages;
+    const int flagged = gram_block ? a.flags[slot] : 0;
+    mbar_wait(full0 + 8 * st, (it / a.stages) & 1);
+    const unsigned char* stage = ring + st * a.stage_bytes;
+    const float4* tile = reinterpret_cast<const float4*>(stage);
+    const float* slab = reinterpret_cast<const float*>(stage + a.slab_off);
+
+    float sv[4][KC];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int c = 0; c < KC; ++c)
+        sv[jj][c] = active && c < kc ? slab[t * qs + 4 * (y_off + c) + jj]
+                                     : 0.f;
+#pragma unroll
+    for (int i = 0; i < kMaxRows; ++i) {
+      const int row = row_base + i * row_step;
+      if (active && row < a.bm) {
+        const float4 v = tile[row * quads + t];
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          float s = acc[i][c];
+          s = fmaf(v.x, sv[0][c], s);
+          s = fmaf(v.y, sv[1][c], s);
+          s = fmaf(v.z, sv[2][c], s);
+          s = fmaf(v.w, sv[3][c], s);
+          acc[i][c] = s;
+        }
+      }
+    }
+
+    if (gram_block && flagged) {
+      // entry e = (c1, c2) to warp e % 7, kGramBatch entries of a warp at a
+      // time; each bk-long dot split across the lanes, added by a shuffle
+      // tree
+      for (int e0 = warp; e0 < kk; e0 += kGramBatch * kConsumerWarps) {
+        float s[kGramBatch];
+        int o1[kGramBatch], o2[kGramBatch];
+#pragma unroll
+        for (int q = 0; q < kGramBatch; ++q) {
+          const int e = min(e0 + q * kConsumerWarps, kk - 1);
+          o1[q] = 4 * (e / a.k);
+          o2[q] = 4 * (e % a.k);
+          s[q] = 0.f;
+        }
+#pragma unroll 4
+        for (int j = lane; j < a.bk; j += 32) {
+          const float* row = slab + (j >> 2) * qs + (j & 3);
+#pragma unroll
+          for (int q = 0; q < kGramBatch; ++q)
+            s[q] = fmaf(row[o1[q]], row[o2[q]], s[q]);
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+          for (int q = 0; q < kGramBatch; ++q)
+            s[q] += __shfl_xor_sync(0xffffffffu, s[q], off);
+        if (lane == 0) {
+#pragma unroll
+          for (int q = 0; q < kGramBatch; ++q)
+            if (e0 + q * kConsumerWarps < kk)
+              g_s[e0 + q * kConsumerWarps] += s[q];
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * st);
   }
 
   if (gram_block) {
-#pragma unroll
-    for (int g = 0; g < kGramPerThread; ++g) {
-      const int e = threadIdx.x + g * kThreads;
-      if (e < k * k) gram_part[static_cast<size_t>(i) * k * k + e] = gacc[g];
+    consumer_sync();  // every warp's Gram entries are in g_s
+    for (int e = threadIdx.x; e < kk; e += kConsumers)
+      a.gram_part[static_cast<size_t>(r) * kk + e] = g_s[e];
+    if (last_ticket(a.tickets + a.nrb * a.nchunks, a.runs, flag)) {
+      for (int e = threadIdx.x; e < kk; e += kConsumers)
+        a.gram[e] = sum_in_order(0.f, a.gram_part + e, kk, a.runs);
     }
   }
+  if (a.stamps != nullptr && threadIdx.x == 0 && ch == 0)
+    a.stamps[2 * r + 1] = global_ns();
 }
 
-// gram[e] = sum over row-blocks p, in order, of gram_part[p, e]
-__global__ void gram_reduce_kernel(const float* __restrict__ gram_part,
-                                   float* __restrict__ gram, int nparts,
-                                   int kk) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= kk) return;
-  float s = 0.f;
-  for (int p = 0; p < nparts; ++p)
-    s += gram_part[static_cast<size_t>(p) * kk + e];
-  gram[e] = s;
+int device_smem_optin() {
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return bytes;
 }
 
-int check_args(int n, int m, int k, int nrb, int bcap, int bm, int bk) {
-  if (n <= 0 || m <= 0 || k <= 0 || nrb <= 0 || bcap <= 0 || bm <= 0 ||
-      bk <= 0 || bk > 32 * kMaxJ)
+template <int KC, bool kGram>
+int launch_kc(const Args& a, size_t smem, int optin, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        spmm_kernel<KC, kGram>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        optin);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set = true;
+  }
+  spmm_kernel<KC, kGram><<<dim3(a.runs, a.nchunks), kThreads, smem, stream>>>(
+      a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kGram>
+int launch(Args a, void* stream) {
+  const int nrb = a.nrb;
+  if (a.n <= 0 || a.m <= 0 || a.k <= 0 || nrb <= 0 || a.bcap <= 0 ||
+      a.bm <= 0 || a.bm > kMaxBm || a.bk <= 0 || a.bk > kMaxBk ||
+      a.bk % 4 != 0 || a.runs <= 0 || a.runs > nrb * a.bcap ||
+      reinterpret_cast<uintptr_t>(a.tiles) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return 0;
+  const int kc_max = a.k < kCols ? a.k : kCols;
+  const int w = kGram ? a.k : kc_max;
+  a.nchunks = (a.k + kCols - 1) / kCols;
+  int lpr = 1;
+  while (lpr < a.bk / 4) lpr *= 2;
+  a.lpr = lpr;
+  a.tile_bytes = static_cast<unsigned int>(sizeof(float) * a.bm * a.bk);
+  a.slab_off = static_cast<unsigned int>(round128(a.tile_bytes));
+  a.stage_bytes = static_cast<unsigned int>(
+      a.slab_off + round128(sizeof(float) * (a.bk / 4) * slab_quad(w)));
+  const size_t fixed =
+      kHeader + (kGram ? round128(sizeof(float) * a.k * a.k) : 0);
+  const int optin = device_smem_optin();
+  if (optin <= static_cast<int>(fixed))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t fit = (optin - fixed) / a.stage_bytes;
+  a.stages = static_cast<int>(fit < kMaxStages ? fit : kMaxStages);
+  if (a.stages < 2) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = fixed + static_cast<size_t>(a.stages) * a.stage_bytes;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (kc_max) {
+    case 1: return launch_kc<1, kGram>(a, smem, optin, s);
+    case 2: return launch_kc<2, kGram>(a, smem, optin, s);
+    case 3: return launch_kc<3, kGram>(a, smem, optin, s);
+    case 4: return launch_kc<4, kGram>(a, smem, optin, s);
+    case 5: return launch_kc<5, kGram>(a, smem, optin, s);
+    case 6: return launch_kc<6, kGram>(a, smem, optin, s);
+    case 7: return launch_kc<7, kGram>(a, smem, optin, s);
+    default: return launch_kc<8, kGram>(a, smem, optin, s);
+  }
 }
 
 }  // namespace
 
 extern "C" int bsr_spmm_f32(const float* tiles, const int* block_cols,
-                            const float* u, float* y, int n, int m, int k,
-                            int nrb, int bcap, int bm, int bk, void* stream) {
-  if (int rc = check_args(n, m, k, nrb, bcap, bm, bk)) return rc;
-  const int row_splits = (bm + kRows - 1) / kRows;
-  const dim3 grid(nrb * row_splits, (k + kCols - 1) / kCols);
-  const size_t smem =
-      static_cast<size_t>(bk) * ((k < kCols ? k : kCols) + 1) * sizeof(float);
-  spmm_kernel<false><<<grid, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      tiles, block_cols, nullptr, u, y, nullptr, n, m, k, bcap, bm, bk,
-      row_splits);
-  return static_cast<int>(cudaGetLastError());
+                            const float* u, float* y, float* part,
+                            const int* bounds, const int* rb_runs,
+                            unsigned int* tickets,
+                            unsigned long long* stamps, int n, int m, int k,
+                            int nrb, int bcap, int bm, int bk, int runs,
+                            void* stream) {
+  Args a{};
+  a.stamps = stamps;
+  a.tiles = tiles;
+  a.block_cols = block_cols;
+  a.u = u;
+  a.y = y;
+  a.part = part;
+  a.bounds = bounds;
+  a.rb_runs = rb_runs;
+  a.tickets = tickets;
+  a.n = n;
+  a.m = m;
+  a.k = k;
+  a.bcap = bcap;
+  a.bm = bm;
+  a.bk = bk;
+  a.runs = runs;
+  a.nrb = nrb;
+  return launch<false>(a, stream);
 }
 
 extern "C" int bsr_spmm_gram_f32(const float* tiles, const int* block_cols,
                                  const int* flags, const float* u, float* y,
-                                 float* gram_part, float* gram, int n, int m,
+                                 float* part, float* gram_part, float* gram,
+                                 const int* bounds, const int* rb_runs,
+                                 unsigned int* tickets,
+                                 unsigned long long* stamps, int n, int m,
                                  int k, int nrb, int bcap, int bm, int bk,
-                                 void* stream) {
-  if (int rc = check_args(n, m, k, nrb, bcap, bm, bk)) return rc;
-  if (k * k > kThreads * kGramPerThread)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int row_splits = (bm + kRows - 1) / kRows;
-  const dim3 grid(nrb * row_splits, (k + kCols - 1) / kCols);
-  const size_t smem = static_cast<size_t>(bk) * (k + 1) * sizeof(float);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  spmm_kernel<true><<<grid, kThreads, smem, s>>>(
-      tiles, block_cols, flags, u, y, gram_part, n, m, k, bcap, bm, bk,
-      row_splits);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int kk = k * k;
-  gram_reduce_kernel<<<(kk + 255) / 256, 256, 0, s>>>(gram_part, gram, nrb,
-                                                      kk);
-  return static_cast<int>(cudaGetLastError());
+                                 int runs, void* stream) {
+  Args a{};
+  a.stamps = stamps;
+  a.tiles = tiles;
+  a.block_cols = block_cols;
+  a.flags = flags;
+  a.u = u;
+  a.y = y;
+  a.part = part;
+  a.gram_part = gram_part;
+  a.gram = gram;
+  a.bounds = bounds;
+  a.rb_runs = rb_runs;
+  a.tickets = tickets;
+  a.n = n;
+  a.m = m;
+  a.k = k;
+  a.bcap = bcap;
+  a.bm = bm;
+  a.bk = bk;
+  a.runs = runs;
+  a.nrb = nrb;
+  return launch<true>(a, stream);
 }

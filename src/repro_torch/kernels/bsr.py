@@ -21,6 +21,12 @@ first-occurrence flag of every slot and the rows of U that no slot
 references.  Both depend only on ``block_cols``, so the reference's
 ``lax.cond(jnp.all(covered))`` becomes a host-side ``None`` check with no
 device sync per iteration.
+
+Ingest also fixes the CUDA kernels' split of the slot stream
+(:func:`split_plan`): the (row-block, slot) pairs, flattened in row-block
+order, cut into one run per SM of the operand's card, with lengths that
+differ by at most one slot.  It depends only on ``nrb``, ``bcap`` and the
+SM count, so a call reads it and never syncs.
 """
 from __future__ import annotations
 
@@ -31,9 +37,66 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["BSR", "BSROperand", "bsr_from_dense", "bsr_from_scipy",
-           "bsr_dot_uv", "bsr_to_coo", "bsr_to_dense", "bsr_transpose",
-           "bsr_operand", "coverage"]
+__all__ = ["BSR", "BSROperand", "SplitPlan", "bsr_from_dense",
+           "bsr_from_scipy", "bsr_dot_uv", "bsr_to_coo", "bsr_to_dense",
+           "bsr_transpose", "bsr_operand", "coverage", "plan_runs",
+           "replan", "split_plan"]
+
+#: runs of the plan of an operand that lives on the CPU (the H100's SM
+#: count); only the tests read it, and moving the operand to a card
+#: re-plans for that card
+DEFAULT_RUNS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """How the CUDA kernels split the flattened slot stream.
+
+    * ``bounds``:  (runs + 1,) int32 — run r streams slots
+      ``bounds[r] .. bounds[r + 1] - 1`` (flat index ``i * bcap + s``);
+    * ``rb_runs``: (nrb, 2) int32 — the first and the last run that stream
+      a slot of each row-block; a row-block whose two differ is cut, and
+      its runs' partial sums are added in run order.
+    """
+
+    bounds: torch.Tensor
+    rb_runs: torch.Tensor
+
+    @property
+    def runs(self) -> int:
+        return self.bounds.shape[0] - 1
+
+
+def split_plan(nrb: int, bcap: int, runs: int):
+    """``(bounds, rb_runs)`` as numpy int32 arrays: the ``nrb * bcap``
+    slots cut into ``min(runs, nrb * bcap)`` runs whose lengths differ by
+    at most one, in order."""
+    total = nrb * bcap
+    runs = max(1, min(int(runs), total))
+    bounds = np.arange(runs + 1, dtype=np.int64) * total // runs
+    first_slot = np.arange(nrb, dtype=np.int64) * bcap
+    rb_runs = np.stack(
+        [np.searchsorted(bounds, first_slot, side="right") - 1,
+         np.searchsorted(bounds, first_slot + bcap - 1, side="right") - 1],
+        axis=1)
+    return bounds.astype(np.int32), rb_runs.astype(np.int32)
+
+
+def plan_runs(device) -> int:
+    """One run per SM of a CUDA ``device``; :data:`DEFAULT_RUNS` for the
+    CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return DEFAULT_RUNS
+
+
+def _make_plan(nrb: int, bcap: int, device, runs: int | None = None
+               ) -> SplitPlan:
+    bounds, rb_runs = split_plan(nrb, bcap, plan_runs(device) if runs is None
+                                 else runs)
+    return SplitPlan(torch.from_numpy(bounds).to(device),
+                     torch.from_numpy(rb_runs).to(device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +110,8 @@ class BSR:
     #: (m,) bool: rows of U in column blocks no slot references (their Gram
     #: is added separately); ``None`` when every column block is covered
     uncovered_rows: Optional[torch.Tensor]
+    #: the CUDA kernels' split of the slot stream over the card's SMs
+    plan: SplitPlan
 
     @property
     def bm(self) -> int:
@@ -72,7 +137,8 @@ class BSR:
         unc = (None if self.uncovered_rows is None
                else self.uncovered_rows.to(device))
         return BSR(self.tiles.to(device), self.block_cols.to(device),
-                   self.shape, self.gram_flags.to(device), unc)
+                   self.shape, self.gram_flags.to(device), unc,
+                   _make_plan(self.nrb, self.bcap, device))
 
     def nnz(self) -> torch.Tensor:
         return torch.sum(self.tiles != 0)
@@ -137,9 +203,18 @@ def _make_bsr(tiles: np.ndarray, bcols: np.ndarray, shape: Tuple[int, int],
     unc = None
     if not covered.all():
         unc = torch.from_numpy(~covered[np.arange(m) // bk]).to(device)
+    nrb, bcap = bcols.shape
     return BSR(torch.from_numpy(np.ascontiguousarray(tiles)).to(device),
                torch.from_numpy(bcols).to(device), shape,
-               torch.from_numpy(flags).to(device), unc)
+               torch.from_numpy(flags).to(device), unc,
+               _make_plan(nrb, bcap, device))
+
+
+def replan(a: BSR, runs: int) -> BSR:
+    """``a`` with its slot stream cut into ``runs`` runs instead of one per
+    SM (tests and measurements of the split)."""
+    return dataclasses.replace(a, plan=_make_plan(a.nrb, a.bcap, a.device,
+                                                  runs))
 
 
 def _host(a) -> np.ndarray:

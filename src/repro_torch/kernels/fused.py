@@ -3,18 +3,24 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/fused.py::_spmm_gram_kernel``
 (launched by ``bsr_spmm_gram``) with the CUDA C++ kernel in
-``csrc/bsr_spmm.cu``: while a U slab sits in shared memory for the tile
-product, its Gram is added once per distinct referenced column block (the
-first-occurrence flags fixed at ingest) into per-row-block partials, which a
-second launch sums in row-block order, with no float atomics.  Column blocks
-no slot references are folded in afterwards by the Gram of the masked U (the
-port's own ``gram`` kernel); ingest records whether there are any, so a
-fully covered operand pays nothing and the check costs no device sync.
-Bound by the bytes of the stored tiles, like ``bsr_spmm``.
+``csrc/bsr_spmm.cu``: the same template and split plan as ``bsr_spmm``, so
+the product is bitwise that kernel's, bound by the same tile bytes (0.18 ms
+per orientation at PubMed size).  Each stage of the ring carries the slot's
+full-rank U slab; where the slot holds the first occurrence of its column
+block (flags fixed at ingest), the block that streams it adds slab^T slab
+with all seven consumer warps (four entries per warp at a time, the bk-long
+dot split across the lanes and added by a shuffle tree) into a per-run
+k x k partial.  The run that takes the last ticket adds the runs' partials
+in run order, in the same launch: no float atomics, bitwise repeatable.
+Flagged slots are thus spread over the runs that stream them.  Column
+blocks no slot references are folded in afterwards by the Gram of the
+masked U (the port's own ``gram`` kernel); ingest records whether there
+are any, so a fully covered operand pays nothing and the check costs no
+device sync.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,12 +40,15 @@ def _add_unreferenced(a: BSR, u: torch.Tensor, g: torch.Tensor):
     return g + gram(ref.unreferenced_rows(a, u))
 
 
-def bsr_spmm_gram(a: BSR, u: torch.Tensor
+def bsr_spmm_gram(a: BSR, u: torch.Tensor,
+                  stamps: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dense(A) @ U, U^T U)``; the product is bitwise the port's
     :func:`~repro_torch.kernels.bsr_spmm.bsr_spmm` (same kernel template),
-    the Gram is f32 and agrees with ``U^T U`` to f32 roundoff."""
-    if not _build.on_card(a.tiles, a.block_cols, a.gram_flags, u):
+    the Gram is f32 and agrees with ``U^T U`` to f32 roundoff.  ``stamps``
+    as for ``bsr_spmm``."""
+    if not _build.on_card(a.tiles, a.block_cols, a.gram_flags,
+                          a.plan.bounds, u):
         return ref.bsr_spmm_gram_ref(a, u)
     spmm_kernel.check_operands(a, u)
     n, m = a.shape
@@ -48,12 +57,15 @@ def bsr_spmm_gram(a: BSR, u: torch.Tensor
         raise ValueError(f"the fused kernel takes k <= {FUSED_MAX_K}, "
                          f"got {k}")
     y = torch.empty((n, k), dtype=torch.float32, device=u.device)
-    part = torch.empty((a.nrb, k, k), dtype=torch.float32, device=u.device)
     g = torch.empty((k, k), dtype=torch.float32, device=u.device)
+    tickets, part, gram_part = spmm_kernel.scratch(a, k)
     rc = spmm_kernel._lib().bsr_spmm_gram_f32(
         a.tiles.data_ptr(), a.block_cols.data_ptr(), a.gram_flags.data_ptr(),
-        u.data_ptr(), y.data_ptr(), part.data_ptr(), g.data_ptr(),
-        n, m, k, a.nrb, a.bcap, a.bm, a.bk, _build.stream_ptr(u.device))
+        u.data_ptr(), y.data_ptr(), part.data_ptr(), gram_part.data_ptr(),
+        g.data_ptr(),
+        a.plan.bounds.data_ptr(), a.plan.rb_runs.data_ptr(),
+        tickets.data_ptr(), spmm_kernel.stamps_ptr(a, stamps), n, m, k,
+        a.nrb, a.bcap, a.bm, a.bk, a.plan.runs, _build.stream_ptr(u.device))
     _build.check_rc(rc, "bsr_spmm_gram")
     _build.count_launch("bsr_spmm_gram")
     return y, _add_unreferenced(a, u, g)

@@ -12,22 +12,44 @@ import torch
 
 from repro_torch.kernels.bsr import BSR
 
-__all__ = ["bsr_spmm_ref", "bsr_spmm_gram_ref", "flash_attention_ref",
-           "gram_ref", "project_mask_ref", "unreferenced_rows"]
+__all__ = ["bsr_spmm_ref", "bsr_spmm_gram_ref", "bsr_spmm_run_partials",
+           "flash_attention_ref", "gram_ref", "project_mask_ref",
+           "unreferenced_rows"]
+
+
+def _u_blocks(a: BSR, u: torch.Tensor) -> torch.Tensor:
+    """U as (column blocks, bk, k), rows >= m read as zero."""
+    m, k = u.shape
+    ncb = -(-m // a.bk)
+    return torch.nn.functional.pad(u, (0, 0, 0, ncb * a.bk - m)).reshape(
+        ncb, a.bk, k)
 
 
 def bsr_spmm_ref(a: BSR, u: torch.Tensor) -> torch.Tensor:
     """dense(A) @ U over the stored tiles: gather each slot's U slab (rows
     >= m read as zero) and contract tile by tile."""
-    nrb, bcap, bm, bk = a.tiles.shape
-    n, m = a.shape
-    k = u.shape[1]
-    ncb = -(-m // bk)
-    u_blk = torch.nn.functional.pad(u, (0, 0, 0, ncb * bk - m)).reshape(
-        ncb, bk, k)
-    slabs = u_blk[a.block_cols.long()]                  # (nrb, bcap, bk, k)
+    slabs = _u_blocks(a, u)[a.block_cols.long()]       # (nrb, bcap, bk, k)
     y = torch.einsum("isrc,iscd->ird", a.tiles.to(u.dtype), slabs)
-    return y.reshape(nrb * bm, k)[:n]
+    return y.reshape(a.nrb * a.bm, u.shape[1])[:a.shape[0]]
+
+
+def bsr_spmm_run_partials(a: BSR, u: torch.Tensor) -> torch.Tensor:
+    """(runs, n, k): what each run of ``a.plan`` adds to dense(A) @ U, the
+    products of its own slots only.  The kernels add these in run order
+    (inside a row-block only, the rest being zero)."""
+    nrb, bcap, bm, bk = a.tiles.shape
+    n, k = a.shape[0], u.shape[1]
+    slabs = _u_blocks(a, u)[a.block_cols.long()].reshape(nrb * bcap, bk, k)
+    per_slot = torch.einsum("src,scd->srd",
+                            a.tiles.to(u.dtype).reshape(nrb * bcap, bm, bk),
+                            slabs)                      # (slots, bm, k)
+    rb_of_slot = torch.arange(nrb * bcap, device=u.device) // bcap
+    bounds = a.plan.bounds.tolist()
+    out = torch.zeros((len(bounds) - 1, nrb, bm, k), dtype=u.dtype,
+                      device=u.device)
+    for r, (b0, b1) in enumerate(zip(bounds[:-1], bounds[1:])):
+        out[r].index_add_(0, rb_of_slot[b0:b1], per_slot[b0:b1])
+    return out.reshape(-1, nrb * bm, k)[:, :n]
 
 
 def gram_ref(u: torch.Tensor) -> torch.Tensor:
@@ -48,11 +70,7 @@ def bsr_spmm_gram_ref(a: BSR, u: torch.Tensor
     """``(dense(A) @ U, U^T U)`` built the way the fused kernel builds it:
     the Gram of every first-occurrence slab (the flags fixed at ingest),
     plus the Gram of the rows no slot references.  Gram in f32."""
-    bk = a.bk
-    m, k = u.shape
-    ncb = -(-m // bk)
-    u_blk = torch.nn.functional.pad(u.float(), (0, 0, 0, ncb * bk - m)
-                                    ).reshape(ncb, bk, k)
+    u_blk = _u_blocks(a, u.float())
     slabs = u_blk[a.block_cols.long()[a.gram_flags != 0]]   # (nflag, bk, k)
     g = torch.einsum("sjc,sjd->cd", slabs, slabs)
     if a.uncovered_rows is not None:

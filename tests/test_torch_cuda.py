@@ -34,32 +34,93 @@ def _rand_sparse(rng, n, m, density=0.05):
     return a
 
 
-@pytest.mark.parametrize("n,m,k,bm", [(257, 129, 5, 32), (300, 200, 33, 64),
-                                      (128, 256, 7, 128)])
-def test_bsr_kernels_match_plain_versions(card, n, m, k, bm):
+def _operand_matrix(case, rng, n, m, bm, bk):
+    """A test matrix of shape (n, m) whose BSR form has the case's shape:
+    ``random`` elements (padded slots where a row-block has fewer occupied
+    blocks), ``block_sparse`` (a third of the (bm, bk) blocks occupied:
+    many padded slots), ``long_rows`` (few row-blocks of many slots, so a
+    row-block spans several runs, as A^T does at PubMed), ``flags_rb0``
+    (row-block 0 dense: every first-occurrence flag in it) and
+    ``block_diag`` (bcap = 1, fewer slots than the card has SMs)."""
+    if case == "block_sparse":
+        a = _rand_sparse(rng, n, m, density=0.2)
+        keep = rng.random((-(-n // bm), -(-m // bk))) < 0.33
+        return a * np.kron(keep, np.ones((bm, bk), np.float32))[:n, :m]
+    if case == "flags_rb0":
+        a = _rand_sparse(rng, n, m, density=0.01)
+        a[:bm] = rng.random((bm, m)).astype(np.float32)
+        return a
+    if case == "block_diag":
+        a = np.zeros((n, m), np.float32)
+        for i in range(0, min(n, m), max(bm, bk)):
+            a[i:i + bm, i:i + bk] = rng.random(a[i:i + bm, i:i + bk].shape)
+        return a
+    return _rand_sparse(rng, n, m)
+
+
+@pytest.mark.parametrize("case,n,m,k,bm,bk", [
+    ("random", 257, 129, 5, 32, 32),
+    ("random", 300, 200, 33, 64, 64),
+    ("random", 128, 256, 7, 128, 128),
+    ("long_rows", 50, 9001, 5, 32, 32),
+    ("long_rows", 100, 4000, 32, 64, 64),
+    ("flags_rb0", 700, 517, 5, 128, 128),
+    ("flags_rb0", 333, 1000, 1, 64, 32),
+    ("block_diag", 379, 377, 5, 128, 128),
+    ("block_sparse", 1000, 700, 32, 128, 128),
+    ("block_sparse", 517, 450, 33, 32, 64),
+])
+def test_bsr_kernels_match_plain_versions(card, case, n, m, k, bm, bk):
+    """Both orientations, under the ingest plan (one run per SM) and under
+    a 7-run plan: each kernel within its bar of its plain version (Y 1e-4,
+    Gram 1e-5/1e-4), the fused Y bitwise the plain Y, two calls bitwise
+    equal, one launch per call."""
     rng = np.random.default_rng(n + m + k)
-    a = _rand_sparse(rng, n, m)
-    op = bsr.bsr_operand(a, bm=bm, bk=bm, device=card)
-    v = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(card)
-    u = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)).to(card)
-    _build.reset_launch_counts()
-    y = bsr_spmm(op.bsr, v)
-    torch.testing.assert_close(y, ref.bsr_spmm_ref(op.bsr, v), rtol=1e-4,
-                               atol=1e-4)
-    torch.testing.assert_close(bsr_spmm_t(op, u),
-                               ref.bsr_spmm_ref(op.bsr_t, u), rtol=1e-4,
-                               atol=1e-4)
-    if k > FUSED_MAX_K:   # the backend takes the separate launches there
-        with pytest.raises(ValueError, match="k <="):
-            bsr_spmm_gram(op.bsr, v)
-        assert _build.launch_counts()["bsr_spmm_gram"] == 0
-        return
-    y_f, g_f = bsr_spmm_gram(op.bsr, v)
-    torch.cuda.synchronize()
-    assert torch.equal(y_f, y)
-    torch.testing.assert_close(g_f, ref.gram_ref(v), rtol=1e-5, atol=1e-4)
-    counts = _build.launch_counts()
-    assert counts["bsr_spmm"] == 2 and counts["bsr_spmm_gram"] == 1
+    a = _operand_matrix(case, rng, n, m, bm, bk)
+    op = bsr.bsr_operand(a, bm=bm, bk=bk, device=card)
+    if case == "block_diag":
+        slots = op.bsr.nrb * op.bsr.bcap
+        assert op.bsr.bcap == 1 and slots < bsr.plan_runs(card)
+        assert op.bsr.plan.runs == slots
+    if case == "long_rows":
+        first, last = op.bsr.plan.rb_runs.cpu().numpy().T
+        assert (last > first).all()
+    if case == "flags_rb0":
+        assert int(op.bsr.gram_flags[1:].sum()) == 0
+    v, u = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                             ).to(card) for shape in ((m, k), (n, k)))
+    for b0, w in ((op.bsr, v), (op.bsr_t, u)):
+        for b in (b0, bsr.replan(b0, 7)):
+            _build.reset_launch_counts()
+            y = bsr_spmm(b, w)
+            torch.testing.assert_close(y, ref.bsr_spmm_ref(b, w), rtol=1e-4,
+                                       atol=1e-4)
+            assert torch.equal(bsr_spmm(b, w), y)
+            if k > FUSED_MAX_K:   # the backend takes the separate launches
+                with pytest.raises(ValueError, match="k <="):
+                    bsr_spmm_gram(b, w)
+                counts = _build.launch_counts()
+                assert counts["bsr_spmm"] == 2
+                assert counts["bsr_spmm_gram"] == 0
+                continue
+            y_f, g_f = bsr_spmm_gram(b, w)
+            y_f2, g_f2 = bsr_spmm_gram(b, w)
+            torch.cuda.synchronize()
+            assert torch.equal(y_f, y)
+            assert torch.equal(y_f2, y) and torch.equal(g_f2, g_f)
+            torch.testing.assert_close(g_f, ref.gram_ref(w), rtol=1e-5,
+                                       atol=1e-4)
+            torch.testing.assert_close(g_f, ref.bsr_spmm_gram_ref(b, w)[1],
+                                       rtol=1e-5, atol=1e-4)
+            counts = _build.launch_counts()
+            assert counts["bsr_spmm"] == 2 and counts["bsr_spmm_gram"] == 2
+            # each block's start and end time, on request
+            stamps = torch.zeros((b.plan.runs, 2), dtype=torch.int64,
+                                 device=card)
+            assert torch.equal(bsr_spmm_gram(b, w, stamps=stamps)[0], y)
+            assert bool((stamps[:, 0] > 0).all())
+            assert bool((stamps[:, 1] >= stamps[:, 0]).all())
+    assert bsr_spmm_t(op, u).shape == (m, k)
 
 
 def test_gram_and_mask_match_plain_versions(card):
