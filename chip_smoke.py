@@ -9,16 +9,24 @@ Phases (any failed check raises, and the script exits non-zero):
 1. build — compile the CUDA sources (one ``nvcc`` each, all started
    together) and print the build time and ``ptxas`` report;
 2. per-kernel checks at the paper's PubMed shapes — every kernel against its
-   plain version on the card (``project_mask`` bitwise, the BSR products to
+   plain version on the card (the epilogue ``relu_topk``, ``tau`` and
+   ``out``, and ``project_mask`` bit for bit at PubMed's U and V, a
+   Wikipedia-shaped U (one cluster) and a factor beyond the shared memory
+   of all SMs (the grid, streaming it), one launch each, each shape's path
+   logged; the BSR products to
    rtol/atol 1e-4, the Gram to 1e-4/1e-3 with one launch per call and
    bitwise repeatable, the fused Gram to 1e-5/1e-4); the BSR products
    bitwise repeatable and the fused Y bitwise the plain one;
 3. the main path — ``EnforcedNMF(...backend="cuda-bsr").fit`` of the
    synthetic PubMed corpus (20,112 terms x 7,510 documents, k=5, 50
    iterations, 2% of dense kept in each factor), with launch counts read
-   around it: the fused kernel 2 * iters + 1 times, the mask 2 * iters;
-4. a ``torch-dense`` fit of the same corpus (8 iterations) whose error trace
-   must match the ``cuda-bsr`` one within 1e-4;
+   around it: the fused kernel 2 * iters + 1 times, the epilogue
+   (``relu_topk``) 2 * iters and no other mask launch; the last U must be
+   bitwise both ``relu_topk``'s and the eager plain epilogue's output on
+   the fit's own pre-epilogue factor;
+4. a ``torch-dense`` fit of the same corpus (8 iterations, its epilogue
+   the same launch) whose error trace must match the ``cuda-bsr`` one
+   within 1e-4;
 5. ``transform`` of 751 unseen documents (``bsr_spmm``), checked against a
    CPU fold-in of the same documents;
 6. a 5-iteration ``cuda-bsr-unfused`` fit (``bsr_spmm`` + ``gram``);
@@ -26,11 +34,13 @@ Phases (any failed check raises, and the script exits non-zero):
    one PyTorch call that computes the same function where there is one, the
    BSR kernels' rate in GB/s per orientation beside a plain ``torch.sum``
    over the same tiles and the spread of their blocks' end times (the
-   split's tail), the fit's time per iteration and the bisection
-   epilogue's share of it; a profiler window gives the card's busy time per
-   iteration; the BSR kernels' ``ptxas`` registers and spills, and their
-   asynchronous copies counted in the built library's SASS (bulk copies
-   and ``cp.async``: a kernel without them fails the run);
+   split's tail); the fit's time per iteration and the epilogue's share
+   of it; a profiler
+   window gives the card's busy time and kernels per iteration; every
+   source's ``ptxas`` registers and spills, the BSR kernels' asynchronous
+   copies counted in the built library's SASS (bulk copies and
+   ``cp.async``: a kernel without them fails the run) and the epilogue's
+   cluster barriers and warp reductions;
 8. the flash-attention kernels against their plain version: the llama3.2-1b
    prefill shape (B=4, H=32, Hkv=8, S=T=4096, hd=64, causal), a non-causal
    Sq != T case, an odd S = 1000 and phi4-mini-3.8b's heads (H=24, Hkv=8,
@@ -50,7 +60,11 @@ Phases (any failed check raises, and the script exits non-zero):
     ``F.scaled_dot_product_attention`` at the prefill shape (and the bf16
     kernel against the library call at the hd 128 shape), its bound; the
     prefill's time and tokens/s, a decode tick, and the card's busy share
-    in a profiler window around one prefill.
+    in a profiler window around one prefill;
+12. the epilogue's timings, after the LM phases: ``relu_topk`` per call and
+    per count round (device time, 40 steps against none) on the fit's
+    pre-epilogue factors and the two larger checked shapes, beside the mask
+    alone, the eager plain epilogue and, for orientation, ``torch.topk``.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -73,6 +87,7 @@ F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 
 N_TERMS, N_DOCS, K, ITERS = 20112, 7510, 5, 50
+NUM_STEPS = 40          # the bisection's steps (Sparsity.num_steps)
 T_U, T_V = N_TERMS * K // 50, N_DOCS * K // 50     # 2% of dense: 2011, 751
 DENSE_ITERS, UNFUSED_ITERS, NEW_DOCS = 8, 5, 751
 DEVICE = "cuda"
@@ -99,6 +114,16 @@ FLASH_CASES = {
 #: of them.  In f32 only the order of the sums differs.
 FLASH_TOL = {"bfloat16": (1e-2, 2e-3), "float32": (1e-4, 1e-5)}
 
+#: the epilogue's checks, (rows, k, t) at 2% of dense: PubMed's U and V, a
+#: Wikipedia-shaped U (143,462 terms, the largest cluster) and a factor
+#: beyond the shared memory of all SMs (the grid exchange, streamed)
+EPILOGUE_SHAPES = {
+    "PubMed U": (N_TERMS, K, T_U),
+    "PubMed V": (N_DOCS, K, T_V),
+    "Wikipedia U": (143462, K, 143462 * K // 50),
+    "beyond on-chip": (4_000_000, 8, 4_000_000 * 8 // 50),
+}
+
 REPLACES = {
     "project_mask": "src/repro/kernels/project_mask.py:29",
     "gram": "src/repro/kernels/gram.py:33",
@@ -107,7 +132,7 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:73",
 }
 SOURCES = {
-    "project_mask": ("triton", "src/repro_torch/kernels/project_mask.py"),
+    "project_mask": ("cuda", "src/repro_torch/csrc/project_mask.cu"),
     "gram": ("cuda", "src/repro_torch/csrc/gram.cu"),
     "bsr_spmm": ("cuda", "src/repro_torch/csrc/bsr_spmm.cu"),
     "bsr_spmm_gram": ("cuda", "src/repro_torch/csrc/bsr_spmm.cu"),
@@ -201,6 +226,31 @@ def profiled(name, fn, calls=1):
                 device_busy_share=busy, kernels_per_call=n_kernels / calls,
                 top_kernels=[dict(us=x, count=c, name=k[:120])
                              for x, c, k in by_kernel[:10]])
+
+
+def device_us(fn, match, calls=50):
+    """Mean device time in us of the kernels whose name contains ``match``
+    over ``calls`` calls of ``fn`` (profiler), after one warm-up call: the
+    kernel's own time, whatever the host takes to launch it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for evt in prof.key_averages():
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and match in evt.key):
+            t_us = getattr(evt, "self_device_time_total", None)
+            total += evt.self_cuda_time_total if t_us is None else t_us
+            count += evt.count
+    if count == 0:
+        raise AssertionError(f"no device kernel matching {match!r} ran")
+    return total / count
 
 
 def sass_counts(library, ops=("HGMMA", "HMMA")):
@@ -520,15 +570,17 @@ def main(argv=None) -> int:
 
     from repro_torch.backend import get_backend
     from repro_torch.convert import estimator_from_reference
-    from repro_torch.core.nmf import init_u0
-    from repro_torch.core.topk import FusedReluTopK, topk_threshold_bisect
+    from repro_torch.core.nmf import init_u0, solve_gram
+    from repro_torch.core.topk import FusedReluTopK
     from repro_torch.data import synthetic_journal_corpus
     from repro_torch.device import configure_numerics
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.bsr_spmm import bsr_spmm
     from repro_torch.kernels.fused import bsr_spmm_gram
     from repro_torch.kernels.gram import gram
-    from repro_torch.kernels.project_mask import project_mask
+    from repro_torch.kernels.project_mask import (
+        STEPS_PER_ROUND, project_mask, relu_topk, relu_topk_plan,
+    )
     from repro_torch.nmf import EnforcedNMF, NMFConfig, Sparsity
     from repro_torch.sparse import to_scipy
 
@@ -587,14 +639,44 @@ def main(argv=None) -> int:
     # -- 2. per-kernel checks at PubMed shapes -------------------------------
     checks = {}
 
-    t0 = time.perf_counter()
-    x = torch.randn((N_TERMS, K), generator=gen).to(dev)
-    tau = topk_threshold_bisect(torch.clamp_min(x, 0.0), T_U)
-    got = project_mask(x, tau)
-    torch.cuda.synchronize()
-    triton_first_s = time.perf_counter() - t0
-    if not torch.equal(got, ref.project_mask_ref(x, tau)):
-        raise AssertionError("project_mask is not bitwise its plain version")
+    # the epilogue: relu_topk (tau and out) and project_mask bit for bit
+    # their plain versions, one launch per call
+    def bits(x):
+        return x.contiguous().view(torch.int32)
+
+    epi_checks = {}
+    for name, (n, k, t) in EPILOGUE_SHAPES.items():
+        x = (torch.randn((n, k), generator=gen) - 0.25).to(dev)
+        want_out, want_tau = ref.relu_topk_ref(x, t)
+        plan = relu_topk_plan(x.numel())
+        _build.reset_launch_counts()
+        out, tau = relu_topk(x, t)
+        launches = _build.launch_counts()["relu_topk"]
+        torch.cuda.synchronize()
+        if launches != 1:
+            raise AssertionError(f"relu_topk launched {launches} kernels in "
+                                 "one call, not 1")
+        if not (torch.equal(bits(tau), bits(want_tau))
+                and torch.equal(bits(out), bits(want_out))):
+            raise AssertionError(f"relu_topk {name}: tau or out is not "
+                                 "bitwise the plain version's")
+        mask = project_mask(x, want_tau)
+        torch.cuda.synchronize()
+        if not torch.equal(bits(mask),
+                           bits(ref.project_mask_ref(x, want_tau))):
+            raise AssertionError(f"project_mask {name} is not bitwise its "
+                                 "plain version")
+        nnz = int((out != 0).sum())
+        epi_checks[name] = dict(shape=[n, k], t=t, nnz=nnz,
+                                tau=float(want_tau), **plan)
+        log(f"[check] relu_topk {name} ({n} x {k}, t={t}): {plan['path']} "
+            f"path, {plan['exchange']} exchange over {plan['blocks']} blocks "
+            f"({plan['resident']} of {plan['slice']} floats a block in shared"
+            f" memory); tau and out bitwise the plain version's, one launch "
+            f"(tau {float(want_tau):.9g}, NNZ {nnz}); project_mask bitwise")
+        del x, want_out, want_tau, out, tau, mask
+    if {c["path"] for c in epi_checks.values()} != {"resident", "streamed"}:
+        raise AssertionError("the epilogue checks did not take both paths")
     checks["project_mask"] = 0.0
     errs = []
     for w in (u0, v_test):
@@ -636,9 +718,8 @@ def main(argv=None) -> int:
             f"(max abs err {err:.3e})")
     log("[check] bsr_spmm and bsr_spmm_gram: two calls bitwise equal in "
         "both orientations; the fused Y bitwise bsr_spmm's")
-    log(f"[build] the Triton kernel (project_mask) compiled at first launch "
-        f"in {triton_first_s:.2f} s")
     results["checks"] = checks
+    results["epilogue_checks"] = epi_checks
 
     # -- 3. the main path: PubMed fit on cuda-bsr -----------------------------
     cfg = NMFConfig(k=K, iters=ITERS, sparsity=Sparsity(t_u=T_U, t_v=T_V),
@@ -668,17 +749,40 @@ def main(argv=None) -> int:
     if paths["fit"]["bsr_spmm_gram"] != 2 * ITERS + 1:
         raise AssertionError(f"fused launches {paths['fit']['bsr_spmm_gram']}"
                              f" != 2 * iters + 1 = {2 * ITERS + 1}")
-    if paths["fit"]["project_mask"] != 2 * ITERS:
-        raise AssertionError(f"project_mask launches "
-                             f"{paths['fit']['project_mask']} != 2 * iters")
+    if (paths["fit"]["relu_topk"] != 2 * ITERS
+            or paths["fit"]["project_mask"] != 0):
+        raise AssertionError(
+            f"epilogue launches {paths['fit']['relu_topk']} != 2 * iters, "
+            f"or {paths['fit']['project_mask']} other mask launches")
+    # the fit's own epilogue against the eager bisection: its last U is
+    # the epilogue of A V (V^T V)^-1 on its final V.  Recomputed with the
+    # same kernels, relu_topk and the plain epilogue must both give it bit
+    # for bit
+    av, gv = get_backend("cuda-bsr").matmul_with_gram(op, model.v_)
+    x_pre = solve_gram(gv, av)
+    fit_out = relu_topk(x_pre, T_U)[0]
+    plain_out = ref.relu_topk_ref(x_pre, T_U)[0]
+    if not (torch.equal(bits(fit_out), bits(plain_out))
+            and torch.equal(bits(plain_out), bits(model.u_))):
+        raise AssertionError("the fit's last U is not bitwise the eager "
+                             "plain epilogue of its own pre-epilogue factor")
+    log("[fit] the last U is bitwise relu_topk's and the eager plain "
+        "epilogue's output on the fit's own pre-epilogue factor "
+        "A V (V^T V)^-1")
+    del av, gv, x_pre, fit_out, plain_out
 
     # -- 4. cross-check against torch-dense -----------------------------------
+    _build.reset_launch_counts()
     dense = EnforcedNMF(cfg.replace(iters=DENSE_ITERS, backend="torch-dense"),
                         device=dev).fit(a_sp, u0=u0)
+    paths["dense_fit"] = _build.launch_counts()
     diff = (dense.result_.error - res.error[:DENSE_ITERS]).abs().max()
     diff = float(diff)
     log(f"[dense] torch-dense {DENSE_ITERS}-iteration error trace vs cuda-bsr:"
-        f" max abs diff {diff:.3e}")
+        f" max abs diff {diff:.3e}, launches {paths['dense_fit']}")
+    if paths["dense_fit"]["relu_topk"] != 2 * DENSE_ITERS:
+        raise AssertionError("the torch-dense fit did not run its epilogue "
+                             "through relu_topk")
     if diff > 1e-4:
         raise AssertionError(f"cuda-bsr and torch-dense error traces differ "
                              f"by {diff:.3e} > 1e-4")
@@ -726,6 +830,9 @@ def main(argv=None) -> int:
         if paths["unfused_fit"][name] != 2 * UNFUSED_ITERS + 1:
             raise AssertionError(f"unfused fit launched {name} "
                                  f"{paths['unfused_fit'][name]} times")
+    if paths["unfused_fit"]["relu_topk"] != 2 * UNFUSED_ITERS:
+        raise AssertionError("the unfused fit did not run its epilogue "
+                             "through relu_topk")
     results["paths"] = paths
 
     # -- 7. timings ------------------------------------------------------------
@@ -861,6 +968,19 @@ def main(argv=None) -> int:
                              "in its SASS")
     results["bsr_sass"] = bsr_sass
     results["bsr_ptxas"] = bsr_ptxas
+    # the epilogue's instantiations: cluster barriers (UCGABAR), warp
+    # reductions (REDUX) and shared loads (LDS) in the SASS, and ptxas
+    mask_sass = sass_counts(_build.library_path("project_mask"),
+                            ("UCGABAR_ARV", "UCGABAR_WAIT", "REDUX", "LDS"))
+    mask_ptxas = ptxas_report(report["project_mask"]["log"])
+    for fn, c in mask_sass.items():
+        pr = mask_ptxas.get(fn, {})
+        log(f"[sass] {fn[-48:]}: {c} ; ptxas: {pr.get('registers')} "
+            f"registers, {pr.get('stack_bytes')} bytes stack, "
+            f"{pr.get('spill_stores')} / {pr.get('spill_loads')} bytes spill "
+            "stores / loads")
+    results["mask_sass"] = mask_sass
+    results["mask_ptxas"] = mask_ptxas
     rows["bsr_spmm"]["library_ms"] = float(np.mean(lib_times))
     rows["bsr_spmm"]["library_call"] = lib_calls
     rows["bsr_spmm_gram"]["library_ms"] = None
@@ -893,23 +1013,13 @@ def main(argv=None) -> int:
                         by_shape={nm: {"ms": i["ms"], "library_ms": i["lib"],
                                        "turns_ms": i["turns_ms"]}
                                   for nm, i in zip(("U", "V"), items)})
-    items = []
-    epilogue = []
-    for w, t in ((u_fit, T_U), (v_fit, T_V)):
-        xw = w - 0.5 * w.max()  # a pre-epilogue factor: mixed signs
-        tw = topk_threshold_bisect(torch.clamp_min(xw, 0.0), t)
-        n = xw.numel()
-        items.append(dict(ms=cuda_ms(lambda: project_mask(xw, tw)),
-                          plain_ms=cuda_ms(lambda: ref.project_mask_ref(xw,
-                                                                        tw)),
-                          bound=bound_ms(4 * (2 * n + 1), 2.0 * n)))
-        epilogue.append(cuda_ms(lambda: FusedReluTopK(t)(xw), reps=10))
-    rows["project_mask"] = dict(
-        ms=float(np.mean([i["ms"] for i in items])),
-        plain_ms=float(np.mean([i["plain_ms"] for i in items])),
-        library_ms=None, bound_ms=float(np.mean([i["bound"][0]
-                                                 for i in items])),
-        bound_by=items[0]["bound"][1])
+    # the two epilogues of an iteration, FusedReluTopK on pre-epilogue
+    # factors of the fit's shapes (mixed signs), for the fit's share below;
+    # the epilogue's own timings come after the LM phases (phase 12)
+    pre = {"U": (u_fit - 0.5 * u_fit.max(), T_U),
+           "V": (v_fit - 0.5 * v_fit.max(), T_V)}
+    epilogue = [cuda_ms(lambda xw=xw, t=t: FusedReluTopK(t)(xw), reps=200)
+                for xw, t in pre.values()]
 
     # the fit itself, on the already-ingested operand: one warm-up, then
     # three timed fits (host clock, ending in a synchronize)
@@ -926,19 +1036,18 @@ def main(argv=None) -> int:
         fit_runs.append(time.perf_counter() - t0)
     fit_s = float(np.median(fit_runs))
     per_iter_ms = 1e3 * fit_s / ITERS
-    bisect_ms = sum(epilogue) - 2 * rows["project_mask"]["ms"]
     timing.update(fit_s=fit_s, fit_runs_s=fit_runs, per_iter_ms=per_iter_ms,
-                  epilogue_ms=epilogue, bisection_ms_per_iter=bisect_ms,
-                  bisection_share=bisect_ms / per_iter_ms,
+                  epilogue_ms=epilogue, epilogue_ms_per_iter=sum(epilogue),
+                  epilogue_share=sum(epilogue) / per_iter_ms,
                   fit_peak_mem_bytes=torch.cuda.max_memory_allocated(),
                   resident_before_fit_bytes=base_mem)
     log(f"[time] cuda-bsr fit ({ITERS} iterations, operand ingested): "
         f"{fit_s * 1e3:.2f} ms (median of "
         f"{[round(1e3 * t, 2) for t in fit_runs]} ms), {per_iter_ms:.3f} ms "
-        f"per iteration; the two bisection epilogues take "
-        f"{sum(epilogue):.3f} ms of it, {bisect_ms:.3f} ms of that outside "
-        f"the mask kernel ({100 * bisect_ms / per_iter_ms:.1f}% of an "
-        f"iteration); device memory peak during the fit "
+        f"per iteration; its two epilogues (one relu_topk launch each, "
+        f"bisection included) take {sum(epilogue):.4f} ms "
+        f"({100 * sum(epilogue) / per_iter_ms:.1f}% of an iteration); "
+        f"device memory peak during the fit "
         f"{timing['fit_peak_mem_bytes'] / 1e9:.3f} GB ({base_mem / 1e9:.3f} "
         f"GB resident before it)")
 
@@ -960,14 +1069,81 @@ def main(argv=None) -> int:
     # -- 8.-11. the LM serving slice ----------------------------------------------
     run_lm_slice(dev, paths, checks, rows, results)
 
+    # -- 12. the epilogue's timings -------------------------------------------
+    # after the LM phases, so that its profiler windows do not run before
+    # them.  On the fit's pre-epilogue factors (U, V) and on the two checked
+    # shapes beyond them: relu_topk per call (CUDA events) and on the device
+    # (profiler), 40 steps against none (1 + ceil(40 / 3) barriers against
+    # 2: the time per count round); the mask alone (tau given); the eager
+    # plain epilogue (the bisection launched op by op, as FusedReluTopK ran
+    # before this kernel); and, for orientation only, torch.topk of the
+    # relu'd factor (exactly t, no ties: not the same function)
+    rounds = 1 + max(1, -(-NUM_STEPS // STEPS_PER_ROUND))
+    for name in ("Wikipedia U", "beyond on-chip"):
+        n, k, t = EPILOGUE_SHAPES[name]
+        pre[name] = ((torch.randn((n, k), generator=gen) - 0.25).to(dev), t)
+    epi = {}
+    for name, (xw, t) in pre.items():
+        n = xw.numel()
+        reps = 200 if n < 1_000_000 else 20
+        _, tw = relu_topk(xw, t)
+        full_us = device_us(lambda: relu_topk(xw, t), "relu_topk_kernel")
+        none_us = device_us(lambda: relu_topk(xw, t, 0), "relu_topk_kernel")
+        item = dict(
+            shape=list(xw.shape), t=t, plan=relu_topk_plan(n),
+            ms=cuda_ms(lambda: relu_topk(xw, t), reps=reps),
+            device_us=full_us, zero_steps_device_us=none_us,
+            barriers=rounds,
+            per_round_ms=1e-3 * (full_us - none_us) / (rounds - 2),
+            mask_ms=cuda_ms(lambda: project_mask(xw, tw), reps=reps),
+            plain_ms=cuda_ms(lambda: ref.relu_topk_ref(xw, t),
+                             reps=10 if n < 1_000_000 else 3),
+            topk_ms=cuda_ms(lambda: torch.topk(
+                torch.clamp_min(xw, 0.0).flatten(), t), reps=reps),
+            bound=bound_ms(4 * (2 * n + 1), (NUM_STEPS + 2.0) * n))
+        item["latency_floor_ms"] = item["per_round_ms"] * rounds
+        epi[name] = item
+        log(f"[time] relu_topk {name} ({' x '.join(map(str, xw.shape))}, "
+            f"t={t}, {item['plan']['path']}, {item['plan']['exchange']} of "
+            f"{item['plan']['blocks']}): {item['ms']:.5f} ms a call (device "
+            f"{full_us:.3f} us, none of the 40 steps {none_us:.3f} us; "
+            f"{rounds} barriers, {1e3 * item['per_round_ms']:.3f} us a round,"
+            f" latency floor {item['latency_floor_ms']:.5f} ms); the mask "
+            f"alone {item['mask_ms']:.5f} ms; eager plain epilogue "
+            f"{item['plain_ms']:.5f} ms ({item['plain_ms'] / item['ms']:.1f}x"
+            f" the kernel); torch.topk {item['topk_ms']:.5f} ms (orientation "
+            f"only); bound {item['bound'][0]:.6f} ms by {item['bound'][1]}")
+    results["epilogue_timing"] = {
+        nm: {k: v for k, v in i.items() if k != "bound"}
+        | {"bound_ms": i["bound"][0]} for nm, i in epi.items()}
+    items = [epi["U"], epi["V"]]
+    rows["project_mask"] = dict(
+        function="relu_topk",
+        ms=float(np.mean([i["ms"] for i in items])),
+        plain_ms=float(np.mean([i["plain_ms"] for i in items])),
+        library_ms=None,
+        library_note="none computes the same function; torch.topk of the "
+                     "relu'd factor (exactly t, no ties) for orientation: "
+                     f"{float(np.mean([i['topk_ms'] for i in items]))} ms",
+        bound_ms=float(np.mean([i["bound"][0] for i in items])),
+        bound_by=items[0]["bound"][1],
+        per_round_ms=float(np.mean([i["per_round_ms"] for i in items])),
+        latency_floor_ms=float(np.mean([i["latency_floor_ms"]
+                                        for i in items])),
+        mask_only_ms=float(np.mean([i["mask_ms"] for i in items])))
+
     owner = {"project_mask": "fit", "bsr_spmm_gram": "fit",
              "bsr_spmm": "transform", "gram": "unfused_fit",
              "flash_attention": "prefill"}
+    # the TPU kernel project_mask runs on the fit path as relu_topk, the
+    # function of csrc/project_mask.cu that finds tau in the same launch
+    counter = {"project_mask": "relu_topk"}
     kernels = []
-    for name in _build.KERNELS:
+    for name in REPLACES:
         route, source = SOURCES[name]
         r = rows[name]
-        launches = paths[owner[name]][name]
+        key = counter.get(name, name)
+        launches = paths[owner[name]][key]
         if launches < 1:
             raise AssertionError(f"{name} was not launched on its path")
         kernels.append(dict(
@@ -975,8 +1151,8 @@ def main(argv=None) -> int:
             launches=launches, max_abs_err=checks[name], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-            path=owner[name],
-            launches_by_path={p: c[name] for p, c in paths.items()},
+            path=owner[name], function=key,
+            launches_by_path={p: c[key] for p, c in paths.items()},
             launched=True, checked=True))
         log(f"[kernel] {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} "
             f"ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, library "

@@ -5,7 +5,8 @@
 orientations built once at ingest; ``gram`` runs the CUDA Gram kernel.
 The half-step hooks ``matmul_with_gram`` / ``matmul_t_with_gram`` run the
 fused CUDA spmm + Gram kernel, one sweep for the product and the Gram.  The
-epilogue is the fused relu + threshold mask (Triton ``project_mask``).
+epilogue is the relu + top-t threshold and mask in one CUDA launch
+(``relu_topk``).
 
 Two registry entries share the class:
 

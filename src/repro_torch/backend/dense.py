@@ -1,7 +1,9 @@
 """Dense baseline backend, ``torch-dense`` (port of the ``jnp-dense`` half
 of ``repro.backend.jnp_backends``).  Products by ``torch.matmul``, which the
 reference left to XLA too; this is the oracle and small-matrix baseline,
-not a kernel of the port.  The padded-CSR backend is not ported yet."""
+not a kernel of the port.  Its epilogue is the port's one-launch
+``relu_topk`` (the reference's unfused relu + bisection gives the same
+factors).  The padded-CSR backend is not ported yet."""
 from __future__ import annotations
 
 import numpy as np
@@ -16,7 +18,7 @@ class TorchDenseBackend(LocalExecution):
     """Dense products on a dense tensor operand."""
 
     name = "torch-dense"
-    fuse_epilogue = False
+    fuse_epilogue = True
 
     def accepts(self, a) -> bool:
         return isinstance(a, torch.Tensor)

@@ -5,25 +5,25 @@ largest-magnitude entries of a matrix, zeroing the rest.
 
 * :func:`topk_project_exact` — sort-based, keeps exactly ``t``; the oracle.
 * :func:`topk_project_bisect` — threshold bisection: ``tau`` with
-  ``count(|x| >= tau) ~= t`` after a fixed number of float bisection steps,
-  then a mask.  The bisection runs on the device in f32 with no host sync;
-  it is bitwise the reference's on f32 input.
-* :class:`FusedReluTopK` — relu + bisection threshold + mask, the mask in
-  one pass of the ``project_mask`` kernel.
+  ``count(|x| >= tau) ~= t`` after a fixed number of float bisection steps
+  (``topk_threshold_bisect``, kept with the kernels' plain versions in
+  ``kernels/ref.py``), then a mask.  The bisection runs on the device in f32
+  with no host sync; it is bitwise the reference's on f32 input.
+* :class:`FusedReluTopK` — relu + bisection threshold + mask, the whole
+  epilogue in one launch of the ``relu_topk`` kernel on the card.
 * :func:`topk_project_columns` — per-column enforcement (paper §4).
 
 ``DistTopK`` (the mesh histogram variant) is not ported yet.  Ties at the
 threshold: the bisection keeps every entry equal to the final ``tau``.
-
-The 40-step bisection is a few hundred small launches per call in eager
-PyTorch (XLA fused it into the engine's scan); it is measured, not yet
-fused, in this slice.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from repro_torch.kernels.project_mask import relu_topk
+from repro_torch.kernels.ref import topk_threshold_bisect
 
 __all__ = [
     "topk_threshold_bisect",
@@ -46,25 +46,6 @@ def topk_project_exact(x: torch.Tensor, t: int) -> torch.Tensor:
     return torch.where(mask.reshape(x.shape), x, torch.zeros_like(x))
 
 
-def topk_threshold_bisect(x: torch.Tensor, t: int,
-                          num_steps: int = 40) -> torch.Tensor:
-    """Return ``tau`` (a 0-d device tensor) such that ``count(|x| >= tau)``
-    is as close to ``t`` as float bisection allows (count >= t at the
-    returned tau).  Every step stays on the device in f32, in the
-    reference's arithmetic, so ``tau`` is bitwise the reference's."""
-    absx = torch.abs(x)
-    hi = torch.max(absx).float()
-    lo = torch.zeros((), dtype=torch.float32, device=x.device)
-    for _ in range(num_steps):
-        mid = 0.5 * (lo + hi)
-        # too many kept -> raise threshold (lo=mid); too few -> lower it
-        over = torch.sum(absx >= mid) > t
-        lo = torch.where(over, mid, lo)
-        hi = torch.where(over, hi, mid)
-    tau = torch.where(torch.sum(absx >= hi) >= t, hi, lo)
-    return tau.to(absx.dtype)
-
-
 def topk_project_bisect(x: torch.Tensor, t: int,
                         num_steps: int = 40) -> torch.Tensor:
     """Keep (up to threshold ties) the ``t`` largest-magnitude entries."""
@@ -78,12 +59,13 @@ def topk_project_bisect(x: torch.Tensor, t: int,
 
 @dataclasses.dataclass(frozen=True)
 class FusedReluTopK:
-    """The whole ALS epilogue — relu, then the top-t threshold mask — with
-    the mask as one pass of the ``project_mask`` kernel.
+    """The whole ALS epilogue — relu, then the top-t threshold mask.
 
-    The bisection counts the relu'd factor, so ``tau`` is bitwise the
-    reference's; the threshold reaches the kernel as a device tensor.  The
-    engine skips its own relu when a sparsifier sets ``fuses_relu``."""
+    On the card it is one launch of the ``relu_topk`` kernel, which runs
+    the bisection and the mask together; on the CPU its plain version
+    (``kernels.ref.relu_topk_ref``).  The bisection counts the relu'd
+    factor, so ``tau`` is bitwise the reference's.  The engine skips its
+    own relu when a sparsifier sets ``fuses_relu``."""
 
     t: int
     num_steps: int = 40
@@ -91,15 +73,11 @@ class FusedReluTopK:
     fuses_relu = True
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        from repro_torch.kernels.ops import fused_project_mask
-
         if int(self.t) >= x.numel():
             return torch.clamp_min(x, 0.0)
         if int(self.t) == 0:
             return torch.zeros_like(x)
-        pos = torch.clamp_min(x, 0.0)
-        tau = topk_threshold_bisect(pos, self.t, self.num_steps)
-        return fused_project_mask(x, tau)
+        return relu_topk(x, self.t, self.num_steps)[0]
 
 
 def topk_project_columns(x: torch.Tensor, t_per_col: int) -> torch.Tensor:

@@ -5,8 +5,7 @@ compiled at first use by ``nvcc`` for ``sm_90a`` into a shared library with a
 plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds).  Libraries land in ``build/kernels/`` at the repository root,
 named by a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is reused.  The one Triton kernel (``project_mask``)
-compiles through Triton's own cache at first launch.
+and an unchanged one is reused.
 
 Every wrapper counts its kernel launches here (:func:`count_launch`), so a
 run can show that the main path went through the kernels and not through
@@ -32,8 +31,9 @@ __all__ = ["KERNELS", "count_launch", "launch_counts", "reset_launch_counts",
            "on_card", "check_rc", "library", "library_path", "build_all",
            "stream_ptr"]
 
-#: the port's kernels, by wrapper name
-KERNELS = ("project_mask", "gram", "bsr_spmm", "bsr_spmm_gram",
+#: the port's kernel wrappers, by name (``relu_topk`` and ``project_mask``
+#: are the two functions of ``csrc/project_mask.cu``)
+KERNELS = ("relu_topk", "project_mask", "gram", "bsr_spmm", "bsr_spmm_gram",
            "flash_attention")
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
@@ -86,9 +86,9 @@ def check_rc(rc: int, kernel: str) -> None:
 
 def stream_ptr(device: torch.device) -> int:
     """PyTorch's current stream on ``device`` (a CUDA device with its
-    index), as an integer handle.  This is the raw getter Triton's launcher
-    uses: the public ``torch.cuda.current_stream(device).cuda_stream``
-    builds a Stream object, a few microseconds more per launch."""
+    index), as an integer handle, by the raw getter: the public
+    ``torch.cuda.current_stream(device).cuda_stream`` builds a Stream
+    object, a few microseconds more per launch."""
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 

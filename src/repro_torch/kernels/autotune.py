@@ -42,12 +42,10 @@ _RING_HEADER = 256
 
 @dataclasses.dataclass(frozen=True)
 class TileConfig:
-    """``bm`` / ``bk``: BSR tile dims (fixed at ingest); ``mask_block``:
-    elements each program of the Triton mask kernel handles."""
+    """``bm`` / ``bk``: BSR tile dims (fixed at ingest)."""
 
     bm: int = 128
     bk: int = 128
-    mask_block: int = 1024
 
 
 DEFAULT_TILES = TileConfig()

@@ -2,9 +2,8 @@
 ``repro.kernels.ops``).
 
 Each function dispatches on where its tensors live: on the card it launches
-the hand-written kernel (CUDA C++ for the BSR products and the Gram, Triton
-for the mask) or raises; on the CPU it runs the kernel's plain PyTorch
-version.  There is no fallback from one to the other.
+the hand-written CUDA C++ kernel or raises; on the CPU it runs the kernel's
+plain PyTorch version.  There is no fallback from one to the other.
 """
 from __future__ import annotations
 

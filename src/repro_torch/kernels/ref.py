@@ -14,6 +14,7 @@ from repro_torch.kernels.bsr import BSR
 
 __all__ = ["bsr_spmm_ref", "bsr_spmm_gram_ref", "bsr_spmm_run_partials",
            "flash_attention_ref", "gram_ref", "project_mask_ref",
+           "relu_topk_ref", "relu_topk_rounds_ref", "topk_threshold_bisect",
            "unreferenced_rows"]
 
 
@@ -119,3 +120,78 @@ def project_mask_ref(x: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
     y = torch.clamp_min(x, 0.0)
     return torch.where(y >= tau.to(x.dtype), y, torch.zeros((), dtype=x.dtype,
                                                             device=x.device))
+
+
+def topk_threshold_bisect(x: torch.Tensor, t: int,
+                          num_steps: int = 40) -> torch.Tensor:
+    """Return ``tau`` (a 0-d device tensor) such that ``count(|x| >= tau)``
+    is as close to ``t`` as float bisection allows (count >= t at the
+    returned tau).  Every step stays on the device in f32, in the
+    reference's arithmetic, so ``tau`` is bitwise the reference's."""
+    absx = torch.abs(x)
+    hi = torch.max(absx).float()
+    lo = torch.zeros((), dtype=torch.float32, device=x.device)
+    for _ in range(num_steps):
+        mid = 0.5 * (lo + hi)
+        # too many kept -> raise threshold (lo=mid); too few -> lower it
+        over = torch.sum(absx >= mid) > t
+        lo = torch.where(over, mid, lo)
+        hi = torch.where(over, hi, mid)
+    tau = torch.where(torch.sum(absx >= hi) >= t, hi, lo)
+    return tau.to(absx.dtype)
+
+
+def relu_topk_ref(x: torch.Tensor, t: int, num_steps: int = 40
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``FusedReluTopK``'s function: ``relu`` (``clamp_min``), the
+    ``num_steps``-step bisection threshold ``tau`` of the relu'd factor,
+    then the mask.  Returns ``(out, tau)``."""
+    tau = topk_threshold_bisect(torch.clamp_min(x, 0.0), t, num_steps)
+    return project_mask_ref(x, tau), tau
+
+
+def relu_topk_rounds_ref(x: torch.Tensor, t: int, num_steps: int = 40,
+                         steps_per_round: int = 1
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`relu_topk_ref` in the round structure of the kernel: round 0
+    takes ``hi = max(relu(x))``; every later round counts the relu'd factor
+    at all ``2^s - 1`` midpoints of the next ``s`` bisection steps (a
+    heap-ordered tree: node j's children are ``2j+1`` when the count at its
+    midpoint exceeds ``t``, ``2j+2`` when not) and at its incoming ``hi``,
+    then walks the ``s`` steps.  Every midpoint is ``0.5 * (lo + hi)`` of
+    its own node, so ``tau`` is bitwise the one-step-per-round bisection's
+    for any ``steps_per_round``.  Stays on the device: no host sync."""
+    if steps_per_round < 1:
+        raise ValueError(f"steps_per_round must be >= 1, got "
+                         f"{steps_per_round}")
+    y = torch.clamp_min(x, 0.0)
+    absy = torch.abs(y)
+    hi = torch.max(absy).float()
+    lo = torch.zeros((), dtype=torch.float32, device=x.device)
+    left = num_steps
+    while True:
+        s = min(steps_per_round, left)
+        los, his = lo[None], hi[None]
+        mids = []
+        for _ in range(steps_per_round):
+            mid = 0.5 * (los + his)
+            mids.append(mid)
+            # children in heap order: (count > t: lo = mid), (else: hi = mid)
+            los = torch.stack([mid, los], -1).reshape(-1)
+            his = torch.stack([his, mid], -1).reshape(-1)
+        th = torch.cat(mids + [hi[None]])
+        counts = torch.stack([torch.sum(absy >= v) for v in th])
+        c_hi = counts[-1]
+        node = torch.zeros((), dtype=torch.long, device=x.device)
+        for _ in range(s):
+            mid, c = th[node], counts[node]
+            over = c > t
+            lo = torch.where(over, mid, lo)
+            hi = torch.where(over, hi, mid)
+            c_hi = torch.where(over, c_hi, c)
+            node = 2 * node + torch.where(over, 1, 2)
+        left -= s
+        if left <= 0:
+            break
+    tau = torch.where(c_hi >= t, hi, lo)
+    return project_mask_ref(x, tau), tau

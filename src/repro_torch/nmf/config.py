@@ -72,7 +72,8 @@ class Sparsity:
                    ) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
         """Callable enforcing this spec on a ``(rows, k)`` factor, ``None``
         for no enforcement.  ``fused=True`` (``"global"`` mode only) gives
-        the relu + mask epilogue whose mask is one kernel pass."""
+        the whole relu + top-t epilogue, one ``relu_topk`` launch on the
+        card (bisection and mask together)."""
         t = self.resolve(rows, k, which)
         if t is None:
             return None

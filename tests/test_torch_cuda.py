@@ -15,7 +15,9 @@ from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_t
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused import bsr_spmm_gram
 from repro_torch.kernels.gram import gram
-from repro_torch.kernels.project_mask import project_mask
+from repro_torch.kernels.project_mask import (
+    project_mask, relu_topk, relu_topk_plan,
+)
 from repro_torch.nmf import EnforcedNMF, NMFConfig, Sparsity
 
 pytestmark = pytest.mark.cuda
@@ -264,3 +266,125 @@ def test_prefill_on_card_matches_cpu(card):
     on_card = step(model.to(card), {"tokens": tokens.to(card)})
     assert _build.launch_counts()["flash_attention"] == cfg.n_layers
     torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=5e-2, atol=1e-1)
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+#: (rows, k, t): a small factor, PubMed's U and V, a Wikipedia-shaped U
+#: (143,462 x 5), a factor beyond the largest cluster's shared memory that
+#: the grid still holds, and one beyond the grid's that it streams
+EPILOGUE_SHAPES = [(1001, 5, 150), (20112, 5, 2011), (7510, 5, 751),
+                   (143462, 5, 14346), (1_000_000, 2, 40_000),
+                   (4_000_000, 8, 640_000)]
+
+
+@pytest.mark.parametrize("n,k,t", EPILOGUE_SHAPES)
+def test_relu_topk_matches_plain_version(card, n, k, t):
+    """``relu_topk`` is its plain version bit for bit, ``out`` and
+    ``tau``, in one launch per call, and two calls are bitwise equal;
+    ``project_mask`` with that ``tau`` too."""
+    gen = torch.Generator().manual_seed(n + k)
+    x = (torch.randn((n, k), generator=gen) - 0.25).to(card)
+    want_out, want_tau = ref.relu_topk_ref(x, t)
+    _build.reset_launch_counts()
+    out, tau = relu_topk(x, t)
+    assert _build.launch_counts()["relu_topk"] == 1
+    out2, tau2 = relu_topk(x, t)
+    torch.cuda.synchronize()
+    assert tau.shape == () and tau.device == x.device
+    assert torch.equal(_bits(tau), _bits(want_tau))
+    assert torch.equal(_bits(out), _bits(want_out))
+    assert torch.equal(_bits(out2), _bits(out))
+    assert torch.equal(_bits(tau2), _bits(tau))
+    assert torch.equal(_bits(project_mask(x, want_tau)),
+                       _bits(ref.project_mask_ref(x, want_tau)))
+    assert _build.launch_counts()["project_mask"] == 1
+
+
+def test_relu_topk_paths_and_cluster_sizes(card):
+    """The factor's size picks every cluster size, the grid with the factor
+    resident and the grid streaming it; each gives the plain version's
+    bits, on a plain and a 4-byte-misaligned view."""
+    want = {6_000: (1, "cluster", "resident"),
+            12_000: (2, "cluster", "resident"),
+            30_000: (4, "cluster", "resident"),
+            60_000: (8, "cluster", "resident"),
+            100_560: (16, "cluster", "resident")}
+    for numel, (blocks, exchange, path) in want.items():
+        plan = relu_topk_plan(numel)
+        assert (plan["blocks"], plan["exchange"], plan["path"]) == (
+            blocks, exchange, path), (numel, plan)
+    n_sm = torch.cuda.get_device_properties(card).multi_processor_count
+    assert relu_topk_plan(2_000_000)["exchange"] == "grid"
+    assert relu_topk_plan(2_000_000)["path"] == "resident"
+    assert relu_topk_plan(32_000_000)["path"] == "streamed"
+    assert relu_topk_plan(32_000_000)["blocks"] == n_sm
+    gen = torch.Generator().manual_seed(3)
+    for numel in (*want, 2_000_000, 32_000_000 + 3):
+        x = torch.randn(numel + 1, generator=gen).to(card)
+        for view in (x[:numel], x[1:]):
+            t = numel // 10
+            want_out, want_tau = ref.relu_topk_ref(view, t)
+            out, tau = relu_topk(view, t)
+            assert torch.equal(_bits(tau), _bits(want_tau)), numel
+            assert torch.equal(_bits(out), _bits(want_out)), numel
+
+
+@pytest.mark.parametrize("case", ["nan", "all_negative", "all_zero", "ties",
+                                  "misaligned", "t1", "numel_minus_1",
+                                  "steps0", "tiny", "nan_grid"])
+def test_relu_topk_edge_cases_on_card(card, case):
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn((3001, 5), generator=gen)
+    t, steps = 400, 40
+    if case == "nan":
+        x[17, 3] = float("nan")
+    elif case == "all_negative":
+        x = -x.abs() - 1e-3
+    elif case == "all_zero":
+        x = torch.zeros_like(x)
+    elif case == "ties":
+        x = torch.randint(0, 3, x.shape, generator=gen).float() * 0.5
+    elif case == "t1":
+        t = 1
+    elif case == "numel_minus_1":
+        t = x.numel() - 1
+    elif case == "steps0":
+        steps = 0
+    elif case == "tiny":
+        x, t = x[:1, :3].contiguous(), 1
+    elif case == "nan_grid":  # on the grid exchange
+        x = torch.randn((500_000, 4), generator=gen)
+        x[123_456, 1] = float("nan")
+        t = 50_000
+    x = x.to(card)
+    if case == "misaligned":  # 4 bytes past a 16-byte boundary
+        x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].reshape(x.shape)
+        assert x.data_ptr() % 16 == 4
+    want_out, want_tau = ref.relu_topk_ref(x, t, steps)
+    out, tau = relu_topk(x, t, steps)
+    assert torch.equal(_bits(tau), _bits(want_tau))
+    assert torch.equal(_bits(out), _bits(want_out))
+    if case == "nan_grid":
+        assert relu_topk_plan(x.numel())["exchange"] == "grid"
+
+
+def test_relu_topk_makes_no_host_sync(card):
+    from repro_torch.core.topk import FusedReluTopK
+
+    for n in (20112, 1_000_000):  # the cluster and the grid exchange
+        x = torch.randn((n, 5), generator=torch.Generator().manual_seed(5)
+                        ).to(card)
+        relu_topk(x, 2011)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, tau = relu_topk(x, 2011)
+            fused = FusedReluTopK(t=2011)(x)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert _build.launch_counts()["relu_topk"] == 2
+        assert torch.equal(fused, out)

@@ -5,7 +5,7 @@
   fallback.
 * Without a card, an entry point that was not asked for the CPU raises.
 * A kernel wrapper handed CUDA tensors launches its kernel (here: fails to,
-  since there is no nvcc / triton / card) and never runs its plain version.
+  since there is no nvcc / card) and never runs its plain version.
   That holds for the LM path's flash-attention wrapper too.
 """
 import ast
@@ -23,8 +23,9 @@ from repro_torch.kernels import project_mask as mask_mod
 from repro_torch.kernels.bsr_spmm import bsr_spmm
 from repro_torch.kernels.fused import bsr_spmm_gram
 from repro_torch.kernels.gram import gram
-from repro_torch.kernels.project_mask import project_mask
+from repro_torch.kernels.project_mask import project_mask, relu_topk
 from repro_torch.configs import ARCHS, SHAPES, smoke_config
+from repro_torch.core.topk import FusedReluTopK
 from repro_torch.launch import serve
 from repro_torch.models import api
 from repro_torch.nmf import EnforcedNMF
@@ -90,12 +91,12 @@ def on_card(monkeypatch):
     plain version is then observable."""
     monkeypatch.setattr(_build, "on_card", lambda *tensors: True)
     for name in ("bsr_spmm_ref", "bsr_spmm_gram_ref", "gram_ref",
-                 "project_mask_ref", "flash_attention_ref"):
+                 "project_mask_ref", "relu_topk_ref", "flash_attention_ref"):
         monkeypatch.setattr(ref, name, _plain)
     monkeypatch.setattr(spmm_mod, "_lib", _launch)
     monkeypatch.setattr(flash_mod, "_lib", _launch)
     monkeypatch.setattr(gram_mod, "_lib", _launch)
-    monkeypatch.setattr(mask_mod, "_kernel", _launch)
+    monkeypatch.setattr(mask_mod, "_lib", _launch)
 
 
 def _operand():
@@ -105,7 +106,8 @@ def _operand():
 
 
 @pytest.mark.parametrize("kernel", ["bsr_spmm", "bsr_spmm_gram", "gram",
-                                    "project_mask"])
+                                    "project_mask", "relu_topk",
+                                    "FusedReluTopK"])
 def test_wrapper_never_runs_plain_version_on_card(on_card, kernel):
     a, u = _operand()
     calls = {
@@ -113,18 +115,22 @@ def test_wrapper_never_runs_plain_version_on_card(on_card, kernel):
         "bsr_spmm_gram": lambda: bsr_spmm_gram(a, u),
         "gram": lambda: gram(u),
         "project_mask": lambda: project_mask(u, torch.tensor(0.5)),
+        "relu_topk": lambda: relu_topk(u, 7),
+        "FusedReluTopK": lambda: FusedReluTopK(t=7)(u),
     }
     with pytest.raises(_Launched):
         calls[kernel]()
 
 
-@pytest.mark.parametrize("kernel", ["bsr_spmm", "gram", "project_mask"])
+@pytest.mark.parametrize("kernel", ["bsr_spmm", "gram", "project_mask",
+                                    "relu_topk"])
 def test_wrapper_rejects_bf16_and_bad_layout_on_card(on_card, kernel):
     a, u = _operand()
     calls = {
         "bsr_spmm": lambda x: bsr_spmm(a, x),
         "gram": lambda x: gram(x),
         "project_mask": lambda x: project_mask(x, torch.tensor(0.5)),
+        "relu_topk": lambda x: relu_topk(x, 7),
     }
     with pytest.raises(NotImplementedError, match="bf16"):
         calls[kernel](u.to(torch.bfloat16))
@@ -172,3 +178,16 @@ def test_lm_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--requests", "1"])
     assert ServingEngine(cfg, model, device="cpu").device.type == "cpu"
+
+
+def test_relu_topk_wrapper_refuses_what_the_kernel_does_not_take(on_card):
+    u = torch.ones((30, 3))
+    with pytest.raises(ValueError, match="num_steps"):
+        relu_topk(u, 7, num_steps=-1)
+    with pytest.raises(ValueError, match="non-empty"):
+        relu_topk(torch.ones((0, 3)), 1)
+    with pytest.raises(TypeError, match="float32"):
+        relu_topk(u.double(), 7)
+    with pytest.raises(_Launched):
+        relu_topk(u, 7, num_steps=0)
+    assert _build.launch_counts()["relu_topk"] == 0
