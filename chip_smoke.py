@@ -64,7 +64,28 @@ Phases (any failed check raises, and the script exits non-zero):
 12. the epilogue's timings, after the LM phases: ``relu_topk`` per call and
     per count round (device time, 40 steps against none) on the fit's
     pre-epilogue factors and the two larger checked shapes, beside the mask
-    alone, the eager plain epilogue and, for orientation, ``torch.topk``.
+    alone, the eager plain epilogue and, for orientation, ``torch.topk``;
+13. the streamed fit: ``solver="streaming"`` on ``cuda-bsr`` over the same
+    corpus in the default 8 chunks, 10 inner passes a chunk, with launch
+    counts (``bsr_spmm_gram`` and ``relu_topk`` 2 x 10 a chunk,
+    ``bsr_spmm`` once a chunk for the fold-in and once for the statistics'
+    seed); bitwise equal with prefetch off and from a ``write_corpus``
+    directory; within 1e-4 of the same streamed fit on ``torch-csr`` (the
+    traces; U relative to its largest entry); NNZ(V) by the batch fit's
+    per-document rule; the time a chunk, the prefetcher's packing and
+    stall, each chunk's host ingest, the card's busy share and peak memory;
+14. ``partial_fit`` of phase 5's 751 documents onto phase 3's model: the
+    statistics continue (gv = seed + V_c^T V_c within 1e-5 relative),
+    finite factors, NNZ(U) within t_u up to ties, health -1, launches;
+15. a 5-iteration ``torch-csr`` fit against phase 3's trace (1e-4), and
+    the sequential solver (block width 1, 10 iterations a block) on
+    ``torch-csr`` against ``torch-dense`` (per-block error, 1e-4), each
+    with its time an iteration;
+16. k = 256: ``gram`` at (20,112, k) for k = 225, 256 and 300 against
+    ``u.T @ u`` and its plain version (1e-4 / 1e-3), bitwise repeatable and
+    symmetric, and timed at k = 256 beside ``u.T @ u`` and its bound; a
+    3-iteration ``cuda-bsr`` fit at k = 256 (the separate launches) against
+    ``torch-dense`` (1e-4), and its time an iteration.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -180,6 +201,12 @@ def bound_ms(nbytes, flops, peak_flops=F32_FLOPS):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def gram_flops(n, k):
+    """FLOPs of U^T U for U (n, k): G is symmetric, so the function needs
+    only its k (k + 1) / 2 distinct entries, 2 n each."""
+    return float(n) * k * (k + 1)
 
 
 def flash_flops(b, h, sq, t, hd, causal):
@@ -552,6 +579,271 @@ def run_lm_slice(dev, paths, checks, rows, results):
               prefill_tokens_per_s=n_tok / prefill_s,
               flash_share_of_prefill=flash_share, decode_tick_ms=decode_ms)
     results["lm"] = lm
+
+
+def run_stream_slice(dev, corpus, a_sp, op, model, new_sp, u0, paths,
+                     results):
+    """Phases 13-16: the streamed fit on cuda-bsr (against prefetch off, a
+    corpus directory and torch-csr), partial_fit continuing phase 3's
+    model, the torch-csr and sequential fits, and the Gram and a fit at
+    k = 256.  Returns gram's row at k = 256."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.backend import get_backend
+    from repro_torch.data import ResidentChunks, write_corpus
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.bsr_spmm import bsr_spmm
+    from repro_torch.kernels.gram import gram
+    from repro_torch.nmf import (
+        EnforcedNMF, NMFConfig, Sparsity, default_chunk_docs,
+    )
+
+    out = results["stream_slice"] = {}
+    sparsity = Sparsity(t_u=T_U, t_v=T_V)
+    scfg = NMFConfig(k=K, iters=ITERS, sparsity=sparsity, solver="streaming",
+                     backend="cuda-bsr")
+    width = default_chunk_docs(N_DOCS)
+    chunks = -(-N_DOCS // width)
+    inner = min(ITERS, 10)
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    def same(name, a, b):
+        if not (torch.equal(a.u_, b.u_) and torch.equal(a.v_, b.v_)
+                and torch.equal(a.result_.error, b.result_.error)
+                and torch.equal(a._av_acc, b._av_acc)):
+            raise AssertionError(f"streamed fit: {name} is not bitwise the "
+                                 "resident prefetched fit")
+
+    # -- 13. the streamed fit ------------------------------------------------
+    EnforcedNMF(scfg.replace(iters=2), device=dev).fit(a_sp, u0=u0)  # warm
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    on, on_s = wall(lambda: EnforcedNMF(scfg, device=dev).fit(a_sp, u0=u0))
+    paths["streamed_fit"] = counts = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    sres = on.result_
+    log(f"[stream] cuda-bsr streamed fit, {chunks} chunks of <= {width} "
+        f"documents, {inner} inner passes a chunk: {on_s:.3f} s "
+        f"({1e3 * on_s / chunks:.1f} ms a chunk, the fold-in, the "
+        f"statistics' seed and the corpus index included), launches "
+        f"{counts}; per-chunk error {sres.error.tolist()}; NNZ(U) "
+        f"{sres.final_nnz_u}, NNZ(V) {int((on.v_ != 0).sum())}, health "
+        f"{int(sres.health)}")
+    want = 2 * inner * chunks
+    if counts["bsr_spmm_gram"] != want or counts["relu_topk"] != want:
+        raise AssertionError(f"streamed fit: bsr_spmm_gram / relu_topk "
+                             f"launched {counts['bsr_spmm_gram']} / "
+                             f"{counts['relu_topk']} times, not 2 x {inner} "
+                             f"x {chunks} = {want}")
+    if counts["bsr_spmm"] != 2 * chunks:
+        raise AssertionError(f"streamed fit: bsr_spmm launched "
+                             f"{counts['bsr_spmm']} times, not once a chunk "
+                             f"for the fold-in and once for the statistics' "
+                             f"seed ({2 * chunks})")
+    if int(sres.health) != -1 or not bool(torch.isfinite(on.u_).all()):
+        raise AssertionError("streamed fit: unhealthy")
+    off, off_s = wall(lambda: EnforcedNMF(scfg.replace(prefetch=False),
+                                          device=dev).fit(a_sp, u0=u0))
+    same("prefetch off", on, off)
+    with tempfile.TemporaryDirectory() as tmp:
+        (path, write_s) = wall(lambda: write_corpus(corpus, tmp))
+        disk, disk_s = wall(lambda: EnforcedNMF(scfg, device=dev).fit(
+            path, u0=u0))
+        same("from a corpus directory", on, disk)
+    log(f"[stream] prefetch off {off_s:.3f} s and from a write_corpus "
+        f"directory {disk_s:.3f} s (written in {write_s:.3f} s): both "
+        "bitwise the prefetched resident fit (U, V, error trace, A V)")
+    csr, csr_s = wall(lambda: EnforcedNMF(scfg.replace(backend="torch-csr"),
+                                          device=dev).fit(a_sp, u0=u0))
+    diffs = {f: float((getattr(csr.result_, f) - getattr(sres, f)
+                       ).abs().max()) for f in ("residual", "error")}
+    # U is not normalized (entries reach the hundreds), so its bar is
+    # relative to its largest entry: f32 summation order alone moves it by
+    # a few ulps of that entry through 80 dependent Gram solves
+    diffs["u_rel"] = float((csr.u_ - on.u_).abs().max() / on.u_.abs().max())
+    log(f"[stream] torch-csr streamed fit (gather / scatter, eager "
+        f"bisection) {csr_s:.3f} s; max abs diff against cuda-bsr (U: "
+        f"relative to max |U| = {float(on.u_.abs().max()):.4g}): {diffs}")
+    if max(diffs.values()) > 1e-4:
+        raise AssertionError(f"streamed cuda-bsr and torch-csr differ: "
+                             f"{diffs}")
+    nnz_s, nnz_b = int((on.v_ != 0).sum()), int((model.v_ != 0).sum())
+    log(f"[stream] NNZ(V) streamed {nnz_s} against batch {nnz_b} "
+        f"(t_v = {T_V}: rescaled per chunk)")
+    if nnz_s > T_V + 5 or abs(nnz_s - nnz_b) > 0.1 * T_V:
+        raise AssertionError("streamed NNZ(V) breaks the batch fit's "
+                             "per-document rule")
+    st = sres.stream_stats["fit"]
+    hidden = 1.0 - st["stall_s"] / st["pack_s"] if st["pack_s"] else 0.0
+    # each chunk's host ingest into the two BSR orientations, alone
+    source = ResidentChunks(corpus, width)
+    be = get_backend("cuda-bsr")
+    ingest = []
+    for i in range(chunks):
+        host = source.load(i)
+        t0 = time.perf_counter()
+        be.prepare(host, device="cpu")
+        ingest.append(time.perf_counter() - t0)
+    prof = profiled("streamed cuda-bsr fit",
+                    lambda: EnforcedNMF(scfg, device=dev).fit(a_sp, u0=u0))
+    log(f"[stream] prefetcher (factor pass): pack {st['pack_s']:.3f} s, "
+        f"consumer stalled {st['stall_s']:.3f} s, {100 * hidden:.1f}% of "
+        f"the packing hidden under compute, max queued "
+        f"{st['max_queued']}; fold-in pass {sres.stream_stats['fold_in']}; "
+        f"host ingest a chunk {[round(x, 4) for x in ingest]} s; device "
+        f"memory peak {peak / 1e9:.3f} GB ({base_mem / 1e9:.3f} GB resident "
+        f"before it), the batch fit's (phase 7) "
+        f"{results['timing']['fit_peak_mem_bytes'] / 1e9:.3f} GB ("
+        f"{results['timing']['resident_before_fit_bytes'] / 1e9:.3f} GB)")
+    out["streamed"] = dict(
+        chunks=chunks, chunk_docs=width, inner=inner, wall_s=on_s,
+        per_chunk_ms=1e3 * on_s / chunks, prefetch_off_s=off_s,
+        disk_s=disk_s, write_s=write_s, csr_s=csr_s, csr_diffs=diffs,
+        launches=counts, error=sres.error.tolist(),
+        residual=sres.residual.tolist(), nnz_v=nnz_s, batch_nnz_v=nnz_b,
+        prefetch=st, fold_in=sres.stream_stats["fold_in"],
+        hidden_share=hidden, ingest_s=ingest, peak_mem_bytes=peak,
+        resident_before_bytes=base_mem, profile=prof)
+    del on, off, disk, csr
+
+    # -- 14. partial_fit continues phase 3's model ---------------------------
+    gv_seed = model._gv_acc.clone()
+    _build.reset_launch_counts()
+    (_, pf_s) = wall(lambda: model.partial_fit(new_sp))
+    paths["partial_fit"] = counts = _build.launch_counts()
+    v_c = model.v_
+    want_gv = gv_seed + v_c.T @ v_c
+    rel = float((model._gv_acc - want_gv).abs().max() / want_gv.abs().max())
+    nu = int((model.u_ != 0).sum())
+    finite = bool(torch.isfinite(model.u_).all() and torch.isfinite(v_c).all())
+    log(f"[partial_fit] {NEW_DOCS} held-out documents onto phase 3's model "
+        f"in {1e3 * pf_s:.1f} ms: gv against seed + V_c^T V_c relative "
+        f"{rel:.3e}; NNZ(U) {nu}, NNZ(V_c) {int((v_c != 0).sum())}, health "
+        f"{int(model.health_)}, launches {counts}")
+    if rel > 1e-5 or not finite or int(model.health_) != -1:
+        raise AssertionError("partial_fit did not continue the statistics")
+    if not nu <= T_U + max(2, T_U // 100):
+        raise AssertionError(f"partial_fit NNZ(U) {nu} exceeds t_u")
+    if counts["bsr_spmm_gram"] != 2 * inner or counts["relu_topk"] != 2 * inner:
+        raise AssertionError("partial_fit did not take the fused kernel and "
+                             "the epilogue twice an inner pass")
+    out["partial_fit"] = dict(ms=1e3 * pf_s, gv_rel=rel, nnz_u=nu,
+                              launches=counts)
+
+    # -- 15. torch-csr and sequential ----------------------------------------
+    csr_cfg = NMFConfig(k=K, iters=UNFUSED_ITERS, sparsity=sparsity,
+                        backend="torch-csr")
+    _build.reset_launch_counts()
+    csr_fit, csr_fit_s = wall(lambda: EnforcedNMF(csr_cfg, device=dev).fit(
+        a_sp, u0=u0))
+    paths["csr_fit"] = _build.launch_counts()
+    cdiff = float((csr_fit.result_.error
+                   - model.result_.error[:UNFUSED_ITERS]).abs().max())
+    log(f"[csr] {UNFUSED_ITERS}-iteration torch-csr fit (cap "
+        f"{corpus.cap}): {1e3 * csr_fit_s / UNFUSED_ITERS:.1f} ms an "
+        f"iteration (ingest included); error trace against phase 3's "
+        f"cuda-bsr max abs diff {cdiff:.3e}; launches {paths['csr_fit']}")
+    if cdiff > 1e-4:
+        raise AssertionError("torch-csr and cuda-bsr error traces differ")
+    seq_iters = 10
+    seq_cfg = NMFConfig(k=K, iters=seq_iters, sparsity=sparsity,
+                        solver="sequential", block_size=1,
+                        backend="torch-csr")
+    seq, seq_s = wall(lambda: EnforcedNMF(seq_cfg, device=dev).fit(
+        a_sp, u0=u0))
+    seq_d = EnforcedNMF(seq_cfg.replace(backend="torch-dense"),
+                        device=dev).fit(a_sp, u0=u0)
+    sdiff = float((seq.result_.error - seq_d.result_.error).abs().max())
+    log(f"[sequential] block_size 1, {seq_iters} iterations a block, {K} "
+        f"blocks on torch-csr: {1e3 * seq_s / (K * seq_iters):.2f} ms an "
+        f"iteration ({seq_s:.3f} s); per-block error "
+        f"{seq.result_.error.tolist()}, against torch-dense max abs diff "
+        f"{sdiff:.3e}")
+    if sdiff > 1e-4 or seq.result_.error_granularity != "block":
+        raise AssertionError("sequential torch-csr and torch-dense differ")
+    out["csr"] = dict(iters=UNFUSED_ITERS, wall_s=csr_fit_s,
+                      per_iter_ms=1e3 * csr_fit_s / UNFUSED_ITERS,
+                      error_diff=cdiff, cap=corpus.cap)
+    out["sequential"] = dict(iters_per_block=seq_iters, blocks=K,
+                             wall_s=seq_s,
+                             per_iter_ms=1e3 * seq_s / (K * seq_iters),
+                             error=seq.result_.error.tolist(),
+                             dense_diff=sdiff)
+    del csr_fit, seq, seq_d
+
+    # -- 16. the Gram and a fit at k = 256 -----------------------------------
+    big_k = 256
+    gen = torch.Generator().manual_seed(16)
+    gram_checks = {}
+    for k in (225, big_k, 300):          # 300 = 2 x 128 + 44
+        # mean-zero U: off-diagonal entries ~sqrt(n), so the bar separates
+        # f32 products from TF32 or bf16 ones
+        w = torch.randn((N_TERMS, k), generator=gen).to(dev)
+        _build.reset_launch_counts()
+        g1 = gram(w)
+        if _build.launch_counts()["gram"] != 1:
+            raise AssertionError("gram: more than one launch a call")
+        if not (torch.equal(gram(w), g1) and torch.equal(g1, g1.T)):
+            raise AssertionError(f"gram at k = {k} is not bitwise "
+                                 "repeatable and symmetric")
+        gram_checks[k] = max(close(f"gram k={k}", g1, w.T @ w, 1e-4, 1e-3),
+                             close(f"gram k={k}", g1, ref.gram_ref(w), 1e-4,
+                                   1e-3))
+    log(f"[k256] gram at ({N_TERMS}, k) against u.T @ u and its plain "
+        f"version, one launch, bitwise repeatable and symmetric: max abs "
+        f"err {gram_checks}")
+    w = torch.randn((N_TERMS, big_k), generator=gen).to(dev)
+    turns = [cuda_ms(lambda: gram(w), reps=50),
+             cuda_ms(lambda: w.T @ w, reps=50),
+             cuda_ms(lambda: w.T @ w, reps=50),
+             cuda_ms(lambda: gram(w), reps=50)]
+    g_row = dict(ms=(turns[0] + turns[3]) / 2, library_ms=(turns[1] + turns[2]) / 2,
+                 plain_ms=cuda_ms(lambda: ref.gram_ref(w), reps=20),
+                 turns_ms=turns, max_abs_err=gram_checks)
+    g_row["bound_ms"], g_row["bound_by"] = bound_ms(
+        4 * (N_TERMS * big_k + big_k * big_k), gram_flops(N_TERMS, big_k))
+    log(f"[k256] gram ({N_TERMS} x {big_k}): {g_row['ms']:.4f} ms, u.T @ u "
+        f"{g_row['library_ms']:.4f} ms (turns {[round(t, 4) for t in turns]}"
+        f" ms), plain {g_row['plain_ms']:.4f} ms, bound "
+        f"{g_row['bound_ms']:.4f} ms by {g_row['bound_by']}")
+    v_big = torch.rand((N_DOCS, big_k), generator=gen).to(dev)
+    spmm_ms = cuda_ms(lambda: bsr_spmm(op.bsr, v_big), reps=5)
+    close("bsr_spmm k=256", bsr_spmm(op.bsr, v_big),
+          ref.bsr_spmm_ref(op.bsr, v_big), 1e-4, 1e-4)
+    big_cfg = NMFConfig(k=big_k, iters=3, backend="cuda-bsr",
+                        sparsity=Sparsity(t_u=N_TERMS * big_k // 50,
+                                          t_v=N_DOCS * big_k // 50))
+    u_big = torch.rand((N_TERMS, big_k), generator=gen).to(dev)
+    _build.reset_launch_counts()
+    big, big_s = wall(lambda: EnforcedNMF(big_cfg, device=dev).fit(
+        op, u0=u_big))
+    paths["fit_k256"] = counts = _build.launch_counts()
+    big_d = EnforcedNMF(big_cfg.replace(backend="torch-dense"),
+                        device=dev).fit(a_sp, u0=u_big)
+    kdiff = float((big.result_.error - big_d.result_.error).abs().max())
+    log(f"[k256] 3-iteration cuda-bsr fit at k = {big_k} (unfused "
+        f"half-steps): {1e3 * big_s / 3:.1f} ms an iteration; bsr_spmm "
+        f"A @ V at k = {big_k} {spmm_ms:.3f} ms; error "
+        f"{big.result_.error.tolist()}, against torch-dense max abs diff "
+        f"{kdiff:.3e}; launches {counts}")
+    if kdiff > 1e-4 or int(big.result_.health) != -1:
+        raise AssertionError("the k = 256 fit disagrees with torch-dense")
+    if counts["gram"] < 6 or counts["bsr_spmm"] < 6 or counts["relu_topk"] != 6:
+        raise AssertionError("the k = 256 fit did not take bsr_spmm, gram "
+                             "and relu_topk")
+    out["k256"] = dict(gram=g_row, spmm_ms=spmm_ms,
+                       fit_per_iter_ms=1e3 * big_s / 3, error_diff=kdiff,
+                       launches=counts)
+    return g_row
 
 
 def main(argv=None) -> int:
@@ -997,7 +1289,7 @@ def main(argv=None) -> int:
         item = dict(ms=(turns[0] + turns[3]) / 2,
                     lib=(turns[1] + turns[2]) / 2,
                     plain_ms=cuda_ms(lambda: ref.gram_ref(w)),
-                    bound=bound_ms(4 * (n * K + K * K), 2.0 * n * K * K),
+                    bound=bound_ms(4 * (n * K + K * K), gram_flops(n, K)),
                     turns_ms=turns)
         items.append(item)
         log(f"[time] gram {name} ({n} x {K}): {item['ms']:.5f} ms, u.T @ u "
@@ -1132,6 +1424,15 @@ def main(argv=None) -> int:
                                         for i in items])),
         mask_only_ms=float(np.mean([i["mask_ms"] for i in items])))
 
+    # -- 13.-16. the streamed and sequential solvers, k = 256 ---------------
+    gram_k256 = run_stream_slice(dev, corpus, a_sp, op, model, new_sp, u0,
+                                 paths, results)
+    rows["gram"]["k_range"] = ("any k: one output tile up to k = 224, "
+                               "128 x 128 tiles above")
+    rows["gram"]["k256"] = {key: gram_k256[key] for key in
+                            ("ms", "library_ms", "plain_ms", "bound_ms",
+                             "bound_by")}
+
     owner = {"project_mask": "fit", "bsr_spmm_gram": "fit",
              "bsr_spmm": "transform", "gram": "unfused_fit",
              "flash_attention": "prefill"}
@@ -1152,6 +1453,8 @@ def main(argv=None) -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             path=owner[name], function=key,
+            **({"k_range": r["k_range"], "k256": r["k256"]}
+               if name == "gram" else {}),
             launches_by_path={p: c[key] for p, c in paths.items()},
             launched=True, checked=True))
         log(f"[kernel] {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} "

@@ -2,6 +2,7 @@
 ``repro.backend``).
 
 Registered: ``torch-dense`` (dense baseline, alias ``jnp-dense``),
+``torch-csr`` (padded-CSR gather / scatter, alias ``jnp-csr``),
 ``cuda-bsr`` (the Hopper kernels, fused half-step; alias ``pallas-bsr``)
 and ``cuda-bsr-unfused`` (separate launches; alias ``pallas-bsr-unfused``).
 """
@@ -10,6 +11,7 @@ from repro_torch.backend.base import (
     get_backend, register_backend, resolve_backend, select_backend,
 )
 from repro_torch.backend import dense as _dense  # noqa: F401 — registers
+from repro_torch.backend import csr as _csr  # noqa: F401 — registers
 from repro_torch.backend import cuda_bsr as _cuda_bsr  # noqa: F401 — registers
 from repro_torch.kernels.bsr import BSROperand
 

@@ -11,10 +11,11 @@ the metric hooks ``sqnorm`` / ``relative_error``.
 Selection rules (:func:`select_backend` / :func:`default_backend_name`):
 
 * an operand already in a backend's native format picks that backend
-  (``BSROperand`` -> ``cuda-bsr``, a dense tensor -> ``torch-dense``);
-* sparse *input* (scipy sparse, ``SpCSR``) defaults to ``cuda-bsr`` on every
-  device until the padded-CSR backend is ported; on the CPU its kernels run
-  their plain versions;
+  (``BSROperand`` -> ``cuda-bsr``, ``SpCSR`` -> ``torch-csr``, a dense
+  tensor -> ``torch-dense``);
+* scipy-sparse *input* defaults to ``cuda-bsr`` on every device (the
+  reference's kernel path; on the CPU its kernels run their plain
+  versions), where the reference takes ``jnp-csr`` off the TPU;
 * ``NMFConfig(backend=...)`` overrides everything.  The reference's names
   (``pallas-bsr``, ``pallas-bsr-unfused``, ``jnp-dense``) are registered as
   aliases, so configs carry over.
@@ -165,10 +166,8 @@ def resolve_backend(a, name: Optional[str] = None) -> MatmulBackend:
 
 
 def default_backend_name(a) -> str:
-    """Ingest-time default for raw input: sparse input goes to the BSR
+    """Ingest-time default for raw input: scipy sparse goes to the BSR
     kernel path; everything else keeps its native format."""
-    from repro_torch.sparse.csr import SpCSR
-
-    if hasattr(a, "tocoo") or isinstance(a, SpCSR):
+    if hasattr(a, "tocoo"):  # scipy sparse, without a hard scipy import
         return "cuda-bsr"
     return select_backend(a).name

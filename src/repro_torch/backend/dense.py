@@ -3,7 +3,8 @@ of ``repro.backend.jnp_backends``).  Products by ``torch.matmul``, which the
 reference left to XLA too; this is the oracle and small-matrix baseline,
 not a kernel of the port.  Its epilogue is the port's one-launch
 ``relu_topk`` (the reference's unfused relu + bisection gives the same
-factors).  The padded-CSR backend is not ported yet."""
+factors).  The padded-CSR backend, with the reference's unfused
+epilogue, is ``torch-csr`` (``backend/csr.py``)."""
 from __future__ import annotations
 
 import numpy as np

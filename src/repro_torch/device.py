@@ -11,7 +11,7 @@ from typing import Union
 
 import torch
 
-__all__ = ["default_device", "resolve_device", "configure_numerics"]
+__all__ = ["default_device", "resolve_device", "configure_numerics", "move"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -24,18 +24,20 @@ def configure_numerics() -> None:
 
 
 def default_device() -> torch.device:
-    """``cuda``; raises ``RuntimeError`` when no CUDA device is available."""
+    """The current card, with its index (so devices compare with ``==``);
+    raises ``RuntimeError`` when no CUDA device is available."""
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' explicitly to "
             "run the port's plain PyTorch versions on the CPU")
     configure_numerics()
-    return torch.device("cuda")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None`` -> :func:`default_device`; ``"cpu"`` -> the CPU; a CUDA
-    device is checked for availability (and TF32 is switched off)."""
+    device is checked for availability (and TF32 is switched off), and
+    ``cuda`` without an index becomes the current card."""
     if device is None:
         return default_device()
     dev = torch.device(device)
@@ -44,6 +46,20 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             raise RuntimeError(f"device {dev} requested but CUDA is not "
                                "available")
         configure_numerics()
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def move(t: torch.Tensor, device, non_blocking: bool = False
+         ) -> torch.Tensor:
+    """``t`` on ``device``.  With ``non_blocking`` a CPU tensor bound for a
+    card is copied from pinned host memory (pinned first, one copy, if it
+    is not) and the host does not wait for the copy: the caller orders the
+    streams."""
+    if (non_blocking and t.device.type == "cpu"
+            and torch.device(device).type == "cuda" and not t.is_pinned()):
+        t = t.pin_memory()
+    return t.to(device, non_blocking=non_blocking)

@@ -37,6 +37,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import move, resolve_device
+
 __all__ = ["BSR", "BSROperand", "SplitPlan", "bsr_from_dense",
            "bsr_from_scipy", "bsr_dot_uv", "bsr_to_coo", "bsr_to_dense",
            "bsr_transpose", "bsr_operand", "coverage", "plan_runs",
@@ -133,11 +135,20 @@ class BSR:
     def device(self) -> torch.device:
         return self.tiles.device
 
-    def to(self, device) -> "BSR":
-        unc = (None if self.uncovered_rows is None
-               else self.uncovered_rows.to(device))
-        return BSR(self.tiles.to(device), self.block_cols.to(device),
-                   self.shape, self.gram_flags.to(device), unc,
+    def to(self, device, non_blocking: bool = False) -> "BSR":
+        """This operand on ``device``, its split re-planned for it;
+        ``non_blocking`` copies from pinned host memory without waiting
+        (``device.move``)."""
+        device = resolve_device(device)
+        if self.device == device:
+            return self
+
+        def mv(t):
+            return move(t, device, non_blocking)
+
+        unc = None if self.uncovered_rows is None else mv(self.uncovered_rows)
+        return BSR(mv(self.tiles), mv(self.block_cols), self.shape,
+                   mv(self.gram_flags), unc,
                    _make_plan(self.nrb, self.bcap, device))
 
     def nnz(self) -> torch.Tensor:
@@ -167,9 +178,9 @@ class BSROperand:
     def device(self) -> torch.device:
         return self.bsr.device
 
-    def to(self, device) -> "BSROperand":
-        return BSROperand(self.bsr.to(device), self.bsr_t.to(device),
-                          self.shape)
+    def to(self, device, non_blocking: bool = False) -> "BSROperand":
+        return BSROperand(self.bsr.to(device, non_blocking),
+                          self.bsr_t.to(device, non_blocking), self.shape)
 
     def nnz(self) -> torch.Tensor:
         return self.bsr.nnz()

@@ -1,4 +1,4 @@
-"""Gram matrix G = U^T U on the card, in one CUDA launch (port of
+"""Gram matrix G = U^T U on the card, in one CUDA launch for any k (port of
 ``repro.kernels.gram``).
 
 Replaces the Pallas TPU kernel ``repro/kernels/gram.py::_gram_kernel``
@@ -8,11 +8,13 @@ CUDA C++ kernel in ``csrc/gram.cu``, built for ``sm_90a`` and called through
 ``ctypes``.  U is tall and skinny (n rows, k of about 5), so the product is
 bound by one read of U: at PubMed size 0.4 MB, a fraction of a microsecond
 at 3.35 TB/s, which means the host's cost per call dominates.  So the call
-is one launch: blocks reduce their rows into f32 partials, and the last
-block to take an integer ticket sums them in block order (deterministic,
-no float atomics; design notes in the source).  The wrapper keeps the ticket
-and the partials' scratch per device and allocates only G.  For CPU tensors
-it runs ``kernels.ref.gram_ref``; for CUDA tensors it launches or raises.
+is one launch: blocks reduce their rows into f32 partials of one output
+tile each (one tile up to k = 224, 128 x 128 tiles above it), and for each
+tile the last block to take an integer ticket sums them in block order
+(deterministic, no float atomics; design notes in the source).  The wrapper
+keeps the tickets and the partials' scratch per device and allocates only
+G.  For CPU tensors it runs ``kernels.ref.gram_ref``; for CUDA tensors it
+launches or raises.
 """
 from __future__ import annotations
 
@@ -24,14 +26,10 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-__all__ = ["gram", "MAX_K"]
+__all__ = ["gram"]
 
-#: widest U the kernel takes: its k x k f32 partial, a pass's group sums and
-#: a 16 KB chunk of U fit in the 227 KB of shared memory a block may hold
-MAX_K = 224
-
-#: per CUDA device: [ticket (one int32, 0 between calls), partials' scratch,
-#: SM count]
+#: per CUDA device: [tickets (int32, one per output tile, 0 between calls),
+#: partials' scratch, SM count]
 _SCRATCH: Dict[torch.device, list] = {}
 
 
@@ -41,21 +39,36 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gram_f32.argtypes = [p, p, p, p, i, i, i, p]
     lib.gram_f32.restype = i
+    lib.gram_plan.argtypes = [i, i, p, p, p]
+    lib.gram_plan.restype = i
     return lib
 
 
+@functools.cache
+def _plan(k: int, n_sm: int) -> tuple:
+    """(tiles, scratch floats) of a call at this k, from the kernel's own
+    plan."""
+    tile, tiles, floats = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    rc = _lib().gram_plan(k, n_sm, ctypes.byref(tile), ctypes.byref(tiles),
+                          ctypes.byref(floats))
+    _build.check_rc(rc, "gram_plan")
+    return tiles.value, floats.value
+
+
 def _scratch(dev: torch.device, k: int) -> list:
-    """The ticket, a scratch of at least one k x k partial per SM, and the
-    SM count of ``dev``; created at the first call, grown when k grows."""
+    """The tickets, the partials' scratch and the SM count of ``dev``;
+    created at the first call, grown when k needs more."""
     entry = _SCRATCH.get(dev)
     if entry is None:
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         entry = _SCRATCH[dev] = [
-            torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.zeros(0, dtype=torch.int32, device=dev),
             torch.empty(0, dtype=torch.float32, device=dev), n_sm]
-    if entry[1].numel() < entry[2] * k * k:
-        entry[1] = torch.empty(entry[2] * k * k, dtype=torch.float32,
-                               device=dev)
+    tiles, floats = _plan(k, entry[2])
+    if entry[0].numel() < tiles:
+        entry[0] = torch.zeros(tiles, dtype=torch.int32, device=dev)
+    if entry[1].numel() < floats:
+        entry[1] = torch.empty(floats, dtype=torch.float32, device=dev)
     return entry
 
 
@@ -66,9 +79,6 @@ def _check(u: torch.Tensor) -> None:
         raise TypeError(f"u must be float32, got {u.dtype}")
     if u.dim() != 2 or u.shape[1] < 1:
         raise ValueError(f"u must be (n, k>=1), got {tuple(u.shape)}")
-    if u.shape[1] > MAX_K:
-        raise ValueError(f"the gram kernel takes k <= {MAX_K}, got "
-                         f"{u.shape[1]}")
     if not u.is_contiguous():
         raise ValueError("u must be contiguous")
 
@@ -80,10 +90,10 @@ def gram(u: torch.Tensor) -> torch.Tensor:
     _check(u)
     lib = _lib()
     n, k = u.shape
-    ticket, part, n_sm = _scratch(u.device, k)
+    tickets, part, n_sm = _scratch(u.device, k)
     g = torch.empty((k, k), dtype=torch.float32, device=u.device)
     rc = lib.gram_f32(u.data_ptr(), g.data_ptr(), part.data_ptr(),
-                      ticket.data_ptr(), n, k, n_sm,
+                      tickets.data_ptr(), n, k, n_sm,
                       _build.stream_ptr(u.device))
     _build.check_rc(rc, "gram")
     _build.count_launch("gram")

@@ -4,10 +4,10 @@
 A ``Sparsity`` describes what to enforce (budgets, absolute or as a
 fraction of the dense factor, globally or per column, by bisection or exact
 sort); an ``NMFConfig`` describes the run.  Fields of the reference that
-select code this slice has not ported (the sequential, distributed and
-streaming solvers, mesh shapes, the prefetcher) are absent; rollback and
-checkpointing are present, and a config that asks for them raises
-``NotImplementedError`` rather than being ignored.
+select code the port has not ported yet (the distributed solver, mesh
+shapes) are absent; rollback and checkpointing are present, and a config
+that asks for them raises ``NotImplementedError`` rather than being
+ignored.
 """
 from __future__ import annotations
 
@@ -96,13 +96,22 @@ class Sparsity:
 class NMFConfig:
     """One factorization run: ``A (n x m) ~= U (n x k) @ V (m x k)^T``.
 
-    * ``k``, ``iters``, ``sparsity``, ``solver`` (``"als"`` or
-      ``"enforced"`` in this slice), ``dtype``, ``tol`` (early stop on the
-      relative residual; 0 disables), ``seed`` (default initial guess),
+    * ``k``, ``iters`` (per block for ``"sequential"``), ``sparsity``,
+      ``solver`` (``"als"``, ``"enforced"``, ``"sequential"`` or
+      ``"streaming"``), ``dtype``, ``tol`` (early stop on the relative
+      residual; 0 disables), ``seed`` (default initial guess),
       ``track_error`` — as in the reference.
-    * ``backend`` — ``"cuda-bsr"``, ``"cuda-bsr-unfused"``,
+    * ``backend`` — ``"cuda-bsr"``, ``"cuda-bsr-unfused"``, ``"torch-csr"``,
       ``"torch-dense"`` or a reference alias; ``None`` selects from the
-      input (sparse input -> ``cuda-bsr``).
+      input (scipy sparse -> ``cuda-bsr``, ``SpCSR`` -> ``torch-csr``).  The
+      sequential solver takes no BSR backend.
+    * ``block_size`` — topic-block width of the ``"sequential"`` solver
+      (must divide ``k``).
+    * ``chunk_docs`` — documents per column chunk of the ``"streaming"``
+      solver (``None``: 8 chunks); ``prefetch`` / ``prefetch_depth`` —
+      pack the next chunks on a worker thread (ingest, and on the card the
+      copy on a side stream), at most ``prefetch_depth`` ahead; the fit is
+      bitwise the same with prefetch off.
     * ``on_unhealthy`` — ``"raise"`` (the default here) fails with
       ``FitHealthError`` when the health monitor flags the fit; ``"ignore"``
       keeps the non-finite factors.  ``"rollback"`` (the reference's
@@ -119,6 +128,10 @@ class NMFConfig:
     tol: float = 0.0
     seed: int = 0
     track_error: bool = True
+    block_size: int = 1
+    chunk_docs: Optional[int] = None
+    prefetch: bool = True
+    prefetch_depth: int = 2
     checkpoint_dir: Optional[str] = None
     resume: bool = False
     on_unhealthy: str = "raise"
@@ -128,13 +141,27 @@ class NMFConfig:
             raise ValueError(f"k must be positive, got {self.k}")
         if self.iters <= 0:
             raise ValueError(f"iters must be positive, got {self.iters}")
+        if self.solver == "sequential" and self.k % self.block_size:
+            raise ValueError(
+                f"block_size ({self.block_size}) must divide k ({self.k})")
         if self.backend is not None:
-            from repro_torch.backend import available_backends
+            from repro_torch.backend import available_backends, get_backend
 
             if self.backend not in available_backends():
                 raise ValueError(
                     f"unknown backend {self.backend!r}; "
                     f"available: {available_backends()}")
+            if (get_backend(self.backend).name.startswith("cuda-bsr")
+                    and self.solver == "sequential"):
+                raise ValueError(
+                    f"backend {self.backend!r} is not supported by the "
+                    "sequential solver; use als/enforced/streaming")
+        if self.chunk_docs is not None and self.chunk_docs <= 0:
+            raise ValueError(
+                f"chunk_docs must be positive, got {self.chunk_docs}")
+        if self.prefetch_depth <= 0:
+            raise ValueError(
+                f"prefetch_depth must be positive, got {self.prefetch_depth}")
         if self.on_unhealthy not in ("rollback", "raise", "ignore"):
             raise ValueError(
                 f"on_unhealthy must be 'rollback', 'raise', or 'ignore', "

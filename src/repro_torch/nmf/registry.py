@@ -1,10 +1,11 @@
 """Solver registry (port of ``repro.nmf.registry``): a solver is a callable
 ``(a, config, u0) -> FitResult`` registered under its ``NMFConfig.solver``
-name.  Registered in this slice: ``als`` and ``enforced``."""
+name, with the width of its default initial guess (``u0_cols``).
+Registered: ``als``, ``enforced``, ``sequential`` and ``streaming``."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, TYPE_CHECKING
+from typing import Callable, Dict, List, Optional, TYPE_CHECKING
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.nmf.result import FitResult
@@ -18,16 +19,22 @@ __all__ = ["register_solver", "get_solver", "available_solvers", "SolverEntry"]
 class SolverEntry:
     name: str
     fn: SolverFn
+    #: columns of the default initial guess for a config (``k``, or the
+    #: sequential solver's ``block_size``)
+    u0_cols: Callable[..., int] = lambda cfg: cfg.k
 
 
 _REGISTRY: Dict[str, SolverEntry] = {}
 
 
-def register_solver(name: str):
+def register_solver(name: str, u0_cols: Optional[Callable[..., int]] = None):
     """Decorator: ``@register_solver("als")``."""
 
     def deco(fn: SolverFn) -> SolverFn:
-        _REGISTRY[name] = SolverEntry(name=name, fn=fn)
+        entry = SolverEntry(name=name, fn=fn)
+        if u0_cols is not None:
+            entry = dataclasses.replace(entry, u0_cols=u0_cols)
+        _REGISTRY[name] = entry
         return fn
 
     return deco

@@ -1,8 +1,13 @@
-"""Fit history (port of ``repro.nmf.result``, ALS family).
+"""Fit history (port of ``repro.nmf.result``): one result type for every
+solver.
 
-Traces stay device tensors; reading a ``final_*`` property copies one value
-to the host.  The port also keeps the engine's health index, which the
-reference folds into its rollback loop.
+``residual`` is a flat trace: per iteration for the ALS family, the
+per-block traces concatenated in block order for ``"sequential"``, one
+entry per document chunk for ``"streaming"``.  ``error`` is per iteration,
+per converged block or per chunk; ``error_granularity`` says which.  Traces
+stay device tensors; reading a ``final_*`` property copies one value to the
+host.  The port also keeps the engine's health index, which the reference
+folds into its rollback loop.
 """
 from __future__ import annotations
 
@@ -12,6 +17,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.nmf import NMFResult
+from repro_torch.core.sequential import SequentialResult
 
 __all__ = ["FitResult"]
 
@@ -32,6 +38,10 @@ class FitResult:
     nnz_v: Optional[torch.Tensor] = None
     #: first unhealthy iteration (0-d int32 tensor), -1 when healthy
     health: Optional[torch.Tensor] = None
+    error_granularity: str = "iteration"   # "iteration" | "block" | "chunk"
+    #: a streamed fit's host-side packing: the ``Prefetcher.stats`` of its
+    #: factor pass (``"fit"``) and of its fold-in pass (``"fold_in"``)
+    stream_stats: Optional[dict] = None
 
     @property
     def final_error(self) -> float:
@@ -64,6 +74,16 @@ class FitResult:
         )
 
     @classmethod
+    def from_sequential_result(cls, res: SequentialResult,
+                               solver: str = "sequential") -> "FitResult":
+        residual = res.residual.reshape(-1)
+        return cls(
+            u=res.u, v=res.v, residual=residual, error=res.error,
+            max_nnz=res.max_nnz, solver=solver,
+            n_iter=int(residual.shape[0]), error_granularity="block",
+        )
+
+    @classmethod
     def concatenate(cls, parts: list["FitResult"],
                     converged: bool = False) -> "FitResult":
         """Stitch chunked runs (early stop) into one history; factors come
@@ -84,5 +104,5 @@ class FitResult:
             max_nnz=torch.max(torch.stack([p.max_nnz for p in parts])),
             solver=last.solver, n_iter=sum(p.n_iter for p in parts),
             converged=converged, nnz_u=cat("nnz_u"), nnz_v=cat("nnz_v"),
-            health=health,
+            health=health, error_granularity=last.error_granularity,
         )

@@ -388,3 +388,129 @@ def test_relu_topk_makes_no_host_sync(card):
             torch.cuda.set_sync_debug_mode(0)
         assert _build.launch_counts()["relu_topk"] == 2
         assert torch.equal(fused, out)
+
+
+@pytest.mark.parametrize("k", [224, 225, 256, 512])
+@pytest.mark.parametrize("n", [1, 3001, 20112])
+def test_gram_kernel_tiled_matches_matmul(card, n, k):
+    """Past one tile (k > 224) the output is tiled: one launch a call,
+    within the Gram's bar of ``u.T @ u`` (TF32 off) and of the plain
+    version, bitwise repeatable and bitwise symmetric."""
+    u = torch.randn((n, k), generator=torch.Generator().manual_seed(n + k)
+                    ).to(card)
+    _build.reset_launch_counts()
+    first = gram(u)
+    second = gram(u)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["gram"] == 2
+    assert torch.equal(first, second) and torch.equal(first, first.T)
+    torch.testing.assert_close(first, u.T @ u, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(first, ref.gram_ref(u), rtol=1e-4, atol=1e-3)
+
+
+def test_bsr_products_at_k_256(card):
+    """k = 256 streams the tiles once per 8-column ring chunk; both
+    orientations within 1e-4 of their plain versions."""
+    rng = np.random.default_rng(256)
+    a = _rand_sparse(rng, 700, 500, density=0.05)
+    op = bsr.bsr_operand(a, bm=128, bk=128, device=card)
+    v, u = (torch.from_numpy(rng.random(shape).astype(np.float32)).to(card)
+            for shape in ((500, 256), (700, 256)))
+    torch.testing.assert_close(bsr_spmm(op.bsr, v), ref.bsr_spmm_ref(op.bsr, v),
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(bsr_spmm_t(op, u),
+                               ref.bsr_spmm_ref(op.bsr_t, u),
+                               rtol=1e-4, atol=1e-4)
+
+
+def _small_corpus():
+    from repro_torch.data import synthetic_journal_corpus
+    from repro_torch.sparse import to_scipy
+
+    a, _ = synthetic_journal_corpus(n_terms=600, n_docs=400, seed=3)
+    return to_scipy(a)
+
+
+def test_fit_at_k_256_on_card_matches_cpu(card):
+    """The unfused half-steps (``bsr_spmm`` + the tiled ``gram``) and
+    ``relu_topk`` at k = 256, against the same fit on the CPU, 2% of each
+    factor kept.  With a few hundred documents a rank-256 fit is
+    ill-conditioned (backends differ by far more than 1e-4 on the CPU
+    alone), so the corpus has 1,000."""
+    from repro_torch.data import synthetic_journal_corpus
+    from repro_torch.sparse import to_scipy
+
+    a, _ = synthetic_journal_corpus(n_terms=2000, n_docs=1000, seed=0)
+    sp = to_scipy(a)
+    u0 = np.random.default_rng(0).random((2000, 256)).astype(np.float32)
+    cfg = NMFConfig(k=256, iters=3, backend="cuda-bsr",
+                    sparsity=Sparsity(t_u=2000 * 256 // 50,
+                                      t_v=1000 * 256 // 50))
+    _build.reset_launch_counts()
+    on_card = EnforcedNMF(cfg, device=card).fit(sp, u0=u0)
+    counts = _build.launch_counts()
+    assert counts["gram"] >= 6 and counts["bsr_spmm"] >= 6
+    assert counts["relu_topk"] == 6 and counts["bsr_spmm_gram"] == 0
+    on_cpu = EnforcedNMF(cfg, device="cpu").fit(sp, u0=u0)
+    torch.testing.assert_close(on_card.result_.error.cpu(),
+                               on_cpu.result_.error, rtol=0, atol=1e-4)
+    assert int(on_card.result_.health) == -1
+
+
+def test_streamed_fit_on_card_matches_cpu(card, tmp_path):
+    """A streamed ``cuda-bsr`` fit (side-stream copies from pinned memory,
+    a worker thread packing ahead) against the CPU run within 1e-4;
+    prefetch on and off, and a corpus directory, bitwise equal on the
+    card."""
+    from repro_torch.data import write_corpus
+
+    sp = _small_corpus()
+    u0 = np.random.default_rng(1).random((600, 5)).astype(np.float32)
+    cfg = NMFConfig(k=5, iters=6, solver="streaming", chunk_docs=70,
+                    backend="cuda-bsr", sparsity=Sparsity(t_u=60, t_v=400))
+    _build.reset_launch_counts()
+    on = EnforcedNMF(cfg, device=card).fit(sp, u0=u0)
+    counts = _build.launch_counts()
+    chunks = -(-400 // 70)
+    # two fused half-steps and two epilogues per inner pass; one bsr_spmm
+    # per chunk for the fold-in and one for the statistics' seed
+    assert counts["bsr_spmm_gram"] == counts["relu_topk"] == 2 * 6 * chunks
+    assert counts["bsr_spmm"] == 2 * chunks
+    off = EnforcedNMF(cfg.replace(prefetch=False), device=card).fit(sp, u0=u0)
+    disk = EnforcedNMF(cfg, device=card).fit(
+        write_corpus(sp, tmp_path / "c", chunk_docs=70), u0=u0)
+    for other in (off, disk):
+        assert torch.equal(on.u_, other.u_) and torch.equal(on.v_, other.v_)
+        assert torch.equal(on.result_.error, other.result_.error)
+    cpu = EnforcedNMF(cfg, device="cpu").fit(sp, u0=u0)
+    torch.testing.assert_close(on.result_.error.cpu(), cpu.result_.error,
+                               rtol=0, atol=1e-4)
+    # U is not normalized: its bar is relative to its largest entry
+    assert float((on.u_.cpu() - cpu.u_).abs().max()
+                 / cpu.u_.abs().max()) <= 1e-4
+    assert torch.equal(on.result_.nnz_v.cpu(), cpu.result_.nnz_v)
+
+
+@pytest.mark.parametrize("backend", ["cuda-bsr", "torch-csr"])
+def test_online_step_makes_no_host_sync(card, backend):
+    from repro_torch.backend import get_backend
+    from repro_torch.core.online import init_online_stats, online_als_step
+
+    sp = _small_corpus()
+    op = get_backend(backend).prepare(sp[:, :100].tocsr(), device=card)
+    u = torch.rand((600, 5), generator=torch.Generator().manual_seed(2)
+                   ).to(card)
+    be = get_backend(backend)
+    sparsity = Sparsity(t_u=60, t_v=100)
+    kw = dict(iters=3, backend=backend,
+              sparsify_u=sparsity.sparsifier(600, 5, "u", be.fuse_epilogue),
+              sparsify_v=sparsity.sparsifier(100, 5, "v", be.fuse_epilogue))
+    stats = init_online_stats(600, 5, device=card)
+    online_als_step(op, u, stats, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = online_als_step(op, u, stats, 0.9, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(res.health) == -1

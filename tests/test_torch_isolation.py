@@ -73,6 +73,27 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert EnforcedNMF(device="cpu").device == torch.device("cpu")
 
 
+@pytest.mark.parametrize("solver", ["streaming", "sequential"])
+def test_streaming_and_sequential_entry_points_raise_without_a_card(
+        monkeypatch, tmp_path, solver):
+    """The new solvers, ``partial_fit`` and a corpus directory need the
+    card unless the CPU is asked for; on the CPU they run."""
+    from repro_torch.data import open_corpus, write_corpus
+    from repro_torch.nmf import NMFConfig
+
+    a = torch.rand((12, 10))
+    path = write_corpus(a, tmp_path / "c", chunk_docs=4)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EnforcedNMF(NMFConfig(k=2, solver=solver))
+    cfg = NMFConfig(k=2, iters=2, solver=solver)
+    model = EnforcedNMF(cfg, device="cpu").fit(
+        open_corpus(path) if solver == "streaming" else a)
+    assert model.u_.device.type == "cpu"
+    model.partial_fit(a[:, :4])
+    assert model.n_docs_seen_ == 14
+
+
 class _Launched(Exception):
     """Raised where a wrapper would build or launch its kernel."""
 
@@ -139,10 +160,12 @@ def test_wrapper_rejects_bf16_and_bad_layout_on_card(on_card, kernel):
 
 
 def test_gram_wrapper_refuses_k_above_its_shared_memory(on_card):
-    with pytest.raises(ValueError, match="k <="):
-        gram(torch.ones((7, gram_mod.MAX_K + 1)))
-    with pytest.raises(_Launched):
-        gram(torch.ones((7, gram_mod.MAX_K)))
+    """There is no k limit any more: at k = 225 and 256 (tiled output) the
+    wrapper goes to its kernel and never to its plain version."""
+    assert not hasattr(gram_mod, "MAX_K")
+    for k in (224, 225, 256):
+        with pytest.raises(_Launched):
+            gram(torch.ones((7, k)))
     assert _build.launch_counts()["gram"] == 0
 
 

@@ -203,11 +203,16 @@ def test_config_and_registry():
         NMFConfig(on_unhealthy="rollback")
     with pytest.raises(NotImplementedError, match="checkpoint"):
         NMFConfig(checkpoint_dir="/nowhere")
+    # the sequential solver refuses the BSR backend, and a corpus
+    # directory needs the streaming solver
+    with pytest.raises(ValueError, match="not supported by the sequential"):
+        NMFConfig(solver="sequential", backend="cuda-bsr")
+    with pytest.raises(ValueError, match="solver='streaming'"):
+        EnforcedNMF(NMFConfig(solver="enforced"), device="cpu").fit(
+            "/nowhere/corpus")
     with pytest.raises(ValueError, match="unknown solver"):
-        EnforcedNMF(NMFConfig(solver="sequential"), device="cpu").fit(
+        EnforcedNMF(NMFConfig(solver="distributed"), device="cpu").fit(
             np.ones((4, 3), np.float32))
-    with pytest.raises(NotImplementedError):
-        EnforcedNMF(device="cpu").partial_fit(np.ones((4, 3)))
     assert select_backend(torch.ones(2, 2)).name == "torch-dense"
     with pytest.raises(TypeError, match="cannot consume"):
         resolve_backend(torch.ones(2, 2), "cuda-bsr")
