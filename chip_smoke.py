@@ -27,8 +27,10 @@ Phases (any failed check raises, and the script exits non-zero):
 4. a ``torch-dense`` fit of the same corpus (8 iterations, its epilogue
    the same launch) whose error trace must match the ``cuda-bsr`` one
    within 1e-4;
-5. ``transform`` of 751 unseen documents (``bsr_spmm``), checked against a
-   CPU fold-in of the same documents;
+5. ``transform`` of 751 unseen documents (``bsr_spmm``, and one
+   ``relu_topk`` launch for its epilogue), checked against a CPU fold-in of
+   the same documents, its V bitwise the unfused epilogue's (relu, eager
+   bisection, mask), and timed (on the ingested operand, and from scipy);
 6. a 5-iteration ``cuda-bsr-unfused`` fit (``bsr_spmm`` + ``gram``);
 7. timings with CUDA events: each kernel, its plain version, its bound, the
    one PyTorch call that computes the same function where there is one, the
@@ -68,8 +70,8 @@ Phases (any failed check raises, and the script exits non-zero):
 13. the streamed fit: ``solver="streaming"`` on ``cuda-bsr`` over the same
     corpus in the default 8 chunks, 10 inner passes a chunk, with launch
     counts (``bsr_spmm_gram`` and ``relu_topk`` 2 x 10 a chunk,
-    ``bsr_spmm`` once a chunk for the fold-in and once for the statistics'
-    seed); bitwise equal with prefetch off and from a ``write_corpus``
+    ``relu_topk`` once more for the fold-in's epilogue, ``bsr_spmm`` once a
+    chunk for the fold-in and once for the statistics' seed); bitwise equal with prefetch off and from a ``write_corpus``
     directory; within 1e-4 of the same streamed fit on ``torch-csr`` (the
     traces; U relative to its largest entry); NNZ(V) by the batch fit's
     per-document rule; the time a chunk, the prefetcher's packing and
@@ -85,7 +87,26 @@ Phases (any failed check raises, and the script exits non-zero):
     ``u.T @ u`` and its plain version (1e-4 / 1e-3), bitwise repeatable and
     symmetric, and timed at k = 256 beside ``u.T @ u`` and its bound; a
     3-iteration ``cuda-bsr`` fit at k = 256 (the separate launches) against
-    ``torch-dense`` (1e-4), and its time an iteration.
+    ``torch-dense`` (1e-4), and its time an iteration;
+17. fault tolerance at PubMed size on ``cuda-bsr`` (snapshots in a
+    ``tempfile.mkdtemp()`` directory): phase 3's fit with
+    ``checkpoint_every=10`` killed in process at snapshot 30 and resumed,
+    bitwise phase 3's (U, V, traces), with its launches, a checkpointed
+    fit's time an iteration beside a plain one's, seconds and bytes a
+    snapshot and host syncs a fit (``torch.cuda.set_sync_debug_mode``); a
+    NaN-poisoned iteration 25 rolled back to finite factors; ``"raise"``
+    and an exhausted ``max_rollbacks``; a resume with another seed refused,
+    with the BSR fingerprint's time and host bytes; phase 13's streamed fit
+    killed at chunk 4 and resumed (bitwise phase 13's), then poisoned at
+    chunk 3 and rolled back; the command line killed (exit 73) and resumed
+    in subprocesses, printing the uninterrupted run's numbers;
+18. a ``TopicServer`` over phase 3's model serving phase 5's 751
+    documents, 32 a tick: each request within 1e-4 of a CPU copy of the
+    model, one ``bsr_spmm`` and one ``relu_topk`` a tick, ms a tick split
+    into host packing, ingest and the card's part, requests/s; a refresh
+    made unhealthy on purpose rolls back (U bitwise), and the retry folds
+    the 751 documents in on the card (20 ``bsr_spmm_gram``, 20
+    ``relu_topk``, health -1).
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -582,11 +603,12 @@ def run_lm_slice(dev, paths, checks, rows, results):
 
 
 def run_stream_slice(dev, corpus, a_sp, op, model, new_sp, u0, paths,
-                     results):
+                     results, keep):
     """Phases 13-16: the streamed fit on cuda-bsr (against prefetch off, a
     corpus directory and torch-csr), partial_fit continuing phase 3's
     model, the torch-csr and sequential fits, and the Gram and a fit at
-    k = 256.  Returns gram's row at k = 256."""
+    k = 256.  Returns gram's row at k = 256; ``keep["streamed"]`` holds
+    phase 13's factors and traces for phase 17."""
     import tempfile
 
     import torch
@@ -639,11 +661,12 @@ def run_stream_slice(dev, corpus, a_sp, op, model, new_sp, u0, paths,
         f"{sres.final_nnz_u}, NNZ(V) {int((on.v_ != 0).sum())}, health "
         f"{int(sres.health)}")
     want = 2 * inner * chunks
-    if counts["bsr_spmm_gram"] != want or counts["relu_topk"] != want:
+    if counts["bsr_spmm_gram"] != want or counts["relu_topk"] != want + 1:
         raise AssertionError(f"streamed fit: bsr_spmm_gram / relu_topk "
                              f"launched {counts['bsr_spmm_gram']} / "
                              f"{counts['relu_topk']} times, not 2 x {inner} "
-                             f"x {chunks} = {want}")
+                             f"x {chunks} = {want} (and the fold-in's "
+                             "epilogue once)")
     if counts["bsr_spmm"] != 2 * chunks:
         raise AssertionError(f"streamed fit: bsr_spmm launched "
                              f"{counts['bsr_spmm']} times, not once a chunk "
@@ -713,6 +736,8 @@ def run_stream_slice(dev, corpus, a_sp, op, model, new_sp, u0, paths,
         prefetch=st, fold_in=sres.stream_stats["fold_in"],
         hidden_share=hidden, ingest_s=ingest, peak_mem_bytes=peak,
         resident_before_bytes=base_mem, profile=prof)
+    keep["streamed"] = dict(u=on.u_, v=on.v_, residual=sres.residual,
+                            error=sres.error, wall_s=on_s)
     del on, off, disk, csr
 
     # -- 14. partial_fit continues phase 3's model ---------------------------
@@ -846,6 +871,425 @@ def run_stream_slice(dev, corpus, a_sp, op, model, new_sp, u0, paths,
     return g_row
 
 
+class _Killed(Exception):
+    """Phase 17's in-process kill at a checkpoint commit."""
+
+
+def _fit_numbers(out):
+    """The command line's printed numbers (its last fit line, from the
+    final error on: the wall time before it differs run to run)."""
+    line = [ln for ln in out.splitlines() if "final error" in ln][-1]
+    return line[line.index("final error"):]
+
+
+def _sync_count(fn):
+    """``(fn(), host syncs inside fn)``: the synchronizing CUDA calls
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports (a read of a device
+    value, a copy to the host, a stream synchronize); the mode's own notice
+    that it is a prototype is not one of them."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("called a synchronizing CUDA operation" in str(x.message)
+                    for x in w)
+
+
+def run_fault_slice(dev, a_sp, op, model, u0, paths, results, keep):
+    """Phase 17: fault tolerance at PubMed size on cuda-bsr: a checkpointed
+    fit killed at snapshot 30 and resumed (bitwise phase 3), its costs, a
+    poisoned iteration rolled back, the raise and give-up paths, a
+    mismatched resume, the streamed fit killed and resumed (bitwise phase
+    13) and poisoned, and the command line killed (exit 73) and resumed."""
+    import os
+    import shutil
+    import tempfile
+    import warnings
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.nmf import EnforcedNMF, NMFConfig, Sparsity
+    from repro_torch.robustness import (
+        KILL_EXIT, CheckpointMismatchError, FitHealthError, faults,
+    )
+    from repro_torch.robustness.snapshot import data_fingerprint
+
+    out = results["fault_slice"] = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    fresh = lambda: tempfile.mkdtemp(dir=root)
+    sparsity = Sparsity(t_u=T_U, t_v=T_V)
+    cfg = NMFConfig(k=K, iters=ITERS, sparsity=sparsity, backend="cuda-bsr")
+    res3 = model.result_          # phase 3's fit (partial_fit left it)
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    def fit(c, **kw):
+        return EnforcedNMF(c, device=dev).fit(op, u0=u0, **kw)
+
+    def bitwise(name, got, want):
+        for field in ("u", "v", "residual", "error"):
+            if not torch.equal(got[field], want[field]):
+                raise AssertionError(f"{name}: {field} is not bitwise the "
+                                     "uninterrupted fit's")
+
+    # -- 17(a). killed at snapshot 30, resumed -------------------------------
+    ck = cfg.replace(checkpoint_dir=fresh(), checkpoint_every=10)
+    with faults.inject("kill", key=30, exc=_Killed):
+        try:
+            fit(ck)
+        except _Killed:
+            pass
+        else:
+            raise AssertionError("the kill fault at snapshot 30 never fired")
+    _build.reset_launch_counts()
+    resumed, resume_s = wall(lambda: fit(ck, resume=True))
+    paths["resumed_fit"] = counts = _build.launch_counts()
+    r = resumed.result_
+    bitwise("resumed fit", dict(u=resumed.u_, v=resumed.v_,
+                                residual=r.residual, error=r.error),
+            dict(u=res3.u, v=res3.v, residual=res3.residual,
+                 error=res3.error))
+    if r.n_iter != ITERS:
+        raise AssertionError(f"resumed fit n_iter {r.n_iter} != {ITERS}")
+    if counts["bsr_spmm_gram"] != 2 * 20 + 1 or counts["relu_topk"] != 40:
+        raise AssertionError(f"the resumed fit's 20 iterations launched "
+                             f"{counts}")
+    log(f"[fault] cuda-bsr fit killed at snapshot 30 (checkpoint_every 10),"
+        f" resumed in {resume_s:.3f} s: U, V, residual and error traces "
+        f"bitwise phase 3's, n_iter {r.n_iter}; the resumed run's launches "
+        f"bsr_spmm_gram {counts['bsr_spmm_gram']}, relu_topk "
+        f"{counts['relu_topk']}")
+    # a clean checkpointed fit against the plain fit, in turns
+    plain_s, ckpt_s, stats = [], [], None
+    for turn in range(3):
+        _, t = wall(lambda: fit(cfg))
+        plain_s.append(t)
+        m, t = wall(lambda: fit(cfg.replace(checkpoint_dir=fresh(),
+                                            checkpoint_every=10)))
+        ckpt_s.append(t)
+        stats = m.result_.checkpoint_stats
+    plain_it = 1e3 * float(np.median(plain_s)) / ITERS
+    ckpt_it = 1e3 * float(np.median(ckpt_s)) / ITERS
+    _, plain_syncs = _sync_count(lambda: fit(cfg))
+    _, ckpt_syncs = _sync_count(lambda: fit(cfg.replace(
+        checkpoint_dir=fresh(), checkpoint_every=10)))
+    snap_ms = 1e3 * stats["save_s"] / stats["saves"]
+    snap_bytes = stats["bytes"] / stats["saves"]
+    log(f"[fault] checkpointed fit (every 10, {stats['saves']} snapshots) "
+        f"{ckpt_it:.3f} ms an iteration against {plain_it:.3f} ms without "
+        f"(medians of 3 in turns; phase 7: "
+        f"{results['timing']['per_iter_ms']:.3f} ms); a snapshot "
+        f"{snap_ms:.3f} ms and {snap_bytes:.0f} bytes; host syncs a fit "
+        f"{plain_syncs} without snapshots, {ckpt_syncs} with")
+    out["resume"] = dict(seconds=resume_s, launches=counts,
+                         plain_ms_per_iter=plain_it,
+                         ckpt_ms_per_iter=ckpt_it, plain_runs_s=plain_s,
+                         ckpt_runs_s=ckpt_s, snapshot_ms=snap_ms,
+                         snapshot_bytes=snap_bytes, saves=stats["saves"],
+                         host_syncs_plain=plain_syncs,
+                         host_syncs_ckpt=ckpt_syncs)
+
+    # -- 17(b). a poisoned iteration rolls back ------------------------------
+    with faults.inject("poison-step", key=25):
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            _build.reset_launch_counts()
+            rolled, roll_s = wall(lambda: fit(cfg.replace(
+                checkpoint_dir=fresh(), checkpoint_every=5)))
+            paths["poisoned_fit"] = _build.launch_counts()
+    msgs = [str(x.message) for x in w if "rolling back" in str(x.message)]
+    rr = rolled.result_
+    nu = rr.final_nnz_u
+    found = (re.search(r"at iteration (\d+); rolling back to iteration 25 ",
+                       msgs[0]) if len(msgs) == 1 else None)
+    if found is None:
+        raise AssertionError(f"poisoned fit: rollback warnings {msgs}")
+    # the warning names the iteration the solver read from the card: the
+    # poisoned chunk's start (25, a snapshot boundary) plus its health index
+    bad_at = int(found.group(1))
+    health = bad_at - 25
+    if not 0 <= health < 5:
+        raise AssertionError(f"poisoned chunk's health index {health} is "
+                             "not inside the chunk")
+    if not bool(torch.isfinite(rolled.u_).all() and
+                torch.isfinite(rolled.v_).all()) or rr.n_iter != ITERS:
+        raise AssertionError("poisoned fit did not end finite at 50 "
+                             "iterations")
+    if not nu <= T_U + max(2, T_U // 100):
+        raise AssertionError(f"poisoned fit NNZ(U) {nu} exceeds t_u")
+    log(f"[fault] poison-step at iteration 25 (checkpoint_every 5): "
+        f"{msgs[0]!r}; the poisoned chunk's health index, read from the "
+        f"card, {health} (iteration {bad_at}); finite, n_iter {rr.n_iter}, "
+        f"NNZ(U) {nu}, "
+        f"final error {rr.final_error:.6f} (phase 3: {res3.final_error:.6f})"
+        f", {roll_s:.3f} s, launches {paths['poisoned_fit']}")
+    out["rollback"] = dict(seconds=roll_s, warning=msgs[0], health=health,
+                           nnz_u=nu,
+                           final_error=rr.final_error,
+                           phase3_error=res3.final_error,
+                           launches=paths["poisoned_fit"])
+
+    # -- 17(c). raise, and the rollback budget -------------------------------
+    with faults.inject("poison-step", key=0):
+        try:
+            fit(cfg.replace(on_unhealthy="raise"))
+        except FitHealthError as e:
+            raised = str(e)
+        else:
+            raise AssertionError("on_unhealthy='raise' did not raise")
+    with faults.inject("poison-step", key=10, times=10):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            try:
+                fit(cfg.replace(max_rollbacks=2, checkpoint_dir=fresh(),
+                                checkpoint_every=10))
+            except FitHealthError as e:
+                gave_up = str(e)
+            else:
+                raise AssertionError("max_rollbacks=2 did not give up")
+    if "gave up after 2" not in gave_up:
+        raise AssertionError(f"budget exhaustion: {gave_up}")
+    log(f"[fault] 'raise' with poison at 0: {raised!r}; max_rollbacks=2 "
+        f"with the poison armed 10 times: {gave_up!r}")
+
+    # -- 17(d). a resume with another seed is refused ------------------------
+    try:
+        fit(ck.replace(seed=1), resume=True)
+    except CheckpointMismatchError:
+        pass
+    else:
+        raise AssertionError("a resume with another seed was not refused")
+    fp_s = []
+    for _ in range(3):
+        fp, t = wall(lambda: data_fingerprint(op))
+        fp_s.append(t)
+    log(f"[fault] resume with seed 1 refused (CheckpointMismatchError); the "
+        f"BSR operand's fingerprint {1e3 * min(fp_s):.3f} ms (min of 3), "
+        f"{fp['sampled_bytes']} bytes copied to the host of "
+        f"{op.bsr.tiles.numel() * 4 + op.bsr_t.tiles.numel() * 4} tile bytes")
+    out["fingerprint"] = dict(ms=1e3 * min(fp_s), runs_s=fp_s,
+                              host_bytes=fp["sampled_bytes"],
+                              stored_tiles=fp["stored_tiles"])
+
+    # -- 17(e). the streamed fit killed and resumed, then poisoned -----------
+    scfg = NMFConfig(k=K, iters=ITERS, sparsity=sparsity, solver="streaming",
+                     backend="cuda-bsr", checkpoint_every=2)
+    sck = scfg.replace(checkpoint_dir=fresh())
+    with faults.inject("kill", key=4, exc=_Killed):
+        try:
+            EnforcedNMF(sck, device=dev).fit(a_sp, u0=u0)
+        except _Killed:
+            pass
+        else:
+            raise AssertionError("the streamed fit's kill never fired")
+    _build.reset_launch_counts()
+    sres, sres_s = wall(lambda: EnforcedNMF(sck, device=dev).fit(
+        a_sp, u0=u0, resume=True))
+    paths["resumed_stream"] = _build.launch_counts()
+    bitwise("resumed streamed fit",
+            dict(u=sres.u_, v=sres.v_, residual=sres.result_.residual,
+                 error=sres.result_.error), keep["streamed"])
+    with faults.inject("poison-step", key=3):
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            spois, spois_s = wall(lambda: EnforcedNMF(
+                scfg.replace(checkpoint_dir=fresh()), device=dev).fit(
+                    a_sp, u0=u0))
+    smsgs = [str(x.message) for x in w if "rolling back" in str(x.message)]
+    if (len(smsgs) != 1 or not bool(torch.isfinite(spois.u_).all())
+            or int(spois.result_.health) != -1):
+        raise AssertionError(f"poisoned streamed fit: {smsgs}, health "
+                             f"{int(spois.result_.health)}")
+    log(f"[fault] streamed fit (checkpoint_every 2) killed at chunk 4 and "
+        f"resumed in {sres_s:.3f} s (phase 13's whole fit "
+        f"{keep['streamed']['wall_s']:.3f} s): U, V and traces bitwise "
+        f"phase 13's, launches {paths['resumed_stream']}; poison-step at "
+        f"chunk 3: {smsgs[0]!r}, finite, {spois_s:.3f} s")
+    out["stream"] = dict(resume_s=sres_s, poisoned_s=spois_s,
+                         warning=smsgs[0], launches=paths["resumed_stream"])
+    del sres, spois
+
+    # -- 17(f). the command line, killed and resumed -------------------------
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    argv = ["--config", "pubmed", "--small", "--backend", "cuda-bsr",
+            "--iters", "20", "--checkpoint-dir", fresh(),
+            "--checkpoint-every", "5"]
+    kill_code = ("import sys\n"
+                 "from repro_torch.launch import nmf_run\n"
+                 "from repro_torch.robustness import faults\n"
+                 "faults.install('kill', key=10)\n"
+                 "nmf_run.main(sys.argv[1:])\n"
+                 "raise SystemExit('the kill fault never fired')\n")
+    module = [sys.executable, "-m", "repro_torch.launch.nmf_run"]
+    t0 = time.perf_counter()
+    run = lambda cmd: subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True)
+    procs = [run([sys.executable, "-c", kill_code] + argv),
+             run(module + argv[:-4])]
+    outs = []
+    for p in procs:
+        try:
+            o, e = p.communicate(timeout=300)
+        finally:
+            p.kill()
+        outs.append((p.returncode, o, e))
+    resumed_cli = subprocess.run(module + argv + ["--resume"], env=env,
+                                 capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    (kill_rc, _, kill_err), (full_rc, full_out, full_err) = outs
+    if kill_rc != KILL_EXIT:
+        raise AssertionError(f"the killed command line exited {kill_rc}, "
+                             f"not {KILL_EXIT}: {kill_err[-2000:]}")
+    if full_rc != 0 or resumed_cli.returncode != 0:
+        raise AssertionError(f"command line: uninterrupted exit {full_rc}, "
+                             f"resumed {resumed_cli.returncode}: "
+                             f"{full_err[-1000:]} {resumed_cli.stderr[-1000:]}")
+    got, want = (_fit_numbers(resumed_cli.stdout), _fit_numbers(full_out))
+    if got != want:
+        raise AssertionError(f"the resumed command line printed {got!r}, "
+                             f"the uninterrupted one {want!r}")
+    log(f"[fault] command line (pubmed --small, cuda-bsr, 20 iterations, "
+        f"every 5): killed at 10, exit {kill_rc}; --resume exit 0 and "
+        f"prints the uninterrupted run's numbers: {got}; three processes "
+        f"{cli_s:.1f} s")
+    out["cli"] = dict(kill_exit=kill_rc, numbers=got, seconds=cli_s)
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def run_topic_slice(dev, model, new_sp, paths, results):
+    """Phase 18: a TopicServer over phase 3's model (as phase 14 left it)
+    serves phase 5's held-out documents, against a CPU copy of the model;
+    then refresh folds them in on the card, once made unhealthy on purpose
+    (rolled back) and once for real."""
+    import warnings
+
+    import torch
+
+    from repro_torch.convert import estimator_from_reference
+    from repro_torch.kernels import _build
+    from repro_torch.serving import TopicRequest, TopicServer
+
+    out = results["topic_slice"] = {}
+    csc = new_sp.tocsc()
+    docs = [list(zip(csc.indices[csc.indptr[j]:csc.indptr[j + 1]].tolist(),
+                     csc.data[csc.indptr[j]:csc.indptr[j + 1]].tolist()))
+            for j in range(csc.shape[1])]
+    cpu_model = estimator_from_reference(
+        model.u_.cpu().numpy(), model.v_.cpu().numpy(), model._m_ref,
+        model.config, device="cpu", av=model._av_acc.cpu().numpy(),
+        gv=model._gv_acc.cpu().numpy(), n_docs_seen=model.n_docs_seen_)
+
+    def serve(server):
+        for rid, terms in enumerate(docs):
+            server.submit(TopicRequest(rid=rid, terms=terms, top=K))
+        return {r.rid: r.topics for r in server.run_until_drained()}
+
+    warm = TopicServer(model, max_batch=32)
+    for rid in range(min(64, len(docs))):
+        warm.submit(TopicRequest(rid=rid, terms=docs[rid], top=K))
+    warm.run_until_drained()
+    srv = TopicServer(model, max_batch=32)
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = serve(srv)
+    serve_s = time.perf_counter() - t0
+    paths["topic_ticks"] = counts = _build.launch_counts()
+    ticks = srv.stats["ticks"]
+    want = serve(TopicServer(cpu_model, max_batch=32))
+    worst, with_topics = 0.0, 0
+    for rid, picks in want.items():
+        g, w = dict(got[rid]), dict(picks)
+        diff = max([abs(g.get(t, 0.0) - w.get(t, 0.0))
+                    for t in set(g) | set(w)] or [0.0])
+        worst = max(worst, diff)
+        rank = {t: i for i, (t, _) in enumerate(got[rid])}
+        for a in w:
+            for b in w:
+                if w[a] - w[b] > 1e-4 and a in rank and b in rank \
+                        and rank[a] > rank[b]:
+                    raise AssertionError(f"request {rid}: topics {a}, {b} "
+                                         "ordered unlike the CPU copy")
+        with_topics += bool(picks)
+    if worst > 1e-4:
+        raise AssertionError(f"TopicServer loadings differ from the CPU "
+                             f"copy by {worst:.3e} > 1e-4")
+    if ticks != -(-len(docs) // 32) or counts["bsr_spmm"] != ticks \
+            or counts["relu_topk"] != ticks:
+        raise AssertionError(f"{ticks} ticks launched {counts}, not one "
+                             "bsr_spmm and one relu_topk a tick")
+    st = srv.stats
+    tick_ms = 1e3 * serve_s / ticks
+    split = {k: 1e3 * st[k] / ticks for k in ("pack_s", "ingest_s",
+                                              "device_s")}
+    log(f"[topics] TopicServer, {len(docs)} requests, max_batch 32: {ticks} "
+        f"ticks in {serve_s:.3f} s, {tick_ms:.3f} ms a tick (host packing "
+        f"{split['pack_s']:.3f} + ingest {split['ingest_s']:.3f} ms, the "
+        f"card's part {split['device_s']:.3f} ms), "
+        f"{len(docs) / serve_s:.0f} requests/s; launches {counts} (one "
+        f"bsr_spmm and one relu_topk a tick); loadings within {worst:.3e} "
+        f"of a CPU copy, topic ids alike; {with_topics} requests got a topic"
+        f" (t_v = {T_V} over {N_DOCS} documents: ~0.1 a document)")
+    # refresh, made unhealthy on purpose: rolled back, U bitwise as before
+    u_before = model.u_.clone()
+    orig = model.partial_fit
+
+    def poisoned_fit(*args, **kwargs):
+        orig(*args, **kwargs)
+        model.u_ = model.u_ * float("nan")
+        model.health_ = torch.zeros((), dtype=torch.int32, device=dev)
+
+    model.partial_fit = poisoned_fit
+    try:
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            folded = srv.refresh()
+    finally:
+        model.partial_fit = orig
+    if (folded != 0 or srv.refresh_failures != 1
+            or not torch.equal(model.u_, u_before)
+            or not any("rolled back" in str(x.message) for x in w)):
+        raise AssertionError("the unhealthy refresh was not rolled back")
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    folded = srv.refresh()
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t0
+    paths["refresh"] = rc = _build.launch_counts()
+    health = int(model.health_)
+    if folded != len(docs) or health != -1:
+        raise AssertionError(f"refresh folded {folded} documents, health "
+                             f"{health}")
+    if rc["bsr_spmm_gram"] != 20 or rc["relu_topk"] != 20:
+        raise AssertionError(f"refresh launched {rc}, not 20 bsr_spmm_gram "
+                             "and 20 relu_topk")
+    log(f"[topics] refresh made unhealthy on purpose: rolled back (U bitwise"
+        f" as before, refresh_failures {srv.refresh_failures}); the retry "
+        f"folded {folded} documents in {refresh_s:.3f} s on the card, health "
+        f"{health}, launches {rc}")
+    out.update(ticks=ticks, serve_s=serve_s, tick_ms=tick_ms,
+               split_ms=split, requests_per_s=len(docs) / serve_s,
+               launches=counts, max_loading_diff=worst,
+               requests_with_topics=with_topics, refresh_s=refresh_s,
+               refresh_launches=rc)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -863,7 +1307,7 @@ def main(argv=None) -> int:
     from repro_torch.backend import get_backend
     from repro_torch.convert import estimator_from_reference
     from repro_torch.core.nmf import init_u0, solve_gram
-    from repro_torch.core.topk import FusedReluTopK
+    from repro_torch.core.topk import FusedReluTopK, topk_project_bisect
     from repro_torch.data import synthetic_journal_corpus
     from repro_torch.device import configure_numerics
     from repro_torch.kernels import _build, ref
@@ -1102,6 +1546,43 @@ def main(argv=None) -> int:
         raise AssertionError("fold-in disagrees with the CPU fold-in")
     if paths["transform"]["bsr_spmm"] < 1:
         raise AssertionError("transform did not launch bsr_spmm")
+    # the fold-in's epilogue is one relu_topk launch; V_new must be bitwise
+    # the unfused epilogue (relu, then the eager bisection and mask) of the
+    # same pre-epilogue loadings
+    if paths["transform"]["relu_topk"] != 1:
+        raise AssertionError("transform's epilogue was not one relu_topk "
+                             "launch")
+    be = get_backend("cuda-bsr")
+    new_op = be.prepare(new_sp, device=dev)
+    u_fit = model.u_
+    raw = solve_gram(u_fit.T @ u_fit, be.matmul_t(new_op, u_fit))
+    t_new = max(1, round(T_V * NEW_DOCS / N_DOCS))
+    unfused_v = topk_project_bisect(torch.clamp_min(raw, 0.0), t_new)
+    if not torch.equal(bits(v_new), bits(unfused_v)):
+        raise AssertionError("transform's fused epilogue is not bitwise the "
+                             "unfused one")
+    fold = dict(
+        ms=cuda_ms(lambda: model.transform(new_op), reps=20),
+        eager_epilogue_ms=cuda_ms(lambda: topk_project_bisect(
+            torch.clamp_min(raw, 0.0), t_new), reps=5),
+        fused_epilogue_ms=cuda_ms(lambda: FusedReluTopK(t_new)(raw),
+                                  reps=20))
+    ingest_runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.transform(new_sp)
+        torch.cuda.synchronize()
+        ingest_runs.append(time.perf_counter() - t0)
+    fold["with_ingest_s"] = float(np.median(ingest_runs))
+    log(f"[transform] V_new bitwise the unfused epilogue (eager bisection, "
+        f"t = {t_new}); fold-in of {NEW_DOCS} documents on the ingested "
+        f"operand {fold['ms']:.4f} ms a call (its epilogue, one relu_topk "
+        f"launch, {fold['fused_epilogue_ms']:.4f} ms; the eager epilogue it "
+        f"replaces {fold['eager_epilogue_ms']:.4f} ms); from scipy, ingest "
+        f"included, {fold['with_ingest_s']:.4f} s (median of 3)")
+    results["fold_in"] = fold
+    del new_op, raw, unfused_v
 
     # -- 6. unfused fit --------------------------------------------------------
     _build.reset_launch_counts()
@@ -1425,8 +1906,16 @@ def main(argv=None) -> int:
         mask_only_ms=float(np.mean([i["mask_ms"] for i in items])))
 
     # -- 13.-16. the streamed and sequential solvers, k = 256 ---------------
+    keep = {}
     gram_k256 = run_stream_slice(dev, corpus, a_sp, op, model, new_sp, u0,
-                                 paths, results)
+                                 paths, results, keep)
+    # -- 17.-18. fault tolerance and the TopicServer ---------------------------
+    t0 = time.perf_counter()
+    run_fault_slice(dev, a_sp, op, model, u0, paths, results, keep)
+    run_topic_slice(dev, model, new_sp, paths, results)
+    results["phases"]["fault_topic_s"] = time.perf_counter() - t0
+    log(f"[fault] phases 17-18 took {results['phases']['fault_topic_s']:.1f} "
+        "s")
     rows["gram"]["k_range"] = ("any k: one output tile up to k = 224, "
                                "128 x 128 tiles above")
     rows["gram"]["k256"] = {key: gram_k256[key] for key in

@@ -1,6 +1,7 @@
 """Architecture registry and assigned input shapes (port of
 ``repro.configs``), for the families the port runs: the dense decoders and
-the internvl2 language model (``vlm``).
+the internvl2 language model (``vlm``); and the paper's NMF experiment
+configurations (``NMF_CONFIGS``, a copy of the reference's).
 
 Each architecture has its own module (``repro_torch.configs.<id>`` with
 dashes mapped to underscores) exporting ``CONFIG``, field for field the
@@ -19,6 +20,7 @@ from repro_torch.configs.llama3_2_1b import CONFIG as llama3_2_1b
 from repro_torch.configs.phi4_mini_3_8b import CONFIG as phi4_mini_3_8b
 from repro_torch.configs.deepseek_coder_33b import CONFIG as deepseek_coder_33b
 from repro_torch.configs.internvl2_76b import CONFIG as internvl2_76b
+from repro_torch.configs.nmf_paper import NMF_CONFIGS
 
 ARCHS: Dict[str, ArchConfig] = {
     c.name: c
@@ -66,4 +68,4 @@ def smoke_config(cfg: ArchConfig) -> ArchConfig:
     return dataclasses.replace(cfg, **overrides)
 
 
-__all__ = ["ARCHS", "SHAPES", "ShapeSpec", "smoke_config"]
+__all__ = ["ARCHS", "NMF_CONFIGS", "SHAPES", "ShapeSpec", "smoke_config"]

@@ -6,8 +6,9 @@ the reference package:
 * :func:`bsr_from_reference` — a reference BSR operand's ``tiles`` /
   ``block_cols`` (``np.asarray`` of them) as the port's :class:`BSR`;
 * :func:`estimator_from_reference` — a fitted port estimator from a
-  reference model's ``u_`` / ``v_``, so both fold in the same documents
-  identically;
+  reference model's ``u_`` / ``v_`` and its streaming statistics
+  (``_av_acc``, ``_gv_acc``, ``n_docs_seen_``), so both fold in the same
+  documents identically and a ``partial_fit`` continues both alike;
 * the initial guess crosses as numpy too: ``EnforcedNMF.fit(a, u0=u0)``
   takes a numpy ``u0``.  ``jax.random`` cannot be reproduced in torch, so
   parity checks hand both packages one numpy ``u0``;
@@ -16,7 +17,7 @@ the reference package:
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,16 +42,29 @@ def bsr_from_reference(tiles, block_cols, shape: Tuple[int, int],
 
 
 def estimator_from_reference(u, v, m_ref: int, config: NMFConfig,
-                             device: DeviceLike = None) -> EnforcedNMF:
+                             device: DeviceLike = None, *, av=None, gv=None,
+                             n_docs_seen: Optional[int] = None
+                             ) -> EnforcedNMF:
     """A fitted :class:`EnforcedNMF` holding the reference model's factors
     ``u`` (n, k) and ``v`` (m, k); ``m_ref`` is the reference fit's document
-    count (it scales ``t_v`` budgets in ``transform``)."""
+    count (it scales ``t_v`` budgets in ``transform``).  ``av`` (n, k) and
+    ``gv`` (k, k) are its streaming statistics (``_av_acc`` / ``_gv_acc``,
+    which the reference seeds at the end of every ``fit``) and
+    ``n_docs_seen`` its ``n_docs_seen_`` (default ``m_ref``); without the
+    statistics a ``partial_fit`` starts a new stream instead of continuing
+    the fit."""
     model = EnforcedNMF(config, device=device)
     model.u_ = model._factor(u)
     model.v_ = model._factor(v)
     model.n_features_ = model.u_.shape[0]
-    model.n_docs_seen_ = int(m_ref)
+    model.n_docs_seen_ = int(m_ref if n_docs_seen is None else n_docs_seen)
     model._m_ref = int(m_ref)
+    if (av is None) != (gv is None):
+        raise ValueError("give both streaming statistics (av and gv) or "
+                         "neither")
+    if av is not None:
+        model._av_acc = model._factor(av)
+        model._gv_acc = model._factor(gv)
     return model
 
 

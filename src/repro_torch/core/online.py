@@ -110,10 +110,13 @@ def online_als_step(
         u_new = _epilogue(solve_gram(gv, av), sparsify_u)
 
         # health monitor, as in the batch engine: non-finite factors or a
-        # non-finite Gram accumulator
+        # non-finite Gram accumulator; and, beyond the reference, a
+        # non-finite U entering the pass (its Gram), which a top-t epilogue
+        # would otherwise mask into an all-zero V and a finite step
         bad_u = be.reduce_u(torch.sum(~torch.isfinite(u_new)))
         bad_v = be.reduce_v(torch.sum(~torch.isfinite(v)))
-        bad = (bad_u + bad_v > 0) | ~torch.isfinite(torch.sum(gv))
+        bad = ((bad_u + bad_v > 0) | ~torch.isfinite(torch.sum(gv))
+               | ~torch.isfinite(torch.sum(gu)))
         health = torch.where((health < 0) & bad, it, health)
         u = u_new
     return OnlineStepResult(u=u, v=v, stats=OnlineStats(av=av, gv=gv),

@@ -22,10 +22,14 @@ prefetch (port of ``repro.data.corpus``).
   chunk's memory from reuse until its own work is done.  Prefetch on and
   off run the same packer on the same inputs, so the fits are bitwise
   equal.
+* Fault hooks (:mod:`repro_torch.robustness.faults`): ``"chunk-load"`` in
+  every ``load``, ``"corrupt-shard"`` in :meth:`MmapCorpus.load` (before
+  the checksum) and ``"prefetch-worker"`` in the prefetcher's worker.
+  ``REPRO_STREAM_SKIP_BAD_CHUNKS=1`` drops a chunk that cannot be read (an
+  ``OSError`` past its retries, or a :class:`CorpusIntegrityError`) with a
+  warning; every other failure, a CUDA error always, still raises.
 
-Not ported here: ``PackedChunk`` (mesh streaming), the fault-injection
-hooks and the skip-bad-chunks switch, which come with the fault-tolerance
-layer.
+Not ported here: ``PackedChunk`` (mesh streaming).
 """
 from __future__ import annotations
 
@@ -44,13 +48,15 @@ import numpy as np
 import torch
 
 from repro_torch.device import move
+from repro_torch.robustness import faults
 from repro_torch.sparse.csr import ColumnSlicer, SpCSR, from_dense, from_scipy
 
 __all__ = [
     "CORPUS_FORMAT", "ChunkPackError", "ChunkSource", "CorpusIntegrityError",
     "DenseChunks", "MmapCorpus", "Prefetcher", "ResidentChunks",
-    "StagedChunk", "as_chunk_source", "chunk_schedule", "is_corpus_input",
-    "open_corpus", "stage_chunk", "write_corpus",
+    "SKIP_BAD_CHUNKS_ENV", "StagedChunk", "as_chunk_source",
+    "chunk_schedule", "is_corpus_input", "open_corpus", "stage_chunk",
+    "write_corpus",
 ]
 
 #: manifest format tag; v2 adds per-shard crc32 checksums (``crc_values`` /
@@ -58,6 +64,11 @@ __all__ = [
 CORPUS_FORMAT = "repro-corpus-v2"
 _FORMAT_V1 = "repro-corpus-v1"
 _META = "meta.json"
+
+#: set to "1" to drop a chunk that cannot be read (its I/O retries used up,
+#: or its checksum wrong) with a warning instead of failing the stream; the
+#: fit then runs on the other chunks
+SKIP_BAD_CHUNKS_ENV = "REPRO_STREAM_SKIP_BAD_CHUNKS"
 
 
 class CorpusIntegrityError(RuntimeError):
@@ -134,6 +145,7 @@ class ResidentChunks(ChunkSource):
         self.cap = self._slicer.chunk_cap(self.schedule)
 
     def load(self, i: int, pin: bool = False) -> SpCSR:
+        faults.fire("chunk-load", i)
         lo, hi = self.schedule[i]
         blk = self._slicer.block(lo, hi, cap=self.cap)
         return SpCSR(_pinned(blk.values, pin), _pinned(blk.cols, pin),
@@ -210,10 +222,14 @@ class MmapCorpus(ChunkSource):
                 f"chunk_docs={self.chunk_docs} schedule")
 
     def load(self, i: int, pin: bool = False) -> SpCSR:
+        faults.fire("chunk-load", i)
         c = self._chunks[i]
         values = _copy_out(np.load(self.path / c["values"], mmap_mode="r"),
                            pin)
         cols = _copy_out(np.load(self.path / c["cols"], mmap_mode="r"), pin)
+        if faults.should_fire("corrupt-shard", i):
+            # as if the shard rotted on disk: flip the copy's first byte
+            values.numpy().view(np.uint8).reshape(-1)[0] ^= 0xFF
         if self.checksums is not None and i not in self._validated:
             got = (_crc_array(values.numpy()), _crc_array(cols.numpy()))
             want = tuple(self.checksums[i])
@@ -334,11 +350,12 @@ class StagedChunk:
     """A chunk already ingested for its backend and on its way to the
     device: ``operand`` is the backend's operand on ``device``, ``ready``
     the event recorded on the side stream after its copy (``None`` on the
-    CPU)."""
+    CPU), ``index`` its position in the chunk schedule."""
 
     operand: object
     device: torch.device
     ready: Optional[torch.cuda.Event] = None
+    index: Optional[int] = None
 
     def use(self):
         """The operand, safe to read on the current stream: the stream
@@ -355,13 +372,16 @@ class StagedChunk:
 
 
 def stage_chunk(host, backend, device: torch.device,
-                stream: Optional[torch.cuda.Stream] = None) -> StagedChunk:
+                stream: Optional[torch.cuda.Stream] = None,
+                index: Optional[int] = None) -> StagedChunk:
     """Ingest a host chunk for ``backend`` and move it to ``device``.  On
     the card the ingest runs on the host and the copy from pinned memory on
     ``stream`` (a side stream), whose event the consumer waits on
-    (:meth:`StagedChunk.use`); on the CPU it is the plain ingest."""
+    (:meth:`StagedChunk.use`); on the CPU it is the plain ingest.
+    ``index`` is the chunk's schedule position."""
     if device.type != "cuda":
-        return StagedChunk(backend.prepare(host, device=device), device)
+        return StagedChunk(backend.prepare(host, device=device), device,
+                           index=index)
     op = backend.prepare(host, device="cpu")
     with torch.cuda.stream(stream):
         if isinstance(op, torch.Tensor):
@@ -370,7 +390,7 @@ def stage_chunk(host, backend, device: torch.device,
             op = op.to(device, non_blocking=True)
         ready = torch.cuda.Event()
         ready.record(stream)
-    return StagedChunk(op, device, ready)
+    return StagedChunk(op, device, ready, index)
 
 
 class Prefetcher:
@@ -389,13 +409,21 @@ class Prefetcher:
     (``retry_backoff * 2**attempt`` seconds).  A worker that dies without
     reporting is caught by a liveness check on the consumer side.
 
+    With ``REPRO_STREAM_SKIP_BAD_CHUNKS=1`` a chunk that cannot be read is
+    dropped from the stream with a warning: an ``OSError`` that has used up
+    its retries, or a :class:`CorpusIntegrityError`.  Nothing else is
+    skipped: any other exception, a CUDA error included, raises
+    :class:`ChunkPackError` (the reference's hatch swallows every
+    exception).
+
     ``stats``: ``packed`` items, ``max_queued`` high-water mark, ``pack_s``
     wall time inside ``pack``, ``stall_s`` time the consumer waited for a
     chunk (``1 - stall_s / pack_s`` is the share of packing hidden under
-    compute), ``retries``.
+    compute), ``retries``, ``skipped``.
     """
 
     _DONE = object()
+    _SKIPPED = object()
 
     def __init__(self, items: Sequence, pack: Callable, depth: int = 2,
                  enabled: bool = True, retries: int = 2,
@@ -410,7 +438,7 @@ class Prefetcher:
         self._retries = int(retries)
         self._backoff = float(retry_backoff)
         self.stats = {"packed": 0, "max_queued": 0, "pack_s": 0.0,
-                      "stall_s": 0.0, "retries": 0}
+                      "stall_s": 0.0, "retries": 0, "skipped": 0}
         if not self._enabled:
             return
         self._q: queue.Queue = queue.Queue(maxsize=depth)
@@ -419,8 +447,19 @@ class Prefetcher:
                                         name="repro-torch-corpus-prefetch")
         self._thread.start()
 
+    def _skip(self, error: "ChunkPackError"):
+        """The skip hatch: drop the chunk with a warning when the
+        environment asks for it, else raise ``error``."""
+        if os.environ.get(SKIP_BAD_CHUNKS_ENV) != "1":
+            raise error
+        self.stats["skipped"] += 1
+        warnings.warn(f"{error}; skipping it ({SKIP_BAD_CHUNKS_ENV}=1: "
+                      "results degrade to the other chunks)", RuntimeWarning)
+        return self._SKIPPED
+
     def _pack_one(self, item, index: int):
-        """``pack(item)`` with bounded retry of I/O errors."""
+        """``pack(item)`` with bounded retry of I/O errors; ``_SKIPPED`` when
+        the skip hatch drops an unreadable chunk."""
         attempt = 0
         while True:
             t0 = time.perf_counter()
@@ -433,15 +472,21 @@ class Prefetcher:
                     time.sleep(self._backoff * (2 ** attempt))
                     attempt += 1
                     continue
-                raise ChunkPackError(
+                error = ChunkPackError(
                     f"chunk {item!r} (schedule position {index}) failed to "
                     f"pack after {attempt + 1} attempt(s): {exc}",
-                    item=item, index=index) from exc
+                    item=item, index=index)
+                error.__cause__ = exc
+                return self._skip(error)
             except Exception as exc:
                 self.stats["pack_s"] += time.perf_counter() - t0
-                raise ChunkPackError(
+                error = ChunkPackError(
                     f"chunk {item!r} (schedule position {index}) failed to "
-                    f"pack: {exc}", item=item, index=index) from exc
+                    f"pack: {exc}", item=item, index=index)
+                error.__cause__ = exc
+                if isinstance(exc, CorpusIntegrityError):
+                    return self._skip(error)
+                raise error
             self.stats["pack_s"] += time.perf_counter() - t0
             self.stats["packed"] += 1
             return packed
@@ -461,7 +506,12 @@ class Prefetcher:
             for index, item in enumerate(self._items):
                 if self._stop.is_set():
                     return
-                if not self._put((self._pack_one(item, index), None)):
+                if faults.should_fire("prefetch-worker", item):
+                    return  # injected silent exit: no end marker, no error
+                packed = self._pack_one(item, index)
+                if packed is self._SKIPPED:
+                    continue
+                if not self._put((packed, None)):
                     return
             self._put((self._DONE, None))
         except BaseException as exc:  # re-raised in the consumer
@@ -473,7 +523,8 @@ class Prefetcher:
                 t0 = time.perf_counter()
                 packed = self._pack_one(item, index)
                 self.stats["stall_s"] += time.perf_counter() - t0
-                yield packed
+                if packed is not self._SKIPPED:
+                    yield packed
             return
         while True:
             self.stats["max_queued"] = max(self.stats["max_queued"],

@@ -5,9 +5,7 @@ A ``Sparsity`` describes what to enforce (budgets, absolute or as a
 fraction of the dense factor, globally or per column, by bisection or exact
 sort); an ``NMFConfig`` describes the run.  Fields of the reference that
 select code the port has not ported yet (the distributed solver, mesh
-shapes) are absent; rollback and checkpointing are present, and a config
-that asks for them raises ``NotImplementedError`` rather than being
-ignored.
+shapes) are absent.
 """
 from __future__ import annotations
 
@@ -86,10 +84,31 @@ class Sparsity:
         return functools.partial(topk.topk_project_bisect, t=t,
                                  num_steps=self.num_steps)
 
-    def apply(self, x: torch.Tensor, which: str) -> torch.Tensor:
-        """Enforce this spec on a concrete factor (``transform``)."""
-        fn = self.sparsifier(x.shape[0], x.shape[1], which)
-        return x if fn is None else fn(x)
+    @classmethod
+    def parse(cls, spec: Optional[str]) -> "Sparsity":
+        """Build from a command-line string such as
+        ``"t_u=5000,t_v=2000,mode=exact"`` or ``"frac_u=0.02"``; empty or
+        ``None`` gives the dense (no-op) spec."""
+        if not spec:
+            return cls()
+        kw = {}
+        for part in spec.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            if "=" not in part:
+                raise ValueError(f"bad --sparsity entry {part!r}; "
+                                 "expected key=value")
+            key, val = (s.strip() for s in part.split("=", 1))
+            if key in ("t_u", "t_v", "num_steps"):
+                kw[key] = int(val)
+            elif key in ("frac_u", "frac_v"):
+                kw[key] = float(val)
+            elif key == "mode":
+                kw[key] = val
+            else:
+                raise ValueError(f"unknown Sparsity field {key!r}")
+        return cls(**kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,11 +131,21 @@ class NMFConfig:
       pack the next chunks on a worker thread (ingest, and on the card the
       copy on a side stream), at most ``prefetch_depth`` ahead; the fit is
       bitwise the same with prefetch off.
-    * ``on_unhealthy`` — ``"raise"`` (the default here) fails with
-      ``FitHealthError`` when the health monitor flags the fit; ``"ignore"``
-      keeps the non-finite factors.  ``"rollback"`` (the reference's
-      default) and ``checkpoint_dir`` / ``resume`` are not ported yet and
-      raise ``NotImplementedError``.
+    * ``checkpoint_dir`` — directory of periodic atomic fit snapshots
+      (:class:`repro_torch.robustness.FitCheckpointer`); ``None`` disables
+      them.  ``checkpoint_every`` — every N iterations (``als`` /
+      ``enforced``), chunks (``streaming``) or topic blocks
+      (``sequential``).  ``resume`` — start from the newest snapshot in
+      ``checkpoint_dir`` (fingerprint-checked; a mismatched config or input
+      raises ``CheckpointMismatchError``; with no snapshot the fit starts
+      fresh).  The on-disk layout is the reference's.
+    * ``on_unhealthy`` — what the solver driver does when the engines'
+      health index flags non-finite factors or an exploding residual:
+      ``"rollback"`` (the default) restores the last snapshot (or the
+      initial guess) with a reseeded perturbation and runs again,
+      ``"raise"`` fails with ``FitHealthError``, ``"ignore"`` keeps the
+      non-finite factors.  ``max_rollbacks`` — attempts before giving up
+      and raising.
     """
 
     k: int = 5
@@ -133,8 +162,10 @@ class NMFConfig:
     prefetch: bool = True
     prefetch_depth: int = 2
     checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 10
     resume: bool = False
-    on_unhealthy: str = "raise"
+    on_unhealthy: str = "rollback"
+    max_rollbacks: int = 3
 
     def __post_init__(self):
         if self.k <= 0:
@@ -162,17 +193,21 @@ class NMFConfig:
         if self.prefetch_depth <= 0:
             raise ValueError(
                 f"prefetch_depth must be positive, got {self.prefetch_depth}")
+        if self.checkpoint_every <= 0:
+            raise ValueError(
+                f"checkpoint_every must be positive, got "
+                f"{self.checkpoint_every}")
+        if self.resume and self.checkpoint_dir is None:
+            raise ValueError(
+                "resume=True needs checkpoint_dir to resume from")
         if self.on_unhealthy not in ("rollback", "raise", "ignore"):
             raise ValueError(
                 f"on_unhealthy must be 'rollback', 'raise', or 'ignore', "
                 f"got {self.on_unhealthy!r}")
-        if self.on_unhealthy == "rollback":
-            raise NotImplementedError(
-                "on_unhealthy='rollback' is not ported yet; use 'raise' or "
-                "'ignore'")
-        if self.checkpoint_dir is not None or self.resume:
-            raise NotImplementedError(
-                "checkpointing and resume are not ported yet")
+        if self.max_rollbacks < 0:
+            raise ValueError(
+                f"max_rollbacks must be non-negative, got "
+                f"{self.max_rollbacks}")
         if not isinstance(getattr(torch, self.dtype, None), torch.dtype):
             raise ValueError(f"unknown dtype {self.dtype!r}")
 

@@ -30,7 +30,8 @@ from repro_torch.backend import (
     BSROperand, default_backend_name, get_backend, resolve_backend,
 )
 from repro_torch.core.nmf import (
-    Matrix, _matmul, _matmul_t, _relative_error, init_u0, solve_gram,
+    Matrix, _epilogue, _matmul, _matmul_t, _relative_error, init_u0,
+    solve_gram,
 )
 from repro_torch.core.online import (
     OnlineStats, init_online_stats, online_als_step, seed_online_stats,
@@ -138,7 +139,8 @@ class EnforcedNMF:
 
     # -- fitting -------------------------------------------------------------
 
-    def fit(self, a: ArrayLike, u0=None) -> "EnforcedNMF":
+    def fit(self, a: ArrayLike, u0=None,
+            resume: Optional[bool] = None) -> "EnforcedNMF":
         """Factorize ``a`` with the configured solver.  ``u0`` (numpy or
         tensor, shape (n, k); the sequential solver also takes
         (n, block_size)) overrides the seeded default initial guess.
@@ -147,12 +149,18 @@ class EnforcedNMF:
         :func:`~repro_torch.data.corpus.write_corpus` directory, an
         :class:`~repro_torch.data.corpus.MmapCorpus` or any ``ChunkSource``;
         chunks stream off disk, packed ahead of the step per
-        ``config.prefetch``."""
+        ``config.prefetch``.
+
+        ``resume`` overrides ``config.resume`` for this call: with a
+        ``config.checkpoint_dir`` holding a snapshot of this same run, the
+        fit continues from it (see :mod:`repro_torch.robustness`)."""
         from repro_torch.data.corpus import (
             ChunkSource, as_chunk_source, is_corpus_input,
         )
 
         cfg = self.config
+        if resume is not None:
+            cfg = cfg.replace(resume=bool(resume))
         streaming = cfg.solver == "streaming"
         if is_corpus_input(a):
             if not streaming:
@@ -201,7 +209,8 @@ class EnforcedNMF:
                         _make_packer(self, source),
                         depth=cfg.prefetch_depth,
                         enabled=cfg.prefetch) as stream:
-            for (lo, hi), staged in zip(source.schedule, stream):
+            for staged in stream:
+                lo, hi = source.schedule[staged.index]
                 part = _matmul(staged.use(), v[lo:hi], cfg.backend)
                 av = part if av is None else av + part
         return OnlineStats(av=av, gv=v.T @ v)
@@ -266,13 +275,15 @@ class EnforcedNMF:
             V_new = top-t( relu( A_new^T U (U^T U)^{-1} ) )
 
         Absolute whole-factor ``t_v`` budgets are rescaled by
-        ``m_new / m_train`` so per-document sparsity matches training."""
+        ``m_new / m_train`` so per-document sparsity matches training.  The
+        relu and a ``"global"`` top-t run as one fused epilogue (one
+        ``relu_topk`` launch on the card, whose threshold is bitwise the
+        plain bisection's, so V is the unfused epilogue's)."""
         self._check_fitted()
         a_new = self._coerce(a_new)
         self._check_features(a_new)
         u = self.u_
-        v = solve_gram(u.T @ u, _matmul_t(a_new, u))
-        return self._enforce_v(torch.clamp_min(v, 0.0))
+        return self._enforce_v(solve_gram(u.T @ u, _matmul_t(a_new, u)))
 
     def _v_sparsity(self, m_new: int) -> Sparsity:
         """The sparsity spec for an (m_new, k) loadings matrix."""
@@ -284,7 +295,12 @@ class EnforcedNMF:
         return sp
 
     def _enforce_v(self, v: torch.Tensor) -> torch.Tensor:
-        return self._v_sparsity(v.shape[0]).apply(v, "v")
+        """The fold-in's epilogue on the raw loadings ``v``: relu and the
+        sparsity spec, a ``"global"`` spec on f32 as one fused
+        ``relu_topk``."""
+        fn = self._v_sparsity(v.shape[0]).sparsifier(
+            v.shape[0], v.shape[1], "v", fused=v.dtype == torch.float32)
+        return _epilogue(v, fn)
 
     # -- evaluation ----------------------------------------------------------
 

@@ -7,7 +7,8 @@ entry per document chunk for ``"streaming"``.  ``error`` is per iteration,
 per converged block or per chunk; ``error_granularity`` says which.  Traces
 stay device tensors; reading a ``final_*`` property copies one value to the
 host.  The port also keeps the engine's health index, which the reference
-folds into its rollback loop.
+folds into its rollback loop.  A resumed fit's first part is its restored
+history: its factors are ``None`` and its tensors sit on the fit's device.
 """
 from __future__ import annotations
 
@@ -26,8 +27,8 @@ __all__ = ["FitResult"]
 class FitResult:
     """Factors plus per-iteration convergence history."""
 
-    u: torch.Tensor                   # (n, k)
-    v: torch.Tensor                   # (m, k)
+    u: Optional[torch.Tensor]         # (n, k); None in a restored part
+    v: Optional[torch.Tensor]         # (m, k); None in a restored part
     residual: torch.Tensor            # (n_iter,)
     error: torch.Tensor               # (n_iter,)
     max_nnz: torch.Tensor             # scalar
@@ -42,6 +43,9 @@ class FitResult:
     #: a streamed fit's host-side packing: the ``Prefetcher.stats`` of its
     #: factor pass (``"fit"``) and of its fold-in pass (``"fold_in"``)
     stream_stats: Optional[dict] = None
+    #: a checkpointed fit's ``FitCheckpointer.stats`` (saves, seconds,
+    #: bytes written)
+    checkpoint_stats: Optional[dict] = None
 
     @property
     def final_error(self) -> float:

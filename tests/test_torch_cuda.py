@@ -474,7 +474,9 @@ def test_streamed_fit_on_card_matches_cpu(card, tmp_path):
     chunks = -(-400 // 70)
     # two fused half-steps and two epilogues per inner pass; one bsr_spmm
     # per chunk for the fold-in and one for the statistics' seed
-    assert counts["bsr_spmm_gram"] == counts["relu_topk"] == 2 * 6 * chunks
+    # 2 x 6 passes a chunk, and the fold-in's epilogue
+    assert counts["bsr_spmm_gram"] == 2 * 6 * chunks
+    assert counts["relu_topk"] == 2 * 6 * chunks + 1
     assert counts["bsr_spmm"] == 2 * chunks
     off = EnforcedNMF(cfg.replace(prefetch=False), device=card).fit(sp, u0=u0)
     disk = EnforcedNMF(cfg, device=card).fit(
@@ -514,3 +516,61 @@ def test_online_step_makes_no_host_sync(card, backend):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert int(res.health) == -1
+
+
+class _Killed(Exception):
+    """In-process stand-in for a hard kill at a checkpoint commit."""
+
+
+@pytest.mark.parametrize("solver", ["enforced", "streaming"])
+def test_killed_and_resumed_cuda_bsr_fit_is_bitwise(card, tmp_path, solver):
+    """Every kernel of the ``cuda-bsr`` path is deterministic and a snapshot
+    is an exact copy, so a fit killed at a snapshot and resumed is the
+    uninterrupted fit bit for bit (U, V, the traces), batch and streamed."""
+    from repro_torch.robustness import faults
+
+    sp = _small_corpus()
+    u0 = np.random.default_rng(5).random((600, 5)).astype(np.float32)
+    cfg = NMFConfig(k=5, iters=12, backend="cuda-bsr", solver=solver,
+                    sparsity=Sparsity(t_u=60, t_v=100), chunk_docs=100,
+                    checkpoint_dir=str(tmp_path), checkpoint_every=4
+                    if solver == "enforced" else 2)
+    full = EnforcedNMF(cfg.replace(checkpoint_dir=None),
+                       device=card).fit(sp, u0=u0)
+    key = 8 if solver == "enforced" else 2
+    with faults.inject("kill", key=key, exc=_Killed):
+        with pytest.raises(_Killed):
+            EnforcedNMF(cfg, device=card).fit(sp, u0=u0)
+    _build.reset_launch_counts()
+    res = EnforcedNMF(cfg, device=card).fit(sp, u0=u0, resume=True)
+    counts = _build.launch_counts()
+    for a, b in ((full.u_, res.u_), (full.v_, res.v_),
+                 (full.result_.residual, res.result_.residual),
+                 (full.result_.error, res.result_.error)):
+        assert torch.equal(a, b)
+    assert res.result_.n_iter == full.result_.n_iter
+    if solver == "enforced":   # 4 iterations left, and the statistics' seed
+        assert counts["bsr_spmm_gram"] == 9 and counts["relu_topk"] == 8
+
+
+def test_poisoned_cuda_bsr_fit_rolls_back_on_card(card, tmp_path):
+    """NaN through the fused product + Gram, the Cholesky solve and
+    ``relu_topk``: the health index comes back set (no barrier traps) and
+    the fit rolls back to finite factors; under ``"raise"`` it raises."""
+    from repro_torch.robustness import FitHealthError, faults
+
+    sp = _small_corpus()
+    u0 = np.random.default_rng(6).random((600, 5)).astype(np.float32)
+    cfg = NMFConfig(k=5, iters=12, backend="cuda-bsr",
+                    sparsity=Sparsity(t_u=60, t_v=100),
+                    checkpoint_dir=str(tmp_path), checkpoint_every=4)
+    with faults.inject("poison-step", key=4):
+        with pytest.warns(RuntimeWarning, match="at iteration 4; rolling"):
+            model = EnforcedNMF(cfg, device=card).fit(sp, u0=u0)
+    assert bool(torch.isfinite(model.u_).all()) and model.n_iter_ == 12
+    assert int(model.result_.health) == -1
+    with faults.inject("poison-step", key=0):
+        with pytest.raises(FitHealthError, match="iteration 0"):
+            EnforcedNMF(cfg.replace(on_unhealthy="raise",
+                                    checkpoint_dir=None),
+                        device=card).fit(sp, u0=u0)

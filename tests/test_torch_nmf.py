@@ -199,10 +199,17 @@ def test_config_and_registry():
     assert not get_backend("pallas-bsr-unfused").fuse_halfstep
     with pytest.raises(ValueError, match="unknown backend"):
         NMFConfig(backend="bogus")
-    with pytest.raises(NotImplementedError, match="rollback"):
-        NMFConfig(on_unhealthy="rollback")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        NMFConfig(checkpoint_dir="/nowhere")
+    # the reference's validation of the fault-tolerance fields
+    assert NMFConfig().on_unhealthy == "rollback"
+    assert NMFConfig(checkpoint_dir="/nowhere").checkpoint_every == 10
+    with pytest.raises(ValueError, match="checkpoint_every"):
+        NMFConfig(checkpoint_every=0)
+    with pytest.raises(ValueError, match="needs checkpoint_dir"):
+        NMFConfig(resume=True)
+    with pytest.raises(ValueError, match="max_rollbacks"):
+        NMFConfig(max_rollbacks=-1)
+    with pytest.raises(ValueError, match="on_unhealthy"):
+        NMFConfig(on_unhealthy="retry")
     # the sequential solver refuses the BSR backend, and a corpus
     # directory needs the streaming solver
     with pytest.raises(ValueError, match="not supported by the sequential"):
