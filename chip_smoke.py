@@ -107,6 +107,21 @@ Phases (any failed check raises, and the script exits non-zero):
     made unhealthy on purpose rolls back (U bitwise), and the retry folds
     the 751 documents in on the card (20 ``bsr_spmm_gram``, 20
     ``relu_topk``, health -1).
+19. the mesh engines at PubMed size, every rank a process spawned from here
+    (this process joins no group): (a) ``solver="distributed"`` on
+    ``cuda-bsr`` on a 1x1 mesh under NCCL (world 1), 50 iterations, held
+    to the reference's bars against phase 3 (``bsr_spmm_gram`` 2 * iters
+    + 1, no ``relu_topk``); (b) the same fit on 2x2 and 4x1 as four gloo
+    ranks sharing the card, each rank's launches, ``all_reduce`` calls and
+    bytes, peak memory, ms an iteration, NNZ beside the population of
+    tau's histogram bin, held to the same bars against (a), and a
+    5-iteration ``torch-csr`` 2x2 fit within 1e-4 of ``cuda-bsr``; (c) a
+    streamed 2x2 fit (8 chunks through ``PackedChunk`` prefetch) bitwise
+    equal with prefetch off; (d) a 2x2 fit checkpointed every 10
+    iterations, killed at snapshot 30 and resumed on 4x1, within 1e-4 of
+    the uninterrupted 2x2 trace; (e) ``python -m torch.distributed.run
+    --nproc-per-node 4 -m repro_torch.launch.nmf_run --solver distributed
+    --mesh 2x2 --dist-backend gloo --small`` exits 0.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -222,6 +237,42 @@ def bound_ms(nbytes, flops, peak_flops=F32_FLOPS):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def _spmm_bytes(b, w, tiles, k, gram_out=False):
+    """Bytes a BSR product must move: the occupied tiles, the block-column
+    indices, the factor read once, the product (and a k x k Gram)
+    written once."""
+    n_out = b.shape[0] * k
+    return 4 * (tiles * b.bm * b.bk + b.nrb * b.bcap + w.numel() + n_out
+                + (k * k if gram_out else 0))
+
+
+def _lib_spmm(b, w, sp, dev):
+    """One torch.sparse call on the same matrix: a sparse BSR tensor of the
+    same stored tiles, or, where PyTorch has no BSR product on the card, a
+    sparse CSR tensor of the same nonzeros.  Returns (name, callable)."""
+    import torch
+
+    ncb = -(-b.shape[1] // b.bk)
+    size = (b.nrb * b.bm, ncb * b.bk)
+    w_pad = torch.nn.functional.pad(w, (0, 0, 0, size[1] - w.shape[0]))
+    occ_mask = (b.tiles != 0).flatten(2).any(-1)
+    counts = occ_mask.sum(1)
+    crow = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).int()
+    mat = torch.sparse_bsr_tensor(crow, b.block_cols[occ_mask],
+                                  b.tiles[occ_mask], size=size)
+    try:
+        torch.sparse.mm(mat, w_pad)
+        return "torch.sparse.mm(bsr)", lambda: torch.sparse.mm(mat, w_pad)
+    except (RuntimeError, NotImplementedError) as exc:
+        log(f"[library] no BSR product on the card ({exc}); timing the "
+            "CSR product of the same nonzeros instead")
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(sp.indptr.astype(np.int64)),
+        torch.from_numpy(sp.indices.astype(np.int64)),
+        torch.from_numpy(sp.data), size=sp.shape).to(dev)
+    return "torch.sparse.mm(csr)", lambda: torch.sparse.mm(csr, w)
 
 
 def gram_flops(n, k):
@@ -844,6 +895,15 @@ def run_stream_slice(dev, corpus, a_sp, op, model, new_sp, u0, paths,
     spmm_ms = cuda_ms(lambda: bsr_spmm(op.bsr, v_big), reps=5)
     close("bsr_spmm k=256", bsr_spmm(op.bsr, v_big),
           ref.bsr_spmm_ref(op.bsr, v_big), 1e-4, 1e-4)
+    # its bound and the library call at k = 256 (PERF.md's kernel table)
+    tiles = int((op.bsr.tiles != 0).flatten(2).any(-1).sum())
+    spmm_bound = bound_ms(_spmm_bytes(op.bsr, v_big, tiles, big_k),
+                          2.0 * tiles * op.bsr.bm * op.bsr.bk * big_k)
+    lib_call, lib_fn = _lib_spmm(op.bsr, v_big, a_sp.tocsr(), dev)
+    spmm_lib_ms = cuda_ms(lib_fn, reps=5)
+    log(f"[k256] bsr_spmm A @ V at k = {big_k}: {spmm_ms:.4f} ms, bound "
+        f"{spmm_bound[0]:.4f} ms by {spmm_bound[1]}, {lib_call} "
+        f"{spmm_lib_ms:.4f} ms")
     big_cfg = NMFConfig(k=big_k, iters=3, backend="cuda-bsr",
                         sparsity=Sparsity(t_u=N_TERMS * big_k // 50,
                                           t_v=N_DOCS * big_k // 50))
@@ -866,6 +926,9 @@ def run_stream_slice(dev, corpus, a_sp, op, model, new_sp, u0, paths,
         raise AssertionError("the k = 256 fit did not take bsr_spmm, gram "
                              "and relu_topk")
     out["k256"] = dict(gram=g_row, spmm_ms=spmm_ms,
+                       spmm_bound_ms=spmm_bound[0],
+                       spmm_bound_by=spmm_bound[1],
+                       spmm_library=lib_call, spmm_library_ms=spmm_lib_ms,
                        fit_per_iter_ms=1e3 * big_s / 3, error_diff=kdiff,
                        launches=counts)
     return g_row
@@ -1169,6 +1232,403 @@ def run_fault_slice(dev, a_sp, op, model, u0, paths, results, keep):
         f"{cli_s:.1f} s")
     out["cli"] = dict(kill_exit=kill_rc, numbers=got, seconds=cli_s)
     shutil.rmtree(root, ignore_errors=True)
+
+
+def _tau_bin_population(x, nbins=8192):
+    """Entries of the kept factor ``x`` in its lowest occupied bin of
+    ``DistTopK``'s log histogram (whose edges depend only on the largest
+    magnitude, which the mask keeps): the population of the threshold's
+    bin, by which NNZ may exceed t."""
+    import torch
+
+    from repro_torch.core.topk import log_histogram
+
+    absx = x.abs()
+    hist, _, _ = log_histogram(absx, absx.max(), nbins)
+    occupied = torch.nonzero(hist).flatten()
+    return int(hist[occupied[0]]) if len(occupied) else 0
+
+
+def _profile_window(fn, iters):
+    """A profiler window around ``fn()`` (a fit of ``iters`` iterations):
+    wall, device-busy and collective host time an iteration, and device
+    kernels an iteration (the rank's own process; its numbers only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+    dev_us, kernels, coll, top = 0.0, 0, {}, []
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            t_us = getattr(evt, "self_device_time_total", None)
+            if t_us is None:
+                t_us = evt.self_cuda_time_total
+            dev_us += t_us
+            kernels += evt.count
+            top.append((t_us, evt.key[:60]))
+        elif "allreduce" in evt.key.lower().replace("_", ""):
+            # the host time of the collective's own events (gloo's staging
+            # and exchange, or the enqueue of NCCL's), by name
+            coll[evt.key[:40]] = round(evt.cpu_time_total / 1e3 / iters, 4)
+    top.sort(reverse=True)
+    return dict(window_ms=1e3 * window_s / iters,
+                busy_ms=dev_us / 1e3 / iters,
+                busy_share=dev_us / (window_s * 1e6),
+                all_reduce_host_ms=coll, kernels=kernels / iters,
+                top=[(round(t / 1e3 / iters, 4), k) for t, k in top[:4]])
+
+
+def _time_engine(a_sp, u0, dev, kw):
+    """The batch engine's own time on this rank's block, its ingest left
+    out: ``make_sharded_als`` on the mesh, the block distributed once, a
+    2-iteration warm-up call, then a timed call of ``kw["iters"]``
+    iterations (host clock, synchronized) with its collectives counted, and
+    a profiler window of 5 iterations (on the card)."""
+    import torch
+
+    from repro_torch.backend.sharded import make_sharded_als
+    from repro_torch.core.topk import DistTopK
+    from repro_torch.launch.mesh import (
+        collective_counts, make_nmf_mesh, reset_collective_counts,
+    )
+
+    mesh = make_nmf_mesh(*kw["mesh_shape"], device=dev)
+    engine = make_sharded_als(
+        mesh, sparsify_u=DistTopK(T_U, mesh, ("data",)),
+        sparsify_v=DistTopK(T_V, mesh, ("model",)), inner=kw["backend"])
+    dist = engine.distribute(a_sp)
+    u = torch.from_numpy(u0).to(dev)[mesh.row_block(u0.shape[0])]
+    card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    engine(dist, u, 2)
+    sync()
+    reset_collective_counts()
+    iters = kw["iters"]
+    t0 = time.perf_counter()
+    engine(dist, u, iters)
+    sync()
+    iter_ms = 1e3 * (time.perf_counter() - t0) / iters
+    c = collective_counts()
+    out = dict(iter_ms=iter_ms, all_reduce=c["all_reduce"] / iters,
+               bytes=c["bytes"] / iters)
+    if card:
+        out["profile"] = _profile_window(lambda: engine(dist, u, 5), 5)
+    return out
+
+
+def _mesh_rank(rank, data_dir, device, jobs):
+    """One rank of phase 19: each job a fit on the mesh this process
+    belongs to, on ``device``, with its launch and collective counts, peak
+    memory and wall time read around it (the counts set to 0 just before
+    the fit)."""
+    import scipy.sparse
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import (
+        collective_counts, reset_collective_counts,
+    )
+    from repro_torch.nmf import EnforcedNMF, NMFConfig, Sparsity
+    from repro_torch.robustness import faults
+
+    class Killed(Exception):
+        pass
+
+    dev = torch.device(device)
+    card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    a_sp = scipy.sparse.load_npz(Path(data_dir) / "a.npz")
+    u0 = np.load(Path(data_dir) / "u0.npy")
+    out = {}
+    for name, kw in jobs:
+        kw = dict(kw)
+        kill_at = kw.pop("kill_at", None)
+        resume = kw.pop("resume", None)
+        if kw.pop("engine", False):
+            out[name] = _time_engine(a_sp, u0, dev, kw)
+            continue
+        cfg = NMFConfig(sparsity=Sparsity(t_u=T_U, t_v=T_V), **kw)
+        sync()
+        if card:
+            torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        reset_collective_counts()
+        t0 = time.perf_counter()
+        model = EnforcedNMF(cfg, device=dev)
+        if kill_at is not None:
+            try:
+                with faults.inject("kill", key=kill_at, exc=Killed):
+                    model.fit(a_sp, u0=u0)
+                raise AssertionError("the kill fault never fired")
+            except Killed:
+                out[name] = dict(killed=True)
+                continue
+        model.fit(a_sp, u0=u0, resume=resume)
+        sync()
+        wall_s = time.perf_counter() - t0
+        r = model.result_
+        rec = dict(
+            launches=_build.launch_counts(),
+            collectives=collective_counts(),
+            peak_mb=(torch.cuda.max_memory_allocated() / 2**20 if card
+                     else 0.0),
+            wall_s=wall_s, ms_per_iter=1e3 * wall_s / r.n_iter,
+            err=r.error.tolist(), res=r.residual.tolist(),
+            nnz_u=r.nnz_u.tolist(), nnz_v=r.nnz_v.tolist(),
+            health=int(r.health), n_iter=int(r.n_iter),
+            pop_u=_tau_bin_population(model.u_),
+            pop_v=_tau_bin_population(model.v_),
+            finite=bool(torch.isfinite(model.u_).all()
+                        and torch.isfinite(model.v_).all()),
+            u=model.u_.cpu().numpy() if rank == 0 else None,
+            v=model.v_.cpu().numpy() if rank == 0 else None)
+        if r.stream_stats is not None:
+            rec["stream_stats"] = r.stream_stats
+        out[name] = rec
+    return out
+
+
+def run_mesh_slice(a_sp, res3, u0, paths, results, device="cuda:0",
+                   one_rank_backend="nccl"):
+    """Phase 19: the mesh engines on the card.  Every rank is a process
+    spawned from here (this process joins no group): a 1x1 mesh under NCCL,
+    2x2 and 4x1 meshes as four gloo ranks sharing the card; the streamed fit
+    on 2x2; a 2x2 fit killed at snapshot 30 and resumed on 4x1; the command
+    line under ``torch.distributed.run``.  (``device="cpu"`` with gloo runs
+    the same phase on the CPU, to debug it at a small size.)"""
+    import os
+    import shutil
+    import tempfile
+
+    import scipy.sparse
+
+    from repro_torch.launch.mesh import spawn_mesh
+
+    out = results["phases"].setdefault("mesh", {})
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip-smoke-mesh-")
+    scipy.sparse.save_npz(Path(root) / "a.npz", a_sp.tocsr())
+    np.save(Path(root) / "u0.npy", u0.cpu().numpy())
+    ckpt = str(Path(root) / "ckpt")
+    fit = dict(k=K, iters=ITERS, solver="distributed", backend="cuda-bsr")
+
+    def spawn(shape, backend, jobs):
+        t0 = time.perf_counter()
+        recs = spawn_mesh(_mesh_rank, *shape, backend=backend,
+                          device=device, timeout=600.0,
+                          init_file=str(Path(root) / f"store-{shape}"),
+                          args=(root, device, jobs))
+        return recs, time.perf_counter() - t0
+
+    def bars(name, rec, want, what):
+        """The reference's bars between two solvers' traces
+        (tests/test_sharded_engine.py:65-89); returns the largest
+        differences."""
+        err, res = np.asarray(rec["err"]), np.asarray(rec["res"])
+        w_err, w_res = np.asarray(want["err"]), np.asarray(want["res"])
+        d_err = float(np.max(np.abs(err - w_err)))
+        d_res = float(np.max(np.abs(res - w_res)))
+        if not (d_err < 0.02 and d_res < 0.15
+                and res[-1] < max(2 * w_res[-1], 0.15)):
+            raise AssertionError(f"{name}: traces outside the bars against "
+                                 f"{what} (error {d_err:.3e}, residual "
+                                 f"{d_res:.3e})")
+        return d_err, d_res
+
+    def same_engine(name, rec, want, what):
+        """One engine on two grids (the sums run in another order): the
+        traces within 1e-4, the bar of the elastic resume check below;
+        returns the largest differences."""
+        d_err = float(np.max(np.abs(np.asarray(rec["err"])
+                                    - np.asarray(want["err"]))))
+        d_res = float(np.max(np.abs(np.asarray(rec["res"])
+                                    - np.asarray(want["res"]))))
+        if max(d_err, d_res) > 1e-4:
+            raise AssertionError(f"{name}: traces differ from {what} by "
+                                 f"{d_err:.3e} (error) / {d_res:.3e} "
+                                 "(residual) > 1e-4")
+        return d_err, d_res
+
+    def check_ranks(name, recs, fused, relu_topk=0):
+        for rank, rec in enumerate(recs):
+            got = rec["launches"]
+            # (on the CPU the plain versions run, and count nothing)
+            if device != "cpu" and (got["bsr_spmm_gram"] != fused
+                                    or got["relu_topk"] != relu_topk):
+                raise AssertionError(
+                    f"{name} rank {rank}: bsr_spmm_gram {got['bsr_spmm_gram']}"
+                    f" (want {fused}), relu_topk {got['relu_topk']} (want "
+                    f"{relu_topk})")
+            if rec["health"] != -1 or not rec["finite"]:
+                raise AssertionError(f"{name} rank {rank} is unhealthy")
+            if rec["err"] != recs[0]["err"]:
+                raise AssertionError(f"{name}: ranks disagree on the trace")
+
+    def report(name, recs, secs, timed):
+        """Each rank's fit (launches, collectives, peak memory, wall time
+        with its ingest) and its engine timed without the ingest."""
+        for rank, (rec, t) in enumerate(zip(recs, timed)):
+            c = rec["collectives"]
+            rec["engine"] = t
+            log(f"[mesh] {name} rank {rank}: the fit {rec['wall_s']:.2f} s "
+                f"(ingest included), launches {rec['launches']}, all_reduce "
+                f"{c['all_reduce']} calls / {c['bytes']} bytes, peak "
+                f"{rec['peak_mb']:.1f} MiB; the engine {t['iter_ms']:.3f} ms"
+                f" an iteration, {t['all_reduce']:.0f} all_reduce / "
+                f"{t['bytes']:.0f} bytes an iteration")
+            win = t.get("profile")
+            if win:
+                log(f"[mesh] {name} rank {rank} profile (5 iterations): "
+                    f"{win['window_ms']:.3f} ms wall, {win['busy_ms']:.3f} ms"
+                    f" busy ({100 * win['busy_share']:.1f}%), "
+                    f"{win['kernels']:.0f} kernels an iteration; collective "
+                    f"host ms an iteration {win['all_reduce_host_ms']}; top "
+                    f"{win['top']}")
+        rec = recs[0]
+        log(f"[mesh] {name}: final error {rec['err'][-1]:.6f}, NNZ(U) "
+            f"{rec['nnz_u'][-1]} (t_u {T_U}, tau's bin holds "
+            f"{rec['pop_u']}), NNZ(V) {rec['nnz_v'][-1]} (t_v {T_V}, tau's "
+            f"bin holds {rec['pop_v']}); spawn to result {secs:.1f} s")
+        out[name] = dict(
+            ranks=[{k: v for k, v in r.items() if k not in ("u", "v")}
+                   for r in recs], seconds=secs)
+
+    phase3 = dict(err=res3.error.tolist(), res=res3.residual.tolist())
+    # -- 19(a). 1x1 under NCCL (world 1) -------------------------------------
+    timed = lambda shape: ("engine", dict(fit, mesh_shape=shape, iters=20,
+                                          engine=True))
+    (a1,), secs = spawn((1, 1), one_rank_backend,
+                        [("fit", fit), timed((1, 1))])
+    check_ranks("1x1 nccl", [a1["fit"]], 2 * ITERS + 1)
+    d = bars("1x1 nccl", a1["fit"], phase3, "phase 3")
+    report("1x1 nccl", [a1["fit"]], secs, [a1["engine"]])
+    log(f"[mesh] 1x1 nccl against phase 3: error {d[0]:.3e}, residual "
+        f"{d[1]:.3e}")
+    paths["mesh_fit_1x1"] = a1["fit"]["launches"]
+
+    # -- 19(b)-(d). 2x2: the fit, torch-csr, the streamed fit, the kill ------
+    stream = dict(k=K, iters=10, solver="streaming", backend="cuda-bsr",
+                  mesh_shape=(2, 2))
+    jobs = [("fit", dict(fit, mesh_shape=(2, 2))), timed((2, 2)),
+            ("csr", dict(fit, mesh_shape=(2, 2), iters=UNFUSED_ITERS,
+                         backend="torch-csr")),
+            ("stream", stream),
+            ("stream_off", dict(stream, prefetch=False)),
+            ("kill", dict(fit, mesh_shape=(2, 2), checkpoint_dir=ckpt,
+                          checkpoint_every=10, kill_at=30))]
+    r22, secs = spawn((2, 2), "gloo", jobs)
+    fits = [r["fit"] for r in r22]
+    check_ranks("2x2 gloo", fits, 2 * ITERS + 1)
+    p22 = bars("2x2 gloo", fits[0], phase3, "phase 3")
+    d22 = same_engine("2x2 gloo", fits[0], a1["fit"], "19(a)")
+    report("2x2 gloo", fits, secs, [r["engine"] for r in r22])
+    paths["mesh_fit"] = fits[0]["launches"]
+    csr_err = np.asarray(r22[0]["csr"]["err"])
+    csr_diff = float(np.max(np.abs(
+        csr_err - np.asarray(fits[0]["err"][:UNFUSED_ITERS]))))
+    if csr_diff > 1e-4:
+        raise AssertionError(f"sharded[torch-csr] 2x2 differs from cuda-bsr "
+                             f"by {csr_diff:.3e}")
+    streams = [r["stream"] for r in r22]
+    n_chunks = streams[0]["n_iter"]
+    check_ranks("2x2 stream", streams, 2 * 10 * n_chunks, relu_topk=1)
+    for rank, r in enumerate(r22):
+        on, off = r["stream"], r["stream_off"]
+        same = all(on[key] == off[key] for key in ("err", "res", "nnz_u",
+                                                   "nnz_v"))
+        if rank == 0:
+            same = same and np.array_equal(on["u"], off["u"]) \
+                and np.array_equal(on["v"], off["v"])
+        if not same:
+            raise AssertionError(f"2x2 stream rank {rank}: prefetch on and "
+                                 "off differ")
+        if not r["kill"].get("killed"):
+            raise AssertionError("the 2x2 fit was not killed at 30")
+    pf = streams[0]["stream_stats"]["fit"]
+    log(f"[mesh] 2x2 against phase 3: error {p22[0]:.3e}, residual "
+        f"{p22[1]:.3e}; against 19(a): error {d22[0]:.3e}, residual "
+        f"{d22[1]:.3e}; sharded[torch-csr] {UNFUSED_ITERS} iterations "
+        f"within {csr_diff:.3e} of cuda-bsr "
+        f"({r22[0]['csr']['ms_per_iter']:.2f} ms an iteration, ingest "
+        "included)")
+    log(f"[mesh] 2x2 streamed fit: {n_chunks} chunks, prefetch on and off "
+        f"bitwise equal (U, V, traces); {streams[0]['wall_s']:.2f} s on, "
+        f"{r22[0]['stream_off']['wall_s']:.2f} s off; launches per rank "
+        f"{streams[0]['launches']}; PackedChunk packing {pf['pack_s']:.2f} "
+        f"s, stalled {pf['stall_s']:.2f} s")
+    out["stream"] = dict(
+        ranks=[{k: v for k, v in r["stream"].items() if k not in ("u", "v")}
+               for r in r22],
+        off_s=r22[0]["stream_off"]["wall_s"])
+    out["csr_diff"] = csr_diff
+    paths["mesh_stream"] = streams[0]["launches"]
+
+    # -- 19(b), (d). 4x1, and the 2x2 kill resumed there --------------------
+    r41, secs = spawn((4, 1), "gloo",
+                      [("fit", dict(fit, mesh_shape=(4, 1))), timed((4, 1)),
+                       ("resumed", dict(fit, mesh_shape=(4, 1),
+                                        checkpoint_dir=ckpt,
+                                        checkpoint_every=10, resume=True))])
+    fits41 = [r["fit"] for r in r41]
+    check_ranks("4x1 gloo", fits41, 2 * ITERS + 1)
+    p41 = bars("4x1 gloo", fits41[0], phase3, "phase 3")
+    d41 = same_engine("4x1 gloo", fits41[0], a1["fit"], "19(a)")
+    report("4x1 gloo", fits41, secs, [r["engine"] for r in r41])
+    log(f"[mesh] 4x1 against phase 3: error {p41[0]:.3e}, residual "
+        f"{p41[1]:.3e}; against 19(a): error {d41[0]:.3e}, residual "
+        f"{d41[1]:.3e}")
+    resumed = [r["resumed"] for r in r41]
+    check_ranks("resumed 2x2 -> 4x1", resumed, 2 * (ITERS - 30) + 1)
+    d_res = float(np.max(np.abs(np.asarray(resumed[0]["err"])
+                                - np.asarray(fits[0]["err"]))))
+    d_rres = float(np.max(np.abs(np.asarray(resumed[0]["res"])
+                                 - np.asarray(fits[0]["res"]))))
+    if resumed[0]["n_iter"] != ITERS or max(d_res, d_rres) > 1e-4:
+        raise AssertionError(f"killed on 2x2, resumed on 4x1: n_iter "
+                             f"{resumed[0]['n_iter']}, traces differ from the"
+                             f" uninterrupted 2x2 fit by {d_res:.3e} / "
+                             f"{d_rres:.3e}")
+    log(f"[mesh] killed on 2x2 at snapshot 30, resumed on 4x1: traces "
+        f"within {d_res:.3e} (error) / {d_rres:.3e} (residual) of the "
+        f"uninterrupted 2x2 fit; resumed launches "
+        f"{resumed[0]['launches']}")
+    out["against_1x1"] = {"2x2": d22, "4x1": d41}
+    out["elastic"] = dict(err_diff=d_res, res_diff=d_rres,
+                          launches=resumed[0]["launches"])
+
+    # -- 19(e). the command line under torch.distributed.run ----------------
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           "--standalone", "--nproc-per-node", "4",
+           "-m", "repro_torch.launch.nmf_run", "--solver", "distributed",
+           "--backend", "cuda-bsr", "--mesh", "2x2", "--dist-backend",
+           "gloo", "--small"] + (["--device", "cpu"] if device == "cpu"
+                                  else [])
+    t0 = time.perf_counter()
+    cli = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=300)
+    cli_s = time.perf_counter() - t0
+    if cli.returncode != 0:
+        raise AssertionError(f"torch.distributed.run of the command line "
+                             f"exited {cli.returncode}: {cli.stderr[-3000:]}")
+    fit_line = [ln for ln in cli.stdout.splitlines()
+                if ln.startswith("solver=")]
+    log(f"[mesh] python -m torch.distributed.run --nproc-per-node 4 -m "
+        f"repro_torch.launch.nmf_run --solver distributed --backend cuda-bsr"
+        f" --mesh 2x2 --dist-backend gloo --small: exit 0 in {cli_s:.1f} s;"
+        f" {fit_line}")
+    out["cli"] = dict(seconds=cli_s, line=fit_line)
+    shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[mesh] phase 19 took {out['seconds']:.1f} s (four ranks share one "
+        "card over gloo: the 2x2 / 4x1 times are not a multi-card result)")
 
 
 def run_topic_slice(dev, model, new_sp, paths, results):
@@ -1616,34 +2076,9 @@ def main(argv=None) -> int:
     pairs = ((op.bsr, v_fit, occ["A"], a_sp.tocsr()),
              (op.bsr_t, u_fit, occ["At"], a_sp.T.tocsr()))
 
-    def spmm_bytes(b, w, tiles, gram_out=False):
-        n_out = b.shape[0] * K
-        return 4 * (tiles * b.bm * b.bk + b.nrb * b.bcap + w.numel() + n_out
-                    + (K * K if gram_out else 0))
-
-    def lib_spmm(b, w, sp):
-        """One torch.sparse call on the same matrix: a sparse BSR tensor of
-        the same stored tiles, or, where PyTorch has no BSR product on the
-        card, a sparse CSR tensor of the same nonzeros."""
-        ncb = -(-b.shape[1] // b.bk)
-        size = (b.nrb * b.bm, ncb * b.bk)
-        w_pad = torch.nn.functional.pad(w, (0, 0, 0, size[1] - w.shape[0]))
-        occ_mask = (b.tiles != 0).flatten(2).any(-1)
-        counts = occ_mask.sum(1)
-        crow = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).int()
-        mat = torch.sparse_bsr_tensor(crow, b.block_cols[occ_mask],
-                                      b.tiles[occ_mask], size=size)
-        try:
-            torch.sparse.mm(mat, w_pad)
-            return "torch.sparse.mm(bsr)", lambda: torch.sparse.mm(mat, w_pad)
-        except (RuntimeError, NotImplementedError) as exc:
-            log(f"[library] no BSR product on the card ({exc}); timing the "
-                "CSR product of the same nonzeros instead")
-        csr = torch.sparse_csr_tensor(
-            torch.from_numpy(sp.indptr.astype(np.int64)),
-            torch.from_numpy(sp.indices.astype(np.int64)),
-            torch.from_numpy(sp.data), size=sp.shape).to(dev)
-        return "torch.sparse.mm(csr)", lambda: torch.sparse.mm(csr, w)
+    spmm_bytes = lambda b, w, tiles, gram_out=False: _spmm_bytes(
+        b, w, tiles, K, gram_out)
+    lib_spmm = lambda b, w, sp: _lib_spmm(b, w, sp, dev)
 
     rows = {}
     per = {"bsr_spmm": [], "bsr_spmm_gram": []}
@@ -1916,6 +2351,8 @@ def main(argv=None) -> int:
     results["phases"]["fault_topic_s"] = time.perf_counter() - t0
     log(f"[fault] phases 17-18 took {results['phases']['fault_topic_s']:.1f} "
         "s")
+    # -- 19. the mesh engines ------------------------------------------------
+    run_mesh_slice(a_sp, res, u0, paths, results)
     rows["gram"]["k_range"] = ("any k: one output tile up to k = 224, "
                                "128 x 128 tiles above")
     rows["gram"]["k256"] = {key: gram_k256[key] for key in

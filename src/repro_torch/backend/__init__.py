@@ -5,6 +5,9 @@ Registered: ``torch-dense`` (dense baseline, alias ``jnp-dense``),
 ``torch-csr`` (padded-CSR gather / scatter, alias ``jnp-csr``),
 ``cuda-bsr`` (the Hopper kernels, fused half-step; alias ``pallas-bsr``)
 and ``cuda-bsr-unfused`` (separate launches; alias ``pallas-bsr-unfused``).
+The mesh engines wrap ``torch-csr`` or ``cuda-bsr`` blocks in
+:class:`repro_torch.backend.sharded.ShardedBackend` (not registered: it
+runs on a ``ShardView`` of one rank's block).
 """
 from repro_torch.backend.base import (
     LocalExecution, MatmulBackend, available_backends, default_backend_name,

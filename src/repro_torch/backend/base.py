@@ -5,8 +5,11 @@ The ALS hot spot is three products — ``A @ V``, ``A^T @ U`` and the small
 Grams ``X^T X`` — and a :class:`MatmulBackend` bundles one implementation of
 the trio.  The engine's residual / error / nnz bookkeeping runs through the
 reduction hooks ``reduce_u`` / ``reduce_v`` (identity on one device,
-:class:`LocalExecution`; mesh sums once the sharded engine is ported) and
-the metric hooks ``sqnorm`` / ``relative_error``.
+:class:`LocalExecution`; ``all_reduce`` sums on a mesh,
+:class:`repro_torch.backend.sharded.ShardedBackend`) and
+the metric hooks ``sqnorm`` / ``relative_error``, whose per-shard parts
+are ``local_sqnorm`` / ``local_dot`` (the mesh backend sums them with
+``reduce_all``).
 
 Selection rules (:func:`select_backend` / :func:`default_backend_name`):
 
@@ -77,6 +80,17 @@ class MatmulBackend(Protocol):
     def reduce_v(self, x: torch.Tensor) -> torch.Tensor:
         ...
 
+    def reduce_all(self, x: torch.Tensor) -> torch.Tensor:
+        ...
+
+    def local_sqnorm(self, a) -> torch.Tensor:
+        """This operand's part of ``||A||_F^2``."""
+        ...
+
+    def local_dot(self, a, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """This operand's part of ``<A, U V^T>``."""
+        ...
+
     def sqnorm(self, a) -> torch.Tensor:
         """``||A||_F^2`` of the operand."""
         ...
@@ -91,13 +105,40 @@ class MatmulBackend(Protocol):
 class LocalExecution:
     """Single-device execution hooks shared by the local backends:
     reductions are identity and the metric hooks delegate to the
-    operand-type dispatch in :mod:`repro_torch.core.nmf`."""
+    operand-type dispatch in :mod:`repro_torch.core.nmf`.  ``local_sqnorm``
+    and ``local_dot`` are one operand's parts of ``||A||_F^2`` and of the
+    error's cross term ``<A, U V^T>``; a mesh shard's operand is a local
+    operand, so the sharded backend reads them from its inner backend."""
 
     def reduce_u(self, x):
         return x
 
     def reduce_v(self, x):
         return x
+
+    def reduce_all(self, x):
+        return x
+
+    def local_sqnorm(self, a):
+        from repro_torch.core.nmf import _sqnorm
+
+        return _sqnorm(a)
+
+    def local_dot(self, a, u, v):
+        """``<A, U V^T>`` without the dense product: tile-wise on a
+        ``BSROperand`` (``bsr_dot_uv``), a gather-dot over the stored slots
+        of an ``SpCSR``, elementwise on a dense tensor."""
+        from repro_torch.kernels.bsr import BSROperand, bsr_dot_uv
+        from repro_torch.sparse.csr import SpCSR
+
+        if isinstance(a, BSROperand):
+            return bsr_dot_uv(a.bsr, u, v)
+        if isinstance(a, SpCSR):
+            rows = torch.arange(a.n, device=a.device)[:, None].expand(
+                a.cols.shape)
+            dots = torch.sum(u[rows] * v[a.cols.long()], dim=-1)
+            return torch.sum(a.values * dots)
+        return torch.sum(a * (u @ v.T))
 
     def matmul_with_gram(self, a, v):
         return self.matmul(a, v), self.gram(v)

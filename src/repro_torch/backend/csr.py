@@ -89,12 +89,5 @@ class TorchCsrBackend(LocalExecution):
     def gram(self, x):
         return x.T @ x
 
-    def local_dot(self, a, u, v):
-        """<A, U V^T> over the stored slots."""
-        rows = torch.arange(a.n, device=a.device)[:, None].expand(
-            a.cols.shape)
-        dots = torch.sum(u[rows] * v[a.cols.long()], dim=-1)
-        return torch.sum(a.values * dots)
-
 
 register_backend(TorchCsrBackend(), aliases=("jnp-csr",))

@@ -103,7 +103,8 @@ def online_als_step(
     gv, av = stats.gv, stats.av
     for it in range(max(int(iters), 1)):
         atu, gu = be.matmul_t_with_gram(a_chunk, u)
-        v = _epilogue(solve_gram(be.reduce_u(gu), atu), sparsify_v)
+        gu = be.reduce_u(gu)
+        v = _epilogue(solve_gram(gu, atu), sparsify_v)
         av_c, gv_c = be.matmul_with_gram(a_chunk, v)
         gv = forget * stats.gv + be.reduce_v(gv_c)
         av = forget * stats.av + av_c

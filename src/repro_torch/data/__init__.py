@@ -2,7 +2,7 @@
 the text pipeline, and out-of-core corpora with their prefetcher."""
 from repro_torch.data.corpus import (
     CORPUS_FORMAT, ChunkPackError, ChunkSource, CorpusIntegrityError,
-    DenseChunks, MmapCorpus, Prefetcher, ResidentChunks, SKIP_BAD_CHUNKS_ENV,
+    DenseChunks, MmapCorpus, PackedChunk, Prefetcher, ResidentChunks, SKIP_BAD_CHUNKS_ENV,
     StagedChunk, as_chunk_source, chunk_schedule, is_corpus_input,
     open_corpus, stage_chunk, write_corpus,
 )
@@ -14,7 +14,8 @@ from repro_torch.data.textpipe import (
 )
 
 __all__ = ["CORPUS_FORMAT", "ChunkPackError", "ChunkSource",
-           "CorpusIntegrityError", "DenseChunks", "MmapCorpus", "Prefetcher",
+           "CorpusIntegrityError", "DenseChunks", "MmapCorpus", "PackedChunk",
+           "Prefetcher",
            "ResidentChunks", "SKIP_BAD_CHUNKS_ENV", "STOPWORDS",
            "StagedChunk", "as_chunk_source", "build_term_document_matrix",
            "chunk_schedule", "is_corpus_input", "normalize_rows_by_nnz",

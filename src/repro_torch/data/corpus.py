@@ -27,9 +27,13 @@ prefetch (port of ``repro.data.corpus``).
   the checksum) and ``"prefetch-worker"`` in the prefetcher's worker.
   ``REPRO_STREAM_SKIP_BAD_CHUNKS=1`` drops a chunk that cannot be read (an
   ``OSError`` past its retries, or a :class:`CorpusIntegrityError`) with a
-  warning; every other failure, a CUDA error always, still raises.
+  warning; every other failure, a CUDA error always, still raises.  A
+  stream on a mesh refuses the hatch: a chunk dropped on one rank only
+  would put the ranks out of step.
 
-Not ported here: ``PackedChunk`` (mesh streaming).
+* :class:`PackedChunk` — on a mesh, the prefetcher's worker packs this
+  rank's block of chunk N+1 (the shard ingest on the host, the copy on a
+  side stream) while chunk N's online step runs.
 """
 from __future__ import annotations
 
@@ -54,7 +58,7 @@ from repro_torch.sparse.csr import ColumnSlicer, SpCSR, from_dense, from_scipy
 __all__ = [
     "CORPUS_FORMAT", "ChunkPackError", "ChunkSource", "CorpusIntegrityError",
     "DenseChunks", "MmapCorpus", "Prefetcher", "ResidentChunks",
-    "SKIP_BAD_CHUNKS_ENV", "StagedChunk", "as_chunk_source",
+    "PackedChunk", "SKIP_BAD_CHUNKS_ENV", "StagedChunk", "as_chunk_source",
     "chunk_schedule", "is_corpus_input", "open_corpus", "stage_chunk",
     "write_corpus",
 ]
@@ -371,6 +375,22 @@ class StagedChunk:
         return self.operand
 
 
+@dataclasses.dataclass
+class PackedChunk(StagedChunk):
+    """A chunk packed ahead of its step for a mesh: ``operand`` is this
+    rank's block (``DistCSR`` / ``DistBSR``) of the chunk, on its way to
+    ``device`` as a :class:`StagedChunk` is, and ``m_docs`` the chunk's
+    true document count (the block's grid may pad the chunk's columns with
+    empty documents)."""
+
+    m_docs: int = 0
+
+    @property
+    def shape(self):
+        """The block's global (n, padded m) shape."""
+        return self.operand.shape
+
+
 def stage_chunk(host, backend, device: torch.device,
                 stream: Optional[torch.cuda.Stream] = None,
                 index: Optional[int] = None) -> StagedChunk:
@@ -414,7 +434,7 @@ class Prefetcher:
     its retries, or a :class:`CorpusIntegrityError`.  Nothing else is
     skipped: any other exception, a CUDA error included, raises
     :class:`ChunkPackError` (the reference's hatch swallows every
-    exception).
+    exception).  The streaming solver refuses the hatch on a mesh.
 
     ``stats``: ``packed`` items, ``max_queued`` high-water mark, ``pack_s``
     wall time inside ``pack``, ``stall_s`` time the consumer waited for a

@@ -9,7 +9,8 @@
 
 ``solver="streaming"`` fits a corpus chunk by chunk (also from a
 ``write_corpus`` directory), ``solver="sequential"`` one topic block at a
-time (paper Alg. 3).
+time (paper Alg. 3), ``solver="distributed"`` on a ``mesh_shape`` grid of
+``torch.distributed`` ranks (as does streaming on a grid other than 1x1).
 """
 from repro_torch.nmf.config import NMFConfig, Sparsity
 from repro_torch.nmf.estimator import EnforcedNMF

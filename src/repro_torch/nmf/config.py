@@ -1,17 +1,16 @@
 """Estimator configuration: ``Sparsity`` and ``NMFConfig`` (port of
-``repro.nmf.config``, first slice).
+``repro.nmf.config``).
 
 A ``Sparsity`` describes what to enforce (budgets, absolute or as a
 fraction of the dense factor, globally or per column, by bisection or exact
-sort); an ``NMFConfig`` describes the run.  Fields of the reference that
-select code the port has not ported yet (the distributed solver, mesh
-shapes) are absent.
+sort); an ``NMFConfig`` describes the run, on one device or a
+``mesh_shape`` grid of ``torch.distributed`` ranks.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -116,14 +115,20 @@ class NMFConfig:
     """One factorization run: ``A (n x m) ~= U (n x k) @ V (m x k)^T``.
 
     * ``k``, ``iters`` (per block for ``"sequential"``), ``sparsity``,
-      ``solver`` (``"als"``, ``"enforced"``, ``"sequential"`` or
-      ``"streaming"``), ``dtype``, ``tol`` (early stop on the relative
+      ``solver`` (``"als"``, ``"enforced"``, ``"sequential"``,
+      ``"distributed"`` or ``"streaming"``), ``dtype``, ``tol`` (early stop on the relative
       residual; 0 disables), ``seed`` (default initial guess),
       ``track_error`` — as in the reference.
     * ``backend`` — ``"cuda-bsr"``, ``"cuda-bsr-unfused"``, ``"torch-csr"``,
       ``"torch-dense"`` or a reference alias; ``None`` selects from the
       input (scipy sparse -> ``cuda-bsr``, ``SpCSR`` -> ``torch-csr``).  The
       sequential solver takes no BSR backend.
+    * ``mesh_shape`` — the (rows, cols) grid of the ``"distributed"``
+      solver and of ``"streaming"`` on a mesh: A's and U's rows over
+      ``rows`` ranks, A's columns and V's rows over ``cols``; it needs a
+      ``torch.distributed`` process group of ``rows * cols`` ranks (1x1
+      runs without one).  Their local backend is ``torch-csr`` or
+      ``cuda-bsr`` / ``cuda-bsr-unfused`` (or a reference alias).
     * ``block_size`` — topic-block width of the ``"sequential"`` solver
       (must divide ``k``).
     * ``chunk_docs`` — documents per column chunk of the ``"streaming"``
@@ -158,6 +163,7 @@ class NMFConfig:
     seed: int = 0
     track_error: bool = True
     block_size: int = 1
+    mesh_shape: Tuple[int, int] = (1, 1)
     chunk_docs: Optional[int] = None
     prefetch: bool = True
     prefetch_depth: int = 2
@@ -168,6 +174,8 @@ class NMFConfig:
     max_rollbacks: int = 3
 
     def __post_init__(self):
+        object.__setattr__(self, "mesh_shape",
+                           tuple(int(x) for x in self.mesh_shape))
         if self.k <= 0:
             raise ValueError(f"k must be positive, got {self.k}")
         if self.iters <= 0:
@@ -186,7 +194,29 @@ class NMFConfig:
                     and self.solver == "sequential"):
                 raise ValueError(
                     f"backend {self.backend!r} is not supported by the "
-                    "sequential solver; use als/enforced/streaming")
+                    "sequential solver; use als/enforced/distributed/"
+                    "streaming")
+            from repro_torch.backend.sharded import SHARD_FORMATS
+
+            shardable = sorted(SHARD_FORMATS)
+            if (self.solver == "distributed"
+                    and self.backend not in shardable):
+                raise ValueError(
+                    f"the distributed solver shards per-rank CSR blocks or "
+                    f"BSR tile blocks; supported local backends: "
+                    f"{shardable}, got {self.backend!r}")
+            if (self.solver == "streaming"
+                    and self.mesh_shape != (1, 1)
+                    and self.backend not in shardable):
+                raise ValueError(
+                    f"streaming on a mesh shards per-rank CSR chunks or BSR "
+                    f"tile blocks; supported local backends: {shardable}, "
+                    f"got {self.backend!r}")
+        if (len(self.mesh_shape) != 2
+                or any(s <= 0 for s in self.mesh_shape)):
+            raise ValueError(
+                f"mesh_shape must be a (rows, cols) pair of positive ints, "
+                f"got {self.mesh_shape!r}")
         if self.chunk_docs is not None and self.chunk_docs <= 0:
             raise ValueError(
                 f"chunk_docs must be positive, got {self.chunk_docs}")

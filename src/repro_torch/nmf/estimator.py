@@ -16,7 +16,15 @@ Inputs may be dense tensors / numpy arrays, padded-CSR ``SpCSR``, a
 ``BSROperand`` or scipy sparse matrices (converted at ingest, never
 densified on the kernel path); with ``solver="streaming"`` also an
 out-of-core corpus (a :func:`repro_torch.data.corpus.write_corpus`
-directory or any ``ChunkSource``).  The mesh engines are not ported yet.
+directory or any ``ChunkSource``).
+
+With ``solver="distributed"`` the fit runs on a ``config.mesh_shape`` grid
+of ``torch.distributed`` ranks; with ``solver="streaming"`` and a grid
+other than 1x1 each ``partial_fit`` chunk's online step does
+(:meth:`EnforcedNMF._partial_fit_sharded`).  Every rank of the grid makes
+the same calls with the same inputs, each computes on its own block, and
+``u_`` / ``v_`` (and the streaming statistics) come back whole on every
+rank, as the reference's global arrays do.
 """
 from __future__ import annotations
 
@@ -45,6 +53,13 @@ from repro_torch.sparse.csr import SpCSR
 __all__ = ["EnforcedNMF"]
 
 ArrayLike = Union[torch.Tensor, np.ndarray, SpCSR, BSROperand]
+
+
+def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``x`` with zero rows appended up to ``rows``."""
+    if x.shape[0] == rows:
+        return x
+    return torch.nn.functional.pad(x, (0, 0, 0, rows - x.shape[0]))
 
 
 class EnforcedNMF:
@@ -76,6 +91,13 @@ class EnforcedNMF:
         self.n_features_: Optional[int] = None
         self.n_docs_seen_: int = 0
         self.health_: Optional[torch.Tensor] = None
+        #: on a mesh: the grid (made once, on the main thread) and the online
+        #: engines on it by inner backend (made once each)
+        self._mesh_grid = None
+        self._mesh_engines = {}
+        #: the last mesh ``partial_fit``'s relative error on its own chunk
+        #: (a device scalar; None unless ``config.track_error``)
+        self._chunk_error: Optional[torch.Tensor] = None
         # reference document count for scaling absolute t_v budgets in
         # transform, and the streaming statistics fit seeds
         self._m_ref: Optional[int] = None
@@ -84,7 +106,8 @@ class EnforcedNMF:
 
     # -- input coercion ------------------------------------------------------
 
-    def _coerce(self, a: ArrayLike, chunkable: bool = False) -> Matrix:
+    def _coerce(self, a: ArrayLike, chunkable: bool = False,
+                for_mesh: bool = False) -> Matrix:
         """Ingest ``a`` for ``config.backend`` on this estimator's device.
 
         With no explicit backend, tensors, ``SpCSR`` and ``BSROperand`` keep
@@ -97,11 +120,21 @@ class EnforcedNMF:
         ``chunkable=True`` (the streaming ``fit``) keeps a ``cuda-bsr``
         target as column-sliceable ``SpCSR`` on the host instead: the
         corpus is carved into chunks there, and each chunk is ingested for
-        the configured backend on its way to the card."""
+        the configured backend on its way to the card.  ``for_mesh`` (the
+        distributed solver, mesh streaming chunks) likewise keeps the input
+        on the host in a form whose stored entries the shard ingest reads
+        (``SpCSR``, dense, or a ``BSROperand`` / block as it is): each rank
+        packs its own block from it, so a whole-corpus operand on the
+        device would be built for nothing."""
+        from repro_torch.core.distributed import DistBSR, DistCSR
+
         name = self.config.backend
-        device = torch.device("cpu") if chunkable else self.device
-        if chunkable and name and get_backend(name).name.startswith(
-                "cuda-bsr"):
+        if for_mesh and isinstance(a, (BSROperand, DistCSR, DistBSR)):
+            return a
+        device = (torch.device("cpu") if chunkable or for_mesh
+                  else self.device)
+        if ((chunkable or for_mesh) and name
+                and get_backend(name).name.startswith("cuda-bsr")):
             name = "torch-csr"
         if name is None:
             if isinstance(a, (torch.Tensor, SpCSR, BSROperand)):
@@ -110,8 +143,8 @@ class EnforcedNMF:
                 return torch.as_tensor(a, dtype=self.config.torch_dtype,
                                        device=device)
             name = default_backend_name(a)
-            if (name == "cuda-bsr"
-                    and self.config.solver in ("sequential", "streaming")):
+            if name == "cuda-bsr" and (for_mesh or self.config.solver in (
+                    "sequential", "streaming", "distributed")):
                 name = "torch-csr"
         native = isinstance(a, (SpCSR, BSROperand, torch.Tensor))
         return get_backend(name).prepare(
@@ -170,7 +203,8 @@ class EnforcedNMF:
                     "solver='streaming' (or load the corpus yourself)")
             a = as_chunk_source(a, chunk_docs=cfg.chunk_docs)
         else:
-            a = self._coerce(a, chunkable=streaming)
+            a = self._coerce(a, chunkable=streaming,
+                             for_mesh=cfg.solver == "distributed")
             if streaming and not isinstance(a, BSROperand):
                 a = as_chunk_source(a, chunk_docs=cfg.chunk_docs)
         n, m = a.shape
@@ -187,7 +221,9 @@ class EnforcedNMF:
         self._m_ref = m
         # seed streaming statistics so a later partial_fit continues from
         # this fit: one more half-step product, instead of pinning the corpus
-        if isinstance(a, ChunkSource):
+        if result.seed_stats is not None:
+            stats = result.seed_stats
+        elif isinstance(a, ChunkSource):
             stats = self._seed_stats_streamed(a)
         else:
             stats = seed_online_stats(a, self.v_, backend=cfg.backend)
@@ -198,7 +234,8 @@ class EnforcedNMF:
         """Full-corpus statistics ``(A V, V^T V)`` from a chunk source, one
         chunk resident at a time: each chunk adds ``A_c V_c`` with its rows
         of the fitted loadings.  The chunks come through the streaming
-        solver's packer, prefetched per ``config.prefetch``."""
+        solver's packer, prefetched per ``config.prefetch`` (on a mesh, this
+        rank's blocks, whose products are summed over the grid)."""
         from repro_torch.data.corpus import Prefetcher
         from repro_torch.nmf.solvers import _make_packer
 
@@ -211,9 +248,41 @@ class EnforcedNMF:
                         enabled=cfg.prefetch) as stream:
             for staged in stream:
                 lo, hi = source.schedule[staged.index]
-                part = _matmul(staged.use(), v[lo:hi], cfg.backend)
+                part = self._chunk_matmul(staged, v[lo:hi])
                 av = part if av is None else av + part
+        if self._mesh_streaming():
+            av = self._mesh().gather(av, self.n_features_, "data")
         return OnlineStats(av=av, gv=v.T @ v)
+
+    def _chunk_matmul(self, staged, v_chunk: torch.Tensor) -> torch.Tensor:
+        """``A_c @ V_c`` of a staged chunk; on a mesh this rank's rows of
+        it, summed over the chunk's column blocks."""
+        from repro_torch.data.corpus import PackedChunk
+
+        if not isinstance(staged, PackedChunk):
+            return _matmul(staged.use(), v_chunk, self.config.backend)
+        mesh = self._mesh()
+        block = staged.use()
+        engine = self._mesh_engine(mesh, block)
+        view = engine.local(engine.distribute(block))
+        v_pad = _pad_rows(v_chunk, view.shape[1] * mesh.cols)
+        return engine.backend.matmul(view, v_pad[mesh.col_block(
+            v_pad.shape[0])])
+
+    def _chunk_matmul_t(self, staged, u: torch.Tensor) -> torch.Tensor:
+        """``A_c^T @ U`` (m_c, k) of a staged chunk, whole; on a mesh
+        summed over the row blocks and gathered over the column blocks."""
+        from repro_torch.data.corpus import PackedChunk
+
+        if not isinstance(staged, PackedChunk):
+            return _matmul_t(staged.use(), u, self.config.backend)
+        mesh = self._mesh()
+        block = staged.use()
+        engine = self._mesh_engine(mesh, block)
+        view = engine.local(engine.distribute(block))
+        part = engine.backend.matmul_t(view, u[mesh.row_block(u.shape[0])])
+        whole = mesh.gather(part, view.shape[1] * mesh.cols, "model")
+        return whole[:staged.m_docs]
 
     def fit_transform(self, a: ArrayLike, u0=None) -> torch.Tensor:
         """Fit and return the document-topic loadings ``V`` (m, k)."""
@@ -232,17 +301,35 @@ class EnforcedNMF:
         the whole factor.  A chunk staged by the streaming solver's packer
         (:class:`~repro_torch.data.corpus.StagedChunk`) is used as it is.
         On ``cuda-bsr`` each inner pass is two fused spmm + Gram launches
-        and two ``relu_topk`` epilogues; nothing waits for the host."""
-        from repro_torch.data.corpus import StagedChunk
+        and two ``relu_topk`` epilogues; nothing waits for the host.
+
+        With ``solver="streaming"`` and a ``mesh_shape`` other than 1x1 the
+        step runs on the grid (:meth:`_partial_fit_sharded`): every rank
+        calls this with the same chunk, or with its
+        :class:`~repro_torch.data.corpus.PackedChunk` (its own block, packed
+        ahead by the streaming solver's prefetcher)."""
+        from repro_torch.core.distributed import DistBSR, DistCSR
+        from repro_torch.data.corpus import PackedChunk, StagedChunk
 
         if not 0.0 < forget <= 1.0:
             raise ValueError(f"forget must be in (0, 1], got {forget}")
         cfg = self.config
-        if isinstance(a_chunk, StagedChunk):
+        mesh_stream = self._mesh_streaming()
+        if isinstance(a_chunk, (PackedChunk, DistCSR, DistBSR)):
+            if not mesh_stream:
+                raise ValueError(
+                    "a PackedChunk / distributed block carries a mesh "
+                    "block; it needs solver='streaming' with a non-1x1 "
+                    "mesh_shape")
+        elif isinstance(a_chunk, StagedChunk):
             a_chunk = a_chunk.use()
-        a_chunk = self._coerce(a_chunk)
+        if mesh_stream and not isinstance(a_chunk, PackedChunk):
+            a_chunk = self._pack_mesh_chunk(a_chunk, self._mesh())
+        if not mesh_stream:
+            a_chunk = self._coerce(a_chunk)
         self._check_features(a_chunk)
-        n, mc = a_chunk.shape
+        n = a_chunk.shape[0]
+        mc = a_chunk.m_docs if mesh_stream else a_chunk.shape[1]
         if self.u_ is None:
             gen = torch.Generator().manual_seed(cfg.seed)
             self.u_ = init_u0(gen, n, cfg.k, device=self.device).to(
@@ -255,17 +342,132 @@ class EnforcedNMF:
         else:
             stats = OnlineStats(av=self._av_acc, gv=self._gv_acc)
         n_inner = max(iters if iters is not None else min(cfg.iters, 10), 1)
-        be = resolve_backend(a_chunk, cfg.backend)
-        sp_u = cfg.sparsity.sparsifier(n, cfg.k, "u", fused=be.fuse_epilogue)
-        sp_v = self._v_sparsity(mc).sparsifier(mc, cfg.k, "v",
-                                               fused=be.fuse_epilogue)
-        res = online_als_step(a_chunk, self.u_, stats, forget, iters=n_inner,
-                              sparsify_u=sp_u, sparsify_v=sp_v, backend=be)
+        if mesh_stream:
+            res, self._chunk_error = self._partial_fit_sharded(
+                a_chunk, stats, n_inner, forget)
+        else:
+            be = resolve_backend(a_chunk, cfg.backend)
+            sp_u = cfg.sparsity.sparsifier(n, cfg.k, "u",
+                                           fused=be.fuse_epilogue)
+            sp_v = self._v_sparsity(mc).sparsifier(mc, cfg.k, "v",
+                                                   fused=be.fuse_epilogue)
+            res = online_als_step(a_chunk, self.u_, stats, forget,
+                                  iters=n_inner, sparsify_u=sp_u,
+                                  sparsify_v=sp_v, backend=be)
         self.u_, self.v_ = res.u, res.v
         self._av_acc, self._gv_acc = res.stats.av, res.stats.gv
         self.health_ = res.health
         self.n_docs_seen_ += mc
         return self
+
+    # -- the mesh -------------------------------------------------------------
+
+    def _mesh_streaming(self) -> bool:
+        return (self.config.solver == "streaming"
+                and self.config.mesh_shape != (1, 1))
+
+    def _mesh(self):
+        """This estimator's grid, made on the first call and kept.  Making
+        it is collective (every rank calls ``dist.new_group``), so the
+        first call comes from the main thread, before a prefetch worker
+        packs for the grid (:func:`~repro_torch.nmf.solvers._make_packer`
+        makes it and hands it to the worker)."""
+        from repro_torch.launch.mesh import make_nmf_mesh
+
+        if self._mesh_grid is None:
+            self._mesh_grid = make_nmf_mesh(*self.config.mesh_shape,
+                                            device=self.device)
+        return self._mesh_grid
+
+    def _mesh_engine(self, mesh, block):
+        """The online engine on ``mesh`` for blocks like ``block``, without
+        sparsifiers (its ``distribute``, ``local`` and ``backend``): one per
+        inner backend, made on first use and kept.  It issues no
+        collective, so the prefetch worker may call it."""
+        from repro_torch.backend.sharded import make_sharded_online
+        from repro_torch.nmf.solvers import mesh_inner_backend
+
+        inner = mesh_inner_backend(self.config, block)
+        engine = self._mesh_engines.get(inner)
+        if engine is None:
+            engine = make_sharded_online(mesh, inner=inner)
+            self._mesh_engines[inner] = engine
+        return engine
+
+    def _pack_mesh_chunk(self, a_chunk, mesh, index: Optional[int] = None,
+                         stream=None):
+        """The host half of a mesh streaming step, runnable ahead of it (on
+        the prefetcher's worker, which is why ``mesh`` is passed in, made
+        on the main thread: nothing here is collective): this rank's block
+        of the chunk, its columns padded to the grid with empty documents,
+        ingested on the host and copied to the card on ``stream`` (a side
+        stream; the consumer waits for it in :meth:`PackedChunk.use`).  The
+        chunk's true document count rides along."""
+        from repro_torch.data.corpus import PackedChunk
+
+        cfg = self.config
+        a_chunk = self._coerce(a_chunk, for_mesh=True)
+        n, mc = a_chunk.shape
+        r, c = cfg.mesh_shape
+        if n % r:
+            raise ValueError(
+                f"term count {n} must be divisible by the mesh rows axis "
+                f"{r} (mesh_shape {(r, c)})")
+        engine = self._mesh_engine(mesh, a_chunk)
+        dev = self.device
+        block = engine.distribute(a_chunk, pad_cols_to=-(-mc // c) * c,
+                                  device="cpu")
+        if dev.type != "cuda":
+            return PackedChunk(block, dev, index=index, m_docs=mc)
+        with torch.cuda.stream(stream):
+            block = block.to(dev, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(stream)
+        return PackedChunk(block, dev, ready, index, m_docs=mc)
+
+    def _partial_fit_sharded(self, packed, stats: OnlineStats, n_inner: int,
+                             forget: float):
+        """One online step on the ``config.mesh_shape`` grid: the chunk's
+        columns sharded over ``"model"``, ``u`` / ``stats.av`` over
+        ``"data"``, ``stats.gv`` whole; sparsity by the histogram
+        :class:`~repro_torch.core.topk.DistTopK` (``t_v`` rescaled to the
+        chunk's true width).  Returns the step's result, whose ``u``, ``v``
+        (the padding documents' rows dropped) and ``stats`` are whole,
+        gathered by ``all_reduce`` over their axes, and, with
+        ``config.track_error``, the step's relative error on its own chunk,
+        from the blocks (``ShardedBackend.relative_error``; else None)."""
+        from repro_torch.core.online import OnlineStepResult
+        from repro_torch.core.topk import DistTopK
+        from repro_torch.nmf.solvers import dist_budget
+
+        cfg = self.config
+        mesh = self._mesh()
+        block = packed.use()
+        engine = self._mesh_engine(mesh, block)
+        be = engine.backend
+        n, mc_pad = block.shape
+        mc = packed.m_docs
+        t_u = dist_budget(cfg.sparsity, n, cfg.k, "u")
+        t_v = dist_budget(self._v_sparsity(mc), mc, cfg.k, "v")
+        view = engine.local(engine.distribute(block))
+        rows = mesh.row_block(n)
+        res = online_als_step(
+            view, self.u_[rows].contiguous(),
+            OnlineStats(av=stats.av[rows].contiguous(), gv=stats.gv),
+            forget, iters=n_inner,
+            sparsify_u=None if t_u is None else DistTopK(t_u, mesh,
+                                                         ("data",)),
+            sparsify_v=None if t_v is None else DistTopK(t_v, mesh,
+                                                         ("model",)),
+            backend=be)
+        error = (be.relative_error(view, res.u, res.v, be.sqnorm(view))
+                 if cfg.track_error else None)
+        return OnlineStepResult(
+            u=mesh.gather(res.u, n, "data"),
+            v=mesh.gather(res.v, mc_pad, "model")[:mc],
+            stats=OnlineStats(av=mesh.gather(res.stats.av, n, "data"),
+                              gv=res.stats.gv),
+            health=res.health), error
 
     # -- fold-in -------------------------------------------------------------
 

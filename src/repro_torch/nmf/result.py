@@ -46,6 +46,10 @@ class FitResult:
     #: a checkpointed fit's ``FitCheckpointer.stats`` (saves, seconds,
     #: bytes written)
     checkpoint_stats: Optional[dict] = None
+    #: the streaming statistics ``(A V, V^T V)`` of the fitted V, whole,
+    #: where the solver computed them on its own operand (the mesh solver,
+    #: on its blocks); ``None`` lets the estimator seed them
+    seed_stats: Optional[tuple] = None
 
     @property
     def final_error(self) -> float:

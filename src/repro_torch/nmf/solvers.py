@@ -1,5 +1,5 @@
 """Registered solvers (port of ``repro.nmf.solvers``): ``als``,
-``enforced``, ``sequential`` and ``streaming``.
+``enforced``, ``sequential``, ``distributed`` and ``streaming``.
 
 ``als`` and ``enforced`` run one engine, :func:`repro_torch.core.nmf.als_nmf`,
 through :func:`_run_chunked`, which owns the ``tol`` early stop, checkpoints,
@@ -10,7 +10,11 @@ factor to the host at its boundary.  ``sequential`` runs paper Alg. 3
 (:mod:`repro_torch.core.sequential`) in checkpointed groups of blocks;
 ``streaming`` runs the online engine over column chunks
 (:func:`solve_streaming`), reading the health index at snapshot boundaries
-and at the end of the stream.  The mesh engines are not ported yet.
+and at the end of the stream.  ``distributed`` is the ALS engine on a
+``config.mesh_shape`` grid of ``torch.distributed`` ranks
+(:func:`solve_distributed`, through the same ``_run_chunked``), and
+``streaming`` on a grid runs each chunk's online step there
+(``EnforcedNMF._partial_fit_sharded``).
 
 There is deliberately no counterpart of the reference's
 ``_with_kernel_fallback``: on the card a kernel failure raises instead of
@@ -19,6 +23,7 @@ quietly swapping the kernel path for a plain one.
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
 
 import numpy as np
@@ -33,7 +38,8 @@ from repro_torch.nmf.result import FitResult
 from repro_torch.robustness import faults
 from repro_torch.robustness.snapshot import FitCheckpointer, FitHealthError
 
-__all__ = ["FitHealthError", "default_chunk_docs", "solve_als",
+__all__ = ["FitHealthError", "default_chunk_docs", "dist_budget",
+           "mesh_inner_backend", "solve_als", "solve_distributed",
            "solve_enforced", "solve_sequential", "solve_streaming"]
 
 #: iteration chunk used when an early-stop tolerance is active
@@ -44,6 +50,31 @@ def default_chunk_docs(m: int) -> int:
     """The streaming solver's default chunk width: 8 chunks over the
     corpus."""
     return max(-(-m // 8), 1)
+
+
+def dist_budget(sparsity, rows: int, k: int, which: str):
+    """The whole-factor nonzero budget of the mesh engines'
+    :class:`~repro_torch.core.topk.DistTopK`, which thresholds the whole
+    (rows, k) factor: a ``columnwise`` budget is per column, so it scales by
+    ``k`` (the total matches the local path; the per-column distribution is
+    not enforced)."""
+    t = sparsity.resolve(rows, k, which)
+    if t is not None and sparsity.mode == "columnwise":
+        t = min(t * k, rows * k)
+    return t
+
+
+def mesh_inner_backend(config: NMFConfig, a) -> str:
+    """The local per-block backend the mesh engines wrap: an explicit
+    ``config.backend`` wins; a ``BSROperand`` or an already distributed
+    ``DistBSR`` takes ``cuda-bsr``; everything else the padded-CSR blocks
+    (``torch-csr``), as the reference defaults to ``jnp-csr``."""
+    from repro_torch.core.distributed import DistBSR
+
+    if config.backend is not None:
+        return config.backend
+    return "cuda-bsr" if isinstance(a, (BSROperand, DistBSR)) else \
+        "torch-csr"
 
 
 def _reject_bsr_operand(a: Matrix, solver_name: str) -> None:
@@ -131,8 +162,20 @@ def _with_checkpoint_stats(result: FitResult, ckpt) -> FitResult:
     return dataclasses.replace(result, checkpoint_stats=dict(ckpt.stats))
 
 
+def _read_health(health: torch.Tensor, mesh=None) -> int:
+    """The first unhealthy iteration (chunk), -1 when healthy, read on the
+    host; on a mesh agreed over the grid first (the least non-negative
+    index of any rank), so that every rank rolls back or none does."""
+    if mesh is not None and mesh.size > 1:
+        big = torch.iinfo(torch.int32).max
+        h = torch.where(health < 0, big, health).reshape(1).to(torch.int32)
+        h = mesh.all_reduce(h, ("data", "model"), op="min")[0]
+        health = torch.where(h == big, -1, h)
+    return int(health)
+
+
 def _run_chunked(run, config: NMFConfig, u0: torch.Tensor, solver_name: str,
-                 ckpt: FitCheckpointer = None) -> FitResult:
+                 ckpt: FitCheckpointer = None, mesh=None) -> FitResult:
     """Drive ``run(u_init, iters) -> NMFResult`` with the early stop,
     checkpoints, resume and the health rollback.  The engine recomputes V
     from U at the top of every iteration, so restarting a chunk from a
@@ -143,10 +186,24 @@ def _run_chunked(run, config: NMFConfig, u0: torch.Tensor, solver_name: str,
     iterations and seeds the resume.  When a chunk's health index is set,
     ``"rollback"`` restarts from the last snapshot (or ``u0``) with a
     reseeded perturbation, at most ``max_rollbacks`` times; ``"raise"``
-    raises at once."""
+    raises at once.
+
+    On a ``mesh`` (an ``NMFMesh``) ``u0`` is the whole initial factor and
+    ``run`` takes and returns this rank's rows of U: snapshots hold the
+    gathered U, a resume or rollback perturbs and restores the whole U and
+    takes this rank's rows (so a snapshot resumes on any mesh shape), and
+    the health index is agreed by an ``all_reduce`` before it is read."""
     total = config.iters
     dev = u0.device
-    parts, u, done, converged = [], u0, 0, False
+    if mesh is not None:
+        n = u0.shape[0]
+        rows = mesh.row_block(n)
+        place = lambda x: x[rows].contiguous()
+        gather = lambda x: mesh.gather(x, n, "data")
+    else:
+        place = gather = lambda x: x
+    u0_whole = u0
+    parts, u, done, converged = [], place(u0), 0, False
     mark = (0, 0)  # (iterations done, len(parts)) at the last good snapshot
     if ckpt is not None and config.resume:
         saved = ckpt.resume()
@@ -157,7 +214,7 @@ def _run_chunked(run, config: NMFConfig, u0: torch.Tensor, solver_name: str,
                     f"checkpoint at {ckpt.ckpt_dir} already holds {done} "
                     f"iterations but config.iters is {total}; raise iters "
                     "(the fingerprint ignores it) to continue the run")
-            u = _on(arrays["u"], dev, u0.dtype)
+            u = place(_on(arrays["u"], dev, u0.dtype))
             parts = [_part_from_saved(meta["history"], solver_name, dev)]
             mark = (done, 1)
 
@@ -171,7 +228,8 @@ def _run_chunked(run, config: NMFConfig, u0: torch.Tensor, solver_name: str,
     while done < total:
         step = min(step_base, total - done)
         res = run(faults.poison("poison-step", done, u), step)
-        bad = -1 if config.on_unhealthy == "ignore" else int(res.health)
+        bad = (-1 if config.on_unhealthy == "ignore"
+               else _read_health(res.health, mesh))
         if bad >= 0:
             bad_at = done + bad
             if (config.on_unhealthy == "raise"
@@ -185,8 +243,8 @@ def _run_chunked(run, config: NMFConfig, u0: torch.Tensor, solver_name: str,
             done, nparts = mark
             parts = parts[:nparts]
             src = (ckpt.last[1]["u"] if ckpt is not None
-                   and ckpt.last is not None else u0)
-            u = _reseed_perturb(src, config.seed, rollbacks, dev)
+                   and ckpt.last is not None else u0_whole)
+            u = place(_reseed_perturb(src, config.seed, rollbacks, dev))
             warnings.warn(
                 f"{solver_name} fit went unhealthy at iteration {bad_at}; "
                 f"rolling back to iteration {done} with reseeded RNG "
@@ -196,7 +254,7 @@ def _run_chunked(run, config: NMFConfig, u0: torch.Tensor, solver_name: str,
         parts.append(FitResult.from_nmf_result(res, solver_name))
         u, done = res.u, done + step
         if ckpt is not None and ckpt.due(done, total):
-            ckpt.save(done, {"u": u}, history=_history_meta(parts))
+            ckpt.save(done, {"u": gather(u)}, history=_history_meta(parts))
             mark = (done, len(parts))
         if config.tol > 0.0 and float(res.residual[-1]) <= config.tol:
             converged = True
@@ -313,18 +371,93 @@ def solve_sequential(a: Matrix, config: NMFConfig,
     return _with_checkpoint_stats(FitResult.from_sequential_result(seq), ckpt)
 
 
+@register_solver("distributed")
+def solve_distributed(a, config: NMFConfig, u0: torch.Tensor) -> FitResult:
+    """Enforced ALS on a ``config.mesh_shape`` grid of ``torch.distributed``
+    ranks: the *same* engine as ``als`` / ``enforced``, run on this rank's
+    block with a :class:`~repro_torch.backend.sharded.ShardedBackend` and
+    :class:`~repro_torch.core.topk.DistTopK` sparsifiers, through
+    :func:`_run_chunked` (``tol``, ``track_error``, the nnz traces, the
+    running ``max_nnz``, checkpoints and rollback behave as on one device).
+
+    Every rank calls it with the whole input (scipy sparse, ``SpCSR``,
+    ``BSROperand``, dense) and the whole ``u0``, or with its own block
+    (``DistCSR`` / ``DistBSR``); it carves its block from the input's
+    stored entries (never densifying sparse input), and the shape must
+    divide by the grid.  ``config.backend`` names the local backend of the
+    blocks (``torch-csr`` or ``cuda-bsr`` / ``cuda-bsr-unfused``; ``None``
+    selects by input, :func:`mesh_inner_backend`).  Sparsity is always the
+    histogram threshold, so a ``"global"`` / ``"exact"`` spec maps onto it
+    and a ``columnwise`` budget scales by k (:func:`dist_budget`).
+
+    The returned ``u`` and ``v`` are whole on every rank (gathered by an
+    ``all_reduce`` of zero-filled buffers), and so are the streaming
+    statistics the estimator continues from, computed on the blocks (one
+    more fused half-step).  A 1x1 mesh runs without a process group."""
+    from repro_torch.backend.sharded import make_sharded_als
+    from repro_torch.core.online import OnlineStats
+    from repro_torch.core.topk import DistTopK
+    from repro_torch.launch.mesh import make_nmf_mesh
+
+    r, c = config.mesh_shape
+    n, m = a.shape
+    if n % r or m % c:
+        raise ValueError(
+            f"matrix shape {(n, m)} must be divisible by mesh_shape {(r, c)}")
+    mesh = make_nmf_mesh(r, c, device=u0.device)
+    t_u = dist_budget(config.sparsity, n, config.k, "u")
+    t_v = dist_budget(config.sparsity, m, config.k, "v")
+    engine = make_sharded_als(
+        mesh,
+        sparsify_u=None if t_u is None else DistTopK(t_u, mesh, ("data",)),
+        sparsify_v=None if t_v is None else DistTopK(t_v, mesh, ("model",)),
+        track_error=config.track_error,
+        inner=mesh_inner_backend(config, a))
+    dist = engine.distribute(a)
+    ckpt = FitCheckpointer.from_config(config, a, mesh)
+    res = _run_chunked(lambda u, iters: engine(dist, u, iters), config, u0,
+                       "distributed", ckpt=ckpt, mesh=mesh)
+    # the streaming statistics of the fitted V, on the blocks
+    av, gv = engine.backend.matmul_with_gram(engine.local(dist), res.v)
+    stats = OnlineStats(av=mesh.gather(av, n, "data"),
+                        gv=engine.backend.reduce_v(gv))
+    return dataclasses.replace(res, u=mesh.gather(res.u, n, "data"),
+                               v=mesh.gather(res.v, m, "model"),
+                               seed_stats=stats)
+
+
 def _make_packer(model, source):
     """The per-chunk pack of the stream (run by the
     :class:`~repro_torch.data.corpus.Prefetcher`'s worker, or inline):
     load chunk ``i`` (mmap page-in), ingest it for the configured backend
     on the host and, on the card, copy it from pinned memory on one side
     stream (:func:`~repro_torch.data.corpus.stage_chunk`).  The staged chunk
-    carries its schedule index ``i``."""
+    carries its schedule index ``i``.  On a mesh the packer is
+    ``EnforcedNMF._pack_mesh_chunk``: this rank's block as a
+    :class:`~repro_torch.data.corpus.PackedChunk`, on a grid made here (no
+    collective runs off the calling thread); the skip hatch is refused
+    there, since a chunk dropped on one rank only would desynchronize the
+    grid."""
     from repro_torch.backend import get_backend, select_backend
     from repro_torch.data.corpus import stage_chunk
 
+    from repro_torch.data.corpus import SKIP_BAD_CHUNKS_ENV
+
     dev = model.device
     stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    if model._mesh_streaming():
+        if os.environ.get(SKIP_BAD_CHUNKS_ENV) == "1":
+            raise ValueError(
+                f"{SKIP_BAD_CHUNKS_ENV}=1 cannot stream on a mesh "
+                f"(mesh_shape {model.config.mesh_shape}): a chunk dropped "
+                "on one rank only would put the ranks' collectives out of "
+                "step; unset it")
+        # this rank's block of the chunk, ingested on the host and copied
+        # on the side stream; the grid is made here, on the calling thread,
+        # so the worker issues no collective
+        mesh = model._mesh()
+        return lambda i: model._pack_mesh_chunk(source.load(i), mesh,
+                                                index=i, stream=stream)
     name = model.config.backend
     be = None if name is None else get_backend(name)
     # on torch-csr / torch-dense the chunk is its operand as it is: it goes
@@ -372,7 +505,7 @@ def _fold_in_streamed(model, source, pack, config: NMFConfig):
                     enabled=config.prefetch) as stream:
         for staged in stream:
             lo, hi = source.schedule[staged.index]
-            rhs[lo:hi] = _matmul_t(staged.use(), u, config.backend)
+            rhs[lo:hi] = model._chunk_matmul_t(staged, u)
     return model._enforce_v(solve_gram(gram, rhs)), stream.stats
 
 
@@ -426,7 +559,16 @@ def solve_streaming(a, config: NMFConfig, u0: torch.Tensor) -> FitResult:
     The history is per chunk (``error_granularity="chunk"``): ``residual``
     is the cross-chunk U movement, ``error`` each chunk's relative
     reconstruction error, and ``v`` one frozen-U fold-in pass over the
-    whole corpus."""
+    whole corpus.
+
+    With a ``config.mesh_shape`` other than 1x1 every rank of the grid
+    runs this with the same input: the prefetcher packs this rank's block
+    of each chunk (:class:`~repro_torch.data.corpus.PackedChunk`), each
+    step runs on the grid (``EnforcedNMF._partial_fit_sharded``), a
+    chunk's error comes from the blocks, the fold-in and the statistics'
+    seed run on the blocks too, and the health index is agreed by an
+    ``all_reduce`` before it is read; snapshots hold the whole U and
+    statistics, written by rank 0."""
     from repro_torch.data.corpus import Prefetcher, as_chunk_source
     from repro_torch.nmf.estimator import EnforcedNMF
 
@@ -444,7 +586,8 @@ def solve_streaming(a, config: NMFConfig, u0: torch.Tensor) -> FitResult:
     model.n_features_ = n
     model._m_ref = m  # t_v budgets are the whole corpus's; chunks rescale
     pack = _make_packer(model, source)
-    ckpt = FitCheckpointer.from_config(config, source)
+    mesh = model._mesh() if model._mesh_streaming() else None
+    ckpt = FitCheckpointer.from_config(config, source, mesh)
 
     # per-chunk metrics stay device scalars: with tol = 0 and no snapshots
     # nothing reads the host until the stream ends
@@ -486,7 +629,8 @@ def solve_streaming(a, config: NMFConfig, u0: torch.Tensor) -> FitResult:
         """Read the health index at chunk ``idx``; when it is set, raise,
         or roll the stream's state back to the mark and return False."""
         nonlocal rollbacks, start, max_nnz, health
-        first = -1 if config.on_unhealthy == "ignore" else int(health)
+        first = (-1 if config.on_unhealthy == "ignore"
+                 else _read_health(health, mesh))
         if first < 0:
             return True
         what = f"streaming fit went unhealthy at chunk {first} (read at " \
@@ -521,7 +665,8 @@ def solve_streaming(a, config: NMFConfig, u0: torch.Tensor) -> FitResult:
                         f"chunk {idx} staged for an abandoned stream reached "
                         f"the replay from chunk {start}")
                 expect = idx + 1
-                chunk = staged.use()
+                # a mesh step takes its packed block as it is
+                chunk = staged if mesh is not None else staged.use()
                 u_prev = model.u_
                 model.u_ = faults.poison("poison-step", idx, model.u_)
                 model.partial_fit(chunk)
@@ -529,9 +674,12 @@ def solve_streaming(a, config: NMFConfig, u0: torch.Tensor) -> FitResult:
                 r = (torch.linalg.norm(u - u_prev)
                      / torch.clamp_min(torch.linalg.norm(u), 1e-30))
                 residuals.append(r)
-                errors.append(_relative_error(chunk, u, v)
-                              if config.track_error
-                              else torch.zeros((), device=dev))
+                if not config.track_error:
+                    errors.append(torch.zeros((), device=dev))
+                elif mesh is not None:
+                    errors.append(model._chunk_error)
+                else:
+                    errors.append(_relative_error(chunk, u, v))
                 nu = torch.sum(u != 0).to(torch.int32)
                 nv = torch.sum(v != 0).to(torch.int32)
                 nnz_us.append(nu)

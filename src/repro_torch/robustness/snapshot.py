@@ -17,6 +17,15 @@ the reference's for the same config and the same numpy, ``SpCSR`` or corpus
 input, digested over the same host bytes, so a snapshot written by one
 package passes the other's check.
 
+On a mesh (``solver="distributed"``, streaming on a grid) the snapshot
+holds the *gathered* factor: rank 0 writes it, every rank keeps it in
+memory for a rollback, and a resume restores it whole and takes its own
+rows, so a fit may resume on another mesh shape (elastic).  The input
+fingerprinted is the one every rank was given, the same on every mesh;
+the ranks check by an ``all_reduce`` that they agree on it.  A rank's own
+block (``DistCSR`` / ``DistBSR``) handed in directly is fingerprinted by
+the digests of all the grid's blocks, gathered by an ``all_reduce``.
+
 One input the reference cannot fingerprint (its ``np.asarray`` of a BSR
 operand fails) is fingerprinted here: a :class:`BSROperand`, by its shape,
 block size, stored tile counts and block-column indices of both
@@ -121,7 +130,30 @@ def _bsr_fingerprint(a) -> Dict[str, Any]:
             "sampled_bytes": int(copied)}
 
 
-def data_fingerprint(a) -> Dict[str, Any]:
+def _dist_fingerprint(a, mesh) -> Dict[str, Any]:
+    """A ``DistCSR`` / ``DistBSR`` block's identity: every block of the
+    grid digested by its rank (:func:`data_fingerprint` of its local
+    operand), the digests summed into one slot each by an ``all_reduce``
+    and digested together."""
+    from repro_torch.core.distributed import DistBSR
+
+    local = data_fingerprint(a.op if isinstance(a, DistBSR) else a.fwd)
+    local_t = {} if isinstance(a, DistBSR) else data_fingerprint(a.tsp)
+    r, c = a.grid
+    i, j = a.index
+    slots = np.zeros(r * c, dtype=np.int64)
+    slots[i * c + j] = zlib.crc32(json.dumps([local, local_t],
+                                             sort_keys=True).encode())
+    if mesh is not None:
+        slots = mesh.all_reduce(torch.from_numpy(slots).to(mesh.device),
+                                ("data", "model")).cpu().numpy()
+    kind = "dist-bsr" if isinstance(a, DistBSR) else "dist-csr"
+    return {"kind": kind, "shape": [int(x) for x in a.shape],
+            "grid": [int(r), int(c)],
+            "digest": int(zlib.crc32(slots.tobytes()))}
+
+
+def data_fingerprint(a, mesh=None) -> Dict[str, Any]:
     """Identity of the input operand: shape plus a content digest.
 
     * an on-disk corpus (``MmapCorpus``) — the manifest identity: shape,
@@ -132,8 +164,12 @@ def data_fingerprint(a) -> Dict[str, Any]:
       chunk;
     * ``SpCSR`` — shape and sampled digests of the values / cols grids;
     * ``BSROperand`` — see :func:`_bsr_fingerprint`;
+    * one rank's ``DistCSR`` / ``DistBSR`` block — the global shape, the
+      grid and a digest of every block's digest (:func:`_dist_fingerprint`,
+      one ``all_reduce`` over ``mesh``);
     * dense (tensor / numpy) — shape, dtype, sampled digest.
     """
+    from repro_torch.core.distributed import DistBSR, DistCSR
     from repro_torch.data.corpus import ChunkSource, MmapCorpus
     from repro_torch.kernels.bsr import BSROperand
     from repro_torch.sparse.csr import SpCSR
@@ -157,6 +193,8 @@ def data_fingerprint(a) -> Dict[str, Any]:
         return {"kind": "chunks", "shape": list(a.shape),
                 "chunk_docs": int(a.chunk_docs),
                 "n_chunks": len(a.schedule), "digest": int(digest)}
+    if isinstance(a, (DistCSR, DistBSR)):
+        return _dist_fingerprint(a, mesh)
     if isinstance(a, SpCSR):
         return {"kind": "spcsr", "shape": list(a.shape),
                 "digest": int(_crc(a.values) ^ _crc(a.cols))}
@@ -181,27 +219,39 @@ class FitCheckpointer:
       snapshot, fingerprint-checked; ``None`` when the directory holds none
       (a fit with ``resume=True`` then starts over).
 
+    On a mesh (``mesh``, an ``NMFMesh`` of several ranks) every rank calls
+    :meth:`save` with the gathered arrays; rank 0 writes them, every rank
+    keeps them as :attr:`last`, and the ranks wait for the commit (an
+    ``all_reduce``) before the ``"kill"`` site fires on each.
+
     ``stats``: ``saves``, ``save_s`` (host clock inside :meth:`save`, the
     copy to the host included) and ``bytes`` (written to disk).
     """
 
     def __init__(self, ckpt_dir: str, every: int,
-                 fingerprint: Dict[str, Any]):
+                 fingerprint: Dict[str, Any], mesh=None):
         self.ckpt_dir = str(ckpt_dir)
         self.every = int(every)
         self.fingerprint = fingerprint
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         #: (done, arrays, meta) of the latest save or resume, in memory
         self.last: Optional[Tuple[int, Dict[str, np.ndarray], dict]] = None
         self.stats = {"saves": 0, "save_s": 0.0, "bytes": 0}
 
     @classmethod
-    def from_config(cls, config, a) -> Optional["FitCheckpointer"]:
-        """``None`` when the config asks for no checkpointing."""
+    def from_config(cls, config, a, mesh=None) -> Optional["FitCheckpointer"]:
+        """``None`` when the config asks for no checkpointing.  On a mesh
+        the ranks must agree on the fingerprint (else ``ValueError``)."""
         if config.checkpoint_dir is None:
             return None
         fp = {"config": config_fingerprint(config),
-              "data": data_fingerprint(a)}
-        return cls(config.checkpoint_dir, config.checkpoint_every, fp)
+              "data": data_fingerprint(a, mesh)}
+        if mesh is not None and not mesh.agree(
+                zlib.crc32(json.dumps(fp, sort_keys=True).encode())):
+            raise ValueError(
+                "the ranks of the mesh were given different inputs or "
+                f"configs (this rank's fingerprint: {fp})")
+        return cls(config.checkpoint_dir, config.checkpoint_every, fp, mesh)
 
     def due(self, done: int, total: int) -> bool:
         """A snapshot boundary: every ``every`` steps, but not the last one
@@ -214,13 +264,17 @@ class FitCheckpointer:
         host = {k: np.array(store._host(v)) for k, v in arrays.items()}
         full_meta = dict(meta)
         full_meta["fingerprint"] = self.fingerprint
-        path = store.save_checkpoint(self.ckpt_dir, done, host,
-                                     meta=full_meta)
+        if self.mesh is None or self.mesh.rank == 0:
+            path = store.save_checkpoint(self.ckpt_dir, done, host,
+                                         meta=full_meta)
+            self.stats["bytes"] += sum(
+                os.path.getsize(os.path.join(path, f))
+                for f in os.listdir(path))
         self.last = (done, host, full_meta)
         self.stats["saves"] += 1
+        if self.mesh is not None:
+            self.mesh.barrier()   # rank 0's snapshot is committed
         self.stats["save_s"] += time.perf_counter() - t0
-        self.stats["bytes"] += sum(
-            os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
         faults.maybe_kill("kill", done)
 
     def resume(self) -> Optional[Tuple[int, Dict[str, np.ndarray], dict]]:

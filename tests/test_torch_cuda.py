@@ -574,3 +574,46 @@ def test_poisoned_cuda_bsr_fit_rolls_back_on_card(card, tmp_path):
             EnforcedNMF(cfg.replace(on_unhealthy="raise",
                                     checkpoint_dir=None),
                         device=card).fit(sp, u0=u0)
+
+
+def test_mesh_fits_on_card_match_cpu(card, tmp_path):
+    """The mesh engine on the card: 2x2 as four gloo ranks sharing it (gloo
+    stages the CUDA tensors through the host) and 1x1 under NCCL.  Every
+    rank launches ``bsr_spmm_gram`` 2 * iters + 1 times and no
+    ``relu_topk`` (``DistTopK`` masks with a ``where``); the traces agree
+    with the same 2x2 grid on the CPU within 1e-4, U within 1e-4 relative,
+    and the ranks return the same whole U."""
+    import sys
+    from pathlib import Path
+
+    from repro_torch.launch.mesh import spawn_mesh
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import _torch_mesh_ranks as ranks
+
+    a = _small_corpus().toarray().astype(np.float32)
+    data = tmp_path / "data.npz"
+    np.savez(data, a=a,
+             u0=np.random.default_rng(1).random((600, 5)).astype(np.float32))
+    iters = 6
+    case = lambda shape: [("fit", dict(
+        k=5, iters=iters, solver="distributed", mesh_shape=shape,
+        backend="cuda-bsr", sparsity=dict(t_u=60, t_v=400)), "scipy")]
+    run = lambda shape, backend, device, name: spawn_mesh(
+        ranks.fit_cases, *shape, backend=backend, device=device,
+        init_file=str(tmp_path / name), timeout=300.0,
+        args=(str(data), case(shape), device))
+    on_card = run((2, 2), "gloo", "cuda:0", "card")
+    on_cpu = run((2, 2), "gloo", "cpu", "cpu")
+    (nccl,) = run((1, 1), "nccl", "cuda:0", "nccl")
+    want = on_cpu[0]["fit"]
+    for rec in [r["fit"] for r in on_card] + [nccl["fit"]]:
+        assert rec["launches"]["bsr_spmm_gram"] == 2 * iters + 1
+        assert rec["launches"]["relu_topk"] == 0
+        np.testing.assert_allclose(rec["err"], want["err"], atol=1e-4)
+        np.testing.assert_allclose(rec["res"], want["res"], atol=1e-4)
+        rel = np.linalg.norm(rec["u"] - want["u"]) / np.linalg.norm(want["u"])
+        assert rel < 1e-4
+    for r in on_card:
+        np.testing.assert_array_equal(r["fit"]["u"], on_card[0]["fit"]["u"])
+        assert r["fit"]["collectives"]["all_reduce"] > 0

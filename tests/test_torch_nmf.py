@@ -25,7 +25,7 @@ from repro_torch.backend import (
 from repro_torch.convert import estimator_from_reference
 from repro_torch.core.nmf import als_nmf, init_u0, solve_gram
 from repro_torch.kernels import _build
-from repro_torch.nmf import EnforcedNMF, NMFConfig, Sparsity
+from repro_torch.nmf import EnforcedNMF, NMFConfig, Sparsity, available_solvers
 from repro_torch.nmf.solvers import FitHealthError
 
 K, T_U, T_V = 5, 55, 600
@@ -218,8 +218,9 @@ def test_config_and_registry():
         EnforcedNMF(NMFConfig(solver="enforced"), device="cpu").fit(
             "/nowhere/corpus")
     with pytest.raises(ValueError, match="unknown solver"):
-        EnforcedNMF(NMFConfig(solver="distributed"), device="cpu").fit(
+        EnforcedNMF(NMFConfig(solver="bogus"), device="cpu").fit(
             np.ones((4, 3), np.float32))
+    assert "distributed" in available_solvers()
     assert select_backend(torch.ones(2, 2)).name == "torch-dense"
     with pytest.raises(TypeError, match="cannot consume"):
         resolve_backend(torch.ones(2, 2), "cuda-bsr")

@@ -775,10 +775,13 @@ def test_cli_runs_on_the_cpu(capsys):
 def test_cli_refuses_a_mesh_and_a_bare_resume(capsys):
     from repro_torch.launch import nmf_run
 
-    for argv in (["--mesh", "2x2"], ["--resume"]):
-        with pytest.raises(SystemExit):
-            nmf_run.main(_CLI + argv)
-    assert "queue 1 item 3" in capsys.readouterr().err
+    # a mesh needs its ranks: a single process is refused, not run on one
+    # device
+    with pytest.raises(SystemExit, match="torch.distributed.run"):
+        nmf_run.main(_CLI + ["--mesh", "2x2"])
+    with pytest.raises(SystemExit):
+        nmf_run.main(_CLI + ["--resume"])
+    assert "--resume needs --checkpoint-dir" in capsys.readouterr().err
 
 
 def test_cli_killed_then_resumed_prints_the_uninterrupted_numbers(
