@@ -121,13 +121,29 @@ Phases (any failed check raises, and the script exits non-zero):
     iterations, killed at snapshot 30 and resumed on 4x1, within 1e-4 of
     the uninterrupted 2x2 trace; (e) ``python -m torch.distributed.run
     --nproc-per-node 4 -m repro_torch.launch.nmf_run --solver distributed
-    --mesh 2x2 --dist-backend gloo --small`` exits 0.
+    --mesh 2x2 --dist-backend gloo --small`` exits 0;
+20. the tile ledger, bf16 and the fused half-step past k = 32: (a)
+    ``autotune`` on the card into a temporary ledger at PubMed's shape, at
+    k = 5 and k = 256, each candidate's fused and plain half-step pair
+    beside its bound, the winner returned by ``resolve_tiles``, and a
+    50-iteration fit at the k = 5 winner's tiles against phase 3 (bitwise
+    at phase 3's tiles, else 1e-4); (b) bf16 tiles and factors at PubMed
+    shapes: ``bsr_spmm`` and ``bsr_spmm_gram`` in both orientations within
+    the reference's bar (rtol 5e-2, atol 1e-1) of f32 math, the fused
+    product bitwise the plain one, ``gram`` at k = 5 and 256 (f32 out,
+    1e-4 / 1e-3), ``relu_topk`` at PubMed's U and V and 4,000,000 x 8
+    bitwise its plain bf16 version, each timed beside its f32 time and its
+    bound; (c) ``cuda-bsr`` fusing at k = 33 and 40 (128 x 128 tiles) and
+    128 (64 x 64): one ``bsr_spmm_gram`` launch, the product bitwise
+    ``bsr_spmm``'s at the same ``kb``, the Gram within f32 roundoff, and a
+    3-iteration k = 128 fit within 1e-4 of ``cuda-bsr-unfused``.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
 device it exits non-zero before printing any result.
 """
 import argparse
+import dataclasses
 import json
 import re
 import subprocess
@@ -137,11 +153,10 @@ from pathlib import Path
 
 import numpy as np
 
-#: published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s,
-#: float32 FLOP/s outside the tensor cores, dense bf16 tensor-core FLOP/s
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-BF16_FLOPS = 989e12
+#: the card's peaks (HBM bytes/s, float32 FLOP/s outside the tensor cores,
+#: dense bf16 tensor-core FLOP/s), from repro_torch.kernels.autotune, the
+#: one copy; set in main() once the package is importable
+HBM_BYTES_PER_S = F32_FLOPS = BF16_FLOPS = None
 
 N_TERMS, N_DOCS, K, ITERS = 20112, 7510, 5, 50
 NUM_STEPS = 40          # the bisection's steps (Sparsity.num_steps)
@@ -231,9 +246,11 @@ def cuda_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes, flops, peak_flops=F32_FLOPS):
+def bound_ms(nbytes, flops, peak_flops=None):
     """The least time the card could take: bytes at the HBM rate or
     operations at ``peak_flops``, whichever is longer, and which it is."""
+    if peak_flops is None:
+        peak_flops = F32_FLOPS
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -271,8 +288,31 @@ def _lib_spmm(b, w, sp, dev):
     csr = torch.sparse_csr_tensor(
         torch.from_numpy(sp.indptr.astype(np.int64)),
         torch.from_numpy(sp.indices.astype(np.int64)),
-        torch.from_numpy(sp.data), size=sp.shape).to(dev)
+        torch.from_numpy(sp.data), size=sp.shape).to(dev, w.dtype)
     return "torch.sparse.mm(csr)", lambda: torch.sparse.mm(csr, w)
+
+
+def _fused_rc(b, u, kb):
+    """The fused kernel's own answer to a launch at ``u``'s rank, without
+    the wrapper's shared-memory check: the return code of its C entry
+    point (0: launched; the launch's own stage arithmetic refuses a rank
+    whose Gram and two stages do not fit the card's shared memory)."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import bsr_spmm as sk
+
+    (n, m), k = b.shape, u.shape[1]
+    y = torch.empty((n, k), dtype=u.dtype, device=u.device)
+    g = torch.empty((k, k), dtype=torch.float32, device=u.device)
+    tickets, part, gram_part = sk.scratch(b, k, kb)
+    return sk._lib().bsr_spmm_gram_run(
+        b.tiles.data_ptr(), b.block_cols.data_ptr(), b.gram_flags.data_ptr(),
+        u.data_ptr(), y.data_ptr(), part.data_ptr(), gram_part.data_ptr(),
+        g.data_ptr(), b.plan.bounds.data_ptr(), b.plan.rb_runs.data_ptr(),
+        tickets.data_ptr(), None, n, m, k, b.nrb, b.bcap, b.bm, b.bk,
+        b.plan.runs, kb, int(u.dtype == torch.bfloat16),
+        _build.stream_ptr(u.device))
 
 
 def gram_flops(n, k):
@@ -667,7 +707,7 @@ def run_stream_slice(dev, corpus, a_sp, op, model, new_sp, u0, paths,
     from repro_torch.backend import get_backend
     from repro_torch.data import ResidentChunks, write_corpus
     from repro_torch.kernels import _build, ref
-    from repro_torch.kernels.bsr_spmm import bsr_spmm
+    from repro_torch.kernels.bsr_spmm import bsr_spmm, resolve_kb
     from repro_torch.kernels.gram import gram
     from repro_torch.nmf import (
         EnforcedNMF, NMFConfig, Sparsity, default_chunk_docs,
@@ -892,6 +932,8 @@ def run_stream_slice(dev, corpus, a_sp, op, model, new_sp, u0, paths,
         f" ms), plain {g_row['plain_ms']:.4f} ms, bound "
         f"{g_row['bound_ms']:.4f} ms by {g_row['bound_by']}")
     v_big = torch.rand((N_DOCS, big_k), generator=gen).to(dev)
+    # the column chunk from the tile ledger (kernels/autotune_ledger.json)
+    big_kb = resolve_kb(op.bsr, v_big, None)
     spmm_ms = cuda_ms(lambda: bsr_spmm(op.bsr, v_big), reps=5)
     close("bsr_spmm k=256", bsr_spmm(op.bsr, v_big),
           ref.bsr_spmm_ref(op.bsr, v_big), 1e-4, 1e-4)
@@ -901,7 +943,8 @@ def run_stream_slice(dev, corpus, a_sp, op, model, new_sp, u0, paths,
                           2.0 * tiles * op.bsr.bm * op.bsr.bk * big_k)
     lib_call, lib_fn = _lib_spmm(op.bsr, v_big, a_sp.tocsr(), dev)
     spmm_lib_ms = cuda_ms(lib_fn, reps=5)
-    log(f"[k256] bsr_spmm A @ V at k = {big_k}: {spmm_ms:.4f} ms, bound "
+    log(f"[k256] bsr_spmm A @ V at k = {big_k}, kb = {big_kb} (the tile "
+        f"ledger's): {spmm_ms:.4f} ms, bound "
         f"{spmm_bound[0]:.4f} ms by {spmm_bound[1]}, {lib_call} "
         f"{spmm_lib_ms:.4f} ms")
     big_cfg = NMFConfig(k=big_k, iters=3, backend="cuda-bsr",
@@ -925,7 +968,7 @@ def run_stream_slice(dev, corpus, a_sp, op, model, new_sp, u0, paths,
     if counts["gram"] < 6 or counts["bsr_spmm"] < 6 or counts["relu_topk"] != 6:
         raise AssertionError("the k = 256 fit did not take bsr_spmm, gram "
                              "and relu_topk")
-    out["k256"] = dict(gram=g_row, spmm_ms=spmm_ms,
+    out["k256"] = dict(gram=g_row, spmm_ms=spmm_ms, kb=big_kb,
                        spmm_bound_ms=spmm_bound[0],
                        spmm_bound_by=spmm_bound[1],
                        spmm_library=lib_call, spmm_library_ms=spmm_lib_ms,
@@ -1750,6 +1793,390 @@ def run_topic_slice(dev, model, new_sp, paths, results):
                refresh_launches=rc)
 
 
+def run_tile_slice(dev, a_sp, op, res3, u0, paths, results, rows):
+    """Phase 20: the tile sweep on the card into a temporary ledger at
+    PubMed's shape (k = 5 and k = 256) and a fit at the winner's tiles;
+    bf16 operands against their plain versions at PubMed shapes; the fused
+    half-step at k = 33, 40 and 128 and a k = 128 fit against the unfused
+    one.  Adds the bf16 and wide-k numbers to ``rows``."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch.backend import get_backend
+    from repro_torch.kernels import _build, autotune, ref
+    from repro_torch.kernels.bsr import bsr_operand
+    from repro_torch.kernels.bsr_spmm import bsr_spmm, resolve_kb
+    from repro_torch.kernels.fused import bsr_spmm_gram
+    from repro_torch.kernels.gram import gram
+    from repro_torch.kernels.project_mask import relu_topk
+    from repro_torch.nmf import EnforcedNMF, NMFConfig, Sparsity
+
+    out = results["phases"].setdefault("tiles", {})
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    def bits(x):
+        return x.contiguous().view(torch.int16 if x.dtype == bf16
+                                   else torch.int32)
+
+    # -- 20(a). the sweep, into a temporary ledger ----------------------------
+    ledger = Path(tempfile.mkdtemp()) / "ledger.json"
+    saved = os.environ.get("REPRO_TORCH_AUTOTUNE_LEDGER")
+    os.environ["REPRO_TORCH_AUTOTUNE_LEDGER"] = str(ledger)
+    autotune._CACHE.clear()
+    kind = autotune.device_kind(dev)
+    sweeps = {}
+    try:
+        for k in (K, 256):
+            def show(rec, k=k):
+                fused = ("not fused" if rec["fused_us"] is None
+                         else f"fused {rec['fused_us']:.1f} us")
+                log(f"[tiles] k={k} bm={rec['bm']} bk={rec['bk']} "
+                    f"kb={rec['kb']}: {fused}, plain {rec['spmm_us']:.1f} "
+                    f"us, bound {rec['roofline_us']:.1f} us (the half-step "
+                    "pair A @ V + A^T @ U)")
+
+            t0 = time.perf_counter()
+            entry = autotune.autotune(N_TERMS, N_DOCS, k, a=a_sp, repeats=3,
+                                      device=dev, log=show)
+            if entry["source"] != "autotune":
+                raise AssertionError(f"the sweep at k = {k} timed nothing")
+            keys = [f"{kind}/{autotune.shape_bucket(N_TERMS, N_DOCS, k)}"]
+            if k == K:  # the ingest bucket: PubMed's own rank's winner
+                keys.append(f"{kind}/"
+                            f"{autotune.shape_bucket(N_TERMS, N_DOCS, None)}")
+            for key in keys:
+                autotune.update_ledger(key, entry)
+            won = autotune.resolve_tiles(N_TERMS, N_DOCS, k, device=kind)
+            if (won.bm, won.bk, won.kb) != (entry["bm"], entry["bk"],
+                                            entry["kb"]):
+                raise AssertionError(f"resolve_tiles at k = {k} returned "
+                                     f"{won}, not the sweep's winner")
+            sweeps[k] = dict(entry, seconds=time.perf_counter() - t0)
+            log(f"[tiles] k={k}: winner bm={entry['bm']} bk={entry['bk']} "
+                f"kb={entry['kb']} ({entry['swept']} candidates, "
+                f"{sweeps[k]['seconds']:.1f} s); resolve_tiles returns it")
+        # a 50-iteration PubMed fit at the k = 5 winner's tiles
+        cfg = NMFConfig(k=K, iters=ITERS, backend="cuda-bsr",
+                        sparsity=Sparsity(t_u=T_U, t_v=T_V))
+        fit = EnforcedNMF(cfg, device=dev).fit(a_sp, u0=u0)
+        win = sweeps[K]
+        default = (win["bm"], win["bk"]) == (op.bsr.bm, op.bsr.bk)
+        derr = float((fit.result_.error - res3.error).abs().max())
+        dres = float((fit.result_.residual - res3.residual).abs().max())
+        if default:
+            if not (torch.equal(fit.result_.error, res3.error)
+                    and torch.equal(fit.result_.residual, res3.residual)):
+                raise AssertionError("the fit at the default tiles is not "
+                                     "bitwise phase 3's")
+        elif max(derr, dres) > 1e-4:
+            raise AssertionError(f"the fit at the winner's tiles parts from "
+                                 f"phase 3's by {derr:.3e} / {dres:.3e}")
+        log(f"[tiles] 50-iteration fit at the k = {K} winner's tiles "
+            f"({win['bm']} x {win['bk']}): error / residual traces against "
+            f"phase 3's {derr:.3e} / {dres:.3e}"
+            + (" (bitwise: phase 3's tiles)" if default else ""))
+        out["sweep"] = {str(k): v for k, v in sweeps.items()}
+        out["fit_at_winner"] = dict(error_diff=derr, residual_diff=dres)
+        out["ledger"] = json.loads(ledger.read_text())
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_TORCH_AUTOTUNE_LEDGER", None)
+        else:
+            os.environ["REPRO_TORCH_AUTOTUNE_LEDGER"] = saved
+        autotune._CACHE.clear()
+
+    # -- 20(b). bf16 against the plain versions at PubMed shapes ------------
+    gen = torch.Generator().manual_seed(20)
+    op16 = get_backend("cuda-bsr").prepare(a_sp, dtype=bf16, device=dev)
+    u16 = torch.rand((N_TERMS, K), generator=gen).to(dev, bf16)
+    v16 = torch.rand((N_DOCS, K), generator=gen).to(dev, bf16)
+    bf = {}
+    # each kernel against its plain bf16 version (the same f32 math, one
+    # rounding to bf16 at the end: a bf16 ulp, 2^-7 relative, apart at the
+    # most) and against f32 math at the reference's bar
+    errs = {"bsr_spmm": [], "bsr_spmm_gram": [], "gram": [],
+            "project_mask": []}
+    f32_errs = {"bsr_spmm": [], "bsr_spmm_gram": []}
+    per = {"bsr_spmm": [], "bsr_spmm_gram": []}
+    lib_bf = []
+    for o, b, w in (("A@V", op16.bsr, v16), ("A^T@U", op16.bsr_t, u16)):
+        f32_math = ref.bsr_spmm_ref(
+            dataclasses.replace(b, tiles=b.tiles.float()), w.float())
+        _build.reset_launch_counts()
+        y = bsr_spmm(b, w)
+        y_f, g_f = bsr_spmm_gram(b, w)
+        if _build.launch_counts()["bsr_spmm_gram"] != 1:
+            raise AssertionError("bf16 bsr_spmm_gram: not one launch")
+        if y.dtype != bf16 or not torch.equal(bits(y_f), bits(y)):
+            raise AssertionError("bf16 bsr_spmm_gram's product is not "
+                                 "bitwise bsr_spmm's")
+        plain_y, plain_g = ref.bsr_spmm_gram_ref(b, w)
+        errs["bsr_spmm"].append(close(f"bf16 bsr_spmm {o}", y,
+                                      ref.bsr_spmm_ref(b, w), 1e-2, 1e-3))
+        errs["bsr_spmm_gram"] += [
+            close(f"bf16 bsr_spmm_gram y {o}", y_f, plain_y, 1e-2, 1e-3),
+            close(f"bf16 bsr_spmm_gram gram {o}", g_f, plain_g, 1e-5, 1e-4)]
+        f32_errs["bsr_spmm"].append(close(f"bf16 bsr_spmm {o} (f32 math)", y,
+                                          f32_math, 5e-2, 1e-1))
+        f32_errs["bsr_spmm_gram"].append(close(
+            f"bf16 bsr_spmm_gram y {o} (f32 math)", y_f, f32_math, 5e-2,
+            1e-1))
+        tiles = int((b.tiles != 0).flatten(2).any(-1).sum())
+        flops = 2.0 * tiles * b.bm * b.bk * K
+        nbytes = 2 * (tiles * b.bm * b.bk + w.numel() + b.shape[0] * K) + (
+            4 * b.nrb * b.bcap)
+        flagged = int((b.gram_flags != 0).sum())
+        per["bsr_spmm"].append(dict(
+            ms=cuda_ms(lambda: bsr_spmm(b, w)),
+            plain_ms=cuda_ms(lambda: ref.bsr_spmm_ref(b, w), reps=5),
+            bound=bound_ms(nbytes, flops, BF16_FLOPS)))
+        per["bsr_spmm_gram"].append(dict(
+            ms=cuda_ms(lambda: bsr_spmm_gram(b, w)),
+            plain_ms=cuda_ms(lambda: ref.bsr_spmm_gram_ref(b, w), reps=5),
+            bound=bound_ms(nbytes + 4 * K * K,
+                           flops + 2.0 * flagged * b.bk * K * K,
+                           BF16_FLOPS)))
+        try:
+            call, fn = _lib_spmm(b, w, a_sp, dev)
+            lib_bf.append((call, cuda_ms(fn, reps=5)))
+        except (RuntimeError, NotImplementedError) as exc:
+            log(f"[library] no bf16 sparse product on the card ({exc})")
+            lib_bf.append((None, None))
+    for name, items in per.items():
+        bf[name] = dict(
+            ms=float(np.mean([i["ms"] for i in items])),
+            plain_ms=float(np.mean([i["plain_ms"] for i in items])),
+            bound_ms=float(np.mean([i["bound"][0] for i in items])),
+            bound_by=items[0]["bound"][1], f32_ms=rows[name]["ms"],
+            library_ms=None,
+            max_abs_err_f32_math=max(f32_errs[name]))
+    if all(t is not None for _, t in lib_bf):
+        bf["bsr_spmm"]["library_ms"] = float(np.mean([t for _, t in lib_bf]))
+    bf["bsr_spmm"]["library_call"] = [c for c, _ in lib_bf]
+    # gram at k = 5 and 256
+    g_bf = {}
+    for k in (K, 256):
+        w = torch.randn((N_TERMS, k), generator=gen).to(dev, bf16)
+        g = gram(w)
+        if g.dtype != torch.float32 or not torch.equal(gram(w), g):
+            raise AssertionError(f"bf16 gram at k = {k}: not f32 or not "
+                                 "bitwise repeatable")
+        errs["gram"].append(close(f"bf16 gram k={k}", g, ref.gram_ref(w),
+                                  1e-4, 1e-3))
+        wf = w.float()
+        g_bf[k] = dict(
+            ms=cuda_ms(lambda: gram(w), reps=50),
+            plain_ms=cuda_ms(lambda: ref.gram_ref(w), reps=20),
+            f32_ms=cuda_ms(lambda: gram(wf), reps=50),
+            library_ms=cuda_ms(lambda: w.T @ w, reps=50))
+        g_bf[k]["bound_ms"], g_bf[k]["bound_by"] = bound_ms(
+            2 * N_TERMS * k + 4 * k * k, gram_flops(N_TERMS, k), BF16_FLOPS)
+    bf["gram"] = dict(g_bf[K], k256=g_bf[256])
+    # relu_topk at PubMed's U and V and at 4,000,000 x 8 (the grid)
+    epi = {}
+    for name in ("PubMed U", "PubMed V", "beyond on-chip"):
+        n, k, t = EPILOGUE_SHAPES[name]
+        x = (torch.randn((n, k), generator=gen) - 0.25).to(dev, bf16)
+        want_out, want_tau = ref.relu_topk_ref(x, t)
+        _build.reset_launch_counts()
+        got_out, got_tau = relu_topk(x, t)
+        if _build.launch_counts()["relu_topk"] != 1:
+            raise AssertionError("bf16 relu_topk: not one launch")
+        if not (torch.equal(bits(got_tau), bits(want_tau))
+                and torch.equal(bits(got_out), bits(want_out))):
+            raise AssertionError(f"bf16 relu_topk {name}: tau or out is not "
+                                 "bitwise the plain version's")
+        errs["project_mask"].append(float(
+            (got_out.float() - want_out.float()).abs().max()))
+        xf = x.float()
+        epi[name] = dict(ms=cuda_ms(lambda: relu_topk(x, t)),
+                         f32_ms=cuda_ms(lambda: relu_topk(xf, t)),
+                         plain_ms=cuda_ms(lambda: ref.relu_topk_ref(x, t),
+                                          reps=3),
+                         bound_ms=1e3 * 4 * n * k / HBM_BYTES_PER_S,
+                         tau=float(want_tau))
+        log(f"[bf16] relu_topk {name} ({n} x {k}): tau and out bitwise the "
+            f"plain bf16 version's, one launch; {epi[name]['ms']:.4f} ms "
+            f"(f32 {epi[name]['f32_ms']:.4f} ms, plain "
+            f"{epi[name]['plain_ms']:.4f} ms, bound "
+            f"{epi[name]['bound_ms']:.6f} ms)")
+        del x, xf, want_out, got_out
+    bf["project_mask"] = dict(
+        ms=float(np.mean([epi[n]["ms"] for n in ("PubMed U", "PubMed V")])),
+        f32_ms=float(np.mean([epi[n]["f32_ms"]
+                              for n in ("PubMed U", "PubMed V")])),
+        plain_ms=float(np.mean([epi[n]["plain_ms"]
+                                for n in ("PubMed U", "PubMed V")])),
+        bound_ms=float(np.mean([epi[n]["bound_ms"]
+                                for n in ("PubMed U", "PubMed V")])),
+        bound_by="bytes", library_ms=None, grid_4m_x8=epi["beyond on-chip"])
+    for name, r in bf.items():
+        r["max_abs_err"] = max(errs[name])
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        log(f"[bf16] {name}: {r['ms']:.4f} ms (f32 {r['f32_ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, library {lib}, bound "
+            f"{r['bound_ms']:.6f} ms by {r.get('bound_by', 'bytes')}); max "
+            f"abs err against the plain bf16 version {r['max_abs_err']:.3e} "
+            "(bar rtol 1e-2, atol 1e-3 for the products, 1e-4 / 1e-3 for "
+            "gram, 1e-5 / 1e-4 for the fused Gram, bitwise for the mask)"
+            + (f"; against f32 math {r['max_abs_err_f32_math']:.3e} (bar "
+               "rtol 5e-2, atol 1e-1)" if "max_abs_err_f32_math" in r
+               else ""))
+    log(f"[bf16] gram at k = 256: {g_bf[256]['ms']:.4f} ms (f32 "
+        f"{g_bf[256]['f32_ms']:.4f} ms, u.T @ u {g_bf[256]['library_ms']:.4f}"
+        f" ms, bound {g_bf[256]['bound_ms']:.4f} ms)")
+    del op16
+    out["bf16"] = bf
+
+    # -- 20(c). the fused half-step past k = 32 -----------------------------
+    # k = 128 fuses in both orientations at 64 x 64 tiles (up to k = 168;
+    # at 128 x 64 A^T's 64 x 128 tiles take k <= 112)
+    op64 = bsr_operand(a_sp, bm=64, bk=64, device=dev)
+    be, unf = get_backend("cuda-bsr"), get_backend("cuda-bsr-unfused")
+    wide = {}
+    for k, o in ((33, op), (40, op), (128, op64)):
+        v = torch.rand((N_DOCS, k), generator=gen).to(dev)
+        b = o.bsr
+        kb = resolve_kb(b, v, None)
+        _build.reset_launch_counts()
+        y, g = be.matmul_with_gram(o, v)
+        counts = _build.launch_counts()
+        if counts["bsr_spmm_gram"] != 1 or counts["gram"] != 0:
+            raise AssertionError(f"cuda-bsr did not fuse at k = {k}: "
+                                 f"{counts}")
+        y_p = bsr_spmm(b, v, kb=kb)
+        if not torch.equal(y, y_p):
+            raise AssertionError(f"the fused product at k = {k} is not "
+                                 "bitwise bsr_spmm's")
+        err = close(f"fused gram k={k}", g, ref.gram_ref(v), 1e-5, 1e-4)
+        wide[k] = dict(
+            tiles=[b.bm, b.bk], kb=kb, gram_err=err,
+            fused_ms=cuda_ms(lambda: bsr_spmm_gram(b, v, kb=kb), reps=5),
+            unfused_ms=cuda_ms(lambda: unf.matmul_with_gram(o, v), reps=5),
+            plain_ms=cuda_ms(lambda: bsr_spmm(b, v, kb=kb), reps=5))
+        log(f"[wide] k={k} at {b.bm} x {b.bk}, kb={kb}: one bsr_spmm_gram "
+            f"launch, "
+            f"product bitwise bsr_spmm's, Gram max abs err {err:.3e}; fused "
+            f"{wide[k]['fused_ms']:.4f} ms, unfused (bsr_spmm + gram) "
+            f"{wide[k]['unfused_ms']:.4f} ms, bsr_spmm alone "
+            f"{wide[k]['plain_ms']:.4f} ms (A @ V)")
+    k = 128
+    kcfg = NMFConfig(k=k, iters=3, sparsity=Sparsity(t_u=N_TERMS * k // 50,
+                                                     t_v=N_DOCS * k // 50))
+    u_k = torch.rand((N_TERMS, k), generator=gen).to(dev)
+    fits = {}
+    for name in ("cuda-bsr", "cuda-bsr-unfused"):
+        _build.reset_launch_counts()
+        fits[name], secs = wall(lambda: EnforcedNMF(
+            kcfg.replace(backend=name), device=dev).fit(op64, u0=u_k))
+        counts = _build.launch_counts()
+        fits[name + "_s"], fits[name + "_launches"] = secs, counts
+        if (counts["bsr_spmm_gram"] == 7) != (name == "cuda-bsr"):
+            raise AssertionError(f"the k = 128 fit on {name}: launches "
+                                 f"{counts}")
+    kdiff = float((fits["cuda-bsr"].result_.error
+                   - fits["cuda-bsr-unfused"].result_.error).abs().max())
+    if kdiff > 1e-4 or int(fits["cuda-bsr"].result_.health) != -1:
+        raise AssertionError(f"the fused k = 128 fit parts from the unfused "
+                             f"one by {kdiff:.3e}")
+    paths["fit_k128"] = fits["cuda-bsr_launches"]
+    log(f"[wide] 3-iteration k = 128 fit at 64 x 64 tiles: cuda-bsr "
+        f"{1e3 * fits['cuda-bsr_s'] / 3:.1f} ms an iteration (launches "
+        f"{fits['cuda-bsr_launches']}), cuda-bsr-unfused "
+        f"{1e3 * fits['cuda-bsr-unfused_s'] / 3:.1f} ms; error traces "
+        f"within {kdiff:.3e}")
+    k256 = results["stream_slice"]["k256"]
+    log(f"[wide] k = 256 does not fuse (its Gram partial alone is 256 KB); "
+        f"phase 16's k = 256 iteration {k256['fit_per_iter_ms']:.1f} ms at "
+        f"kb = {k256['kb']}")
+    out["wide"] = {str(k): v for k, v in wide.items()}
+
+    # the widest rank the fused kernel takes at each tile shape and dtype,
+    # launched there against the plain versions; one rank more is refused
+    # by the wrapper and by the launch's own stage arithmetic
+    widest = {}
+    for bm, bk in ((128, 128), (128, 64), (128, 32), (64, 64)):
+        b32 = {(128, 128): op.bsr, (64, 64): op64.bsr}.get((bm, bk))
+        if b32 is None:
+            b32 = bsr_operand(a_sp, bm=bm, bk=bk, device=dev).bsr
+        for dt in (torch.float32, bf16):
+            b = dataclasses.replace(b32, tiles=b32.tiles.to(dt))
+            kmax = autotune.fused_max_k(bm, bk, b.tiles.element_size())
+            v = torch.rand((N_DOCS, kmax + 1), generator=gen).to(dev, dt)
+            vk = v[:, :kmax].contiguous()
+            kb = resolve_kb(b, vk, None)
+            name = f"{bm}x{bk} {str(dt).split('.')[1]}"
+            _build.reset_launch_counts()
+            y, g = bsr_spmm_gram(b, vk, kb=kb)
+            if _build.launch_counts()["bsr_spmm_gram"] != 1:
+                raise AssertionError(f"fused {name} k = {kmax}: not one "
+                                     "launch")
+            if not torch.equal(bits(y), bits(bsr_spmm(b, vk, kb=kb))):
+                raise AssertionError(f"fused {name} k = {kmax}: the product "
+                                     "is not bitwise bsr_spmm's")
+            plain_y, plain_g = ref.bsr_spmm_gram_ref(b, vk)
+            err = max(close(f"fused {name} k={kmax} y", y, plain_y,
+                            *((1e-2, 1e-3) if dt == bf16 else (1e-5, 1e-4))),
+                      close(f"fused {name} k={kmax} gram", g, plain_g, 1e-5,
+                            1e-4))
+            try:
+                bsr_spmm_gram(b, v, kb=kb)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError(f"fused {name}: the wrapper took k = "
+                                     f"{kmax + 1}")
+            rc = _fused_rc(b, v, kb)
+            torch.cuda.synchronize()
+            if rc == 0:
+                raise AssertionError(f"fused {name}: the kernel launched at "
+                                     f"k = {kmax + 1}")
+            widest[name] = dict(k=kmax, kb=kb, max_abs_err=err,
+                                refused_rc=rc,
+                                ms=cuda_ms(lambda: bsr_spmm_gram(b, vk, kb=kb),
+                                           reps=3, warmup=1))
+            log(f"[wide] {name} tiles: fused at k = {kmax} (kb = {kb}), one "
+                f"launch, product bitwise bsr_spmm's, max abs err against "
+                f"the plain version {err:.3e}, {widest[name]['ms']:.4f} ms "
+                f"(A @ V); k = {kmax + 1} refused by the wrapper and by the "
+                f"launch (rc {rc})")
+            del b, v, vk, y, g, plain_y, plain_g
+        del b32
+    out["widest_fused_k"] = widest
+    out["fit_k128"] = dict(
+        fused_ms_per_iter=1e3 * fits["cuda-bsr_s"] / 3,
+        unfused_ms_per_iter=1e3 * fits["cuda-bsr-unfused_s"] / 3,
+        error_diff=kdiff)
+    del op64
+
+    # the new fields of rows 1-4 of the kernels line
+    for name in ("bsr_spmm", "bsr_spmm_gram", "gram", "project_mask"):
+        rows[name].setdefault("extra", {})["bf16"] = {
+            key: bf[name][key] for key in ("ms", "f32_ms", "plain_ms",
+                                           "bound_ms", "library_ms",
+                                           "max_abs_err")}
+    rows["bsr_spmm_gram"]["extra"]["widest_fused_k"] = {
+        name: w["k"] for name, w in widest.items()}
+    rows["bsr_spmm_gram"]["extra"]["wide_k_ms"] = {
+        str(k): wide[k]["fused_ms"] for k in wide}
+    rows["bsr_spmm"]["extra"]["k256"] = dict(
+        ms=k256["spmm_ms"], kb=k256["kb"], bound_ms=k256["spmm_bound_ms"],
+        library_ms=k256["spmm_library_ms"])
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[tiles] phase 20 took {out['seconds']:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -1763,6 +2190,10 @@ def main(argv=None) -> int:
               "port on the card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    global HBM_BYTES_PER_S, F32_FLOPS, BF16_FLOPS
+    from repro_torch.kernels.autotune import (
+        BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S,
+    )
 
     from repro_torch.backend import get_backend
     from repro_torch.convert import estimator_from_reference
@@ -2159,7 +2590,9 @@ def main(argv=None) -> int:
 
     # what the BSR kernels were built into: registers and spills (ptxas),
     # asynchronous copies in the SASS (bulk copy UBLKCP, TMA UTMALDG,
-    # cp.async LDGSTS); every kernel must stream through one of them
+    # cp.async LDGSTS); every kernel must stream its tiles by bulk copy, and
+    # the f32 ones their slabs by cp.async (bf16 slabs are widened by the
+    # producer lanes on their way to shared memory)
     bsr_sass = sass_counts(_build.library_path("bsr_spmm"),
                            ("UBLKCP", "UTMALDG", "LDGSTS"))
     bsr_ptxas = ptxas_report(report["bsr_spmm"]["log"])
@@ -2170,10 +2603,12 @@ def main(argv=None) -> int:
             f"registers, {p.get('stack_bytes')} bytes stack, "
             f"{p.get('spill_stores')} / {p.get('spill_loads')} bytes spill "
             "stores / loads")
-    if not bsr_sass or any(c["UBLKCP"] + c["UTMALDG"] == 0 or
-                           c["LDGSTS"] == 0 for c in bsr_sass.values()):
-        raise AssertionError("a BSR kernel has no bulk copy or no cp.async "
-                             "in its SASS")
+    if not bsr_sass or any(
+            c["UBLKCP"] + c["UTMALDG"] == 0
+            or (c["LDGSTS"] == 0 and "bfloat16" not in fn)
+            for fn, c in bsr_sass.items()):
+        raise AssertionError("a BSR kernel has no bulk copy, or an f32 one "
+                             "no cp.async, in its SASS")
     results["bsr_sass"] = bsr_sass
     results["bsr_ptxas"] = bsr_ptxas
     # the epilogue's instantiations: cluster barriers (UCGABAR), warp
@@ -2353,6 +2788,8 @@ def main(argv=None) -> int:
         "s")
     # -- 19. the mesh engines ------------------------------------------------
     run_mesh_slice(a_sp, res, u0, paths, results)
+    # -- 20. the tile sweep, bf16, the fused half-step past k = 32 ---------
+    run_tile_slice(dev, a_sp, op, res, u0, paths, results, rows)
     rows["gram"]["k_range"] = ("any k: one output tile up to k = 224, "
                                "128 x 128 tiles above")
     rows["gram"]["k256"] = {key: gram_k256[key] for key in
@@ -2381,6 +2818,7 @@ def main(argv=None) -> int:
             path=owner[name], function=key,
             **({"k_range": r["k_range"], "k256": r["k256"]}
                if name == "gram" else {}),
+            **r.get("extra", {}),
             launches_by_path={p: c[key] for p, c in paths.items()},
             launched=True, checked=True))
         log(f"[kernel] {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} "

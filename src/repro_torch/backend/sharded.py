@@ -21,7 +21,8 @@ Grams), one histogram sum and one max per enforced factor
 bookkeeping; no factor or block of A is ever gathered inside the engine.
 On ``cuda-bsr`` every half-step of every rank is one launch of the fused
 ``bsr_spmm_gram`` kernel on its block (``bsr_spmm`` + ``gram`` on
-``cuda-bsr-unfused`` and where k > ``FUSED_MAX_K``).
+``cuda-bsr-unfused`` and where the fused kernel does not take k at the
+block's tiles).
 
 A process holds one rank's block (:class:`repro_torch.core.distributed.
 DistCSR` / ``DistBSR``), so there is no ``shard_map``: :func:`make_sharded_als`
@@ -47,7 +48,6 @@ from repro_torch.backend.base import get_backend
 from repro_torch.core.distributed import (
     DistBSR, DistCSR, _bsr_block, _coo_of, _csr_block,
 )
-from repro_torch.kernels.autotune import DEFAULT_TILES
 from repro_torch.kernels.bsr import BSROperand
 
 __all__ = ["ShardView", "ShardedBackend", "make_sharded_als",
@@ -182,17 +182,25 @@ class _CsrShardFormat:
 
 
 class _BsrShardFormat:
-    """BSR tile blocks (``DistBSR``): the block's 128 x 128 tiles in both
+    """BSR tile blocks (``DistBSR``): the block's ledger-resolved tiles in both
     orientations, each with its own split plan, fed to the CUDA kernels."""
 
     dist_type = DistBSR
 
     def block(self, coo, mesh, device) -> DistBSR:
+        """This rank's block, at the tiles ``cuda-bsr`` resolves for a
+        block's shape (each rank's kernels see the (n / rows, m / cols)
+        block, so that is the shape the ledger keys on, as in the
+        reference's ``BsrShardFormat.ingest``)."""
+        from repro_torch.backend.base import get_backend
+
         rows, cols, vals, shape = coo
+        r, c = mesh.shape
+        tiles = get_backend("cuda-bsr").tile_config(
+            max(shape[0] // r, 1), max(shape[1] // c, 1), device=device)
         return _bsr_block(rows, cols, vals, shape, mesh.shape,
-                          (mesh.i, mesh.j), bm=DEFAULT_TILES.bm,
-                          bk=DEFAULT_TILES.bk, bcap=None, bcap_t=None,
-                          device=device)
+                          (mesh.i, mesh.j), bm=tiles.bm, bk=tiles.bk,
+                          bcap=None, bcap_t=None, device=device)
 
     def local(self, dist: DistBSR) -> ShardView:
         """The two views over the same tile tensors (no copy): ``fwd`` runs

@@ -1,5 +1,5 @@
-// Gram matrix G = U^T U of a tall, skinny f32 U (n x k), in one launch, for
-// any k.
+// Gram matrix G = U^T U of a tall, skinny f32 or bf16 U (n x k), in one
+// launch, for any k; G is f32 either way.
 //
 // Replaces the Pallas TPU kernel repro/kernels/gram.py::_gram_kernel
 // (launched by _gram_impl), which streamed (bm, k) row slabs through VMEM
@@ -13,6 +13,8 @@
 // allocates only G.
 //
 // Design:
+//  * bf16 entries are widened to f32 as they are staged in shared memory, and
+//    every product and sum is an f32 FMA, as for f32 input.
 //  * Up to k = kSingleMaxK one block's k x k partial fits in shared memory
 //    and the kernel is gram_kernel below (the one-tile kernel from before
 //    tiling, so its results at these k are bitwise what they were).  grid =
@@ -50,11 +52,18 @@
 // C interface (loaded with ctypes): gram_plan reports the tile width, the
 // tile count and the scratch a call needs; gram_f32 launches on the given
 // stream, does not synchronise, and returns cudaGetLastError(), or
-// cudaErrorInvalidValue for bad arguments.
+// cudaErrorInvalidValue for bad arguments; gram_bf16 is the same for a
+// bf16 U.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 
 constexpr int kThreads = 256;
 constexpr int kChunkFloats = 4096;  // staged rows of U, 16 KB (one tile)
@@ -98,8 +107,9 @@ __device__ bool last_block(unsigned int* ticket) {
   return is_last;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gram_kernel(const float* __restrict__ u, float* __restrict__ g,
+gram_kernel(const T* __restrict__ u, float* __restrict__ g,
             float* __restrict__ scratch, unsigned int* __restrict__ ticket,
             int n, int k, int rows, int chunk) {
   extern __shared__ float smem[];
@@ -121,8 +131,8 @@ gram_kernel(const float* __restrict__ u, float* __restrict__ g,
   for (int c0 = r_begin; c0 < r_end; c0 += chunk) {
     const int nrow = min(chunk, r_end - c0);
     __syncthreads();  // the previous chunk is no longer read
-    const float* src = u + static_cast<long long>(c0) * k;
-    for (int x = tid; x < nrow * k; x += kThreads) buf[x] = src[x];
+    const T* src = u + static_cast<long long>(c0) * k;
+    for (int x = tid; x < nrow * k; x += kThreads) buf[x] = to_f32(src[x]);
     __syncthreads();
     for (int e0 = 0; e0 < e_total; e0 += per_pass) {
       const int e = e0 + slot;
@@ -164,8 +174,9 @@ __device__ __forceinline__ int micro_index(int c, int q) {
   return q < 4 ? 4 * c + q : 64 + 4 * c + (q - 4);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gram_tiled_kernel(const float* __restrict__ u, float* __restrict__ g,
+gram_tiled_kernel(const T* __restrict__ u, float* __restrict__ g,
                   float* __restrict__ scratch,
                   unsigned int* __restrict__ tickets, int n, int k, int rows,
                   int panels) {
@@ -201,9 +212,9 @@ gram_tiled_kernel(const float* __restrict__ u, float* __restrict__ g,
     for (int x = tid; x < nrow * kTile; x += kThreads) {
       const int r = x / kTile;
       const int c = x - r * kTile;
-      const float* row = u + static_cast<long long>(c0 + r) * k;
-      pi[r][c] = c < ni ? row[i0 + c] : 0.f;
-      if (!diag) pj[r][c] = c < nj ? row[j0 + c] : 0.f;
+      const T* row = u + static_cast<long long>(c0 + r) * k;
+      pi[r][c] = c < ni ? to_f32(row[i0 + c]) : 0.f;
+      if (!diag) pj[r][c] = c < nj ? to_f32(row[j0 + c]) : 0.f;
     }
     __syncthreads();
     for (int r = 0; r < nrow; ++r) {
@@ -286,15 +297,16 @@ extern "C" int gram_plan(int k, int max_blocks, int* tile, int* tiles,
   return 0;
 }
 
-// u (n x k, contiguous f32), g (k x k f32), scratch (gram_plan's floats),
-// tickets (gram_plan's tiles uint32, 0 between calls).
-extern "C" int gram_f32(const void* u, void* g, void* scratch, void* tickets,
-                        int n, int k, int max_blocks, void* stream) {
+namespace {
+
+template <typename T>
+int launch(const void* u, void* g, void* scratch, void* tickets, int n, int k,
+           int max_blocks, void* stream) {
   if (n < 0 || k < 1 || max_blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Plan p = plan_of(k);
   const auto st = static_cast<cudaStream_t>(stream);
-  const auto uf = static_cast<const float*>(u);
+  const auto uf = static_cast<const T*>(u);
   const auto gf = static_cast<float*>(g);
   const auto sf = static_cast<float*>(scratch);
   const auto tk = static_cast<unsigned int*>(tickets);
@@ -304,7 +316,7 @@ extern "C" int gram_f32(const void* u, void* g, void* scratch, void* tickets,
     if (grid > most) grid = most;
     if (grid < 1) grid = 1;
     const int rows_each = n > 0 ? (n + grid - 1) / grid : 0;
-    gram_tiled_kernel<<<dim3(grid, p.tiles), kThreads, 0, st>>>(
+    gram_tiled_kernel<T><<<dim3(grid, p.tiles), kThreads, 0, st>>>(
         uf, gf, sf, tk, n, k, rows_each, p.panels);
     return static_cast<int>(cudaGetLastError());
   }
@@ -318,10 +330,10 @@ extern "C" int gram_f32(const void* u, void* g, void* scratch, void* tickets,
   }
   if (smem > static_cast<size_t>(opt_in))
     return static_cast<int>(cudaErrorInvalidValue);
-  static size_t attr_bytes = 48 * 1024;
+  static size_t attr_bytes = 48 * 1024;  // per element type
   if (smem > attr_bytes) {
     cudaError_t err = cudaFuncSetAttribute(
-        gram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gram_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_bytes = smem;
@@ -331,7 +343,23 @@ extern "C" int gram_f32(const void* u, void* g, void* scratch, void* tickets,
   if (grid > max_blocks) grid = max_blocks;
   if (grid < 1) grid = 1;
   const int rows_each = n > 0 ? (n + grid - 1) / grid : 0;
-  gram_kernel<<<grid, kThreads, smem, st>>>(uf, gf, sf, tk, n, k, rows_each,
-                                           chunk_rows(k));
+  gram_kernel<T><<<grid, kThreads, smem, st>>>(uf, gf, sf, tk, n, k,
+                                              rows_each, chunk_rows(k));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// u (n x k, contiguous f32), g (k x k f32), scratch (gram_plan's floats),
+// tickets (gram_plan's tiles uint32, 0 between calls).
+extern "C" int gram_f32(const void* u, void* g, void* scratch, void* tickets,
+                        int n, int k, int max_blocks, void* stream) {
+  return launch<float>(u, g, scratch, tickets, n, k, max_blocks, stream);
+}
+
+// As gram_f32 for a contiguous bf16 u; g is f32.
+extern "C" int gram_bf16(const void* u, void* g, void* scratch, void* tickets,
+                         int n, int k, int max_blocks, void* stream) {
+  return launch<__nv_bfloat16>(u, g, scratch, tickets, n, k, max_blocks,
+                               stream);
 }

@@ -1,6 +1,6 @@
 // The relu + top-t epilogue of an ALS half-step, in one launch: the
 // bisection threshold tau and the mask out = (y >= tau ? y : 0) of
-// y = relu(x), for a factor x of numel f32.
+// y = relu(x), for a factor x of numel f32 or bf16.
 //
 // Replaces the Pallas TPU kernel repro/kernels/project_mask.py::
 // _project_mask_kernel (launched by _project_mask_impl: the mask, with tau
@@ -55,12 +55,20 @@
 //    is resident) and block 0 writes tau.
 //  * relu is torch.clamp_min's on the card (NaN stays NaN), so a NaN input
 //    (a failed Cholesky, by design) gives the plain version's tau and out.
+//  * bf16: entries are widened to f32 as they are read (shared memory holds
+//    f32, so a slice's plan is the f32 one), the midpoints and counts are
+//    f32 comparisons, as the reference's bf16 entries against its f32
+//    midpoints; tau is rounded to bf16 at the end (round to nearest even,
+//    torch's cast) and the mask compares against that, written as bf16.
 //
-// Mask mode (project_mask_f32): tau is given; a grid of blocks applies the
-// mask, one contiguous slice each, with 16-byte loads and stores.
+// Mask mode (project_mask_f32, project_mask_bf16): tau is given (f32; for
+// bf16 x rounded to bf16 first, as the reference casts it to x's dtype); a
+// grid of blocks applies the mask, one contiguous slice each, with 16-byte
+// (bf16: 8-byte) loads and stores.
 //
-// x must be contiguous; it is read with 16-byte loads where it is 16-byte
-// aligned and with 4-byte loads otherwise.  out must be 16-byte aligned.
+// x must be contiguous; it is read a quad at a time where it is aligned to
+// a quad (16 bytes in f32, 8 in bf16) and one entry at a time otherwise.
+// out must be 16-byte aligned.
 // Calls in grid mode share the device's scratch, so they must not run
 // concurrently on two streams.
 //
@@ -69,6 +77,7 @@
 // cudaErrorInvalidValue for arguments the kernel does not take.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -98,10 +107,12 @@ constexpr int kMask = 0;     // the mask with tau given
 constexpr int kCluster = 1;  // the search, exchanged in one cluster
 constexpr int kGrid = 2;     // the search, exchanged across the grid
 
+using bf16 = __nv_bfloat16;
+
 struct Args {
-  const float* x;
-  float* out;
-  float* tau;  // search mode: written by block 0; mask mode: read
+  const void* x;  // f32 or bf16 (the kernel's T)
+  void* out;      // as x
+  void* tau;  // search mode: written by block 0, as T; mask mode: read, f32
   // grid exchange: [0] barrier arrivals and [1] exit tickets (0 between
   // calls), then the counts, [2][blocks][kCounts]
   unsigned int* sync;
@@ -110,8 +121,49 @@ struct Args {
   int num_steps;
   int slice;     // elements of x per block, a multiple of 4
   int resident;  // of them held in shared memory, a multiple of 4
-  int vec;       // x is 16-byte aligned
+  int vec;       // x is aligned to a quad of entries
 };
+
+// One entry, and a quad of entries at p (aligned to the quad), widened.
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load1(const bf16* p) {
+  return __bfloat162float(__ldg(p));
+}
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(r.x << 16),
+                     __uint_as_float(r.x & 0xffff0000u),
+                     __uint_as_float(r.y << 16),
+                     __uint_as_float(r.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);  // exact for a widened bf16; tau rounds
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 r;
+  r.x = *reinterpret_cast<const unsigned int*>(&lo);
+  r.y = *reinterpret_cast<const unsigned int*>(&hi);
+  *reinterpret_cast<uint2*>(p) = r;
+}
+
+// The threshold the mask compares against: tau itself in f32; in bf16 tau
+// rounded to bf16 (the reference casts tau to x's dtype), widened back.
+__device__ __forceinline__ float mask_tau(float tau, const float*) {
+  return tau;
+}
+__device__ __forceinline__ float mask_tau(float tau, const bf16*) {
+  return __bfloat162float(__float2bfloat16_rn(tau));
+}
 
 // torch.clamp_min(v, 0) as PyTorch computes it on the card
 __device__ __forceinline__ float relu(float v) {
@@ -137,23 +189,22 @@ __device__ __forceinline__ unsigned int abs_bits(float y) {
   return __float_as_uint(y) & 0x7fffffffu;
 }
 
-// Visits relu(p[0, n)): quad(y4, i) for every whole quad at i when p is
-// 16-byte aligned, one(y, i) for the elements left (all of them when it is
-// not).  The block's threads take neighbouring quads.
-template <class Quad, class One>
-__device__ __forceinline__ void visit(const float* __restrict__ p, int n,
+// Visits relu(p[0, n)), widened to f32: quad(y4, i) for every whole quad
+// at i when p is aligned to a quad, one(y, i) for the elements left (all
+// of them when it is not).  The block's threads take neighbouring quads.
+template <typename T, class Quad, class One>
+__device__ __forceinline__ void visit(const T* __restrict__ p, int n,
                                       bool vec, Quad&& quad, One&& one) {
   int i0 = 0;
   if (vec) {
-    const float4* p4 = reinterpret_cast<const float4*>(p);
     const int nq = n >> 2;
 #pragma unroll 4
     for (int q = threadIdx.x; q < nq; q += kThreads)
-      quad(relu4(__ldg(p4 + q)), 4 * q);
+      quad(relu4(load4(p + 4 * q)), 4 * q);
     i0 = nq << 2;
   }
   for (int i = i0 + threadIdx.x; i < n; i += kThreads)
-    one(relu(__ldg(p + i)), i);
+    one(relu(load1(p + i)), i);
 }
 
 __device__ __forceinline__ void count1(unsigned int (&c)[kCounts],
@@ -259,7 +310,7 @@ struct Exchange {
   }
 };
 
-template <int M>
+template <int M, typename T>
 __device__ __forceinline__ void search(const Args& a) {
   extern __shared__ float4 ys4[];  // relu'd resident part of the slice
   float* ys = reinterpret_cast<float*>(ys4);
@@ -294,12 +345,13 @@ __device__ __forceinline__ void search(const Args& a) {
                                  a.numel - begin));
   const int n_res = min(n_here, a.resident);
   const int n_str = n_here - n_res;
-  const float* xs = a.x + begin + n_res;  // the part read every round
+  const T* x = static_cast<const T*>(a.x);
+  const T* xs = x + begin + n_res;  // the part read every round
 
   // ---- round 0: load, and the largest |relu(x)| ----------------------------
   unsigned int mbits = 0;
   visit(
-      a.x + begin, n_res, vec,
+      x + begin, n_res, vec,
       [&](float4 y, int i) {
         ys4[i >> 2] = y;
         mbits = max(mbits, max(max(abs_bits(y.x), abs_bits(y.y)),
@@ -424,7 +476,8 @@ __device__ __forceinline__ void search(const Args& a) {
     left -= s;
     buf ^= 1;
   } while (left > 0);
-  const float tau = static_cast<long long>(c_hi) >= a.t ? hi : lo;
+  const float tau_f = static_cast<long long>(c_hi) >= a.t ? hi : lo;
+  const float tau = mask_tau(tau_f, x);
   if constexpr (M == kGrid) {
     // past its last barrier: the last block out resets the scratch
     if (threadIdx.x == 0 &&
@@ -435,46 +488,43 @@ __device__ __forceinline__ void search(const Args& a) {
   }
 
   // ---- the mask ------------------------------------------------------------
-  float* out = a.out + begin;
+  T* out = static_cast<T*>(a.out) + begin;
   const int nfull = n_res >> 2;
-  float4* out4 = reinterpret_cast<float4*>(out);
   for (int q = threadIdx.x; q < nfull; q += kThreads)
-    out4[q] = mask4(ys4[q], tau);
+    store4(out + 4 * q, mask4(ys4[q], tau));
   for (int i = 4 * nfull + threadIdx.x; i < n_res; i += kThreads)
-    out[i] = mask(ys[i], tau);
-  float* outs = out + n_res;
+    store1(out + i, mask(ys[i], tau));
+  T* outs = out + n_res;
   visit(
       xs, n_str, vec,
-      [&](float4 y, int i) {
-        *reinterpret_cast<float4*>(outs + i) = mask4(y, tau);
-      },
-      [&](float y, int i) { outs[i] = mask(y, tau); });
-  if (ex.rank == 0 && threadIdx.x == 0) *a.tau = tau;
+      [&](float4 y, int i) { store4(outs + i, mask4(y, tau)); },
+      [&](float y, int i) { store1(outs + i, mask(y, tau)); });
+  if (ex.rank == 0 && threadIdx.x == 0) store1(static_cast<T*>(a.tau), tau_f);
 }
 
+template <typename T>
 __device__ __forceinline__ void apply_mask(const Args& a) {
   const long long begin = static_cast<long long>(blockIdx.x) * a.slice;
   if (begin >= a.numel) return;
   const int n = static_cast<int>(
       min(static_cast<long long>(a.slice), a.numel - begin));
-  const float tau = __ldg(a.tau);
-  float* out = a.out + begin;
+  const T* x = static_cast<const T*>(a.x);
+  const float tau = mask_tau(__ldg(static_cast<const float*>(a.tau)), x);
+  T* out = static_cast<T*>(a.out) + begin;
   visit(
-      a.x + begin, n, a.vec != 0,
-      [&](float4 y, int i) {
-        *reinterpret_cast<float4*>(out + i) = mask4(y, tau);
-      },
-      [&](float y, int i) { out[i] = mask(y, tau); });
+      x + begin, n, a.vec != 0,
+      [&](float4 y, int i) { store4(out + i, mask4(y, tau)); },
+      [&](float y, int i) { store1(out + i, mask(y, tau)); });
 }
 
 // One template, two functions: the whole epilogue (kCluster, kGrid) and
 // the mask with tau given (kMask, a grid of plain blocks).
-template <int M>
+template <int M, typename T>
 __global__ void __launch_bounds__(kThreads, 1) relu_topk_kernel(const Args a) {
   if constexpr (M == kMask)
-    apply_mask(a);
+    apply_mask<T>(a);
   else
-    search<M>(a);
+    search<M, T>(a);
 }
 
 int device_attr(cudaDeviceAttr attr) {
@@ -494,12 +544,12 @@ struct Limits {
 
 // Once per exchange: opt in to the whole shared memory (and, for the
 // cluster, to clusters of 16), and find how many blocks can share a factor.
-template <int M>
+template <int M, typename T>
 cudaError_t limits(Limits* out) {
   static cudaError_t status = cudaErrorNotReady;
   static Limits lim{};
   if (status == cudaErrorNotReady) {
-    auto kern = relu_topk_kernel<M>;
+    auto kern = relu_topk_kernel<M, T>;
     cudaFuncAttributes attr{};
     status = cudaFuncGetAttributes(&attr, kern);
     if (status != cudaSuccess) return status;
@@ -548,16 +598,18 @@ struct Plan {
 };
 
 // The cluster when the factor fits in its shared memory, else the grid.
+// Shared memory holds f32 whatever T is, so both types plan alike.
+template <typename T>
 cudaError_t plan(long long numel, Plan* p) {
   Limits cl{}, gr{};
-  cudaError_t err = limits<kCluster>(&cl);
+  cudaError_t err = limits<kCluster, T>(&cl);
   if (err != cudaSuccess) return err;
   const long long cl_cap = cl.dyn / 16 * 4;  // floats a block holds
   long long cap = cl_cap;
   int blocks = 1;
   p->grid = numel > cl.blocks * cl_cap;
   if (p->grid) {
-    err = limits<kGrid>(&gr);
+    err = limits<kGrid, T>(&gr);
     if (err != cudaSuccess) return err;
     blocks = gr.blocks;
     cap = gr.dyn / 16 * 4;
@@ -575,6 +627,7 @@ cudaError_t plan(long long numel, Plan* p) {
   return cudaSuccess;
 }
 
+template <typename T>
 cudaError_t launch_search(const Args& a, const Plan& p, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute at[1];
@@ -593,21 +646,75 @@ cudaError_t launch_search(const Args& a, const Plan& p, cudaStream_t stream) {
   cfg.stream = stream;
   cfg.attrs = at;
   cfg.numAttrs = 1;
-  return p.grid ? cudaLaunchKernelEx(&cfg, relu_topk_kernel<kGrid>, a)
-                : cudaLaunchKernelEx(&cfg, relu_topk_kernel<kCluster>, a);
+  return p.grid ? cudaLaunchKernelEx(&cfg, relu_topk_kernel<kGrid, T>, a)
+                : cudaLaunchKernelEx(&cfg, relu_topk_kernel<kCluster, T>, a);
+}
+
+template <typename T>
+int relu_topk(const void* x, void* out, void* tau, void* sync,
+              long long sync_words, long long numel, long long t,
+              int num_steps, void* stream) {
+  if (numel < 1 || num_steps < 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Plan p{};
+  cudaError_t err = plan<T>(numel, &p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (p.grid && sync_words < 2 + 2ll * p.blocks * kCounts)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  a.x = x;
+  a.out = out;
+  a.tau = tau;
+  a.sync = static_cast<unsigned int*>(sync);
+  a.numel = numel;
+  a.t = t;
+  a.num_steps = num_steps;
+  a.slice = p.slice;
+  a.resident = p.resident;
+  a.vec = reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0;
+  err = launch_search<T>(a, p, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int project_mask(const void* x, const void* tau, void* out, long long numel,
+                 void* stream) {
+  if (numel < 1 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static int n_sm = 0;  // the same on every H100
+  if (n_sm == 0) n_sm = device_attr(cudaDevAttrMultiProcessorCount);
+  if (n_sm == 0) return static_cast<int>(cudaErrorInvalidDevice);
+  long long grid = (numel + kMaskMinSlice - 1) / kMaskMinSlice;
+  if (grid > static_cast<long long>(kMaskBlocksPerSm) * n_sm)
+    grid = static_cast<long long>(kMaskBlocksPerSm) * n_sm;
+  const long long slice = round4((numel + grid - 1) / grid);
+  if (slice > (1ll << 30)) return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  a.x = x;
+  a.out = out;
+  a.tau = const_cast<void*>(tau);
+  a.numel = numel;
+  a.slice = static_cast<int>(slice);
+  a.vec = reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0;
+  relu_topk_kernel<kMask, T><<<static_cast<unsigned int>(grid), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The launch plan of relu_topk_f32 for numel floats: plan[0] the blocks
-// that share the factor, plan[1] 1 when they exchange across the grid (0:
-// in one cluster), plan[2] the slice a block owns, plan[3] the part of it
-// resident in shared memory (less than the slice: the rest is re-read
-// every round), plan[4] the dynamic shared memory a block takes, in bytes.
+// The launch plan of relu_topk_f32 (and of relu_topk_bf16, which plans
+// alike) for numel entries: plan[0] the blocks that share the factor,
+// plan[1] 1 when they exchange across the grid (0: in one cluster),
+// plan[2] the slice a block owns, plan[3] the part of it resident in shared
+// memory (less than the slice: the rest is re-read every round), plan[4]
+// the dynamic shared memory a block takes, in bytes.
 extern "C" int relu_topk_plan(long long numel, int* plan_out) {
   if (numel < 1) return static_cast<int>(cudaErrorInvalidValue);
   Plan p{};
-  const cudaError_t err = plan(numel, &p);
+  const cudaError_t err = plan<float>(numel, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   plan_out[0] = p.blocks;
   plan_out[1] = p.grid;
@@ -623,52 +730,27 @@ extern "C" int relu_topk_plan(long long numel, int* plan_out) {
 extern "C" int relu_topk_f32(const void* x, void* out, void* tau, void* sync,
                              long long sync_words, long long numel,
                              long long t, int num_steps, void* stream) {
-  if (numel < 1 || num_steps < 0 ||
-      reinterpret_cast<uintptr_t>(out) % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Plan p{};
-  cudaError_t err = plan(numel, &p);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (p.grid && sync_words < 2 + 2ll * p.blocks * kCounts)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Args a{};
-  a.x = static_cast<const float*>(x);
-  a.out = static_cast<float*>(out);
-  a.tau = static_cast<float*>(tau);
-  a.sync = static_cast<unsigned int*>(sync);
-  a.numel = numel;
-  a.t = t;
-  a.num_steps = num_steps;
-  a.slice = p.slice;
-  a.resident = p.resident;
-  a.vec = reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  err = launch_search(a, p, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return relu_topk<float>(x, out, tau, sync, sync_words, numel, t, num_steps,
+                          stream);
+}
+
+// As relu_topk_f32 with x, out and tau bf16.
+extern "C" int relu_topk_bf16(const void* x, void* out, void* tau, void* sync,
+                              long long sync_words, long long numel,
+                              long long t, int num_steps, void* stream) {
+  return relu_topk<bf16>(x, out, tau, sync, sync_words, numel, t, num_steps,
+                         stream);
 }
 
 // x (numel f32, contiguous), tau (one f32), out (numel f32, 16-byte
 // aligned): out = (relu(x) >= tau ? relu(x) : 0).
 extern "C" int project_mask_f32(const void* x, const void* tau, void* out,
                                 long long numel, void* stream) {
-  if (numel < 1 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  static int n_sm = 0;  // the same on every H100
-  if (n_sm == 0) n_sm = device_attr(cudaDevAttrMultiProcessorCount);
-  if (n_sm == 0) return static_cast<int>(cudaErrorInvalidDevice);
-  long long grid = (numel + kMaskMinSlice - 1) / kMaskMinSlice;
-  if (grid > static_cast<long long>(kMaskBlocksPerSm) * n_sm)
-    grid = static_cast<long long>(kMaskBlocksPerSm) * n_sm;
-  const long long slice = round4((numel + grid - 1) / grid);
-  if (slice > (1ll << 30)) return static_cast<int>(cudaErrorInvalidValue);
-  Args a{};
-  a.x = static_cast<const float*>(x);
-  a.out = static_cast<float*>(out);
-  a.tau = const_cast<float*>(static_cast<const float*>(tau));
-  a.numel = numel;
-  a.slice = static_cast<int>(slice);
-  a.vec = reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  relu_topk_kernel<kMask><<<static_cast<unsigned int>(grid), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return project_mask<float>(x, tau, out, numel, stream);
+}
+
+// As project_mask_f32 with x and out bf16 (tau f32, rounded to bf16).
+extern "C" int project_mask_bf16(const void* x, const void* tau, void* out,
+                                 long long numel, void* stream) {
+  return project_mask<bf16>(x, tau, out, numel, stream);
 }

@@ -14,8 +14,10 @@ two orientations.
 Ingest is numpy work on the host, step for step the reference's, so the
 ``tiles`` / ``block_cols`` arrays are bitwise the reference's, ``bcap``
 truncation included.  The tensors move to the device once, at the end of
-ingest.  Ingest also fixes, per orientation, what the fused spmm + Gram
-kernel needs to know about Gram coverage (the reference's
+ingest.  numpy has no bf16: a bf16 operand is ingested in f32 on the host
+and its tiles are cast on the device (round to nearest even).  Ingest also
+fixes, per orientation, what the fused spmm + Gram kernel needs to know
+about Gram coverage (the reference's
 ``kernels/fused.py::_coverage``, which ran on the device every call): the
 first-occurrence flag of every slot and the rows of U that no slot
 references.  Both depend only on ``block_cols``, so the reference's
@@ -205,8 +207,9 @@ def coverage(block_cols: np.ndarray, ncb: int):
 
 
 def _make_bsr(tiles: np.ndarray, bcols: np.ndarray, shape: Tuple[int, int],
-              device) -> BSR:
-    """Wrap host arrays as a device :class:`BSR`, with its coverage."""
+              device, dtype: Optional[torch.dtype] = None) -> BSR:
+    """Wrap host arrays as a device :class:`BSR`, with its coverage; given
+    ``dtype``, the tiles are cast to it on the device."""
     bk = tiles.shape[3]
     m = shape[1]
     ncb = -(-m // bk)
@@ -215,8 +218,10 @@ def _make_bsr(tiles: np.ndarray, bcols: np.ndarray, shape: Tuple[int, int],
     if not covered.all():
         unc = torch.from_numpy(~covered[np.arange(m) // bk]).to(device)
     nrb, bcap = bcols.shape
-    return BSR(torch.from_numpy(np.ascontiguousarray(tiles)).to(device),
-               torch.from_numpy(bcols).to(device), shape,
+    t = torch.from_numpy(np.ascontiguousarray(tiles)).to(device)
+    if dtype is not None and t.dtype != dtype:
+        t = t.to(dtype)
+    return BSR(t, torch.from_numpy(bcols).to(device), shape,
                torch.from_numpy(flags).to(device), unc,
                _make_plan(nrb, bcap, device))
 
@@ -229,9 +234,31 @@ def replan(a: BSR, runs: int) -> BSR:
 
 
 def _host(a) -> np.ndarray:
+    """A host numpy array of ``a``; a bf16 tensor comes back in f32 (numpy
+    has no bf16; every bf16 value is exact in f32)."""
     if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
+        a = a.detach()
+        if a.dtype == torch.bfloat16:
+            a = a.float()
+        return a.cpu().numpy()
     return np.asarray(a)
+
+
+def _is_bf16(a) -> bool:
+    return isinstance(a, torch.Tensor) and a.dtype == torch.bfloat16
+
+
+def _ingest_dtypes(dtype):
+    """``(host, device)`` for a requested operand dtype (numpy or torch, or
+    ``None``): the numpy dtype the host ingest casts to, and the torch dtype
+    the tiles are cast to on the device (bf16 only: ingested in f32)."""
+    if dtype is None:
+        return None, None
+    if isinstance(dtype, torch.dtype):
+        if dtype == torch.bfloat16:
+            return np.dtype(np.float32), torch.bfloat16
+        return torch.empty((), dtype=dtype).numpy().dtype, None
+    return np.dtype(dtype), None
 
 
 def _from_dense_np(a: np.ndarray, bm: int, bk: int, bcap: int | None):
@@ -266,7 +293,8 @@ def bsr_from_dense(a, bm: int = 128, bk: int = 128, bcap: int | None = None,
     """Host-side conversion of a dense matrix (numpy or tensor).  An explicit
     ``bcap`` below a row-block's occupancy keeps its ``bcap``
     largest-Frobenius-norm blocks and warns."""
-    return _make_bsr(*_from_dense_np(_host(a), bm, bk, bcap), device)
+    return _make_bsr(*_from_dense_np(_host(a), bm, bk, bcap), device,
+                     torch.bfloat16 if _is_bf16(a) else None)
 
 
 def _keep_top_per_group(group_ids, sqnorms, ngroups: int, cap: int):
@@ -357,7 +385,7 @@ def bsr_dot_uv(a: BSR, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def bsr_to_coo(a: BSR):
     """Host-side element COO ``(rows, cols, vals)`` of the stored
     nonzeros."""
-    tiles = a.tiles.cpu().numpy()
+    tiles = _host(a.tiles)
     bcols = a.block_cols.cpu().numpy()
     nz_i, nz_s, nz_r, nz_c = np.nonzero(tiles)
     rows = nz_i * a.bm + nz_r
@@ -408,27 +436,33 @@ def bsr_transpose(a: BSR, bcap: int | None = None) -> BSR:
     """Build the transposed-format copy tile-wise on the host: tile (i, s)
     with block-col j becomes ``tiles[i, s].T`` at row-block j with
     block-col i.  The result lands on ``a``'s device."""
-    return _make_bsr(*_transpose_np(a.tiles.cpu().numpy(),
+    return _make_bsr(*_transpose_np(_host(a.tiles),
                                     a.block_cols.cpu().numpy(), a.shape,
-                                    bcap), a.device)
+                                    bcap), a.device, a.tiles.dtype)
 
 
 def bsr_operand(a, bm: int = 128, bk: int = 128, bcap: int | None = None,
                 dtype=None, device="cpu") -> BSROperand:
     """Build the two-orientation :class:`BSROperand` from a dense array, a
     scipy sparse matrix, or an existing :class:`BSR`.  Both orientations
-    are built on the host and moved to ``device`` once."""
+    are built on the host and moved to ``device`` once.  ``dtype`` (numpy or
+    torch) is the tiles' dtype; ``torch.bfloat16`` is ingested in f32 and
+    cast on the device, as is a bf16 tensor or :class:`BSR` given with no
+    ``dtype``."""
     if isinstance(a, BSROperand):
         return a.to(device)
+    host_dtype, dev_dtype = _ingest_dtypes(dtype)
+    if dtype is None and _is_bf16(a.tiles if isinstance(a, BSR) else a):
+        dev_dtype = torch.bfloat16
     if isinstance(a, BSR):
-        host = (a.tiles.cpu().numpy(), a.block_cols.cpu().numpy(), a.shape)
+        host = (_host(a.tiles), a.block_cols.cpu().numpy(), a.shape)
     elif hasattr(a, "tocoo"):  # scipy sparse, without a hard scipy import
-        host = _from_scipy_np(a, bm, bk, bcap, dtype)
+        host = _from_scipy_np(a, bm, bk, bcap, host_dtype)
     else:
         a = _host(a)
-        if dtype is not None:
-            a = a.astype(dtype)
+        if host_dtype is not None:
+            a = a.astype(host_dtype)
         host = _from_dense_np(a, bm, bk, bcap)
     host_t = _transpose_np(*host, None)
-    return BSROperand(_make_bsr(*host, device), _make_bsr(*host_t, device),
-                      host[2])
+    return BSROperand(_make_bsr(*host, device, dev_dtype),
+                      _make_bsr(*host_t, device, dev_dtype), host[2])

@@ -6,15 +6,16 @@ Replaces the Pallas TPU kernel ``repro/kernels/gram.py::_gram_kernel``
 and accumulated into one k x k output across its sequential grid, with the
 CUDA C++ kernel in ``csrc/gram.cu``, built for ``sm_90a`` and called through
 ``ctypes``.  U is tall and skinny (n rows, k of about 5), so the product is
-bound by one read of U: at PubMed size 0.4 MB, a fraction of a microsecond
-at 3.35 TB/s, which means the host's cost per call dominates.  So the call
+bound by one read of U: at PubMed size 0.4 MB of f32, a fraction of a
+microsecond at 3.35 TB/s, which means the host's cost per call dominates.  So the call
 is one launch: blocks reduce their rows into f32 partials of one output
 tile each (one tile up to k = 224, 128 x 128 tiles above it), and for each
 tile the last block to take an integer ticket sums them in block order
 (deterministic, no float atomics; design notes in the source).  The wrapper
 keeps the tickets and the partials' scratch per device and allocates only
-G.  For CPU tensors it runs ``kernels.ref.gram_ref``; for CUDA tensors it
-launches or raises.
+G.  U is f32 or bf16 (widened as it is staged); G is f32 either way.  For
+CPU tensors it runs ``kernels.ref.gram_ref``; for CUDA tensors it launches
+or raises.
 """
 from __future__ import annotations
 
@@ -37,8 +38,9 @@ _SCRATCH: Dict[torch.device, list] = {}
 def _lib() -> ctypes.CDLL:
     lib = _build.library("gram")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gram_f32.argtypes = [p, p, p, p, i, i, i, p]
-    lib.gram_f32.restype = i
+    for fn in (lib.gram_f32, lib.gram_bf16):
+        fn.argtypes = [p, p, p, p, i, i, i, p]
+        fn.restype = i
     lib.gram_plan.argtypes = [i, i, p, p, p]
     lib.gram_plan.restype = i
     return lib
@@ -73,10 +75,8 @@ def _scratch(dev: torch.device, k: int) -> list:
 
 
 def _check(u: torch.Tensor) -> None:
-    if u.dtype == torch.bfloat16:
-        raise NotImplementedError("bf16 gram is not ported yet")
-    if u.dtype != torch.float32:
-        raise TypeError(f"u must be float32, got {u.dtype}")
+    if u.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"u must be float32 or bfloat16, got {u.dtype}")
     if u.dim() != 2 or u.shape[1] < 1:
         raise ValueError(f"u must be (n, k>=1), got {tuple(u.shape)}")
     if not u.is_contiguous():
@@ -84,7 +84,8 @@ def _check(u: torch.Tensor) -> None:
 
 
 def gram(u: torch.Tensor) -> torch.Tensor:
-    """``U^T @ U`` (k, k) in f32 for an (n, k) ``U``."""
+    """``U^T @ U`` (k, k) in f32 for an (n, k) f32 or bf16 ``U`` (bf16
+    entries widened, f32 accumulation)."""
     if not _build.on_card(u):
         return ref.gram_ref(u)
     _check(u)
@@ -92,9 +93,9 @@ def gram(u: torch.Tensor) -> torch.Tensor:
     n, k = u.shape
     tickets, part, n_sm = _scratch(u.device, k)
     g = torch.empty((k, k), dtype=torch.float32, device=u.device)
-    rc = lib.gram_f32(u.data_ptr(), g.data_ptr(), part.data_ptr(),
-                      tickets.data_ptr(), n, k, n_sm,
-                      _build.stream_ptr(u.device))
+    fn = lib.gram_bf16 if u.dtype == torch.bfloat16 else lib.gram_f32
+    rc = fn(u.data_ptr(), g.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+            n, k, n_sm, _build.stream_ptr(u.device))
     _build.check_rc(rc, "gram")
     _build.count_launch("gram")
     return g

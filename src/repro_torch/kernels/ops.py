@@ -7,6 +7,8 @@ plain PyTorch version.  There is no fallback from one to the other.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels.bsr import (
@@ -25,25 +27,26 @@ __all__ = [
 ]
 
 
-def spmm(a: BSR, u: torch.Tensor) -> torch.Tensor:
-    """dense(A) @ U through the BSR kernel."""
-    return bsr_spmm(a, u)
+def spmm(a: BSR, u: torch.Tensor, kb: Optional[int] = None) -> torch.Tensor:
+    """dense(A) @ U through the BSR kernel (``kb``: its column chunk,
+    ``None`` from the tile ledger)."""
+    return bsr_spmm(a, u, kb=kb)
 
 
-def spmm_t(a, u: torch.Tensor) -> torch.Tensor:
+def spmm_t(a, u: torch.Tensor, kb: Optional[int] = None) -> torch.Tensor:
     """dense(A)^T @ U through the BSR kernel on the transposed-format copy
     (``a``: BSROperand, or the transposed BSR itself)."""
-    return bsr_spmm_t(a, u)
+    return bsr_spmm_t(a, u, kb=kb)
 
 
-def spmm_gram(a: BSR, u: torch.Tensor):
+def spmm_gram(a: BSR, u: torch.Tensor, kb: Optional[int] = None):
     """``(dense(A) @ U, U^T U)`` in one fused sweep; Gram in f32."""
-    return bsr_spmm_gram(a, u)
+    return bsr_spmm_gram(a, u, kb=kb)
 
 
-def spmm_t_gram(a, u: torch.Tensor):
+def spmm_t_gram(a, u: torch.Tensor, kb: Optional[int] = None):
     """``(dense(A)^T @ U, U^T U)`` fused, on the transposed-format copy."""
-    return bsr_spmm_gram_t(a, u)
+    return bsr_spmm_gram_t(a, u, kb=kb)
 
 
 def fused_project_mask(x: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:

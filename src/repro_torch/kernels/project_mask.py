@@ -16,7 +16,8 @@ writes the mask and ``tau`` (design notes in the source).  One template, two
 functions:
 
 * :func:`relu_topk` — ``FusedReluTopK``'s whole function, ``(out, tau)``,
-  bitwise ``kernels.ref.relu_topk_ref`` on f32 input;
+  bitwise ``kernels.ref.relu_topk_ref`` on f32 and bf16 input (bf16 is
+  widened as it is read, bisected in f32, ``tau`` rounded to bf16);
 * :func:`project_mask` — the TPU kernel's own function, ``tau`` given.
 
 For CPU tensors each runs its plain version; for CUDA tensors it launches
@@ -52,10 +53,12 @@ _SYNC: Dict[torch.device, torch.Tensor] = {}
 def _lib() -> ctypes.CDLL:
     lib = _build.library("project_mask")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.relu_topk_f32.argtypes = [p, p, p, p, ll, ll, ll, i, p]
-    lib.relu_topk_f32.restype = i
-    lib.project_mask_f32.argtypes = [p, p, p, ll, p]
-    lib.project_mask_f32.restype = i
+    for fn in (lib.relu_topk_f32, lib.relu_topk_bf16):
+        fn.argtypes = [p, p, p, p, ll, ll, ll, i, p]
+        fn.restype = i
+    for fn in (lib.project_mask_f32, lib.project_mask_bf16):
+        fn.argtypes = [p, p, p, ll, p]
+        fn.restype = i
     lib.relu_topk_plan.argtypes = [ll, p]
     lib.relu_topk_plan.restype = i
     return lib
@@ -73,10 +76,8 @@ def _sync(dev: torch.device) -> torch.Tensor:
 
 
 def _check(x: torch.Tensor, name: str) -> None:
-    if x.dtype == torch.bfloat16:
-        raise NotImplementedError(f"bf16 {name} is not ported yet")
-    if x.dtype != torch.float32:
-        raise TypeError(f"x must be float32, got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     if x.numel() > _MAX_NUMEL:
@@ -88,9 +89,10 @@ def relu_topk(x: torch.Tensor, t: int, num_steps: int = 40
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, tau)``: ``tau`` the ``num_steps``-step bisection threshold of
     ``relu(x)`` for a budget of ``t`` entries (a 0-d tensor on ``x``'s
-    device) and ``out = where(relu(x) >= tau, relu(x), 0)``.  The kernel
-    picks how many blocks share ``x`` from ``x.numel()``
-    (:func:`relu_topk_plan`)."""
+    device) and ``out = where(relu(x) >= tau, relu(x), 0)``, both in ``x``'s
+    dtype (f32 or bf16; a bf16 ``x`` is bisected in f32 and ``tau`` rounded
+    to bf16 at the end, as the reference does).  The kernel picks how many
+    blocks share ``x`` from ``x.numel()`` (:func:`relu_topk_plan`)."""
     if not _build.on_card(x):
         return ref.relu_topk_ref(x, t, num_steps)
     _check(x, "relu_topk")
@@ -100,31 +102,37 @@ def relu_topk(x: torch.Tensor, t: int, num_steps: int = 40
         raise ValueError("relu_topk needs a non-empty x")
     lib = _lib()
     out = torch.empty_like(x)
-    tau = torch.empty((), dtype=torch.float32, device=x.device)
+    tau = torch.empty((), dtype=x.dtype, device=x.device)
     sync = _sync(x.device)
-    rc = lib.relu_topk_f32(x.data_ptr(), out.data_ptr(), tau.data_ptr(),
-                           sync.data_ptr(), sync.numel(), x.numel(), int(t),
-                           int(num_steps), _build.stream_ptr(x.device))
+    fn = lib.relu_topk_bf16 if x.dtype == torch.bfloat16 else lib.relu_topk_f32
+    rc = fn(x.data_ptr(), out.data_ptr(), tau.data_ptr(), sync.data_ptr(),
+            sync.numel(), x.numel(), int(t), int(num_steps),
+            _build.stream_ptr(x.device))
     _build.check_rc(rc, "relu_topk")
     _build.count_launch("relu_topk")
     return out, tau
 
 
 def project_mask(x: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
-    """relu + threshold mask of a factor; ``tau`` is a 0-d tensor on
-    ``x``'s device."""
+    """relu + threshold mask of a factor; ``tau`` is a 0-d f32 (or, for a
+    bf16 ``x``, bf16) tensor on ``x``'s device, cast to ``x``'s dtype before
+    the comparison as the reference casts it."""
     if not _build.on_card(x, tau):
         return ref.project_mask_ref(x, tau)
     _check(x, "project_mask")
-    if tau.dtype != torch.float32:
-        raise TypeError(f"tau must be float32, got {tau.dtype}")
+    if tau.dtype not in (torch.float32, x.dtype):
+        raise TypeError(f"tau must be float32 or {x.dtype}, got {tau.dtype}")
     if tau.numel() != 1:
         raise ValueError(f"tau must hold one value, got {tuple(tau.shape)}")
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    rc = _lib().project_mask_f32(x.data_ptr(), tau.data_ptr(), out.data_ptr(),
-                                 x.numel(), _build.stream_ptr(x.device))
+    lib = _lib()
+    fn = (lib.project_mask_bf16 if x.dtype == torch.bfloat16
+          else lib.project_mask_f32)
+    tau = tau.float()  # the kernel reads f32 (bf16 widens exactly)
+    rc = fn(x.data_ptr(), tau.data_ptr(), out.data_ptr(), x.numel(),
+            _build.stream_ptr(x.device))
     _build.check_rc(rc, "project_mask")
     _build.count_launch("project_mask")
     return out

@@ -2,7 +2,10 @@
 
 Each is the same function as its hand-written kernel.  A wrapper runs it
 for CPU tensors (the test suite), and ``chip_smoke.py`` holds each kernel
-against it on the card.  None of them is a yardstick of speed.
+against it on the card.  None of them is a yardstick of speed.  bf16 input
+is computed as the kernels compute it: widened to f32, accumulated in f32,
+the product rounded back to bf16 once (the Gram stays f32); the bisection
+compares the widened entries with f32 midpoints.
 """
 from __future__ import annotations
 
@@ -29,9 +32,10 @@ def _u_blocks(a: BSR, u: torch.Tensor) -> torch.Tensor:
 def bsr_spmm_ref(a: BSR, u: torch.Tensor) -> torch.Tensor:
     """dense(A) @ U over the stored tiles: gather each slot's U slab (rows
     >= m read as zero) and contract tile by tile."""
-    slabs = _u_blocks(a, u)[a.block_cols.long()]       # (nrb, bcap, bk, k)
-    y = torch.einsum("isrc,iscd->ird", a.tiles.to(u.dtype), slabs)
-    return y.reshape(a.nrb * a.bm, u.shape[1])[:a.shape[0]]
+    acc = torch.float32 if u.dtype == torch.bfloat16 else u.dtype
+    slabs = _u_blocks(a, u.to(acc))[a.block_cols.long()]  # (nrb, bcap, bk, k)
+    y = torch.einsum("isrc,iscd->ird", a.tiles.to(acc), slabs)
+    return y.reshape(a.nrb * a.bm, u.shape[1])[:a.shape[0]].to(u.dtype)
 
 
 def bsr_spmm_run_partials(a: BSR, u: torch.Tensor) -> torch.Tensor:
@@ -129,15 +133,16 @@ def topk_threshold_bisect(x: torch.Tensor, t: int,
     returned tau).  Every step stays on the device in f32, in the
     reference's arithmetic, so ``tau`` is bitwise the reference's."""
     absx = torch.abs(x)
+    absf = absx.float()  # a bf16 entry meets an f32 midpoint in f32
     hi = torch.max(absx).float()
     lo = torch.zeros((), dtype=torch.float32, device=x.device)
     for _ in range(num_steps):
         mid = 0.5 * (lo + hi)
         # too many kept -> raise threshold (lo=mid); too few -> lower it
-        over = torch.sum(absx >= mid) > t
+        over = torch.sum(absf >= mid) > t
         lo = torch.where(over, mid, lo)
         hi = torch.where(over, hi, mid)
-    tau = torch.where(torch.sum(absx >= hi) >= t, hi, lo)
+    tau = torch.where(torch.sum(absf >= hi) >= t, hi, lo)
     return tau.to(absx.dtype)
 
 
@@ -165,8 +170,8 @@ def relu_topk_rounds_ref(x: torch.Tensor, t: int, num_steps: int = 40,
         raise ValueError(f"steps_per_round must be >= 1, got "
                          f"{steps_per_round}")
     y = torch.clamp_min(x, 0.0)
-    absy = torch.abs(y)
-    hi = torch.max(absy).float()
+    absy = torch.abs(y).float()
+    hi = torch.max(absy)
     lo = torch.zeros((), dtype=torch.float32, device=x.device)
     left = num_steps
     while True:
@@ -193,5 +198,5 @@ def relu_topk_rounds_ref(x: torch.Tensor, t: int, num_steps: int = 40,
         left -= s
         if left <= 0:
             break
-    tau = torch.where(c_hi >= t, hi, lo)
+    tau = torch.where(c_hi >= t, hi, lo).to(x.dtype)
     return project_mask_ref(x, tau), tau

@@ -10,7 +10,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build, bsr, ref
-from repro_torch.kernels.autotune import FUSED_MAX_K
+from repro_torch.kernels.autotune import SMEM_BUDGET, fused_working_set
 from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_t
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused import bsr_spmm_gram
@@ -98,7 +98,8 @@ def test_bsr_kernels_match_plain_versions(card, case, n, m, k, bm, bk):
             torch.testing.assert_close(y, ref.bsr_spmm_ref(b, w), rtol=1e-4,
                                        atol=1e-4)
             assert torch.equal(bsr_spmm(b, w), y)
-            if k > FUSED_MAX_K:   # the backend takes the separate launches
+            if fused_working_set(bm, bk, k) > SMEM_BUDGET:
+                # the backend takes the separate launches
                 with pytest.raises(ValueError, match="k <="):
                     bsr_spmm_gram(b, w)
                 counts = _build.launch_counts()
@@ -617,3 +618,185 @@ def test_mesh_fits_on_card_match_cpu(card, tmp_path):
     for r in on_card:
         np.testing.assert_array_equal(r["fit"]["u"], on_card[0]["fit"]["u"])
         assert r["fit"]["collectives"]["all_reduce"] > 0
+
+
+# ---------------------------------------------------------------------------
+# Column chunks, bf16 and the fused half-step past k = 32
+# ---------------------------------------------------------------------------
+
+def _bf16_bar(got, want_f32):
+    """The reference's bf16 bar against f32 math (``tests/test_kernels.py``:
+    rtol 5e-2, atol 1e-1)."""
+    torch.testing.assert_close(got.float(), want_f32, rtol=5e-2, atol=1e-1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case,n,m,k,bm,bk", [
+    ("random", 257, 129, 5, 32, 32),
+    ("random", 300, 200, 40, 64, 64),
+    ("long_rows", 100, 4000, 33, 64, 64),
+    ("flags_rb0", 700, 517, 70, 128, 128),
+    ("block_sparse", 517, 450, 128, 128, 64),
+    ("block_sparse", 1000, 700, 100, 64, 32),
+])
+def test_bsr_chunks_and_bf16_match_plain_versions(card, dtype, case, n, m,
+                                                  k, bm, bk):
+    """Every column chunk, in f32 and bf16, both orientations: the product
+    within its bar of the plain version (f32 1e-4; bf16 the reference's bar
+    against f32 math on the same bf16 values), in the factor's dtype; the
+    fused product bitwise the plain one at the same ``kb``; the Gram f32
+    within 1e-5 / 1e-4 of the plain one; one launch a call."""
+    from repro_torch.kernels.autotune import KB_WIDTHS
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(n + m + k)
+    a = _operand_matrix(case, rng, n, m, bm, bk)
+    op = bsr.bsr_operand(a, bm=bm, bk=bk, dtype=dt, device=card)
+    assert op.bsr.tiles.dtype == dt and op.bsr_t.tiles.dtype == dt
+    v, u = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                             ).to(card, dt) for shape in ((m, k), (n, k)))
+    for b, w in ((op.bsr, v), (op.bsr_t, u)):
+        # A^T's tiles are (bk, bm): the fused kernel's gate is per orientation
+        ws = fused_working_set(b.bm, b.bk, k, w.element_size())
+        fuses = ws <= SMEM_BUDGET
+        want = ref.bsr_spmm_ref(dataclasses_replace_tiles(b), w.float())
+        for kb in KB_WIDTHS:
+            _build.reset_launch_counts()
+            y = bsr_spmm(b, w, kb=kb)
+            assert y.dtype == dt and _build.launch_counts()["bsr_spmm"] == 1
+            assert torch.equal(bsr_spmm(b, w, kb=kb), y)
+            if dt == torch.float32:
+                torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
+            else:
+                _bf16_bar(y, want)
+            if not fuses:
+                continue
+            y_f, g_f = bsr_spmm_gram(b, w, kb=kb)
+            assert _build.launch_counts()["bsr_spmm_gram"] == 1
+            assert g_f.dtype == torch.float32
+            assert torch.equal(y_f.view(torch.int16 if dt == torch.bfloat16
+                                        else torch.int32),
+                               y.view(torch.int16 if dt == torch.bfloat16
+                                      else torch.int32))
+            torch.testing.assert_close(g_f, ref.gram_ref(w), rtol=1e-5,
+                                       atol=1e-4)
+
+
+def dataclasses_replace_tiles(b):
+    """``b`` with f32 tiles (the f32 math the bf16 bar is held against)."""
+    import dataclasses
+
+    return dataclasses.replace(b, tiles=b.tiles.float())
+
+
+@pytest.mark.parametrize("k,bm,bk", [(33, 128, 128), (40, 128, 128),
+                                     (128, 64, 64)])
+def test_cuda_bsr_fuses_past_k_32(card, k, bm, bk, tmp_path, monkeypatch):
+    """``cuda-bsr`` at the tiles its ledger gives (a temporary ledger entry
+    for the corpus's shape) takes the fused kernel at these k: one
+    ``bsr_spmm_gram`` launch a half-step, no ``gram``, the product bitwise
+    the unfused one's; a 3-iteration fit within 1e-4 of
+    ``cuda-bsr-unfused``."""
+    from repro_torch.backend import get_backend
+    from repro_torch.data import synthetic_journal_corpus
+    from repro_torch.kernels import autotune as at
+    from repro_torch.sparse import to_scipy
+
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_LEDGER",
+                       str(tmp_path / "ledger.json"))
+    at._CACHE.clear()
+    at.update_ledger(f"{at.device_kind(card)}/"
+                     f"{at.shape_bucket(2000, 1000, None)}",
+                     {"bm": bm, "bk": bk, "kb": 8, "source": "test"})
+    a, _ = synthetic_journal_corpus(n_terms=2000, n_docs=1000, seed=0)
+    sp = to_scipy(a)
+    fused, unfused = get_backend("cuda-bsr"), get_backend("cuda-bsr-unfused")
+    op = fused.prepare(sp, device=card)
+    assert (op.bsr.bm, op.bsr.bk) == (bm, bk)
+    v = torch.rand((1000, k), device=card)
+    _build.reset_launch_counts()
+    y, g = fused.matmul_with_gram(op, v)
+    counts = _build.launch_counts()
+    assert counts["bsr_spmm_gram"] == 1 and counts["gram"] == 0
+    y_u, g_u = unfused.matmul_with_gram(op, v)
+    assert torch.equal(y, y_u)
+    torch.testing.assert_close(g, g_u, rtol=1e-5, atol=1e-4)
+    u0 = np.random.default_rng(0).random((2000, k)).astype(np.float32)
+    sparsity = Sparsity(t_u=2000 * k // 10, t_v=1000 * k // 10)
+    fits = {}
+    for name in ("cuda-bsr", "cuda-bsr-unfused"):
+        _build.reset_launch_counts()
+        fits[name] = EnforcedNMF(
+            NMFConfig(k=k, iters=3, backend=name, sparsity=sparsity),
+            device=card).fit(sp, u0=u0)
+        fused_launches = _build.launch_counts()["bsr_spmm_gram"]
+        assert fused_launches == (7 if name == "cuda-bsr" else 0)
+    torch.testing.assert_close(fits["cuda-bsr"].result_.error,
+                               fits["cuda-bsr-unfused"].result_.error,
+                               rtol=0, atol=1e-4)
+    at._CACHE.clear()
+
+
+@pytest.mark.parametrize("k", [5, 40, 256, 300])
+@pytest.mark.parametrize("n", [1, 3001, 20112])
+def test_gram_kernel_bf16_matches_plain_version(card, n, k):
+    """bf16 in, f32 out, both paths (one tile up to k = 224, tiles above):
+    within 1e-4 / 1e-3 of the plain version on the widened values (f32
+    sums of exact products), bitwise repeatable, one launch."""
+    gen = torch.Generator().manual_seed(n + k)
+    u = torch.randn((n, k), generator=gen).to(card, torch.bfloat16)
+    _build.reset_launch_counts()
+    g = gram(u)
+    assert g.dtype == torch.float32 and _build.launch_counts()["gram"] == 1
+    assert torch.equal(gram(u), g)
+    torch.testing.assert_close(g, ref.gram_ref(u), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("n,k,t", EPILOGUE_SHAPES)
+def test_relu_topk_bf16_matches_plain_version(card, n, k, t):
+    """bf16 ``relu_topk``: ``tau`` (bisected in f32, rounded to bf16) and
+    ``out`` bitwise the plain version's, on both exchanges and paths;
+    ``project_mask`` with that ``tau`` bitwise too."""
+    gen = torch.Generator().manual_seed(n + k)
+    x = (torch.randn((n, k), generator=gen) - 0.25).to(card, torch.bfloat16)
+    want_out, want_tau = ref.relu_topk_ref(x, t)
+    _build.reset_launch_counts()
+    out, tau = relu_topk(x, t)
+    assert _build.launch_counts()["relu_topk"] == 1
+    assert out.dtype == torch.bfloat16 and tau.dtype == torch.bfloat16
+    assert torch.equal(tau.view(torch.int16), want_tau.view(torch.int16))
+    assert torch.equal(out.view(torch.int16), want_out.view(torch.int16))
+    for t_given in (want_tau, want_tau.float()):
+        assert torch.equal(project_mask(x, t_given).view(torch.int16),
+                           ref.project_mask_ref(x, t_given).view(torch.int16))
+    # a misaligned view reads one entry at a time
+    view = x.reshape(-1)[1:]
+    o2, t2 = relu_topk(view, t)
+    w2, wt2 = ref.relu_topk_ref(view, t)
+    assert torch.equal(t2.view(torch.int16), wt2.view(torch.int16))
+    assert torch.equal(o2.view(torch.int16), w2.view(torch.int16))
+
+
+def test_autotune_on_card_records_and_resolves_the_winner(card, tmp_path,
+                                                          monkeypatch):
+    """A small sweep on the card into a temporary ledger: every candidate
+    timed, the winner the least half-step time, and ``resolve_tiles`` and
+    ``bsr_spmm(kb=None)`` return it."""
+    from repro_torch.kernels import autotune as at
+
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_LEDGER",
+                       str(tmp_path / "ledger.json"))
+    at._CACHE.clear()
+    entry = at.autotune(600, 400, 40, density=0.05, repeats=2)
+    assert entry["source"] == "autotune"
+    recs = entry["candidates"]
+    assert len(recs) == len(at.legal_candidates(600, 400, 40))
+    assert min(r["score_us"] for r in recs) == min(
+        r["fused_us"] for r in recs)
+    kind = at.device_kind(card)
+    key = f"{kind}/{at.shape_bucket(600, 400, 40)}"
+    at.update_ledger(key, entry)
+    tiles = at.resolve_tiles(600, 400, 40, device=kind)
+    assert (tiles.bm, tiles.bk, tiles.kb) == (entry["bm"], entry["bk"],
+                                              entry["kb"])
+    at._CACHE.clear()

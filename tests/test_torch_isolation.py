@@ -9,6 +9,7 @@
   That holds for the LM path's flash-attention wrapper too.
 """
 import ast
+import dataclasses
 from pathlib import Path
 
 import pytest
@@ -146,15 +147,23 @@ def test_wrapper_never_runs_plain_version_on_card(on_card, kernel):
 @pytest.mark.parametrize("kernel", ["bsr_spmm", "gram", "project_mask",
                                     "relu_topk"])
 def test_wrapper_rejects_bf16_and_bad_layout_on_card(on_card, kernel):
+    """bf16 operands go to the kernel as f32 ones do (the kernels take
+    bf16); tiles and factor of two dtypes, and a strided layout, are refused
+    before any launch."""
     a, u = _operand()
+    a16 = dataclasses.replace(a, tiles=a.tiles.to(torch.bfloat16))
     calls = {
-        "bsr_spmm": lambda x: bsr_spmm(a, x),
+        "bsr_spmm": lambda x: bsr_spmm(
+            a16 if x.dtype == torch.bfloat16 else a, x),
         "gram": lambda x: gram(x),
         "project_mask": lambda x: project_mask(x, torch.tensor(0.5)),
         "relu_topk": lambda x: relu_topk(x, 7),
     }
-    with pytest.raises(NotImplementedError, match="bf16"):
+    with pytest.raises(_Launched):
         calls[kernel](u.to(torch.bfloat16))
+    if kernel == "bsr_spmm":
+        with pytest.raises(TypeError, match="one dtype"):
+            bsr_spmm(a, u.to(torch.bfloat16))
     with pytest.raises(ValueError, match="contiguous"):
         calls[kernel](torch.ones((3, 30)).T)
 

@@ -17,7 +17,7 @@ from repro_torch.backend.cuda_bsr import CudaBsrBackend
 from repro_torch.data import synthetic_journal_corpus
 from repro_torch.kernels import bsr, ref
 from repro_torch.kernels.autotune import (
-    FUSED_MAX_K, SMEM_BUDGET, fused_working_set, ring_stage_bytes,
+    SMEM_BUDGET, fused_max_k, fused_working_set, ring_stage_bytes,
 )
 from repro_torch.kernels.bsr_spmm import check_operands
 from repro_torch.sparse import to_scipy
@@ -136,15 +136,20 @@ def test_plan_is_fixed_at_ingest_and_follows_the_operand():
 
 
 @pytest.mark.parametrize("k,fused", [(1, True), (5, True), (32, True),
-                                     (33, False)])
+                                     (33, True), (40, True), (75, True),
+                                     (76, False), (128, False)])
 def test_fused_gate_at_the_paper_tiles(k, fused):
+    """The fused kernel fits a ring of two (tile, full-rank slab) stages
+    and the k x k Gram in a block's shared memory up to k = 75 at 128 x 128
+    f32 tiles."""
     rng = np.random.default_rng(k)
     op = bsr.bsr_operand(_matrix("random", rng, 200, 300, 128, 128), bm=128,
                          bk=128, device="cpu")
     x = torch.zeros((300, k))
     assert CudaBsrBackend()._fusable(op.bsr, x) is fused
     assert CudaBsrBackend(fuse_halfstep=False)._fusable(op.bsr, x) is False
-    if k <= FUSED_MAX_K:
+    assert (k <= fused_max_k(128, 128)) is fused
+    if fused:
         # a two-stage ring of (tile, full-rank slab) and the k x k Gram
         ws = fused_working_set(128, 128, k)
         assert ws <= SMEM_BUDGET
