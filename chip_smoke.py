@@ -137,6 +137,26 @@ Phases (any failed check raises, and the script exits non-zero):
     128 (64 x 64): one ``bsr_spmm_gram`` launch, the product bitwise
     ``bsr_spmm``'s at the same ``kb``, the Gram within f32 roundoff, and a
     3-iteration k = 128 fit within 1e-4 of ``cuda-bsr-unfused``.
+21. the LM training half: (a) llama3.2-1b at full width and depth, f32
+    parameters from a seed, ``make_train_step`` (bf16 compute, remat, two
+    microbatches) on train_4k's sequence of 4096 at a global batch of 8
+    (cut from 256), a warm-up step and 5 timed ones: ms a step, tokens/s,
+    model FLOPs, peak memory, the card's busy share in a profiler window,
+    a microbatch's time split (forward, backward with its recompute, the
+    loss chunks, the optimizer); every loss finite, step 0's equal to the
+    cross-entropy of the serving path's logits on the same batch (the
+    reference's bf16 bar), no hand-written kernel launched (the plain
+    attention, as the reference trains); (b) at full width with 2 layers
+    and a batch of 2 x 1024: the chunked loss against an unchunked
+    ``log_softmax`` (f32, 1e-4 / 1e-5), one step's gradient with 2
+    microbatches against 1 (f32, 1e-4), the q-chunked attention at S =
+    4096 against the whole path (output and input gradients), and the
+    flash kernel against the plain path (the reference's bars); (c)
+    ``python -m repro_torch.launch.train --smoke --deterministic`` stopped
+    at 6 steps and rerun to 9, its state bitwise an uninterrupted run's,
+    with the ``AsyncCheckpointer`` seconds a save; (d)
+    ``make_compressed_grad_fn`` on four gloo ranks sharing the card at
+    density 0.25, conservation within 1e-5.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -185,6 +205,12 @@ FLASH_CASES = {
 #: Typical outputs are 0.02-0.09 in size, so these limits are a few percent
 #: of them.  In f32 only the order of the sums differs.
 FLASH_TOL = {"bfloat16": (1e-2, 2e-3), "float32": (1e-4, 1e-5)}
+#: (rtol, atol) of the flash kernel against the plain attention path the
+#: train step takes, the reference's bars between its flash kernel and a
+#: plain path: bf16 ``tests/test_kernels.py:221`` (the plain path rounds
+#: the scores to bf16 before the softmax, the kernel keeps them in f32),
+#: f32 ``tests/test_kernels.py:243``
+FLASH_VS_PLAIN_TOL = {"bfloat16": (5e-2, 5e-2), "float32": (2e-3, 2e-3)}
 
 #: the epilogue's checks, (rows, k, t) at 2% of dense: PubMed's U and V, a
 #: Wikipedia-shaped U (143,462 terms, the largest cluster) and a factor
@@ -219,9 +245,10 @@ def log(msg: str) -> None:
 def close(name, got, want, rtol, atol):
     """Max abs error of ``got`` against ``want``; raises unless every entry
     is within ``atol + rtol * |want|`` (a NaN on either side fails)."""
-    diff = (got.float() - want.float()).abs()
+    got, want = got.detach().float(), want.detach().float()
+    diff = (got - want).abs()
     err = float(diff.max())
-    if not bool((diff <= atol + rtol * want.float().abs()).all()):
+    if not bool((diff <= atol + rtol * want.abs()).all()):
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version (max abs err {err:.3e}, rtol "
                              f"{rtol}, atol {atol})")
@@ -2177,6 +2204,415 @@ def run_tile_slice(dev, a_sp, op, res3, u0, paths, results, rows):
     log(f"[tiles] phase 20 took {out['seconds']:.1f} s")
 
 
+#: phase 21: llama3.2-1b training at full width and depth on train_4k's
+#: sequence (4096), the global batch cut from 256 to 8 (one card, a run's
+#: time limit) in two microbatches of 4; the held checks at full width with
+#: 2 layers; four gloo ranks for the compressed gradients
+TRAIN = dict(batch=8, microbatches=2, timed=5, check_layers=2,
+             check_batch=2, check_seq=1024, attn_seq=4096, density=0.25,
+             cli=("--batch", "2", "--seq", "32"))
+
+
+def train_flops(cfg, b, s):
+    """Model FLOPs of one train step (forward + backward = 3 x forward,
+    no recompute): every layer's projections, attention over the causal
+    (row, key) pairs, and the unembedding, at 2 FLOPs a multiply-add."""
+    proj = 2 * (cfg.d_model * (cfg.q_dim + 2 * cfg.kv_dim)
+                + cfg.q_dim * cfg.d_model + 3 * cfg.d_model * cfg.d_ff)
+    fwd = float(b) * s * (cfg.n_layers * proj + 2 * cfg.d_model * cfg.vocab)
+    fwd += cfg.n_layers * 4.0 * b * cfg.n_heads * cfg.hd * s * (s + 1) / 2
+    return 3.0 * fwd
+
+
+def _compress_rank(rank, arrays, device, density):
+    """One rank of phase 21(d): two calls of ``make_compressed_grad_fn``
+    on a 4x1 grid (a data axis of 4) for the least-squares loss of
+    ``tests/test_distributed.py:108-141``, the error slot carried."""
+    import torch
+
+    from repro_torch.launch.mesh import (
+        collective_counts, make_nmf_mesh, reset_collective_counts,
+    )
+    from repro_torch.training import init_error_state, make_compressed_grad_fn
+
+    dev = torch.device(device)
+    mesh = make_nmf_mesh(4, 1, device=dev)
+
+    def loss_fn(params, batch):
+        return torch.mean((batch["x"] @ params["w"] - batch["y"]) ** 2)
+
+    params = {"w": torch.from_numpy(arrays["w"]).to(dev)}
+    batch = {k: torch.from_numpy(arrays[k]).to(dev) for k in ("x", "y")}
+    grad_fn = make_compressed_grad_fn(loss_fn, mesh, ("data",), density)
+    err = init_error_state(params, 4)
+    reset_collective_counts()
+    out = []
+    for _ in range(2):
+        loss, g, new = grad_fn(params, batch, err)
+        out.append(dict(loss=float(loss), g=g["w"].cpu().numpy(),
+                        err_in=err["w"].cpu().numpy(),
+                        err=new["w"].cpu().numpy()))
+        err = new
+    return out, collective_counts()
+
+
+def run_train_slice(dev, paths, results, cfg=None, sizes=TRAIN):
+    """Phase 21: the LM training half.  (a) llama3.2-1b at full width and
+    depth: ``make_train_step`` (bf16 compute, remat, two microbatches) on
+    train_4k's sequence at a cut batch, a warm-up step and ``timed`` timed
+    ones, the launch counts of those steps, peak memory, a profiler window
+    and a split of a microbatch's time; (b) the held checks at full width
+    with 2 layers; (c) the train launcher killed and resumed in
+    subprocesses; (d) compressed gradients on four gloo ranks sharing the
+    card.  ``cfg`` and ``sizes`` shrink it for a rehearsal on the CPU."""
+    import math
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import load_checkpoint_arrays
+    from repro_torch.configs import ARCHS, SHAPES, ShapeSpec
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import spawn_mesh
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import api, common, transformer
+    from repro_torch.training import AdamW
+    from repro_torch.training.optimizer import value_and_grad
+
+    t_phase = time.perf_counter()
+    card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    cfg = cfg or ARCHS[LM_ARCH]
+    out = {}
+    if card:
+        torch.cuda.empty_cache()
+
+    # -- 21(a). train steps at full width ------------------------------------
+    full = SHAPES["train_4k"]
+    shape = ShapeSpec("train_4k cut", sizes.get("seq", full.seq_len),
+                      sizes["batch"], "train")
+    m = sizes["microbatches"]
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab}, tied embeddings {cfg.tie_embeddings}; f32 "
+        f"parameters from seed 0, bf16 compute, remat; train_4k's sequence "
+        f"{shape.seq_len}, global batch {shape.global_batch} (cut from "
+        f"{full.global_batch}: one card, a run's time limit), {m} "
+        f"microbatches of {shape.global_batch // m}")
+    model = api.init_params(cfg, 0, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = AdamW()
+    state = opt.init(model)
+    step = api.make_train_step(cfg, opt, microbatches=m)
+    batches = [synthetic_batch(cfg, shape, i, dev)
+               for i in range(sizes["timed"] + 2)]
+    # step 0's loss must be the cross-entropy of the serving path's f32
+    # logits (the flash kernel's forward) on the same batch and parameters;
+    # the mean logit of each position's own token says how far the tied
+    # unembedding lifts the loss above ln(vocab)
+    ce, own = [], []
+    with torch.no_grad():
+        for r in range(shape.global_batch):
+            tok = batches[0]["tokens"][r:r + 1]
+            logits = transformer.forward(model, tok, cfg)[0]     # (S, V)
+            y = batches[0]["labels"][r, 1:].long()
+            ce.append(-torch.log_softmax(logits[:-1], -1).gather(
+                -1, y[:, None]).mean())
+            own.append(logits.gather(-1, tok[0].long()[:, None]).mean())
+            del logits
+    ce0, own0 = float(torch.stack(ce).mean()), float(torch.stack(own).mean())
+    losses, step_s = [], []
+    sync()
+    t0 = time.perf_counter()
+    model, state, loss = step(model, state, batches[0])
+    losses.append(float(loss))
+    warm_s = time.perf_counter() - t0
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    for i in range(1, sizes["timed"] + 1):
+        sync()
+        t0 = time.perf_counter()
+        model, state, loss = step(model, state, batches[i])
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+    paths["train_step"] = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if card else 0
+    tokens = shape.global_batch * shape.seq_len
+    flops = train_flops(cfg, shape.global_batch, shape.seq_len)
+    med = float(np.median(step_s))
+    log(f"[train] {n_params:,} parameters; warm-up step {warm_s:.2f} s; "
+        f"{sizes['timed']} steps {[round(1e3 * s, 1) for s in step_s]} ms "
+        f"(median {1e3 * med:.1f} ms, {tokens / med:.0f} tokens/s); model "
+        f"FLOPs a step {flops:.4e} ({flops / med / 1e12:.1f} TFLOP/s, "
+        f"{100 * flops / med / BF16_FLOPS:.1f}% of the bf16 peak); peak "
+        f"memory {peak / 2**30:.2f} GiB; losses "
+        f"{[round(x, 4) for x in losses]}; launches of the hand-written "
+        f"kernels in the timed steps {paths['train_step']}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"a train step's loss is not finite: {losses}")
+    close("step 0's loss against the serving path's cross-entropy",
+          torch.tensor(losses[0]), torch.tensor(ce0), 5e-2, 1e-1)
+    log(f"[train] step 0's loss {losses[0]:.4f}; the serving path's "
+        f"cross-entropy on the same batch {ce0:.4f} (flash forward, f32 "
+        f"logits; bar rtol 5e-2, atol 1e-1); ln(vocab) "
+        f"{math.log(cfg.vocab):.4f}; a position's own token's logit "
+        f"{own0:.4f} on average (the tied unembedding)")
+    if any(paths["train_step"].values()):
+        raise AssertionError("the train step launched a hand-written kernel"
+                             f" ({paths['train_step']}): it takes the plain "
+                             "attention path, as the reference trains")
+    out["steps"] = dict(n_params=n_params, warmup_s=warm_s, step_s=step_s,
+                        serving_ce0=ce0, own_token_logit0=own0,
+                        median_ms=1e3 * med, tokens_per_s=tokens / med,
+                        model_flops=flops, tflops=flops / med / 1e12,
+                        mfu=flops / med / BF16_FLOPS, peak_bytes=peak,
+                        losses=losses, launches=paths["train_step"],
+                        batch=shape.global_batch, seq=shape.seq_len,
+                        microbatches=m)
+    if card:
+        out["profile"] = profiled(
+            f"train step ({shape.global_batch} x {shape.seq_len}, {m} "
+            "microbatches)", lambda: step(model, state, batches[-1]))
+
+    # where a microbatch's time goes, each part timed alone (host clock
+    # ending in a synchronize)
+    mb = {k: x[:shape.global_batch // m] for k, x in batches[0].items()}
+    loss_fn = api.make_loss_fn(cfg)
+    named = dict(model.named_parameters())
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        return r, time.perf_counter() - t0
+
+    split = {}
+    lv, split["forward_s"] = timed(lambda: loss_fn(model, mb))
+    grads, split["backward_s"] = timed(
+        lambda: torch.autograd.grad(lv, list(named.values())))
+    _, split["optimizer_s"] = timed(lambda: opt.update(
+        dict(zip(named, grads)), state, model))
+    del lv, grads
+    with torch.no_grad():
+        hidden = transformer.forward(model, mb["tokens"], cfg, unembed=False,
+                                     flash=False)
+    hidden.requires_grad_(True)
+    cl, split["loss_chunks_fwd_s"] = timed(lambda: common.chunked_lm_loss(
+        hidden, transformer.unembed_matrix(model, cfg), mb["labels"]))
+    _, split["loss_chunks_bwd_s"] = timed(
+        lambda: torch.autograd.grad(cl, [hidden, model.embed
+                                         if cfg.tie_embeddings
+                                         else model.unembed]))
+    del cl, hidden
+    layers_fwd = split["forward_s"] - split["loss_chunks_fwd_s"]
+    est_ms = 1e3 * (m * (split["forward_s"] + split["backward_s"])
+                    + split["optimizer_s"])
+    log(f"[train] one microbatch ({shape.global_batch // m} x "
+        f"{shape.seq_len}): forward {1e3 * split['forward_s']:.1f} ms (the "
+        f"loss chunks {1e3 * split['loss_chunks_fwd_s']:.1f}); backward "
+        f"{1e3 * split['backward_s']:.1f} ms (the loss chunks, recomputed, "
+        f"{1e3 * split['loss_chunks_bwd_s']:.1f}; the layers' recompute is "
+        f"their forward again, ~{1e3 * layers_fwd:.1f}); the optimizer "
+        f"{1e3 * split['optimizer_s']:.1f} ms a step; a step is {m} x "
+        f"(forward + backward) + the optimizer = "
+        f"{est_ms:.1f} ms against {1e3 * med:.1f} measured")
+    out["split"] = split
+    del model, state, batches, step, named, mb
+    if card:
+        torch.cuda.empty_cache()
+
+    # -- 21(b). the held checks at full width, 2 layers --------------------
+    cfg2 = dataclasses.replace(cfg, n_layers=sizes["check_layers"])
+    m2 = api.init_params(cfg2, 1, device=dev)
+    shape2 = ShapeSpec("check", sizes["check_seq"], sizes["check_batch"],
+                       "train")
+    b2 = synthetic_batch(cfg2, shape2, 0, dev)
+    f32 = torch.float32
+    held = {}
+    with torch.no_grad():
+        hidden = transformer.forward(m2, b2["tokens"], cfg2,
+                                     compute_dtype=f32, unembed=False,
+                                     flash=False)
+        w = transformer.unembed_matrix(m2, cfg2)
+    h1, w1 = hidden.clone().requires_grad_(), w.clone().requires_grad_()
+    lc = common.chunked_lm_loss(h1, w1, b2["labels"], compute_dtype=f32)
+    gc = torch.autograd.grad(lc, (h1, w1))
+    h2, w2 = hidden.clone().requires_grad_(), w.clone().requires_grad_()
+    logp = torch.log_softmax(h2 @ w2, dim=-1)
+    ln = -torch.gather(logp[:, :-1], -1,
+                       b2["labels"][:, 1:, None].long())[..., 0].mean()
+    gn = torch.autograd.grad(ln, (h2, w2))
+    held["chunked_loss"] = close("chunked loss", lc, ln, 1e-4, 1e-5)
+    held["chunked_loss_grads"] = max(
+        close("chunked loss gradient", a, b, 1e-3, 1e-5)
+        for a, b in zip(gc, gn))
+    del hidden, w, h1, w1, h2, w2, logp, gc, gn
+
+    captured = []
+
+    class Capture(AdamW):
+        def update(self, grads, st, params):
+            captured.append({k: g.clone() for k, g in grads.items()})
+            return params, st
+
+    step_losses = [float(api.make_train_step(
+        cfg2, Capture(), microbatches=mi, compute_dtype=f32)(m2, None, b2)[2])
+        for mi in (1, 2)]
+    rel = 0.0
+    for name, g1 in captured[0].items():
+        g2 = captured[1][name]
+        scale = float(g1.abs().max())
+        close(f"gradient of {name}, 2 microbatches against 1", g2, g1, 1e-4,
+              1e-4 * scale)
+        rel = max(rel, float((g2 - g1).abs().max()) / max(scale, 1e-30))
+    held["microbatch_grad_rel"] = rel
+    held["microbatch_loss"] = close("loss, 2 microbatches against 1",
+                                    torch.tensor(step_losses[1]),
+                                    torch.tensor(step_losses[0]), 1e-5, 1e-6)
+    del captured, m2, b2
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    s = sizes["attn_seq"]
+    qkv = [torch.randn(shape, generator=gen, device=dev)
+           for shape in ((1, s, cfg.n_heads, cfg.hd),
+                         (1, s, cfg.n_kv_heads, cfg.hd),
+                         (1, s, cfg.n_kv_heads, cfg.hd))]
+    cot = torch.randn((1, s, cfg.n_heads, cfg.hd), generator=gen, device=dev)
+    grads = []
+    for chunked in (True, False):
+        xs = [x.clone().requires_grad_() for x in qkv]
+        o = (common._plain_attention(*xs, cfg, True) if chunked
+             else common._attend(*xs, cfg, True, 0))
+        grads.append([o.detach()] + list(torch.autograd.grad(o, xs, cot)))
+    if s * s <= common._ATTN_CHUNK_THRESHOLD:
+        raise AssertionError(f"S = {s} does not take the q-chunked path")
+    held["q_chunked_out"] = close("q-chunked attention", grads[0][0],
+                                  grads[1][0], 1e-5, 1e-6)
+    held["q_chunked_grads"] = max(
+        close("q-chunked attention gradient", a, b, 1e-4, 1e-5)
+        for a, b in zip(grads[0][1:], grads[1][1:]))
+    del grads
+    groups = cfg.n_heads // cfg.n_kv_heads
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (x.to(dtype) for x in qkv)
+        with torch.no_grad():
+            plain = common._plain_attention(q, k, v, cfg, True)
+            fl = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=True,
+                                 groups=groups).transpose(1, 2)
+        name = str(dtype).split(".")[-1]
+        rtol, atol = FLASH_VS_PLAIN_TOL[name]
+        held[f"flash_vs_plain_{name}"] = close(
+            f"flash against the plain path ({name})", fl, plain, rtol, atol)
+    del qkv, cot, q, k, v, plain, fl
+    log(f"[train] held at full width, {cfg2.n_layers} layers, batch "
+        f"{shape2.global_batch} x {shape2.seq_len}: chunked loss against an "
+        f"unchunked log_softmax (f32) {held['chunked_loss']:.3e} (rtol 1e-4,"
+        f" atol 1e-5), its gradients {held['chunked_loss_grads']:.3e} (1e-3 "
+        f"/ 1e-5); one step's gradient, 2 microbatches against 1 (f32), "
+        f"largest difference {held['microbatch_grad_rel']:.3e} of a leaf's "
+        f"largest entry (rtol 1e-4), loss {held['microbatch_loss']:.3e}; "
+        f"q-chunked attention at S = {s} against the whole S x S path (f32): "
+        f"output {held['q_chunked_out']:.3e} (1e-5 / 1e-6), input gradients "
+        f"{held['q_chunked_grads']:.3e} (1e-4 / 1e-5); flash against the "
+        f"plain path: bf16 "
+        f"{held['flash_vs_plain_bfloat16']:.3e}, f32 "
+        f"{held['flash_vs_plain_float32']:.3e} (bars 5e-2 / 5e-2 and 2e-3 "
+        "/ 2e-3)")
+    out["held"] = held
+
+    # -- 21(c). the train launcher, killed at 6 steps and resumed to 9 -----
+    root = tempfile.mkdtemp(prefix="train-ck-")
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            LM_ARCH, "--smoke",
+            "--ckpt-every", "3", "--deterministic", *sizes["cli"]] + \
+        ([] if card else ["--device", "cpu"])
+    run = lambda *a: subprocess.Popen(base + list(a), env=env,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)
+
+    def finish(p):
+        try:
+            o, e = p.communicate(timeout=300)
+        finally:
+            p.kill()
+        if p.returncode != 0:
+            raise AssertionError(f"the train launcher exited {p.returncode}: "
+                                 f"{e[-3000:]}")
+        return o
+
+    t0 = time.perf_counter()
+    a_dir, b_dir = os.path.join(root, "a"), os.path.join(root, "b")
+    first, whole = run("--steps", "6", "--ckpt-dir", a_dir), \
+        run("--steps", "9", "--ckpt-dir", b_dir)
+    first_out, whole_out = finish(first), finish(whole)
+    resumed_out = finish(run("--steps", "9", "--ckpt-dir", a_dir))
+    cli_s = time.perf_counter() - t0
+    if "resuming from checkpoint step 6" not in resumed_out:
+        raise AssertionError(f"the rerun did not resume from step 6: "
+                             f"{resumed_out[-2000:]}")
+    got, _ = load_checkpoint_arrays(a_dir, 9)
+    want, _ = load_checkpoint_arrays(b_dir, 9)
+    differ = [n for n in want if not np.array_equal(got[n], want[n])]
+    if got.keys() != want.keys() or differ:
+        raise AssertionError(f"the resumed run's step-9 state differs from "
+                             f"the uninterrupted run's in {differ}")
+    saves = [ln for ln in (first_out + resumed_out + whole_out).splitlines()
+             if ln.startswith("checkpoints:")]
+    log(f"[train] python -m repro_torch.launch.train --arch {LM_ARCH} "
+        f"--smoke --deterministic: stopped at 6 steps, rerun to 9 (\"resuming"
+        f" from checkpoint step 6\"); parameters, mu, nu and step at step 9 "
+        f"bitwise the uninterrupted 9-step run's ({len(want)} leaves, "
+        f"torch.use_deterministic_algorithms on); three runs "
+        f"{cli_s:.1f} s; AsyncCheckpointer {saves}")
+    out["cli"] = dict(seconds=cli_s, saves=saves, leaves=len(want))
+    shutil.rmtree(root, ignore_errors=True)
+
+    # -- 21(d). compressed gradients on four gloo ranks -----------------------
+    arrays = {"w": np.random.default_rng(0).standard_normal((8, 4))
+              .astype(np.float32),
+              "x": np.random.default_rng(1).standard_normal((16, 8))
+              .astype(np.float32),
+              "y": np.random.default_rng(2).standard_normal((16, 4))
+              .astype(np.float32)}
+    device = "cuda:0" if card else "cpu"
+    t0 = time.perf_counter()
+    rank_out = spawn_mesh(_compress_rank, 4, 1, backend="gloo",
+                          device=device, args=(arrays, device,
+                                               sizes["density"]),
+                          timeout=300.0)
+    ranks_s = time.perf_counter() - t0
+    w = torch.from_numpy(arrays["w"]).to(dev).requires_grad_()
+    lfull = torch.mean((torch.from_numpy(arrays["x"]).to(dev) @ w
+                        - torch.from_numpy(arrays["y"]).to(dev)) ** 2)
+    full = torch.autograd.grad(lfull, w)[0].cpu().numpy()
+    cons = []
+    for call in range(2):
+        outs = [r[0][call] for r in rank_out]
+        recon = outs[0]["g"] + np.mean([o["err"] for o in outs], axis=0)
+        want_g = full + np.mean([o["err_in"] for o in outs], axis=0)
+        cons.append(float(np.max(np.abs(recon - want_g))))
+    if max(cons) >= 1e-5:
+        raise AssertionError(f"compressed gradients do not conserve: {cons}")
+    log(f"[train] make_compressed_grad_fn on four gloo ranks sharing the "
+        f"card, density {sizes['density']}: conservation "
+        f"{[f'{c:.3e}' for c in cons]} over two calls (bar 1e-5); loss "
+        f"{rank_out[0][0][0]['loss']:.6f} (full batch "
+        f"{float(lfull.detach()):.6f}); collectives a rank {rank_out[0][1]}; "
+        f"{ranks_s:.1f} s")
+    out["compressed"] = dict(conservation=cons, seconds=ranks_s,
+                             collectives=rank_out[0][1])
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[train] phase 21 took {out['seconds']:.1f} s")
+    results["train"] = out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -2795,6 +3231,8 @@ def main(argv=None) -> int:
     rows["gram"]["k256"] = {key: gram_k256[key] for key in
                             ("ms", "library_ms", "plain_ms", "bound_ms",
                              "bound_by")}
+    # -- 21. the LM training half ------------------------------------------
+    run_train_slice(dev, paths, results)
 
     owner = {"project_mask": "fit", "bsr_spmm_gram": "fit",
              "bsr_spmm": "transform", "gram": "unfused_fit",

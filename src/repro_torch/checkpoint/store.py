@@ -1,60 +1,152 @@
-"""Checkpoint store, the flat-dict and NMF-factor half (port of
-``repro.checkpoint.store``).
+"""Checkpoint store (port of ``repro.checkpoint.store``): atomic
+step-indexed snapshots of a flat dict (the NMF fits) or of a parameter tree
+(an LM's parameters and ``AdamState``), and the compressed NMF factors.
 
 * **Atomicity** — a checkpoint is written to ``step_N.tmp/`` and renamed
   into place, so a crash mid-write never corrupts the newest checkpoint.
 * **Restart** — :func:`latest_step` + :func:`load_checkpoint_arrays` resume
   from the newest complete checkpoint.
 * **Layout** — the reference's: ``step_N/arrays.npz`` with keys ``a0``,
-  ``a1``, … in the sorted order of the names, and ``step_N/manifest.json``
-  with ``step``, ``names``, ``dtypes`` and ``meta``.  So either package
-  reads the other's checkpoints.
+  ``a1``, … in the order of the names, and ``step_N/manifest.json`` with
+  ``step``, ``names``, ``dtypes`` and ``meta``; bf16 is stored as its
+  uint16 bits.  A flat dict's names are its sorted keys.  A tree's names
+  and order are those of the reference's ``_flatten_with_names`` for the
+  same tree in the reference's form: a tuple's items are ``0``, ``1``, …,
+  a ``NamedTuple``'s fields ``.step``, ``.mu``, …, a dict's keys sorted,
+  and a model's parameters (an ``nn.Module``, or a dict keyed by its
+  ``named_parameters``, as ``AdamState.mu``) in the reference's stacked
+  layout: ``layers.<i>.attn.wq`` is row i of the leaf ``layers/attn/wq``.
+  So either package restores the other's checkpoints.
 * **NMF factors** — :func:`save_nmf_factors_sparse` stores U and V in the
   paper's compressed top-t form (flat indices + values), the reference's
   file format.
 
-Tensors reach the host with ``.cpu()`` when they are saved, and nowhere
-else.  The pytree half (``restore_checkpoint``, ``AsyncCheckpointer``),
-which checkpoints an LM's parameters, is not ported.
+Tensors reach the host when they are saved, and nowhere else.
+:func:`restore_checkpoint` copies into the tensors of ``like`` in place (on
+their devices) and returns ``like``.  :class:`AsyncCheckpointer` copies to
+the host on the caller and writes on a daemon thread.
 """
 from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
-from typing import Dict, Optional, Tuple
+import threading
+import time
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
 
 __all__ = ["save_checkpoint", "latest_step", "load_checkpoint_arrays",
+           "restore_checkpoint", "AsyncCheckpointer",
            "save_nmf_factors_sparse", "restore_nmf_factors_sparse"]
+
+#: a per-layer parameter: row i of the reference's stacked leaf
+_LAYER_KEY = re.compile(r"^layers\.(\d+)\.(.+)$")
 
 
 def _host(x) -> np.ndarray:
-    """``x`` as a host numpy array."""
+    """``x`` as a host numpy array (a bf16 tensor as its uint16 bits)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(np.uint16)
+        return x.numpy()
     return np.asarray(x)
 
 
-def save_checkpoint(ckpt_dir: str, step: int, arrays: Dict[str, object],
-                    meta: Optional[dict] = None) -> str:
-    """Atomic save of a flat name -> array dict (tensors or numpy).
-    ``meta`` is an optional JSON-serializable dict stored in the manifest:
-    the channel for host scalars, histories and fingerprints."""
+def _owned(x) -> np.ndarray:
+    """A host copy of ``x`` that nothing else writes (a CPU tensor's numpy
+    view shares its memory; a card's tensor is copied by the move)."""
+    a = _host(x)
+    if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+        return a
+    return np.array(a)
+
+
+def _dtype_name(x) -> str:
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            return "bfloat16"
+        return str(torch.empty((), dtype=x.dtype).numpy().dtype)
+    return str(np.asarray(x).dtype)
+
+
+def _is_flat(tree) -> bool:
+    return isinstance(tree, Mapping) and not any(
+        isinstance(v, (Mapping, tuple, list, nn.Module))
+        for v in tree.values())
+
+
+def _param_leaves(named: Mapping[str, Any], prefix: Tuple[str, ...]
+                  ) -> List[Tuple[Tuple[str, ...], list, bool]]:
+    """A model's parameters (keyed by ``named_parameters``) as the
+    reference's leaves, sorted: ``(path, tensors, stacked)``, the rows of a
+    stacked leaf in layer order."""
+    plain, stacked = {}, {}
+    for name, t in named.items():
+        m = _LAYER_KEY.match(name)
+        if m:
+            path = prefix + ("layers",) + tuple(m.group(2).split("."))
+            stacked.setdefault(path, {})[int(m.group(1))] = t
+        else:
+            plain[prefix + tuple(name.split("."))] = t
+    out = [(path, [t], False) for path, t in plain.items()]
+    for path, rows in stacked.items():
+        if sorted(rows) != list(range(len(rows))):
+            raise ValueError(f"{'/'.join(path)}: layers {sorted(rows)} are "
+                             "not 0..L-1")
+        out.append((path, [rows[i] for i in range(len(rows))], True))
+    return sorted(out, key=lambda leaf: leaf[0])
+
+
+def _tree_leaves(tree, prefix: Tuple[str, ...] = ()
+                 ) -> List[Tuple[Tuple[str, ...], list, bool]]:
+    """Every leaf of ``tree`` in the reference's flatten order."""
+    if isinstance(tree, nn.Module):
+        return _param_leaves(dict(tree.named_parameters()), prefix)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [leaf for f in tree._fields
+                for leaf in _tree_leaves(getattr(tree, f),
+                                         prefix + ("." + f,))]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for i, sub in enumerate(tree)
+                for leaf in _tree_leaves(sub, prefix + (str(i),))]
+    if _is_flat(tree):
+        return _param_leaves(tree, prefix)
+    if isinstance(tree, Mapping):
+        return [leaf for key in sorted(tree)
+                for leaf in _tree_leaves(tree[key], prefix + (str(key),))]
+    return [(prefix, [tree], False)]
+
+
+def _host_leaves(tree) -> Tuple[List[str], List[np.ndarray], List[str]]:
+    """Names, owned host arrays and dtype names of ``tree``'s leaves."""
+    names, arrays, dtypes = [], [], []
+    for path, parts, stk in _tree_leaves(tree):
+        host = [_owned(t) for t in parts]
+        names.append("/".join(path))
+        arrays.append(np.stack(host) if stk else host[0])
+        dtypes.append(_dtype_name(parts[0]))
+    return names, arrays, dtypes
+
+
+def _write(ckpt_dir: str, step: int, names: List[str],
+           arrays: List[np.ndarray], dtypes: List[str],
+           meta: Optional[dict]) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f"step_{step}.tmp")
     final = os.path.join(ckpt_dir, f"step_{step}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    names = sorted(arrays)
-    payload = {f"a{i}": _host(arrays[name]) for i, name in enumerate(names)}
-    dtypes = [str(a.dtype) for a in payload.values()]
-    np.savez(os.path.join(tmp, "arrays.npz"), **payload)
+    np.savez(os.path.join(tmp, "arrays.npz"),
+             **{f"a{i}": a for i, a in enumerate(arrays)})
     manifest = {"step": step, "names": names, "dtypes": dtypes}
     if meta is not None:
         manifest["meta"] = meta
@@ -64,6 +156,16 @@ def save_checkpoint(ckpt_dir: str, step: int, arrays: Dict[str, object],
         shutil.rmtree(final)
     os.rename(tmp, final)
     return final
+
+
+def save_checkpoint(ckpt_dir: str, step: int, tree,
+                    meta: Optional[dict] = None) -> str:
+    """Atomic save of a flat name -> array dict (tensors or numpy) or of a
+    tree (see the module's layout).  ``meta`` is an optional
+    JSON-serializable dict stored in the manifest: the channel for host
+    scalars, histories and fingerprints."""
+    names, arrays, dtypes = _host_leaves(tree)
+    return _write(ckpt_dir, step, names, arrays, dtypes, meta)
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -89,6 +191,85 @@ def load_checkpoint_arrays(ckpt_dir: str, step: int
     with np.load(os.path.join(path, "arrays.npz")) as data:
         arrays = [data[f"a{i}"] for i in range(len(data.files))]
     return dict(zip(manifest["names"], arrays)), manifest.get("meta")
+
+
+@torch.no_grad()
+def restore_checkpoint(ckpt_dir: str, step: int, like):
+    """Copy the checkpoint at ``step`` into the tensors of ``like`` (a tree
+    of the checkpoint's names, shapes and dtypes: a model and its
+    ``AdamState`` as the reference's ``(params, opt_state)``), in place and
+    on their devices, and return ``like``.  Raises ``ValueError`` when the
+    names, shapes or dtypes differ."""
+    arrays, _ = load_checkpoint_arrays(ckpt_dir, step)
+    path = os.path.join(ckpt_dir, f"step_{step}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    dtypes = dict(zip(manifest["names"], manifest["dtypes"]))
+    leaves = [("/".join(p), parts, stk)
+              for p, parts, stk in _tree_leaves(like)]
+    want = [name for name, _, _ in leaves]
+    if set(want) != set(arrays):
+        raise ValueError(
+            f"checkpoint {path} does not match the tree: missing "
+            f"{sorted(set(want) - set(arrays))}, unexpected "
+            f"{sorted(set(arrays) - set(want))}")
+    for name, parts, stk in leaves:
+        if not all(isinstance(t, torch.Tensor) for t in parts):
+            raise TypeError(f"{name}: restore_checkpoint fills tensors, got "
+                            f"{type(parts[0]).__name__}")
+        a = arrays[name]
+        if dtypes.get(name) == "bfloat16":
+            src = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        else:
+            src = torch.from_numpy(a)
+        shape = ((len(parts),) if stk else ()) + tuple(parts[0].shape)
+        if tuple(src.shape) != shape or src.dtype != parts[0].dtype:
+            raise ValueError(f"{name}: checkpoint holds {tuple(src.shape)} "
+                             f"{src.dtype}, the tree {shape} "
+                             f"{parts[0].dtype}")
+        for i, t in enumerate(parts):
+            t.copy_(src[i] if stk else src)
+    return like
+
+
+class AsyncCheckpointer:
+    """Overlaps the write with training: :meth:`save` copies the tree to
+    the host on the caller (after the previous write has finished), then
+    writes it on a daemon thread; :meth:`wait` joins the write in flight and
+    raises what it raised.  ``stats`` counts saves and the seconds of the
+    copy (caller) and of the write (thread)."""
+
+    def __init__(self, ckpt_dir: str):
+        self.ckpt_dir = ckpt_dir
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self.stats = {"saves": 0, "copy_s": 0.0, "write_s": 0.0}
+
+    def save(self, step: int, tree, meta: Optional[dict] = None) -> None:
+        self.wait()
+        t0 = time.perf_counter()
+        host = _host_leaves(tree)
+        self.stats["copy_s"] += time.perf_counter() - t0
+        self.stats["saves"] += 1
+        self._thread = threading.Thread(target=self._run,
+                                        args=(step, host, meta), daemon=True)
+        self._thread.start()
+
+    def _run(self, step, host, meta) -> None:
+        t0 = time.perf_counter()
+        try:
+            _write(self.ckpt_dir, step, *host, meta)
+        except BaseException as exc:   # surfaced by wait() on the caller
+            self._error = exc
+        self.stats["write_s"] += time.perf_counter() - t0
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
 
 
 def save_nmf_factors_sparse(path: str, u, v) -> Dict[str, int]:

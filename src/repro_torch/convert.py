@@ -13,7 +13,10 @@ the reference package:
   takes a numpy ``u0``.  ``jax.random`` cannot be reproduced in torch, so
   parity checks hand both packages one numpy ``u0``;
 * :func:`transformer_from_reference` — an LM parameter pytree
-  (``jax.tree.map(np.asarray, params)``) as the port's ``Transformer``.
+  (``jax.tree.map(np.asarray, params)``) as the port's ``Transformer``;
+* :func:`adam_state_from_reference` — the reference's ``AdamState`` for
+  those parameters as the port's, so that both optimizers start from one
+  state.
 """
 from __future__ import annotations
 
@@ -28,9 +31,10 @@ from repro_torch.models.common import ArchConfig, attention_shapes, mlp_shapes
 from repro_torch.models.transformer import Transformer
 from repro_torch.nmf.config import NMFConfig
 from repro_torch.nmf.estimator import EnforcedNMF
+from repro_torch.training.optimizer import AdamState
 
 __all__ = ["bsr_from_reference", "estimator_from_reference",
-           "transformer_from_reference"]
+           "transformer_from_reference", "adam_state_from_reference"]
 
 
 def bsr_from_reference(tiles, block_cols, shape: Tuple[int, int],
@@ -93,15 +97,10 @@ def _flatten(tree, prefix: str = "") -> Dict[str, object]:
     return {prefix[:-1]: tree}
 
 
-def transformer_from_reference(params, cfg: ArchConfig,
-                               device: DeviceLike = None) -> Transformer:
-    """The port's :class:`Transformer` holding the reference's dense
-    parameters: ``params`` is the reference's pytree with numpy leaves.
-    The stacked ``(L, ...)`` layer leaves are unstacked into the layer list;
-    nothing is transposed (both keep ``(in, out)``).  Raises ``ValueError``
-    when the tree's leaves or shapes are not those of ``cfg``."""
+def _checked_leaves(tree, cfg: ArchConfig) -> Dict[str, object]:
+    """``tree``'s leaves by path, checked against ``cfg``'s dense layout."""
     want = _reference_leaves(cfg)
-    got = _flatten(params)
+    got = _flatten(tree)
     if set(got) != set(want):
         raise ValueError(
             f"parameter tree does not match {cfg.name}: missing "
@@ -111,19 +110,53 @@ def transformer_from_reference(params, cfg: ArchConfig,
         if tuple(np.shape(got[path])) != shape:
             raise ValueError(f"{path}: shape {tuple(np.shape(got[path]))}, "
                              f"{cfg.name} needs {shape}")
+    return got
+
+
+def _unstacked(got: Dict[str, object], cfg: ArchConfig
+               ) -> Dict[str, np.ndarray]:
+    """Port parameter name (``layers.3.attn.wq``) -> f32 array: each
+    stacked leaf's rows under their layers' names."""
+    out = {}
+    for path in _reference_leaves(cfg):
+        x = np.asarray(got[path], dtype=np.float32)
+        if path.startswith("layers/"):
+            rest = path[len("layers/"):].replace("/", ".")
+            for i in range(cfg.n_layers):
+                out[f"layers.{i}.{rest}"] = np.array(x[i])
+        else:
+            out[path.replace("/", ".")] = np.array(x)
+    return out
+
+
+def adam_state_from_reference(state, cfg: ArchConfig,
+                              device: DeviceLike = None) -> AdamState:
+    """The port's :class:`AdamState` from the reference's (``step``, ``mu``,
+    ``nu``; numpy leaves) for ``cfg``'s dense parameters: μ and ν unstacked
+    into f32 tensors keyed like ``Transformer.named_parameters``, the step
+    an int32 scalar.  Raises ``ValueError`` as
+    :func:`transformer_from_reference` does."""
+    step, mu, nu = state
+    dev = resolve_device(device)
+    moments = [{name: torch.from_numpy(x).to(dev)
+                for name, x in _unstacked(_checked_leaves(tree, cfg),
+                                          cfg).items()}
+               for tree in (mu, nu)]
+    return AdamState(torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                                  device=dev), *moments)
+
+
+def transformer_from_reference(params, cfg: ArchConfig,
+                               device: DeviceLike = None) -> Transformer:
+    """The port's :class:`Transformer` holding the reference's dense
+    parameters: ``params`` is the reference's pytree with numpy leaves.
+    The stacked ``(L, ...)`` layer leaves are unstacked into the layer list;
+    nothing is transposed (both keep ``(in, out)``).  Raises ``ValueError``
+    when the tree's leaves or shapes are not those of ``cfg``."""
+    leaves = _unstacked(_checked_leaves(params, cfg), cfg)
     dev = resolve_device(device)
     model = Transformer(cfg, torch.float32, dev)
-
-    def leaf(path, index=None):
-        x = np.asarray(got[path], dtype=np.float32)
-        return torch.from_numpy(np.array(x if index is None else x[index]))
-
     with torch.no_grad():
-        model.embed.copy_(leaf("embed"))
-        model.norm_f.copy_(leaf("norm_f"))
-        if not cfg.tie_embeddings:
-            model.unembed.copy_(leaf("unembed"))
-        for i, layer in enumerate(model.layers):
-            for name, p in layer.named_parameters():
-                p.copy_(leaf(f"layers/{name.replace('.', '/')}", i))
+        for name, p in model.named_parameters():
+            p.copy_(torch.from_numpy(leaves[name]))
     return model

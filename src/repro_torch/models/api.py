@@ -1,13 +1,20 @@
 """Per-architecture API of the LM substrate (port of ``repro.models.api``):
-init, input specs, random batches and the serving steps.
+init, input specs, random batches, the loss and the train step, and the
+serving steps.
 
 Only the families backed by ``models/transformer.py`` are ported: ``dense``
 and ``vlm``.  The others raise ``NotImplementedError`` from
-:func:`module_for`.  The sharding specs (one card, no mesh) and
-``make_train_step`` (training) are not ported.
+:func:`module_for`.  The sharding specs (``param_pspecs`` and the rest:
+one card, no FSDP / TP mesh) are not ported.
+
+The function that makes a step names its attention path: the serving
+steps take the flash kernel, the loss and the train step the
+differentiable plain path (the kernel has no backward; the reference
+trains with it off).
 """
 from __future__ import annotations
 
+import functools
 from typing import TYPE_CHECKING, Callable, Dict, NamedTuple, Union
 
 import torch
@@ -15,13 +22,18 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.common import ArchConfig
+from repro_torch.training.optimizer import (
+    AdamW,
+    named_parameters,
+    value_and_grad,
+)
 
 if TYPE_CHECKING:  # repro_torch.configs imports this package
     from repro_torch.configs import ShapeSpec
 
 __all__ = ["FAMILY", "TensorSpec", "module_for", "input_specs", "make_batch",
-           "make_prefill_step", "make_decode_step", "init_params",
-           "init_decode_cache"]
+           "make_loss_fn", "make_train_step", "make_prefill_step",
+           "make_decode_step", "init_params", "init_decode_cache"]
 
 FAMILY = {
     "dense": transformer,
@@ -100,6 +112,58 @@ def make_batch(cfg: ArchConfig, shape: ShapeSpec,
                             device=gen.device).to(spec.dtype)
         out[name] = x.to(dev)
     return out
+
+
+def make_loss_fn(cfg: ArchConfig, remat: bool = True,
+                 compute_dtype=torch.bfloat16) -> Callable:
+    """``loss_fn(params, batch)`` -> scalar f32: the family's ``lm_loss``
+    on the plain attention path, its layers in ``compute_dtype`` (the
+    reference's default bf16; f32 for checks at the reference's f32
+    bars)."""
+    return functools.partial(module_for(cfg).lm_loss, cfg=cfg, remat=remat,
+                             compute_dtype=compute_dtype)
+
+
+def make_train_step(cfg: ArchConfig, opt: AdamW, remat: bool = True,
+                    microbatches: int = 1, compute_dtype=torch.bfloat16
+                    ) -> Callable:
+    """``train_step(params, opt_state, batch)`` -> ``(params, opt_state,
+    loss)``: one optimizer step, the parameters and the optimizer state
+    updated in place.  ``microbatches`` > 1 splits the batch's leading axis
+    into that many equal parts run one after the other (activation memory
+    / M), accumulating f32 gradients divided by M in one parameter-sized
+    buffer and the loss divided by M."""
+    loss_fn = make_loss_fn(cfg, remat, compute_dtype)
+    m = int(microbatches)
+    if m < 1:
+        raise ValueError(f"microbatches must be at least 1, got "
+                         f"{microbatches}")
+
+    def train_step(params, opt_state, batch):
+        if m == 1:
+            loss, grads = value_and_grad(loss_fn, params, batch)
+        else:
+            b = next(iter(batch.values())).shape[0]
+            if b % m:
+                raise ValueError(f"batch {b} does not split into {m} "
+                                 "microbatches")
+            n = b // m
+            grads = {k: torch.zeros(p.shape, dtype=torch.float32,
+                                    device=p.device)
+                     for k, p in named_parameters(params).items()}
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=grads[next(iter(grads))].device)
+            for i in range(m):
+                micro = {k: x[i * n:(i + 1) * n] for k, x in batch.items()}
+                l, g = value_and_grad(loss_fn, params, micro)
+                for k, gi in g.items():
+                    grads[k].add_(gi.float() / m)
+                loss = loss + l / m
+                del g
+        params, opt_state = opt.update(grads, opt_state, params)
+        return params, opt_state, loss
+
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:

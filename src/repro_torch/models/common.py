@@ -7,13 +7,24 @@ the caller.  The modules of ``models/transformer.py`` hold the parameters
 and call these.  Weights keep the reference's ``(in, out)`` orientation, so
 ``x @ p["wq"]`` is the reference's product.
 
-Full-sequence attention always goes through the flash kernel's wrapper
-(``kernels/flash_attention.py``): a kernel launch on CUDA tensors, the plain
-version on CPU tensors.  The reference's ``USE_FLASH_KERNEL`` switch and its
-q-chunked XLA path have no counterpart; the port's ``attention`` is the
-reference's with the flash kernel on.  ``constrain`` (a sharding hint, a
-no-op on one device) and the training-only ``chunked_lm_loss`` are not
-ported.
+Full-sequence attention takes one of two paths, named by the caller
+(``flash``) and never chosen from what the operands need:
+
+* the flash kernel's wrapper (``kernels/flash_attention.py``): a kernel
+  launch on CUDA tensors, the plain version on CPU tensors.  It has no
+  backward, as the reference's Pallas kernel has none, and refuses operands
+  that need a gradient.  The serving steps take it (``flash=True``, the
+  default);
+* the reference's differentiable path (its ``USE_FLASH_KERNEL = False``
+  default, the one it trains with): GQA scores, the causal mask at
+  ``finfo.min``, softmax in f32; above ``_ATTN_CHUNK_THRESHOLD`` live
+  scores, query blocks of ``_Q_CHUNK`` rows, each recomputed in backward
+  (``torch.utils.checkpoint``), so no (S, T) score matrix is kept for
+  backward.  The loss and the train step take it (``flash=False``).
+
+``chunked_lm_loss`` is the reference's vocabulary-chunked cross-entropy,
+each chunk's logits recomputed in backward.  ``constrain`` (a sharding
+hint, a no-op on one device) is not ported.
 """
 from __future__ import annotations
 
@@ -23,12 +34,14 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import flash_attention
 
 __all__ = ["ArchConfig", "dense_init", "attention_shapes", "mlp_shapes",
            "init_attention", "init_mlp", "rmsnorm", "rope_freqs", "apply_rope",
-           "swiglu", "attention", "attention_decode", "mlp"]
+           "swiglu", "attention", "attention_decode", "mlp",
+           "chunked_lm_loss"]
 
 Params = Mapping[str, torch.Tensor]
 
@@ -179,11 +192,14 @@ def _qkv(p: Params, x: torch.Tensor, cfg: ArchConfig):
 
 def _expand_kv(k: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """(B,T,Hkv,hd) -> (B,T,H,hd): each KV head repeated over its query
-    group (query head h reads KV head h // groups)."""
+    group (query head h reads KV head h // groups).  A broadcast, so its
+    backward is a sum over the group (no scatter)."""
     groups = cfg.n_heads // cfg.n_kv_heads
     if groups == 1:
         return k
-    return torch.repeat_interleave(k, groups, dim=2)
+    b, t, hkv, hd = k.shape
+    return k[:, :, :, None, :].expand(b, t, hkv, groups, hd).reshape(
+        b, t, hkv * groups, hd)
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor, cfg: ArchConfig
@@ -197,12 +213,47 @@ def _gqa_scores(q: torch.Tensor, k: torch.Tensor, cfg: ArchConfig
     return torch.einsum("bshd,bthd->bhst", q, kf) / root
 
 
+#: live-score budget above which the plain path runs in query blocks
+_ATTN_CHUNK_THRESHOLD = 2048 * 2048
+_Q_CHUNK = 512
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            cfg: ArchConfig, causal: bool, q_offset: int) -> torch.Tensor:
+    """q: (B,Sq,H,hd); k, v: (B,T,Hkv,hd) -> (B,Sq,H,hd), the reference's
+    numerics: scores in q's dtype, masked to ``finfo.min`` where key >
+    ``q_offset`` + row, softmax in f32, probabilities cast back."""
+    scores = _gqa_scores(q, k, cfg)                            # (B,H,Sq,T)
+    sq, t = scores.shape[-2], scores.shape[-1]
+    if causal:
+        qpos = q_offset + torch.arange(sq, device=q.device)
+        mask = qpos[:, None] >= torch.arange(t, device=q.device)[None, :]
+        scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
+    # the f32 softmax casts its input itself (no f32 copy of the scores)
+    probs = torch.softmax(scores, dim=-1, dtype=torch.float32).to(q.dtype)
+    return torch.einsum("bhst,bthd->bshd", probs, _expand_kv(v, cfg))
+
+
+def _plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cfg: ArchConfig, causal: bool) -> torch.Tensor:
+    """The reference's XLA path: whole when S * T is at most
+    ``_ATTN_CHUNK_THRESHOLD``, else (S a multiple of ``_Q_CHUNK``) one
+    query block at a time, each recomputed in backward."""
+    S, T = q.shape[1], k.shape[1]
+    if not (S * T > _ATTN_CHUNK_THRESHOLD and S % _Q_CHUNK == 0):
+        return _attend(q, k, v, cfg, causal, 0)
+    return torch.cat([checkpoint(_attend, q[:, i:i + _Q_CHUNK], k, v, cfg,
+                                 causal, i, use_reentrant=False)
+                      for i in range(0, S, _Q_CHUNK)], dim=1)
+
+
 def attention(p: Params, x: torch.Tensor, cfg: ArchConfig,
               positions: torch.Tensor, causal: bool = True,
-              kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-              ) -> torch.Tensor:
-    """Full-sequence attention through the flash kernel's wrapper.  ``kv``
-    is a cross-attention memory (no rope, not causal)."""
+              kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              flash: bool = True) -> torch.Tensor:
+    """Full-sequence attention: through the flash kernel's wrapper
+    (``flash``, no backward), or the differentiable plain path.  ``kv`` is
+    a cross-attention memory (no rope, not causal)."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
     if kv is not None:
@@ -210,11 +261,15 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig,
     else:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    groups = cfg.n_heads // cfg.n_kv_heads
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=causal and kv is None,
-                          groups=groups)
-    return out.transpose(1, 2).reshape(B, S, cfg.q_dim) @ p["wo"]
+    causal = causal and kv is None
+    if flash:
+        groups = cfg.n_heads // cfg.n_kv_heads
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal,
+                              groups=groups).transpose(1, 2)
+    else:
+        out = _plain_attention(q, k, v, cfg, causal)
+    return out.reshape(B, S, cfg.q_dim) @ p["wo"]
 
 
 def attention_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
@@ -252,3 +307,45 @@ def attention_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Chunked vocab loss
+# ---------------------------------------------------------------------------
+
+def _chunk_nll(xc: torch.Tensor, w: torch.Tensor, yc: torch.Tensor,
+               mc: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """Summed masked NLL of one sequence chunk: logits (B, c, V) in f32
+    from the product in ``compute_dtype``, ``logsumexp`` minus the label's
+    logit."""
+    logits = (xc.to(compute_dtype) @ w).float()
+    lse = torch.logsumexp(logits, dim=-1)                       # (B, c)
+    ll = torch.gather(logits, -1, yc[..., None].long())[..., 0]
+    return torch.sum((lse - ll) * mc[None, :])
+
+
+def chunked_lm_loss(hidden: torch.Tensor, unembed: torch.Tensor,
+                    labels: torch.Tensor, n_chunks: int = 8,
+                    compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Cross-entropy of hidden (B, S, d) against ``labels`` (B, S) through
+    ``unembed`` (d, V), without (B, S, V) logits.  Position t predicts
+    label t + 1 (labels rolled left, the last position masked); the
+    unembedding is cast to ``compute_dtype`` once; ``n_chunks`` falls
+    until it divides S, and each chunk's logits are made, reduced and
+    recomputed in backward, so at most one chunk's (B, S / n_chunks, V)
+    logits live at a time.  Returns the f32 sum over chunks
+    divided by ``B * (S - 1)``.  The label's logit is a ``gather`` where
+    the reference contracts a one-hot: the same value exactly."""
+    b, s, _ = hidden.shape
+    y = torch.roll(labels, -1, dims=1)
+    valid = (torch.arange(s, device=hidden.device) < s - 1).float()
+    while s % n_chunks:
+        n_chunks -= 1
+    c = s // n_chunks
+    w = unembed.to(compute_dtype)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, c):
+        total = total + checkpoint(_chunk_nll, hidden[:, i:i + c], w,
+                                   y[:, i:i + c], valid[i:i + c],
+                                   compute_dtype, use_reentrant=False)
+    return total / (b * (s - 1))

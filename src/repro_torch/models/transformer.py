@@ -17,7 +17,13 @@ them once and reuses the copies while no parameter changes (a cast is
 deterministic, so the values are the same bits), except under autograd,
 where it casts afresh.  The decode cache is updated in place.
 
-``lm_loss`` (training) is not ported yet.
+Training (``lm_loss``): ``forward(..., remat=True)`` runs each layer under
+``torch.utils.checkpoint`` with the layer's f32 parameters as its inputs
+and their cast to the compute dtype inside it, as the reference's
+``jax.checkpoint`` body casts them, so only each layer's input is kept for
+backward and the gradients reach the f32 parameters through the casts.
+The loss takes the plain attention path (``flash=False``): the flash
+kernel has no backward.
 """
 from __future__ import annotations
 
@@ -25,12 +31,14 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.common import (
     ArchConfig,
     attention,
     attention_decode,
     attention_shapes,
+    chunked_lm_loss,
     dense_init,
     init_attention,
     init_mlp,
@@ -40,7 +48,7 @@ from repro_torch.models.common import (
 )
 
 __all__ = ["Attention", "MLP", "Layer", "Transformer", "init_layer",
-           "init_params", "layer_fwd", "forward", "unembed_matrix",
+           "init_params", "layer_fwd", "forward", "unembed_matrix", "lm_loss",
            "init_cache", "decode_step"]
 
 Weights = Dict[str, torch.Tensor]
@@ -168,31 +176,48 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
 # ---------------------------------------------------------------------------
 
 def layer_fwd(p: Weights, x: torch.Tensor, cfg: ArchConfig,
-              positions: torch.Tensor) -> torch.Tensor:
+              positions: torch.Tensor, flash: bool = True) -> torch.Tensor:
     h = x + attention(p["attn"], rmsnorm(x, p["norm_attn"], cfg.norm_eps),
-                      cfg, positions)
+                      cfg, positions, flash=flash)
     return h + mlp(p["mlp"], rmsnorm(h, p["norm_mlp"], cfg.norm_eps))
+
+
+def _remat_layer(x: torch.Tensor, layer: Layer, cfg: ArchConfig,
+                 positions: torch.Tensor, compute_dtype, flash: bool
+                 ) -> torch.Tensor:
+    return layer_fwd(layer.weights(compute_dtype), x, cfg, positions, flash)
 
 
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
             extra_embeds: Optional[torch.Tensor] = None,
-            compute_dtype=torch.bfloat16, unembed: bool = True
-            ) -> torch.Tensor:
+            compute_dtype=torch.bfloat16, unembed: bool = True, *,
+            remat: bool = True, flash: bool = True) -> torch.Tensor:
     """Logits (B, S_total, vocab) in f32, or the final hidden states (B,
     S_total, d) in the compute dtype if not ``unembed``.  ``extra_embeds``
-    (B, P, d), e.g. vlm patches, are prepended."""
+    (B, P, d), e.g. vlm patches, are prepended.  ``flash`` picks the
+    attention path (the kernel, or the differentiable plain path);
+    ``remat`` recomputes each layer in backward (it acts only under
+    autograd)."""
     x = params.embed[tokens.long()].to(compute_dtype)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(compute_dtype), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
-    layers, w = params.compute_weights(compute_dtype)
-    for layer_p in layers:
-        x = layer_fwd(layer_p, x, cfg, positions)
+    if remat and torch.is_grad_enabled():
+        for layer in params.layers:
+            x = checkpoint(_remat_layer, x, layer, cfg, positions,
+                           compute_dtype, flash, use_reentrant=False)
+        w = None
+    else:
+        layers, w = params.compute_weights(compute_dtype)
+        for layer_p in layers:
+            x = layer_fwd(layer_p, x, cfg, positions, flash)
     x = rmsnorm(x, params.norm_f, cfg.norm_eps)
     if not unembed:
         return x
+    if w is None:
+        w = unembed_matrix(params, cfg).to(compute_dtype)
     return (x @ w).float()
 
 
@@ -202,6 +227,24 @@ def unembed_matrix(params: Transformer, cfg: ArchConfig) -> torch.Tensor:
     if not cfg.tie_embeddings:
         return params.unembed
     return params.embed.T * (cfg.d_model ** -0.5)
+
+
+def lm_loss(params: Transformer, batch: Dict[str, torch.Tensor],
+            cfg: ArchConfig, remat: bool = True,
+            compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Next-token cross-entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` (scalar f32): the final hidden states of the token
+    segment (a vlm's patch positions are dropped) through
+    :func:`chunked_lm_loss` with :func:`unembed_matrix`, on the plain
+    attention path (the flash kernel has no backward)."""
+    hidden = forward(params, batch["tokens"], cfg,
+                     extra_embeds=batch.get("patch_embeds"),
+                     compute_dtype=compute_dtype, unembed=False,
+                     remat=remat, flash=False)
+    n_prefix = hidden.shape[1] - batch["tokens"].shape[1]
+    hidden = hidden[:, n_prefix:, :]
+    return chunked_lm_loss(hidden, unembed_matrix(params, cfg),
+                           batch["labels"], compute_dtype=compute_dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -225,3 +225,34 @@ def block_fingerprints(rank, a, shape):
         block = make_sharded_als(mesh, inner=inner).distribute(a)
         out[inner] = data_fingerprint(block, mesh)
     return out
+
+
+def compressed_grads(rank, arrays, density, steps):
+    """``steps`` calls of ``make_compressed_grad_fn`` on a 4x1 grid (data
+    axis of 4) for the least-squares loss of ``tests/test_distributed.py``,
+    the error slot carried from call to call; each call's loss, averaged
+    gradient and slots in and out, and the collectives counted."""
+    from repro_torch.launch.mesh import (
+        collective_counts, make_nmf_mesh, reset_collective_counts,
+    )
+    from repro_torch.training import init_error_state, make_compressed_grad_fn
+
+    mesh = make_nmf_mesh(4, 1, device="cpu")
+
+    def loss_fn(params, batch):
+        pred = batch["x"] @ params["w"]
+        return torch.mean((pred - batch["y"]) ** 2)
+
+    params = {"w": torch.from_numpy(arrays["w"])}
+    batch = {"x": torch.from_numpy(arrays["x"]),
+             "y": torch.from_numpy(arrays["y"])}
+    grad_fn = make_compressed_grad_fn(loss_fn, mesh, ("data",), density)
+    err = init_error_state(params, 4)
+    reset_collective_counts()
+    out = []
+    for _ in range(steps):
+        loss, g, new = grad_fn(params, batch, err)
+        out.append(dict(loss=float(loss), g=g["w"].numpy(),
+                        err_in=err["w"].numpy(), err=new["w"].numpy()))
+        err = new
+    return out, collective_counts()

@@ -800,3 +800,48 @@ def test_autotune_on_card_records_and_resolves_the_winner(card, tmp_path,
     assert (tiles.bm, tiles.bk, tiles.kb) == (entry["bm"], entry["bk"],
                                               entry["kb"])
     at._CACHE.clear()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_on_card_matches_cpu(card, dtype, tmp_path):
+    """One llama3.2-1b smoke train step (two microbatches) on the card
+    against the CPU from the same parameters and batch: the loss and the
+    updated parameters within the reference's bar for the compute dtype;
+    the step launches no hand-written kernel (the plain attention).  The
+    checkpoint of the CPU state restores onto the card's tensors."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import ARCHS, ShapeSpec, smoke_config
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import api
+    from repro_torch.training import AdamW
+
+    cfg = smoke_config(ARCHS["llama3.2-1b"])
+    compute = getattr(torch, dtype)
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else \
+        dict(rtol=5e-2, atol=1e-1)
+    batch = synthetic_batch(cfg, ShapeSpec("t", 64, 4, "train"), 0, "cpu")
+    opt = AdamW(lr=1e-2, warmup=1)
+    out = {}
+    for dev in ("cpu", card):
+        model = api.init_params(cfg, 0, device="cpu").to(dev)
+        step = api.make_train_step(cfg, opt, microbatches=2,
+                                   compute_dtype=compute)
+        _build.reset_launch_counts()
+        model, state, loss = step(model, opt.init(model),
+                                  {k: x.to(dev) for k, x in batch.items()})
+        assert not any(_build.launch_counts().values())
+        out[str(dev)] = (model, state, loss)
+    cpu_model, cpu_state, cpu_loss = out["cpu"]
+    card_model, _, card_loss = out[str(card)]
+    torch.testing.assert_close(card_loss.cpu(), cpu_loss, **tol)
+    for (name, p), q in zip(cpu_model.named_parameters(),
+                            card_model.parameters()):
+        torch.testing.assert_close(q.detach().cpu(), p.detach(), **tol,
+                                   msg=name)
+    save_checkpoint(str(tmp_path), 1, (cpu_model, cpu_state))
+    fresh = api.init_params(cfg, 5, device=card)
+    fresh_state = opt.init(fresh)
+    restore_checkpoint(str(tmp_path), 1, (fresh, fresh_state))
+    assert int(fresh_state.step) == 1 and fresh_state.step.device == card
+    for p, q in zip(cpu_model.parameters(), fresh.parameters()):
+        assert q.device == card and torch.equal(q.cpu(), p.detach())

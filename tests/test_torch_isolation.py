@@ -7,6 +7,9 @@
 * A kernel wrapper handed CUDA tensors launches its kernel (here: fails to,
   since there is no nvcc / card) and never runs its plain version.
   That holds for the LM path's flash-attention wrapper too.
+* The LM training half (the loss, the train step, the train launcher) takes
+  the plain attention path its step maker names, never the flash kernel,
+  and its entry points raise without a card too.
 """
 import ast
 import dataclasses
@@ -25,12 +28,13 @@ from repro_torch.kernels.bsr_spmm import bsr_spmm
 from repro_torch.kernels.fused import bsr_spmm_gram
 from repro_torch.kernels.gram import gram
 from repro_torch.kernels.project_mask import project_mask, relu_topk
-from repro_torch.configs import ARCHS, SHAPES, smoke_config
+from repro_torch.configs import ARCHS, SHAPES, ShapeSpec, smoke_config
 from repro_torch.core.topk import FusedReluTopK
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.models import api
 from repro_torch.nmf import EnforcedNMF
 from repro_torch.serving import ServingEngine
+from repro_torch.training import AdamW
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
@@ -223,3 +227,33 @@ def test_relu_topk_wrapper_refuses_what_the_kernel_does_not_take(on_card):
     with pytest.raises(_Launched):
         relu_topk(u, 7, num_steps=0)
     assert _build.launch_counts()["relu_topk"] == 0
+
+
+def test_train_entry_points_raise_without_a_card(monkeypatch):
+    cfg = smoke_config(ARCHS["llama3.2-1b"])
+    shape = SHAPES["train_4k"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "llama3.2-1b", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.synthetic_batch(cfg, shape, 0)
+    batch = train.synthetic_batch(cfg, ShapeSpec("t", 16, 2, "train"), 0,
+                                  device="cpu")
+    assert batch["tokens"].device.type == "cpu"
+
+
+def test_train_step_takes_the_plain_path_and_prefill_the_kernel(on_card):
+    """The step makers name the attention path: a train step launches
+    nothing (plain attention, as the reference trains), a prefill step the
+    flash kernel."""
+    cfg = smoke_config(ARCHS["llama3.2-1b"])
+    model = api.init_params(cfg, 0, device="cpu")
+    batch = api.make_batch(cfg, ShapeSpec("t", 16, 2, "train"), 1,
+                           device="cpu")
+    opt = AdamW()
+    _, state, loss = api.make_train_step(cfg, opt)(model, opt.init(model),
+                                                   batch)
+    assert torch.isfinite(loss) and int(state.step) == 1
+    with pytest.raises(_Launched):
+        api.make_prefill_step(cfg)(model, {"tokens": batch["tokens"]})
+    assert _build.launch_counts()["flash_attention"] == 0
