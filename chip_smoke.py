@@ -121,7 +121,12 @@ Phases (any failed check raises, and the script exits non-zero):
     iterations, killed at snapshot 30 and resumed on 4x1, within 1e-4 of
     the uninterrupted 2x2 trace; (e) ``python -m torch.distributed.run
     --nproc-per-node 4 -m repro_torch.launch.nmf_run --solver distributed
-    --mesh 2x2 --dist-backend gloo --small`` exits 0;
+    --mesh 2x2 --dist-backend gloo --small`` exits 0; (f) the fit on a
+    2x2x2 (pod, data, model) grid of eight gloo ranks sharing the card,
+    rows over ``("pod", "data")`` through ``make_sharded_als``, bitwise
+    the same ranks' 4x2 fit (one row group of the ranks that share a
+    column), its last error within 0.02 of (a)'s, ``bsr_spmm_gram`` 2 *
+    iters a rank, ms an iteration and ``all_reduce`` calls;
 20. the tile ledger, bf16 and the fused half-step past k = 32: (a)
     ``autotune`` on the card into a temporary ledger at PubMed's shape, at
     k = 5 and k = 256, each candidate's fused and plain half-step pair
@@ -157,6 +162,26 @@ Phases (any failed check raises, and the script exits non-zero):
     with the ``AsyncCheckpointer`` seconds a save; (d)
     ``make_compressed_grad_fn`` on four gloo ranks sharing the card at
     density 0.25, conservation within 1e-5.
+22. the moe family (olmoe-1b-7b, f32 parameters from a seed): (a) serving
+    at full width and depth: ``make_prefill_step`` on 4 x 4096 tokens
+    (finite, the flash kernel launched n_layers = 16 times, first call and
+    the median of 3, tokens/s, peak memory, busy share), a
+    ``ServingEngine`` (max_batch 8, max_seq 512) draining 16 requests and
+    a decode tick; one full-width MoE layer (d 2048, 64 experts, top 8) on
+    256 tokens in f32 against the same layer on the CPU (routing and kept
+    pairs equal, output within 1e-4) and at capacity 8.0 against the dense
+    mixture (rtol 2e-2, atol 2e-3); the flash attention against the plain
+    path on the first 2 layers' inputs (bf16, 5e-2); (b) training at full
+    width with the depth cut to 4: ``make_train_step`` (bf16, remat,
+    AdamW) on 2 x 4096 tokens in two microbatches, ms a step, tokens/s,
+    model FLOPs counting the active experts and their share of the bf16
+    peak, peak memory; every loss finite, step 0's equal to the serving
+    path's cross-entropy (the reference's bf16 bar), no hand-written
+    kernel launched; the train launcher at the smoke olmoe config killed
+    and resumed, bitwise; (c) ``moe_ffn_ep`` on four gloo ranks sharing
+    the card, grids 2x2 and 2x1x2, one full-width layer on 4 x 256 tokens
+    in f32: every rank's block within 1e-5 of the plain single-process
+    body, ``all_to_all`` calls and bytes, ms a layer.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -1464,14 +1489,71 @@ def _mesh_rank(rank, data_dir, device, jobs):
     return out
 
 
+def _pod_rank(rank, data_dir, device, iters):
+    """One rank of phase 19(f): the PubMed batch fit on ``cuda-bsr``
+    through ``make_sharded_als`` on a 2x2x2 grid (rows over ``("pod",
+    "data")``) and on the same eight ranks as a 4x2 grid (rows over
+    ``"data"``): each block ingested, a 2-iteration warm-up, then an
+    ``iters``-iteration run (after a barrier, host clock ending in a
+    synchronize) with its launches and collectives counted from 0."""
+    import scipy.sparse
+
+    import torch
+
+    from repro_torch.backend.sharded import make_sharded_als
+    from repro_torch.core.topk import DistTopK
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import (
+        collective_counts, make_nmf_mesh, reset_collective_counts,
+    )
+
+    dev = torch.device(device)
+    card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    a_sp = scipy.sparse.load_npz(Path(data_dir) / "a.npz")
+    u0 = np.load(Path(data_dir) / "u0.npy")
+    out = {}
+    for name, pods, rows, rows_axes in (("2x2x2", 2, 2, ("pod", "data")),
+                                        ("4x2", 1, 4, ("data",))):
+        mesh = make_nmf_mesh(rows, 2, device=dev, pods=pods)
+        engine = make_sharded_als(
+            mesh, rows_axes, "model",
+            sparsify_u=DistTopK(T_U, mesh, rows_axes),
+            sparsify_v=DistTopK(T_V, mesh, ("model",)), inner="cuda-bsr")
+        dist = engine.distribute(a_sp)
+        u = torch.from_numpy(u0).to(dev)[mesh.row_block(u0.shape[0])]
+        engine(dist, u, 2)
+        mesh.barrier()
+        sync()
+        _build.reset_launch_counts()
+        reset_collective_counts()
+        t0 = time.perf_counter()
+        r = engine(dist, u, iters)
+        sync()
+        wall = time.perf_counter() - t0
+        out[name] = dict(
+            launches=_build.launch_counts(), collectives=collective_counts(),
+            iter_ms=1e3 * wall / iters, err=r.error.tolist(),
+            res=r.residual.tolist(), nnz_u=r.nnz_u.tolist(),
+            nnz_v=r.nnz_v.tolist(), health=int(r.health),
+            finite=bool(torch.isfinite(r.u).all()
+                        and torch.isfinite(r.v).all()),
+            u=r.u.cpu().numpy(), v=r.v.cpu().numpy(),
+            peak_mb=(torch.cuda.max_memory_allocated() / 2**20 if card
+                     else 0.0))
+    return out
+
+
 def run_mesh_slice(a_sp, res3, u0, paths, results, device="cuda:0",
                    one_rank_backend="nccl"):
     """Phase 19: the mesh engines on the card.  Every rank is a process
     spawned from here (this process joins no group): a 1x1 mesh under NCCL,
     2x2 and 4x1 meshes as four gloo ranks sharing the card; the streamed fit
-    on 2x2; a 2x2 fit killed at snapshot 30 and resumed on 4x1; the command
-    line under ``torch.distributed.run``.  (``device="cpu"`` with gloo runs
-    the same phase on the CPU, to debug it at a small size.)"""
+    on 2x2; a 2x2 fit killed at snapshot 30 and resumed on 4x1; a 2x2x2
+    grid (rows over ``("pod", "data")``) of eight gloo ranks against the
+    same ranks as 4x2; the command line under ``torch.distributed.run``.
+    (``device="cpu"`` with gloo runs the same phase on the CPU, to debug it
+    at a small size.)"""
     import os
     import shutil
     import tempfile
@@ -1671,6 +1753,52 @@ def run_mesh_slice(a_sp, res3, u0, paths, results, device="cuda:0",
     out["against_1x1"] = {"2x2": d22, "4x1": d41}
     out["elastic"] = dict(err_diff=d_res, res_diff=d_rres,
                           launches=resumed[0]["launches"])
+
+    # -- 19(f). 2x2x2: rows over ("pod", "data"), eight gloo ranks ---------
+    t0 = time.perf_counter()
+    r222 = spawn_mesh(_pod_rank, 2, 2, pods=2, backend="gloo", device=device,
+                      init_file=str(Path(root) / "store-2x2x2"),
+                      args=(root, device, ITERS), timeout=600.0)
+    secs = time.perf_counter() - t0
+    for rank, rec in enumerate(r222):
+        pod, flat = rec["2x2x2"], rec["4x2"]
+        same = all(pod[key] == flat[key] for key in ("err", "res", "nnz_u",
+                                                     "nnz_v"))
+        if not (same and np.array_equal(pod["u"], flat["u"])
+                and np.array_equal(pod["v"], flat["v"])):
+            raise AssertionError(f"2x2x2 rank {rank}: the fit is not bitwise "
+                                 "the same ranks' 4x2 fit")
+        if pod["health"] != -1 or not pod["finite"]:
+            raise AssertionError(f"2x2x2 rank {rank} is unhealthy")
+        if device != "cpu" and pod["launches"]["bsr_spmm_gram"] != 2 * ITERS:
+            raise AssertionError(f"2x2x2 rank {rank}: bsr_spmm_gram "
+                                 f"{pod['launches']['bsr_spmm_gram']} (want "
+                                 f"{2 * ITERS})")
+    pod = r222[0]["2x2x2"]
+    d_last = abs(pod["err"][-1] - a1["fit"]["err"][-1])
+    if d_last >= 0.02:
+        raise AssertionError(f"2x2x2: last error {pod['err'][-1]:.6f} is "
+                             f"{d_last:.3e} from the 1x1 fit's (bar 0.02)")
+    for name in ("2x2x2", "4x2"):
+        for rank, rec in enumerate(r222):
+            c = rec[name]["collectives"]
+            log(f"[mesh] {name} rank {rank}: {rec[name]['iter_ms']:.3f} ms "
+                f"an iteration (the engine, {ITERS} iterations, ingest "
+                f"excluded), launches {rec[name]['launches']}, all_reduce "
+                f"{c['all_reduce'] / ITERS:.0f} calls / "
+                f"{c['bytes'] / ITERS:.0f} bytes an iteration, peak "
+                f"{rec[name]['peak_mb']:.1f} MiB")
+    log(f"[mesh] 2x2x2 (rows over (pod, data); eight gloo ranks share one "
+        f"card: host round trips, not a multi-card result): traces, NNZ and "
+        f"factors bitwise the same ranks' 4x2 fit on every rank; final "
+        f"error {pod['err'][-1]:.6f}, {d_last:.3e} from the 1x1 fit's "
+        f"{a1['fit']['err'][-1]:.6f} (bar 0.02); NNZ(U) {pod['nnz_u'][-1]}, "
+        f"NNZ(V) {pod['nnz_v'][-1]}; spawn to result {secs:.1f} s")
+    paths["mesh_fit_2x2x2"] = pod["launches"]
+    out["2x2x2"] = dict(
+        ranks=[{n: {k: v for k, v in rec[n].items() if k not in ("u", "v")}
+                for n in ("2x2x2", "4x2")} for rec in r222],
+        last_err_diff_1x1=d_last, seconds=secs)
 
     # -- 19(e). the command line under torch.distributed.run ----------------
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
@@ -2215,10 +2343,14 @@ TRAIN = dict(batch=8, microbatches=2, timed=5, check_layers=2,
 
 def train_flops(cfg, b, s):
     """Model FLOPs of one train step (forward + backward = 3 x forward,
-    no recompute): every layer's projections, attention over the causal
-    (row, key) pairs, and the unembedding, at 2 FLOPs a multiply-add."""
+    no recompute): every layer's projections (of a mixture of experts, the
+    router and the ``moe_top_k`` experts a token runs: its active
+    parameters), attention over the causal (row, key) pairs, and the
+    unembedding, at 2 FLOPs a multiply-add."""
+    ffn = 3 * cfg.d_model * cfg.d_ff * max(cfg.moe_top_k, 1) \
+        + cfg.d_model * cfg.n_experts
     proj = 2 * (cfg.d_model * (cfg.q_dim + 2 * cfg.kv_dim)
-                + cfg.q_dim * cfg.d_model + 3 * cfg.d_model * cfg.d_ff)
+                + cfg.q_dim * cfg.d_model + ffn)
     fwd = float(b) * s * (cfg.n_layers * proj + 2 * cfg.d_model * cfg.vocab)
     fwd += cfg.n_layers * 4.0 * b * cfg.n_heads * cfg.hd * s * (s + 1) / 2
     return 3.0 * fwd
@@ -2256,6 +2388,66 @@ def _compress_rank(rank, arrays, device, density):
     return out, collective_counts()
 
 
+def launcher_kill_and_resume(arch, cli, card):
+    """``python -m repro_torch.launch.train --arch ARCH --smoke
+    --deterministic`` stopped at 6 steps (checkpoints every 3) and rerun to
+    9, against an uninterrupted 9-step run: the step-9 states must be
+    bitwise equal.  Returns the seconds, the checkpointer's lines and the
+    leaf count."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import load_checkpoint_arrays
+
+    root = tempfile.mkdtemp(prefix="train-ck-")
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            arch, "--smoke", "--ckpt-every", "3", "--deterministic",
+            *cli] + ([] if card else ["--device", "cpu"])
+    run = lambda *a: subprocess.Popen(base + list(a), env=env,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)
+
+    def finish(p):
+        try:
+            o, e = p.communicate(timeout=300)
+        finally:
+            p.kill()
+        if p.returncode != 0:
+            raise AssertionError(f"the train launcher exited {p.returncode}: "
+                                 f"{e[-3000:]}")
+        return o
+
+    t0 = time.perf_counter()
+    a_dir, b_dir = os.path.join(root, "a"), os.path.join(root, "b")
+    first, whole = run("--steps", "6", "--ckpt-dir", a_dir), \
+        run("--steps", "9", "--ckpt-dir", b_dir)
+    first_out, whole_out = finish(first), finish(whole)
+    resumed_out = finish(run("--steps", "9", "--ckpt-dir", a_dir))
+    cli_s = time.perf_counter() - t0
+    if "resuming from checkpoint step 6" not in resumed_out:
+        raise AssertionError(f"the rerun did not resume from step 6: "
+                             f"{resumed_out[-2000:]}")
+    got, _ = load_checkpoint_arrays(a_dir, 9)
+    want, _ = load_checkpoint_arrays(b_dir, 9)
+    differ = [n for n in want if not np.array_equal(got[n], want[n])]
+    if got.keys() != want.keys() or differ:
+        raise AssertionError(f"the resumed run's step-9 state differs from "
+                             f"the uninterrupted run's in {differ}")
+    saves = [ln for ln in (first_out + resumed_out + whole_out).splitlines()
+             if ln.startswith("checkpoints:")]
+    log(f"[train] python -m repro_torch.launch.train --arch {arch} "
+        f"--smoke --deterministic: stopped at 6 steps, rerun to 9 (\"resuming"
+        f" from checkpoint step 6\"); parameters, mu, nu and step at step 9 "
+        f"bitwise the uninterrupted 9-step run's ({len(want)} leaves, "
+        f"torch.use_deterministic_algorithms on); three runs "
+        f"{cli_s:.1f} s; AsyncCheckpointer {saves}")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(seconds=cli_s, saves=saves, leaves=len(want))
+
+
 def run_train_slice(dev, paths, results, cfg=None, sizes=TRAIN):
     """Phase 21: the LM training half.  (a) llama3.2-1b at full width and
     depth: ``make_train_step`` (bf16 compute, remat, two microbatches) on
@@ -2266,13 +2458,9 @@ def run_train_slice(dev, paths, results, cfg=None, sizes=TRAIN):
     subprocesses; (d) compressed gradients on four gloo ranks sharing the
     card.  ``cfg`` and ``sizes`` shrink it for a rehearsal on the CPU."""
     import math
-    import os
-    import shutil
-    import tempfile
 
     import torch
 
-    from repro_torch.checkpoint import load_checkpoint_arrays
     from repro_torch.configs import ARCHS, SHAPES, ShapeSpec
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention
@@ -2526,53 +2714,7 @@ def run_train_slice(dev, paths, results, cfg=None, sizes=TRAIN):
     out["held"] = held
 
     # -- 21(c). the train launcher, killed at 6 steps and resumed to 9 -----
-    root = tempfile.mkdtemp(prefix="train-ck-")
-    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
-                                          / "src"))
-    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-            LM_ARCH, "--smoke",
-            "--ckpt-every", "3", "--deterministic", *sizes["cli"]] + \
-        ([] if card else ["--device", "cpu"])
-    run = lambda *a: subprocess.Popen(base + list(a), env=env,
-                                      stdout=subprocess.PIPE,
-                                      stderr=subprocess.PIPE, text=True)
-
-    def finish(p):
-        try:
-            o, e = p.communicate(timeout=300)
-        finally:
-            p.kill()
-        if p.returncode != 0:
-            raise AssertionError(f"the train launcher exited {p.returncode}: "
-                                 f"{e[-3000:]}")
-        return o
-
-    t0 = time.perf_counter()
-    a_dir, b_dir = os.path.join(root, "a"), os.path.join(root, "b")
-    first, whole = run("--steps", "6", "--ckpt-dir", a_dir), \
-        run("--steps", "9", "--ckpt-dir", b_dir)
-    first_out, whole_out = finish(first), finish(whole)
-    resumed_out = finish(run("--steps", "9", "--ckpt-dir", a_dir))
-    cli_s = time.perf_counter() - t0
-    if "resuming from checkpoint step 6" not in resumed_out:
-        raise AssertionError(f"the rerun did not resume from step 6: "
-                             f"{resumed_out[-2000:]}")
-    got, _ = load_checkpoint_arrays(a_dir, 9)
-    want, _ = load_checkpoint_arrays(b_dir, 9)
-    differ = [n for n in want if not np.array_equal(got[n], want[n])]
-    if got.keys() != want.keys() or differ:
-        raise AssertionError(f"the resumed run's step-9 state differs from "
-                             f"the uninterrupted run's in {differ}")
-    saves = [ln for ln in (first_out + resumed_out + whole_out).splitlines()
-             if ln.startswith("checkpoints:")]
-    log(f"[train] python -m repro_torch.launch.train --arch {LM_ARCH} "
-        f"--smoke --deterministic: stopped at 6 steps, rerun to 9 (\"resuming"
-        f" from checkpoint step 6\"); parameters, mu, nu and step at step 9 "
-        f"bitwise the uninterrupted 9-step run's ({len(want)} leaves, "
-        f"torch.use_deterministic_algorithms on); three runs "
-        f"{cli_s:.1f} s; AsyncCheckpointer {saves}")
-    out["cli"] = dict(seconds=cli_s, saves=saves, leaves=len(want))
-    shutil.rmtree(root, ignore_errors=True)
+    out["cli"] = launcher_kill_and_resume(LM_ARCH, sizes["cli"], card)
 
     # -- 21(d). compressed gradients on four gloo ranks -----------------------
     arrays = {"w": np.random.default_rng(0).standard_normal((8, 4))
@@ -2611,6 +2753,402 @@ def run_train_slice(dev, paths, results, cfg=None, sizes=TRAIN):
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[train] phase 21 took {out['seconds']:.1f} s")
     results["train"] = out
+
+
+#: phase 22: olmoe-1b-7b (src/repro/configs/olmoe_1b_7b.py) at full width:
+#: serving at full depth (4 x 4096 prefill, a 16-request ServingEngine);
+#: training with the depth cut from 16 to 4 (parameters, AdamW's moments
+#: and the gradient of 16 layers, 6.92e9 x 16 B, would take ~111 GB) on
+#: 2 x 4096 tokens in two microbatches; the checks on one full-width MoE
+#: layer over 256 tokens and on 2 layers over 2 x 1024; expert
+#: parallelism on four gloo ranks sharing the card over 4 x 256 tokens
+MOE_ARCH = "olmoe-1b-7b"
+MOE = dict(prefill_batch=4, prefill_seq=4096, layer_tokens=256,
+           check_layers=2, check_batch=2, check_seq=1024,
+           train_layers=4, train_batch=2, train_seq=4096, microbatches=2,
+           timed=3, ep_batch=4, ep_seq=256, ep_timed=5, ep_seed=7,
+           cli=("--batch", "2", "--seq", "32"))
+#: expert parallelism's grids, (pods, rows, cols): (data, model) = 2x2 and
+#: (pod, data, model) = 2x1x2
+EP_GRIDS = ((1, 2, 2), (2, 1, 2))
+
+
+def _moe_layer_inputs(cfg, b, s, dev, seed):
+    """One full-width MoE layer's router and experts (f32) and tokens (B,
+    S, d), drawn from ``seed`` on ``dev``: the same in every process."""
+    import torch
+
+    from repro_torch.models.moe import init_moe_ffn
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = init_moe_ffn(gen, cfg)
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+    return p, x
+
+
+def _moe_ep_rank(rank, cfg, sizes, device):
+    """One rank of phase 22(c): ``moe_ffn_ep`` of one MoE layer on each
+    grid of ``EP_GRIDS``: this rank's block of the output, the collectives
+    of one call, and the host-clock ms of ``ep_timed`` calls (each after
+    a barrier, ending in a synchronize)."""
+    import torch
+
+    from repro_torch.launch.mesh import (
+        collective_counts, make_nmf_mesh, reset_collective_counts,
+    )
+    from repro_torch.models.moe import ep_block, moe_ffn_ep
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    p, x = _moe_layer_inputs(cfg, sizes["ep_batch"], sizes["ep_seq"], dev,
+                             sizes["ep_seed"])
+    out = {}
+    for pods, rows, cols in EP_GRIDS:
+        mesh = make_nmf_mesh(rows, cols, device=dev, pods=pods)
+        moe_ffn_ep(p, x, cfg, mesh)                 # warm-up
+        sync()
+        reset_collective_counts()
+        y = moe_ffn_ep(p, x, cfg, mesh)
+        sync()
+        counts = collective_counts()
+        times = []
+        for _ in range(sizes["ep_timed"]):
+            mesh.barrier()
+            sync()
+            t0 = time.perf_counter()
+            moe_ffn_ep(p, x, cfg, mesh)
+            sync()
+            times.append(1e3 * (time.perf_counter() - t0))
+        bsl, ssl = ep_block(mesh, x.shape[0], x.shape[1])
+        out[(pods, rows, cols)] = dict(
+            y=y.cpu().numpy(), block=(bsl.start, bsl.stop, ssl.start,
+                                      ssl.stop), counts=counts, ms=times)
+    return out
+
+
+def run_moe_slice(dev, paths, results, cfg=None, sizes=MOE):
+    """Phase 22: the moe family at full width.  (a) olmoe-1b-7b serving at
+    full depth: a 4 x 4096 prefill (first call, then the median of 3;
+    tokens/s, peak memory, busy share, flash launches), a ServingEngine
+    draining 16 requests and a decode tick; one full-width MoE layer on
+    256 tokens in f32 against the same layer on the CPU (routing equal,
+    output within 1e-4) and against the dense mixture at capacity 8.0
+    (the reference's bar); the flash attention against the plain path at
+    2 layers in bf16.  (b) training at full width, 4 layers: bf16, remat,
+    AdamW, two microbatches; ms a step, tokens/s, model FLOPs counting the
+    active experts, peak memory; step 0's loss against the serving path's
+    cross-entropy; the train launcher killed and resumed at the smoke
+    config.  (c) expert parallelism on four gloo ranks sharing the card,
+    against the plain single-process body.  ``cfg`` and ``sizes`` shrink
+    it for a rehearsal on the CPU."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import ARCHS, ShapeSpec
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import spawn_mesh
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import api, moe
+    from repro_torch.models.common import attention, rmsnorm
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.training import AdamW
+
+    t_phase = time.perf_counter()
+    card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    cfg = cfg or ARCHS[MOE_ARCH]
+    out = {}
+    if card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def host_ms(fn, reps):
+        times = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return times
+
+    # -- 22(a). serving at full width and depth ------------------------------
+    t0 = time.perf_counter()
+    model = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    sync()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[moe] {cfg.name} at full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.hd}, {cfg.n_experts} experts of d_ff {cfg.d_ff}, top "
+        f"{cfg.moe_top_k}, vocab {cfg.vocab}): {n_params:,} parameters in "
+        f"f32, drawn on the card in {time.perf_counter() - t0:.2f} s")
+    step = api.make_prefill_step(cfg)
+    b, s_len = sizes["prefill_batch"], sizes["prefill_seq"]
+    batch = api.make_batch(cfg, ShapeSpec("prefill", s_len, b, "prefill"),
+                           seed=1, device=dev)
+    _build.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    logits = step(model, batch)
+    sync()
+    first_s = time.perf_counter() - t0
+    paths["moe_prefill"] = _build.launch_counts()
+    finite = bool(torch.isfinite(logits).all())
+    if tuple(logits.shape) != (b, cfg.vocab) or not finite:
+        raise AssertionError("the moe prefill's logits are not finite (B, "
+                             "vocab)")
+    if card and paths["moe_prefill"]["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"the moe prefill launched the flash kernel "
+                             f"{paths['moe_prefill']['flash_attention']} "
+                             f"times, not n_layers = {cfg.n_layers}")
+    runs = host_ms(lambda: step(model, batch), 3)
+    prefill_ms = float(np.median(runs))
+    peak = torch.cuda.max_memory_allocated() if card else 0
+    cap = max(int(math.ceil(b * s_len * cfg.moe_top_k / cfg.n_experts
+                            * 1.25)), cfg.moe_top_k)
+    log(f"[moe] prefill B={b} x S={s_len} (one dispatch group of {b * s_len}"
+        f" tokens, capacity {cap} an expert): logits {tuple(logits.shape)} "
+        f"finite; first call {first_s:.3f} s (the bf16 copies cast); "
+        f"{prefill_ms:.2f} ms (median of {[round(x, 2) for x in runs]}), "
+        f"{b * s_len / prefill_ms * 1e3:.0f} tokens/s; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches {paths['moe_prefill']}")
+    out["prefill"] = dict(n_params=n_params, first_s=first_s, runs_ms=runs,
+                          ms=prefill_ms,
+                          tokens_per_s=b * s_len / prefill_ms * 1e3,
+                          peak_bytes=peak, capacity=cap,
+                          launches=paths["moe_prefill"])
+    if card:
+        out["prefill"]["profile"] = profiled(
+            f"olmoe prefill B={b} x S={s_len}", lambda: step(model, batch))
+    del logits
+
+    rng = np.random.default_rng(2)
+    engine = ServingEngine(cfg, model, max_batch=SERVE["max_batch"],
+                           max_seq=SERVE["max_seq"], device=dev)
+    reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab,
+                                               SERVE["prompt"]).tolist(),
+                    max_new=SERVE["max_new"])
+            for i in range(SERVE["requests"])]
+    for r in reqs:
+        engine.submit(r)
+    sync()
+    t0 = time.perf_counter()
+    done = engine.run_until_drained()
+    sync()
+    serve_s = time.perf_counter() - t0
+    emitted = sum(len(r.out) for r in reqs)
+    if len(done) != len(reqs) or any(r.error or not r.out for r in reqs):
+        raise AssertionError("the moe serving engine did not drain every "
+                             "request with tokens")
+    del engine
+    cache = moe.init_cache(cfg, SERVE["max_batch"], SERVE["max_seq"],
+                           device=dev)
+    tok = torch.randint(0, cfg.vocab, (SERVE["max_batch"],), device=dev,
+                        dtype=torch.int32)
+    decode = api.make_decode_step(cfg)
+    ticks = host_ms(lambda: decode(model, cache, tok, 64), 10)
+    tick_ms = float(np.median(ticks))
+    log(f"[moe] ServingEngine (max_batch {SERVE['max_batch']}, max_seq "
+        f"{SERVE['max_seq']}) drained {len(done)} requests: {emitted} tokens"
+        f" in {serve_s:.3f} s, {emitted / serve_s:.1f} tokens/s; a decode "
+        f"tick (batch {SERVE['max_batch']}, one dispatch group of "
+        f"{SERVE['max_batch']} tokens) {tick_ms:.3f} ms (median of 10, host "
+        "clock)")
+    out["serve"] = dict(seconds=serve_s, tokens=emitted,
+                        tokens_per_s=emitted / serve_s, tick_ms=tick_ms,
+                        ticks_ms=ticks)
+    del cache
+
+    # the full-width MoE layer in f32: the card against the CPU, and
+    # against the dense mixture (every token through its top k experts)
+    p0 = model.layers[0].moe.leaves(torch.float32)
+    p0_cpu = {n: t.detach().cpu() for n, t in p0.items()}
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((1, sizes["layer_tokens"], cfg.d_model), generator=gen)
+    xd = x.to(dev)
+    k, e = cfg.moe_top_k, cfg.n_experts
+    cap = max(int(math.ceil(x.shape[1] * k / e * 1.25)), k)
+    with torch.no_grad():
+        _, sel_d = moe.router_topk(xd, p0["router"], k)
+        _, sel_c = moe.router_topk(x, p0_cpu["router"], k)
+        keep_d = moe.expert_slots(sel_d, e, cap)[1]
+        keep_c = moe.expert_slots(sel_c, e, cap)[1]
+        if not (torch.equal(sel_d.cpu(), sel_c)
+                and torch.equal(keep_d.cpu(), keep_c)):
+            raise AssertionError("the MoE layer routes differently on the "
+                                 "card and on the CPU")
+        layer_err = close("MoE layer, card against CPU (f32)",
+                          moe.moe_ffn(p0, xd, cfg).cpu(),
+                          moe.moe_ffn(p0_cpu, x, cfg), 1e-4, 1e-4)
+        got8 = moe.moe_ffn(p0, xd, cfg, capacity_factor=8.0)[0]
+        gates, sel = moe.router_topk(xd[0], p0["router"], k)
+        dense_w = torch.zeros((x.shape[1], e), device=dev).scatter(
+            1, sel, gates)
+        h = torch.nn.functional.silu(torch.einsum(
+            "td,edf->etf", xd[0], p0["w_gate"])) * torch.einsum(
+                "td,edf->etf", xd[0], p0["w_up"])
+        oracle = torch.einsum("te,etd->td", dense_w, torch.einsum(
+            "etf,efd->etd", h, p0["w_down"]))
+        oracle_err = close("MoE layer at capacity 8.0 against the dense "
+                           "mixture", got8, oracle, 2e-2, 2e-3)
+    dropped = int((~keep_d).sum())
+    log(f"[moe] one full-width MoE layer on {x.shape[1]} tokens (f32, "
+        f"capacity {cap}, {dropped} of {keep_d.numel()} pairs dropped): "
+        f"routing and kept pairs equal on the card and the CPU, output "
+        f"within 1e-4 (max abs err {layer_err:.3e}); at capacity 8.0 "
+        f"against the dense mixture within rtol 2e-2, atol 2e-3 (max abs "
+        f"err {oracle_err:.3e})")
+    del p0_cpu, h, oracle
+
+    # the prefill's flash attention against the plain path, the first
+    # layers, bf16, each layer's attention on the same input
+    cb, cs = sizes["check_batch"], sizes["check_seq"]
+    toks = torch.randint(0, cfg.vocab, (cb, cs), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(6))
+    layers, _ = model.compute_weights(torch.bfloat16)
+    positions = torch.arange(cs, dtype=torch.int32, device=dev).expand(cb,
+                                                                       cs)
+    flash_errs = []
+    with torch.no_grad():
+        h = model.embed[toks.long()].to(torch.bfloat16)
+        for lp in layers[:sizes["check_layers"]]:
+            hn = rmsnorm(h, lp["norm_attn"], cfg.norm_eps)
+            flash_errs.append(close(
+                "olmoe attention, flash against plain (bf16)",
+                attention(lp["attn"], hn, cfg, positions, flash=True),
+                attention(lp["attn"], hn, cfg, positions, flash=False),
+                *FLASH_VS_PLAIN_TOL["bfloat16"]))
+            h = moe.layer_fwd(lp, h, cfg, positions)
+    log(f"[moe] the flash attention against the plain path on the first "
+        f"{sizes['check_layers']} layers' inputs ({cb} x {cs}, H = Hkv = "
+        f"{cfg.n_heads}, hd {cfg.hd}, bf16): max abs err "
+        f"{[f'{v:.3e}' for v in flash_errs]} (bar rtol 5e-2, atol 5e-2)")
+    out["checks"] = dict(layer_err=layer_err, oracle_err=oracle_err,
+                         layer_capacity=cap, layer_dropped=dropped,
+                         flash_vs_plain=flash_errs)
+    del model, layers, h, hn, p0, x, xd
+    if card:
+        torch.cuda.empty_cache()
+
+    # -- 22(b). training at full width, 4 layers ------------------------------
+    cfg4 = dataclasses.replace(cfg, n_layers=sizes["train_layers"])
+    tshape = ShapeSpec("train_4k cut", sizes["train_seq"],
+                       sizes["train_batch"], "train")
+    m = sizes["microbatches"]
+    model = api.init_params(cfg4, 0, device=dev)
+    n4 = sum(p.numel() for p in model.parameters())
+    opt = AdamW()
+    state = opt.init(model)
+    step = api.make_train_step(cfg4, opt, microbatches=m)
+    batches = [synthetic_batch(cfg4, tshape, i, dev)
+               for i in range(sizes["timed"] + 1)]
+    ce = []
+    with torch.no_grad():
+        for r in range(tshape.global_batch):
+            tok = batches[0]["tokens"][r:r + 1]
+            lg = moe.forward(model, tok, cfg4)[0]              # (S, V) f32
+            y = batches[0]["labels"][r, 1:].long()
+            ce.append(-torch.log_softmax(lg[:-1], -1).gather(
+                -1, y[:, None]).mean())
+            del lg
+    ce0 = float(torch.stack(ce).mean())
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    sync()
+    t0 = time.perf_counter()
+    model, state, loss = step(model, state, batches[0])
+    losses.append(float(loss))
+    warm_s = time.perf_counter() - t0
+    _build.reset_launch_counts()
+    for bt in batches[1:]:
+        sync()
+        t0 = time.perf_counter()
+        model, state, loss = step(model, state, bt)
+        losses.append(float(loss))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    paths["moe_train"] = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if card else 0
+    tokens = tshape.global_batch * tshape.seq_len
+    flops = train_flops(cfg4, tshape.global_batch, tshape.seq_len)
+    med = float(np.median(step_ms))
+    log(f"[moe] training {cfg4.name} at full width, depth cut from "
+        f"{cfg.n_layers} to {cfg4.n_layers} (reduced: parameters, AdamW "
+        f"state and gradients of all {cfg.n_layers} layers would not fit): "
+        f"{n4:,} parameters; {tshape.global_batch} x {tshape.seq_len} "
+        f"tokens in {m} microbatches, bf16 compute, remat; warm-up step "
+        f"{warm_s:.2f} s; {len(step_ms)} steps "
+        f"{[round(x, 1) for x in step_ms]} ms (median {med:.1f} ms, "
+        f"{tokens / med * 1e3:.0f} tokens/s); model FLOPs a step (active "
+        f"parameters: the router and the top {cfg.moe_top_k} experts a "
+        f"token) {flops:.4e}, {flops / med / 1e9:.1f} TFLOP/s, "
+        f"{100 * flops / (med / 1e3) / BF16_FLOPS:.2f}% of the bf16 peak; "
+        f"peak memory {peak / 2**30:.2f} GiB; losses "
+        f"{[round(x, 4) for x in losses]}; hand-written kernels launched "
+        f"{paths['moe_train']}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"a moe train step's loss is not finite: "
+                             f"{losses}")
+    close("moe step 0's loss against the serving path's cross-entropy",
+          torch.tensor(losses[0]), torch.tensor(ce0), 5e-2, 1e-1)
+    if any(paths["moe_train"].values()):
+        raise AssertionError(f"the moe train step launched a hand-written "
+                             f"kernel ({paths['moe_train']})")
+    log(f"[moe] step 0's loss {losses[0]:.4f}; the serving path's "
+        f"cross-entropy on the same batch {ce0:.4f} (flash forward, f32 "
+        f"logits; bar rtol 5e-2, atol 1e-1); ln(vocab) "
+        f"{math.log(cfg.vocab):.4f}")
+    out["train"] = dict(layers=cfg4.n_layers, n_params=n4, warmup_s=warm_s,
+                        step_ms=step_ms, median_ms=med,
+                        tokens_per_s=tokens / med * 1e3, model_flops=flops,
+                        mfu=flops / (med / 1e3) / BF16_FLOPS,
+                        peak_bytes=peak, losses=losses, serving_ce0=ce0,
+                        launches=paths["moe_train"],
+                        reduced="n_layers 16 -> 4; global batch 256 -> 2")
+    del model, state, batches, step
+    if card:
+        torch.cuda.empty_cache()
+    out["cli"] = launcher_kill_and_resume(MOE_ARCH, sizes["cli"], card)
+
+    # -- 22(c). expert parallelism on four gloo ranks sharing the card -------
+    device = "cuda:0" if card else "cpu"
+    t0 = time.perf_counter()
+    ranks = spawn_mesh(_moe_ep_rank, 2, 2, backend="gloo", device=device,
+                       args=(cfg, sizes, device), timeout=300.0)
+    ranks_s = time.perf_counter() - t0
+    p, x = _moe_layer_inputs(cfg, sizes["ep_batch"], sizes["ep_seq"], dev,
+                             sizes["ep_seed"])
+    with torch.no_grad():
+        plain = moe.moe_ffn_ep_plain(p, x, cfg, dp=2, model=2).cpu().numpy()
+    out["ep"] = {}
+    for grid in EP_GRIDS:
+        name = "x".join(map(str, grid if grid[0] > 1 else grid[1:]))
+        errs = []
+        for rec in ranks:
+            r = rec[grid]
+            b0, b1, s0, s1 = r["block"]
+            errs.append(float(np.max(np.abs(r["y"] - plain[b0:b1, s0:s1]))))
+            close(f"expert parallelism on {name}, a rank's block against "
+                  "the plain body (f32)", torch.from_numpy(r["y"]),
+                  torch.from_numpy(plain[b0:b1, s0:s1]), 1e-5, 1e-5)
+        c = ranks[0][grid]["counts"]
+        ms = [float(np.median(rec[grid]["ms"])) for rec in ranks]
+        log(f"[moe] expert parallelism on {name} ({sizes['ep_batch']} x "
+            f"{sizes['ep_seq']} tokens, d {cfg.d_model}, {cfg.n_experts} "
+            f"experts, top {cfg.moe_top_k}; four gloo ranks share one card: "
+            f"host round trips, not a multi-card exchange): every rank's "
+            f"block within 1e-5 of the plain single-process body (max abs "
+            f"err {max(errs):.3e}); a layer: {c.get('all_to_all', 0)} "
+            f"all_to_all / {c.get('all_to_all_bytes', 0)} bytes sent a rank,"
+            f" {c['all_reduce']} all_reduce; ms a layer by rank "
+            f"{[round(v, 3) for v in ms]} (medians of {sizes['ep_timed']})")
+        out["ep"][name] = dict(max_err=max(errs), counts=c, ms=ms)
+    out["ep_seconds"] = ranks_s
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[moe] phase 22 took {out['seconds']:.1f} s")
+    results["moe"] = out
 
 
 def main(argv=None) -> int:
@@ -3233,6 +3771,8 @@ def main(argv=None) -> int:
                              "bound_by")}
     # -- 21. the LM training half ------------------------------------------
     run_train_slice(dev, paths, results)
+    # -- 22. the moe family: olmoe-1b-7b served, trained, expert-parallel ---
+    run_moe_slice(dev, paths, results)
 
     owner = {"project_mask": "fit", "bsr_spmm_gram": "fit",
              "bsr_spmm": "transform", "gram": "unfused_fit",

@@ -33,8 +33,12 @@ online_als_step`) on a :class:`ShardView` of the block with a
 module-level jit caches and its buffer donation have no counterpart: an
 eager engine compiles nothing, and each step allocates its outputs.
 
-Only ``all_reduce`` is used (gloo takes no collective on CUDA tensors
-but ``all_reduce`` and ``broadcast``), and every call is counted
+U's rows are sharded over ``rows_axes``: ``("data",)`` on a 2-D grid, or
+``("pod", "data")`` on a grid of several pods (one group of the ranks that
+share a column, at the combined row index ``p * rows + i``, so a ``2 x 2 x
+2`` grid runs the ``4 x 2`` grid's sums in its order); V's over
+``"model"``.  Only ``all_reduce`` is used (gloo takes no collective on CUDA
+tensors but ``all_reduce`` and ``broadcast``), and every call is counted
 (:func:`repro_torch.launch.mesh.collective_counts`).
 """
 from __future__ import annotations
@@ -56,6 +60,24 @@ __all__ = ["ShardView", "ShardedBackend", "make_sharded_als",
 ROWS, COLS = ("data",), ("model",)
 
 
+def _row_axes(rows_axes, col_axis: str = "model") -> Tuple[str, ...]:
+    rows_axes = ((rows_axes,) if isinstance(rows_axes, str)
+                 else tuple(rows_axes))
+    if col_axis != "model" or rows_axes not in (("data",), ("pod", "data")):
+        raise ValueError(
+            f"the grid shards rows over ('data',) or ('pod', 'data') and "
+            f"columns over 'model', got rows {rows_axes!r}, columns "
+            f"{col_axis!r}")
+    return rows_axes
+
+
+def _grid(mesh, rows_axes) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """The 2-D block grid ``(R, C)`` the operand is cut into over
+    ``rows_axes`` x ``"model"``, and this rank's ``(i, j)`` in it."""
+    return ((mesh.axis_size(rows_axes), mesh.axis_size(COLS)),
+            (mesh.index(rows_axes), mesh.index(COLS)))
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardView:
     """One rank's view of the sharded operand: ``fwd`` is the block A_ij as
@@ -73,14 +95,15 @@ class ShardView:
 
 class ShardedBackend:
     """A local backend with mesh collectives over ``mesh``'s axes: U's
-    rows over ``"data"`` (``row_group``), V's over ``"model"``
-    (``col_group``).  Runs on every rank of the mesh at once."""
+    rows over ``rows_axes`` (``("data",)`` or ``("pod", "data")``), V's
+    over ``"model"``.  Runs on every rank of the mesh at once."""
 
     fuse_epilogue = False
 
-    def __init__(self, inner, mesh):
+    def __init__(self, inner, mesh, rows_axes=ROWS):
         self.inner = inner
         self.mesh = mesh
+        self.rows_axes = _row_axes(rows_axes)
 
     @property
     def name(self) -> str:
@@ -106,7 +129,8 @@ class ShardedBackend:
     def matmul_t(self, a: ShardView, u: torch.Tensor) -> torch.Tensor:
         """A^T @ U: the forward product on the transposed block, summed
         over the row blocks."""
-        return self.mesh.all_reduce(self.inner.matmul(a.tsp, u), ROWS)
+        return self.mesh.all_reduce(self.inner.matmul(a.tsp, u),
+                                    self.rows_axes)
 
     def gram(self, x: torch.Tensor) -> torch.Tensor:
         return self.inner.gram(x)
@@ -122,20 +146,20 @@ class ShardedBackend:
         """``(A^T @ U, U_i^T U_i)`` on the transposed block, the product
         summed over the row blocks, the Gram local for ``reduce_u``."""
         y, g = self.inner.matmul_with_gram(a.tsp, u)
-        return self.mesh.all_reduce(y, ROWS), g
+        return self.mesh.all_reduce(y, self.rows_axes), g
 
     # -- reductions -----------------------------------------------------------
 
     def reduce_u(self, x: torch.Tensor) -> torch.Tensor:
-        return self.mesh.all_reduce(x, ROWS)
+        return self.mesh.all_reduce(x, self.rows_axes)
 
     def reduce_v(self, x: torch.Tensor) -> torch.Tensor:
         return self.mesh.all_reduce(x, COLS)
 
     def reduce_all(self, x: torch.Tensor) -> torch.Tensor:
-        """A sum over the whole grid (one ``all_reduce`` on the default
-        group; the reference sums over one axis, then the other)."""
-        return self.mesh.all_reduce(x, ROWS + COLS)
+        """A sum over the grid's row and column axes (one ``all_reduce``;
+        the reference sums over one axis, then the other)."""
+        return self.mesh.all_reduce(x, self.rows_axes + COLS)
 
     # -- metrics --------------------------------------------------------------
 
@@ -172,10 +196,10 @@ class _CsrShardFormat:
 
     dist_type = DistCSR
 
-    def block(self, coo, mesh, device) -> DistCSR:
+    def block(self, coo, mesh, device, rows_axes=ROWS) -> DistCSR:
         rows, cols, vals, shape = coo
-        return _csr_block(rows, cols, vals, shape, mesh.shape,
-                          (mesh.i, mesh.j), device)
+        grid, index = _grid(mesh, rows_axes)
+        return _csr_block(rows, cols, vals, shape, grid, index, device)
 
     def local(self, dist: DistCSR) -> ShardView:
         return ShardView(fwd=dist.fwd, tsp=dist.tsp)
@@ -187,7 +211,7 @@ class _BsrShardFormat:
 
     dist_type = DistBSR
 
-    def block(self, coo, mesh, device) -> DistBSR:
+    def block(self, coo, mesh, device, rows_axes=ROWS) -> DistBSR:
         """This rank's block, at the tiles ``cuda-bsr`` resolves for a
         block's shape (each rank's kernels see the (n / rows, m / cols)
         block, so that is the shape the ledger keys on, as in the
@@ -195,11 +219,12 @@ class _BsrShardFormat:
         from repro_torch.backend.base import get_backend
 
         rows, cols, vals, shape = coo
-        r, c = mesh.shape
+        grid, index = _grid(mesh, rows_axes)
+        r, c = grid
         tiles = get_backend("cuda-bsr").tile_config(
             max(shape[0] // r, 1), max(shape[1] // c, 1), device=device)
-        return _bsr_block(rows, cols, vals, shape, mesh.shape,
-                          (mesh.i, mesh.j), bm=tiles.bm, bk=tiles.bk,
+        return _bsr_block(rows, cols, vals, shape, grid, index,
+                          bm=tiles.bm, bk=tiles.bk,
                           bcap=None, bcap_t=None, device=device)
 
     def local(self, dist: DistBSR) -> ShardView:
@@ -234,6 +259,7 @@ def _check_inner(inner: str):
 def _attach(run, fmt, mesh, be):
     """The surface both engines share: ``distribute`` (this rank's block
     of any input) and ``backend``."""
+    grid, index = _grid(mesh, be.rows_axes)
 
     def distribute(a, pad_cols_to=None, device=None):
         """This rank's block of ``a`` in the engine's shard format, on
@@ -253,11 +279,10 @@ def _attach(run, fmt, mesh, be):
                 raise ValueError(
                     f"operand is already distributed at {a.shape}; pad to "
                     f"{pad_cols_to} columns before distributing")
-            if tuple(a.grid) != mesh.shape or tuple(a.index) != (mesh.i,
-                                                                  mesh.j):
+            if tuple(a.grid) != grid or tuple(a.index) != index:
                 raise ValueError(
                     f"block {a.index} of grid {a.grid} handed to rank "
-                    f"({mesh.i}, {mesh.j}) of a {mesh.shape} mesh")
+                    f"{index} of a {grid} grid ({mesh.shape} mesh)")
             return a.to(mesh.device if device is None else device)
         rows, cols, vals, (n, m) = _coo_of(a)
         if pad_cols_to is not None:
@@ -267,7 +292,8 @@ def _attach(run, fmt, mesh, be):
                     f"operand's {m} columns")
             m = pad_cols_to
         return fmt.block((rows, cols, vals, (n, m)), mesh,
-                         mesh.device if device is None else device)
+                         mesh.device if device is None else device,
+                         be.rows_axes)
 
     run.distribute = distribute
     run.backend = be
@@ -276,19 +302,24 @@ def _attach(run, fmt, mesh, be):
     return run
 
 
-def make_sharded_als(mesh, *, sparsify_u=None, sparsify_v=None,
+def make_sharded_als(mesh, rows_axes=ROWS, cols_axis: str = "model", *,
+                     sparsify_u=None, sparsify_v=None,
                      track_error: bool = True, inner: str = "torch-csr"):
     """The batch ALS engine on ``mesh``: ``run(dist, u0, iters) ->
     NMFResult`` with ``dist`` this rank's block (``run.distribute(a)``),
     ``u0`` this rank's rows of U (``mesh.row_block``), and the result's
     ``u`` / ``v`` this rank's rows of U and V; the traces are the global
-    ones, equal on every rank.  ``sparsify_u`` / ``sparsify_v`` should be
-    :class:`~repro_torch.core.topk.DistTopK` over ``("data",)`` /
-    ``("model",)`` or ``None``."""
+    ones, equal on every rank.  U's rows are sharded over ``rows_axes``
+    (``("data",)``, or ``("pod", "data")`` as the reference's
+    ``make_sharded_als(mesh, ("pod", "data"), "model", ...)``), V's over
+    ``cols_axis``, which is ``"model"``.  ``sparsify_u`` / ``sparsify_v``
+    should be :class:`~repro_torch.core.topk.DistTopK` over ``rows_axes``
+    / ``("model",)`` or ``None``."""
     from repro_torch.core.nmf import als_nmf
 
     fmt = _check_inner(inner)
-    be = ShardedBackend(get_backend(inner), mesh)
+    be = ShardedBackend(get_backend(inner), mesh,
+                        _row_axes(rows_axes, cols_axis))
 
     def run(dist, u0: torch.Tensor, iters: int):
         return als_nmf(fmt.local(dist), u0, iters=iters,
@@ -298,7 +329,8 @@ def make_sharded_als(mesh, *, sparsify_u=None, sparsify_v=None,
     return _attach(run, fmt, mesh, be)
 
 
-def make_sharded_online(mesh, *, sparsify_u=None, sparsify_v=None,
+def make_sharded_online(mesh, rows_axes=ROWS, cols_axis: str = "model", *,
+                        sparsify_u=None, sparsify_v=None,
                         inner: str = "torch-csr"):
     """The online engine on ``mesh``: ``run(dist_chunk, u, stats, iters,
     forget=1.0) -> OnlineStepResult`` with the chunk's columns sharded over
@@ -306,11 +338,13 @@ def make_sharded_online(mesh, *, sparsify_u=None, sparsify_v=None,
     ``stats.gv`` whole.  The chunk's statistics ``A_c V_c`` and
     ``V_c^T V_c`` are summed through the backend's hooks, so the
     accumulators are the global ones.  ``sparsify_v`` is the per-chunk
-    ``DistTopK`` over ``("model",)``."""
+    ``DistTopK`` over ``("model",)``.  ``rows_axes`` and ``cols_axis`` as
+    in :func:`make_sharded_als`."""
     from repro_torch.core.online import online_als_step
 
     fmt = _check_inner(inner)
-    be = ShardedBackend(get_backend(inner), mesh)
+    be = ShardedBackend(get_backend(inner), mesh,
+                        _row_axes(rows_axes, cols_axis))
 
     def run(dist_chunk, u: torch.Tensor, stats, iters: int, forget=1.0):
         return online_als_step(fmt.local(dist_chunk), u, stats, forget,

@@ -1,6 +1,7 @@
 """Architecture registry and assigned input shapes (port of
-``repro.configs``), for the families the port runs: the dense decoders and
-the internvl2 language model (``vlm``); and the paper's NMF experiment
+``repro.configs``), for the families the port runs: the dense decoders,
+the internvl2 language model (``vlm``) and the mixtures of experts
+(``moe``); and the paper's NMF experiment
 configurations (``NMF_CONFIGS``, a copy of the reference's).
 
 Each architecture has its own module (``repro_torch.configs.<id>`` with
@@ -19,6 +20,8 @@ from repro_torch.configs.codeqwen1_5_7b import CONFIG as codeqwen1_5_7b
 from repro_torch.configs.llama3_2_1b import CONFIG as llama3_2_1b
 from repro_torch.configs.phi4_mini_3_8b import CONFIG as phi4_mini_3_8b
 from repro_torch.configs.deepseek_coder_33b import CONFIG as deepseek_coder_33b
+from repro_torch.configs.qwen3_moe_235b_a22b import CONFIG as qwen3_moe_235b_a22b
+from repro_torch.configs.olmoe_1b_7b import CONFIG as olmoe_1b_7b
 from repro_torch.configs.internvl2_76b import CONFIG as internvl2_76b
 from repro_torch.configs.nmf_paper import NMF_CONFIGS
 
@@ -29,6 +32,8 @@ ARCHS: Dict[str, ArchConfig] = {
         llama3_2_1b,
         phi4_mini_3_8b,
         deepseek_coder_33b,
+        qwen3_moe_235b_a22b,
+        olmoe_1b_7b,
         internvl2_76b,
     ]
 }
@@ -63,6 +68,8 @@ def smoke_config(cfg: ArchConfig) -> ArchConfig:
         vocab=256,
         head_dim=16,
     )
+    if cfg.family == "moe":
+        overrides.update(n_experts=8, moe_top_k=2)
     if cfg.family == "vlm":
         overrides.update(n_patches=8)
     return dataclasses.replace(cfg, **overrides)

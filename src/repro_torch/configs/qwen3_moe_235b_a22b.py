@@ -1,0 +1,19 @@
+"""qwen3-moe-235b-a22b [moe] — 94L d_model=4096 64H (GQA kv=4)
+d_ff(expert)=1536 vocab=151936, MoE 128 experts top-8
+[hf:Qwen/Qwen3-30B-A3B family]."""
+from repro_torch.models.common import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen3-moe-235b-a22b",
+    family="moe",
+    n_layers=94,
+    d_model=4096,
+    n_heads=64,
+    n_kv_heads=4,
+    d_ff=1536,
+    vocab=151936,
+    head_dim=128,
+    n_experts=128,
+    moe_top_k=8,
+    rope_theta=1000000.0,
+)

@@ -13,14 +13,16 @@ the reference package:
   takes a numpy ``u0``.  ``jax.random`` cannot be reproduced in torch, so
   parity checks hand both packages one numpy ``u0``;
 * :func:`transformer_from_reference` — an LM parameter pytree
-  (``jax.tree.map(np.asarray, params)``) as the port's ``Transformer``;
+  (``jax.tree.map(np.asarray, params)``) as the port's ``Transformer``,
+  or, for the moe family, its ``MoETransformer`` (each stacked expert
+  tensor one parameter a layer);
 * :func:`adam_state_from_reference` — the reference's ``AdamState`` for
   those parameters as the port's, so that both optimizers start from one
   state.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -28,6 +30,7 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.bsr import BSR, _make_bsr
 from repro_torch.models.common import ArchConfig, attention_shapes, mlp_shapes
+from repro_torch.models.moe import MoETransformer, moe_shapes
 from repro_torch.models.transformer import Transformer
 from repro_torch.nmf.config import NMFConfig
 from repro_torch.nmf.estimator import EnforcedNMF
@@ -74,16 +77,20 @@ def estimator_from_reference(u, v, m_ref: int, config: NMFConfig,
 
 def _reference_leaves(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
     """Path ("layers/attn/wq", …) -> shape of every leaf of the reference's
-    dense parameter pytree; per-layer leaves are stacked along L."""
+    parameter pytree of ``cfg``'s family (dense / vlm, or moe: the MLP
+    block is ``moe`` and the unembedding is always its own); per-layer
+    leaves are stacked along L."""
     L = cfg.n_layers
+    moe = cfg.family == "moe"
     shapes = {"embed": (cfg.vocab, cfg.d_model), "norm_f": (cfg.d_model,),
               "layers/norm_attn": (L, cfg.d_model),
               "layers/norm_mlp": (L, cfg.d_model)}
     for block, leaves in (("attn", attention_shapes(cfg)),
+                          ("moe", moe_shapes(cfg)) if moe else
                           ("mlp", mlp_shapes(cfg))):
         for name, shape in leaves.items():
             shapes[f"layers/{block}/{name}"] = (L,) + shape
-    if not cfg.tie_embeddings:
+    if moe or not cfg.tie_embeddings:
         shapes["unembed"] = (cfg.d_model, cfg.vocab)
     return shapes
 
@@ -110,6 +117,10 @@ def _checked_leaves(tree, cfg: ArchConfig) -> Dict[str, object]:
         if tuple(np.shape(got[path])) != shape:
             raise ValueError(f"{path}: shape {tuple(np.shape(got[path]))}, "
                              f"{cfg.name} needs {shape}")
+        dtype = np.asarray(got[path]).dtype
+        if dtype.kind in "biuc":    # bf16 (ml_dtypes) is kind "V"
+            raise ValueError(f"{path}: dtype {dtype}, {cfg.name} needs "
+                             "real floating-point leaves")
     return got
 
 
@@ -133,8 +144,9 @@ def adam_state_from_reference(state, cfg: ArchConfig,
                               device: DeviceLike = None) -> AdamState:
     """The port's :class:`AdamState` from the reference's (``step``, ``mu``,
     ``nu``; numpy leaves) for ``cfg``'s dense parameters: μ and ν unstacked
-    into f32 tensors keyed like ``Transformer.named_parameters``, the step
-    an int32 scalar.  Raises ``ValueError`` as
+    into f32 tensors keyed like the model's ``named_parameters`` (a
+    ``Transformer``'s, or a ``MoETransformer``'s for the moe family), the
+    step an int32 scalar.  Raises ``ValueError`` as
     :func:`transformer_from_reference` does."""
     step, mu, nu = state
     dev = resolve_device(device)
@@ -147,15 +159,23 @@ def adam_state_from_reference(state, cfg: ArchConfig,
 
 
 def transformer_from_reference(params, cfg: ArchConfig,
-                               device: DeviceLike = None) -> Transformer:
-    """The port's :class:`Transformer` holding the reference's dense
-    parameters: ``params`` is the reference's pytree with numpy leaves.
-    The stacked ``(L, ...)`` layer leaves are unstacked into the layer list;
-    nothing is transposed (both keep ``(in, out)``).  Raises ``ValueError``
-    when the tree's leaves or shapes are not those of ``cfg``."""
+                               device: DeviceLike = None
+                               ) -> Union[Transformer, MoETransformer]:
+    """The port's model holding the reference's parameters: ``params`` is
+    the reference's pytree with numpy leaves; a :class:`Transformer` for
+    the dense and vlm families, a :class:`MoETransformer` for moe (the
+    router ``(L, d, E)`` and the expert tensors ``(L, E, d, f)`` / ``(L, E,
+    f, d)`` unstacked into each layer's ``moe`` block).  The stacked
+    ``(L, ...)`` layer leaves are unstacked into the layer list; nothing is
+    transposed (both keep ``(in, out)``).  Raises ``ValueError`` when the
+    tree's leaves, shapes or dtypes are not those of ``cfg``."""
+    cls = MoETransformer if cfg.family == "moe" else Transformer
+    return _filled(cls(cfg, torch.float32, resolve_device(device)), params,
+                   cfg)
+
+
+def _filled(model, params, cfg: ArchConfig):
     leaves = _unstacked(_checked_leaves(params, cfg), cfg)
-    dev = resolve_device(device)
-    model = Transformer(cfg, torch.float32, dev)
     with torch.no_grad():
         for name, p in model.named_parameters():
             p.copy_(torch.from_numpy(leaves[name]))

@@ -1,9 +1,10 @@
 """Shard ingest for the mesh engines (port of ``repro.core.distributed``).
 
 Layout (the reference's DESIGN.md §4): A (n x m) is sharded in 2-D, its
-rows over the mesh's ``"data"`` axis (R blocks) and its columns over
-``"model"`` (C blocks); U (n x k) is row-sharded over ``"data"``, V
-(m x k) over ``"model"``.  Each block is held in both orientations, A_ij
+rows over the mesh's row axes (R blocks: ``"data"``, or ``("pod",
+"data")`` on a grid of several pods, at the combined row index) and its
+columns over ``"model"`` (C blocks); U (n x k) is row-sharded over the row
+axes, V (m x k) over ``"model"``.  Each block is held in both orientations, A_ij
 and A_ij^T, so both ALS half-steps are forward products (scatter-free).
 
 The reference builds the whole (R, C)-stacked grid in one process and lets

@@ -1,23 +1,30 @@
 """The NMF device grid over ``torch.distributed`` (port of
 ``repro.launch.mesh.make_nmf_mesh``).
 
-One process (rank) holds one (i, j) block of the ``rows x cols`` grid,
-row-major as the reference's ``devices.reshape(rows, cols)``:
-``(i, j) = divmod(rank, cols)``.  The reference's mesh axes become process
-groups:
+One process (rank) holds one (p, i, j) block of the ``pods x rows x cols``
+grid, row-major as the reference's ``devices.reshape(pods, rows, cols)``:
+``(p, i, j)`` from ``rank = (p * rows + i) * cols + j``.  With one pod (the
+default) that is the 2-D ``rows x cols`` grid, ``(i, j) = divmod(rank,
+cols)``.  The reference's mesh axes become process groups:
 
-* ``"data"`` — the ranks of column j (they differ in i): U's and A's row
-  blocks are sharded over it, and ``psum`` over it is an ``all_reduce`` on
-  :attr:`NMFMesh.row_group`;
-* ``"model"`` — the ranks of row i (they differ in j): V's and A's column
-  blocks, :attr:`NMFMesh.col_group`.
+* ``"data"`` — the ranks that share (p, j) (they differ in i);
+* ``"model"`` — the ranks that share (p, i): V's and A's column blocks;
+* ``"pod"`` — the ranks that share (i, j);
+* ``("pod", "data")`` — the ranks that share j.  It is one group and one
+  ``all_reduce``, not two nested ones, so that a ``2 x 2 x 2`` grid reduces
+  in the order a ``4 x 2`` grid does.  U's and A's row blocks are sharded
+  over it, at the combined row index ``p * rows + i``
+  (:meth:`NMFMesh.row_block`); with one pod it is ``"data"``.
 
-Every reduction goes through :meth:`NMFMesh.all_reduce`, which counts its
-calls and bytes (:func:`collective_counts`) and is the identity over an
-axis of one rank.  A 1x1 mesh with no process group initialized has no
+Every reduction goes through :meth:`NMFMesh.all_reduce`, and the
+expert-parallel exchange through :meth:`NMFMesh.all_to_all`; both count
+their calls and bytes (:func:`collective_counts`) and are the identity over
+an axis of one rank.  A 1x1 mesh with no process group initialized has no
 groups at all and runs anywhere, the reference's "1x1 runs anywhere": the
-same code, no collective.  Only ``all_reduce`` is used: gloo takes no
-collective on CUDA tensors but ``all_reduce`` and ``broadcast``.
+same code, no collective.  gloo takes no collective on CUDA tensors but
+``all_reduce`` and ``broadcast``, so under gloo an ``all_to_all`` of a CUDA
+tensor goes through one explicit copy to the host and one back; the
+backend the caller initialized decides that.
 
 The collective backend (``nccl`` or ``gloo``) is the caller's choice, made
 when the process group is initialized; nothing here picks another when one
@@ -27,12 +34,13 @@ measurements.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import queue as queue_mod
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -40,83 +48,141 @@ import torch.distributed as dist
 from repro_torch.device import DeviceLike, resolve_device
 
 __all__ = ["NMFMesh", "make_nmf_mesh", "spawn_mesh", "collective_counts",
-           "reset_collective_counts", "AXES"]
+           "reset_collective_counts", "AXES", "ROW_AXES"]
 
-#: the reference's axis names: U's rows shard over "data", V's over "model"
-AXES = ("data", "model")
+#: the reference's axis names: U's rows shard over ("pod", "data"), V's
+#: over "model"
+AXES = ("pod", "data", "model")
+ROW_AXES = ("pod", "data")
 
 _COLLECTIVES: Dict[str, int] = {"all_reduce": 0, "bytes": 0}
+_ALL_TO_ALL: Dict[str, int] = {"calls": 0, "bytes": 0}
 
 
 def collective_counts() -> Dict[str, int]:
     """The ``all_reduce`` calls this process issued since the last reset,
-    and the bytes they reduced."""
-    return dict(_COLLECTIVES)
+    and the bytes they reduced; once it has issued an ``all_to_all``, also
+    ``"all_to_all"`` (calls) and ``"all_to_all_bytes"`` (the bytes it
+    sent).  An NMF fit issues no ``all_to_all``, so its counts keep their
+    two keys."""
+    out = dict(_COLLECTIVES)
+    if _ALL_TO_ALL["calls"]:
+        out.update(all_to_all=_ALL_TO_ALL["calls"],
+                   all_to_all_bytes=_ALL_TO_ALL["bytes"])
+    return out
 
 
 def reset_collective_counts() -> None:
-    for key in _COLLECTIVES:
-        _COLLECTIVES[key] = 0
+    for counts in (_COLLECTIVES, _ALL_TO_ALL):
+        for key in counts:
+            counts[key] = 0
+
+
+def _axes(axes: Union[str, Sequence[str]]) -> Tuple[str, ...]:
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    for ax in axes:
+        if ax not in AXES:
+            raise ValueError(f"unknown mesh axis {ax!r}; use {AXES}")
+    return tuple(ax for ax in AXES if ax in axes)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class NMFMesh:
-    """This process's place in the ``rows x cols`` grid and its groups.
+    """This process's place in the ``pods x rows x cols`` grid and its
+    groups.
 
-    ``row_group`` / ``col_group`` are ``None`` on a 1x1 mesh without a
-    process group; with one, the default group spans the grid."""
+    ``groups`` maps an axis set (in ``AXES`` order) to this rank's process
+    group of the ranks that differ along it; it is empty on a 1x1 mesh
+    without a process group.  The default group spans the grid."""
 
     rows: int
     cols: int
     rank: int
     device: torch.device
-    row_group: Any = None
-    col_group: Any = None
+    pods: int = 1
+    groups: Dict[Tuple[str, ...], Any] = dataclasses.field(
+        default_factory=dict)
 
     @property
-    def shape(self) -> Tuple[int, int]:
-        return (self.rows, self.cols)
+    def row_group(self):
+        """The group of ``"data"``."""
+        return self.groups.get(("data",))
+
+    @property
+    def col_group(self):
+        """The group of ``"model"``."""
+        return self.groups.get(("model",))
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """``(rows, cols)``, or ``(pods, rows, cols)`` with several pods."""
+        if self.pods == 1:
+            return (self.rows, self.cols)
+        return (self.pods, self.rows, self.cols)
 
     @property
     def size(self) -> int:
-        return self.rows * self.cols
+        return self.pods * self.rows * self.cols
+
+    @property
+    def p(self) -> int:
+        """This rank's pod (its coordinate on ``"pod"``)."""
+        return self.rank // (self.rows * self.cols)
 
     @property
     def i(self) -> int:
-        """This rank's row block (its coordinate on ``"data"``)."""
-        return self.rank // self.cols
+        """This rank's row block within its pod (its coordinate on
+        ``"data"``)."""
+        return (self.rank // self.cols) % self.rows
 
     @property
     def j(self) -> int:
         """This rank's column block (its coordinate on ``"model"``)."""
         return self.rank % self.cols
 
-    def axis_size(self, axes: Sequence[str]) -> int:
+    def _extent(self, ax: str) -> Tuple[int, int]:
+        """(size, this rank's coordinate) along one axis."""
+        return {"pod": (self.pods, self.p), "data": (self.rows, self.i),
+                "model": (self.cols, self.j)}[ax]
+
+    def axis_size(self, axes: Union[str, Sequence[str]]) -> int:
         out = 1
-        for ax in axes:
-            out *= self.rows if ax == "data" else self.cols
+        for ax in _axes(axes):
+            out *= self._extent(ax)[0]
         return out
 
-    def _group(self, axes: Sequence[str]):
-        axes = tuple(axes)
-        if axes == ("data",):
-            return self.row_group
-        if axes == ("model",):
-            return self.col_group
-        if sorted(axes) == ["data", "model"]:
-            return None          # the default group: the whole grid
-        raise ValueError(f"unknown mesh axes {axes!r}; use a subset of "
-                         f"{AXES}")
+    def index(self, axes: Union[str, Sequence[str]]) -> int:
+        """This rank's position along ``axes``, row-major in the order
+        given: ``p * rows + i`` along ``("pod", "data")``."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        _axes(axes)
+        out = 0
+        for ax in axes:
+            size, coord = self._extent(ax)
+            out = out * size + coord
+        return out
 
-    def all_reduce(self, x: torch.Tensor, axes: Sequence[str],
+    def block(self, n: int, axes: Union[str, Sequence[str]]) -> slice:
+        """The rows of an n-row array sharded over ``axes`` that this rank
+        holds."""
+        n_loc = n // self.axis_size(axes)
+        r = self.index(axes)
+        return slice(r * n_loc, (r + 1) * n_loc)
+
+    def _group(self, axes: Sequence[str]):
+        """The group of ``axes``, an axis of one rank left out: the default
+        group when the rest spans the grid."""
+        axes = tuple(ax for ax in _axes(axes) if self._extent(ax)[0] > 1)
+        if axes == tuple(ax for ax in AXES if self._extent(ax)[0] > 1):
+            return None
+        return self.groups[axes]
+
+    def all_reduce(self, x: torch.Tensor, axes: Union[str, Sequence[str]],
                    op: str = "sum") -> torch.Tensor:
         """``x`` reduced (``"sum"``, ``"max"`` or ``"min"``) over the ranks
         that differ along ``axes``: the reference's ``psum`` / ``pmax``.
         Returns a new tensor; ``x`` is left as it was.  Over an axis of one
         rank it is ``x`` itself."""
-        for ax in axes:
-            if ax not in AXES:
-                raise ValueError(f"unknown mesh axis {ax!r}; use {AXES}")
         if self.axis_size(axes) == 1:
             return x
         y = x.detach().clone(memory_format=torch.contiguous_format)
@@ -126,6 +192,35 @@ class NMFMesh:
         _COLLECTIVES["all_reduce"] += 1
         _COLLECTIVES["bytes"] += y.numel() * y.element_size()
         return y
+
+    def all_to_all(self, x: torch.Tensor,
+                   axis: Union[str, Sequence[str]]) -> torch.Tensor:
+        """The reference's ``all_to_all(x, axis, split_axis=0,
+        concat_axis=0, tiled=True)``: ``x`` split into ``n`` equal parts
+        along dim 0 (``n`` the ranks along ``axis``), part ``g`` sent to the
+        g-th of them, and the parts received concatenated along dim 0 in
+        the senders' order.  Returns a new tensor; over an axis of one rank
+        it is ``x`` itself.
+
+        Under ``nccl`` it is ``all_to_all_single`` on the device.  gloo
+        takes no ``all_to_all`` on CUDA tensors, so under ``gloo`` a CUDA
+        tensor is copied to the host, exchanged there, and the result
+        copied back: the backend the caller initialized decides it."""
+        n = self.axis_size(axis)
+        if n == 1:
+            return x
+        if x.shape[0] % n:
+            raise ValueError(f"all_to_all over {axis!r} splits dim 0 into "
+                             f"{n} parts; it has {x.shape[0]} rows")
+        group = self._group(_axes(axis))
+        y = x.detach().contiguous()
+        staged = y.is_cuda and dist.get_backend(group) == "gloo"
+        src = y.cpu() if staged else y
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=group)
+        _ALL_TO_ALL["calls"] += 1
+        _ALL_TO_ALL["bytes"] += y.numel() * y.element_size()
+        return out.to(x.device) if staged else out
 
     def barrier(self) -> None:
         """Wait for every rank (an ``all_reduce`` of one int, on the
@@ -145,101 +240,135 @@ class NMFMesh:
     # -- factor blocks --------------------------------------------------------
 
     def row_block(self, n: int) -> slice:
-        """The rows of an (n, k) factor sharded over ``"data"`` that this
-        rank holds."""
-        n_loc = n // self.rows
-        return slice(self.i * n_loc, (self.i + 1) * n_loc)
+        """The rows of an (n, k) factor sharded over ``("pod", "data")``
+        (over ``"data"`` with one pod) that this rank holds: block ``p *
+        rows + i`` of ``pods * rows``."""
+        return self.block(n, ROW_AXES)
 
     def col_block(self, m: int) -> slice:
         """The rows of an (m, k) factor sharded over ``"model"``."""
-        m_loc = m // self.cols
-        return slice(self.j * m_loc, (self.j + 1) * m_loc)
+        return self.block(m, ("model",))
 
-    def gather(self, x: torch.Tensor, total: int, axis: str) -> torch.Tensor:
+    def gather(self, x: torch.Tensor, total: int,
+               axis: Union[str, Sequence[str]]) -> torch.Tensor:
         """The whole (total, k) factor from this rank's block of rows
-        (sharded over ``axis``), on every rank: the block written into a
-        zero-filled buffer, then summed over the axis (only
+        (:meth:`block` over ``axis``), on every rank: the block written
+        into a zero-filled buffer, then summed over the axis (only
         ``all_reduce``; a sum with zeros is exact)."""
-        if self.axis_size((axis,)) == 1:
+        if self.axis_size(axis) == 1:
             return x
         out = torch.zeros((total,) + tuple(x.shape[1:]), dtype=x.dtype,
                           device=x.device)
-        sl = self.row_block(total) if axis == "data" else \
-            self.col_block(total)
-        out[sl] = x
-        return self.all_reduce(out, (axis,))
+        out[self.block(total, axis)] = x
+        return self.all_reduce(out, axis)
 
 
-def _check_shape(rows: int, cols: int) -> Tuple[int, int]:
-    rows, cols = int(rows), int(cols)
-    if rows <= 0 or cols <= 0:
-        raise ValueError(f"mesh_shape {(rows, cols)} must be positive")
-    return rows, cols
+def _check_shape(rows: int, cols: int, pods: int = 1) -> Tuple[int, int, int]:
+    rows, cols, pods = int(rows), int(cols), int(pods)
+    if rows <= 0 or cols <= 0 or pods <= 0:
+        shape = (rows, cols) if pods == 1 else (pods, rows, cols)
+        raise ValueError(f"mesh_shape {shape} must be positive")
+    return rows, cols, pods
 
 
-#: one set of groups per (rows, cols) and world: ``dist.new_group`` is a
-#: collective call, so every rank builds the groups once, in one order
+def _shape_name(rows: int, cols: int, pods: int) -> tuple:
+    return (rows, cols) if pods == 1 else (pods, rows, cols)
+
+
+#: one set of groups per (pods, rows, cols) and world: ``dist.new_group`` is
+#: a collective call, so every rank builds the groups once, in one order
 _MESHES: Dict[tuple, NMFMesh] = {}
 
+#: the axis sets of the grid's groups, in the order they are made, each with
+#: the axes its members share; a grid of one pod makes the first two: every
+#: column, then every row
+_GROUPS = ((("data",), ("pod", "model")),
+           (("model",), ("pod", "data")),
+           (("pod",), ("data", "model")),
+           (("pod", "data"), ("model",)),
+           (("data", "model"), ("pod",)),
+           (("pod", "model"), ("data",)))
 
-def make_nmf_mesh(rows: int, cols: int, device: DeviceLike = None) -> NMFMesh:
-    """This process's :class:`NMFMesh` on a ``rows x cols`` grid.
 
-    With a process group initialized its world size must be ``rows *
-    cols`` (else ``ValueError``, the reference's message).  The first call
-    for a grid is collective: every rank must make it, with the same shape
-    (checked by an ``all_reduce``), and the groups of every row and every
-    column are created then, by every rank, in one loop and one order
+def make_nmf_mesh(rows: int, cols: int, device: DeviceLike = None,
+                  pods: int = 1) -> NMFMesh:
+    """This process's :class:`NMFMesh` on a ``pods x rows x cols`` grid.
+
+    With a process group initialized its world size must be ``pods * rows
+    * cols`` (else ``ValueError``, the reference's message).  The first
+    call for a grid is collective: every rank must make it, with the same
+    shape (checked by an ``all_reduce``), and the groups of every axis set
+    are created then, by every rank, in one loop and one order
     (``dist.new_group`` is collective; a rank that skipped one would hang
-    the grid).  Later calls return the same mesh and issue no collective,
+    the grid).  One pod makes the groups of a 2-D grid: every column, then
+    every row.  Later calls return the same mesh and issue no collective,
     so they are safe from any thread.  Without a process group only 1x1 is
     possible.  ``device`` is where this rank's blocks live (the card unless
     ``"cpu"`` is asked for)."""
-    rows, cols = _check_shape(rows, cols)
+    rows, cols, pods = _check_shape(rows, cols, pods)
+    shape_name = _shape_name(rows, cols, pods)
+    world_want = pods * rows * cols
     device = resolve_device(device)
     if not (dist.is_available() and dist.is_initialized()):
-        if rows * cols != 1:
+        if world_want != 1:
             raise ValueError(
-                f"mesh_shape {(rows, cols)} needs {rows * cols} devices, "
+                f"mesh_shape {shape_name} needs {world_want} devices, "
                 "have 1 (no torch.distributed process group is initialized;"
                 " start the ranks with torch.distributed.run or spawn_mesh)")
         return NMFMesh(1, 1, 0, device)
     world = dist.get_world_size()
-    if world != rows * cols:
+    if world != world_want:
         raise ValueError(
-            f"mesh_shape {(rows, cols)} needs {rows * cols} devices, have "
+            f"mesh_shape {shape_name} needs {world_want} devices, have "
             f"{world}")
-    key = (rows, cols, id(dist.group.WORLD), str(device))
+    key = (pods, rows, cols, id(dist.group.WORLD), str(device))
     mesh = _MESHES.get(key)
     if mesh is not None:
         return mesh
     # every rank names the same grid (checked before any group is made:
     # ranks that disagree would call new_group with different members),
-    # and the transport works
-    shape = torch.tensor([rows, cols, -rows, -cols], dtype=torch.int64,
+    # and the transport works.  The pods ride above bit 32 of the rows, so
+    # a 2-D grid's check is the one it always was
+    code = rows + ((pods - 1) << 32)
+    shape = torch.tensor([code, cols, -code, -cols], dtype=torch.int64,
                          device=device)
     dist.all_reduce(shape, op=dist.ReduceOp.MAX)
     _COLLECTIVES["all_reduce"] += 1
     _COLLECTIVES["bytes"] += 32
     got = shape.tolist()
     if got[0] != -got[2] or got[1] != -got[3]:
+        hi, lo = got[0], -got[2]
         raise ValueError(
-            f"the ranks disagree on mesh_shape: this rank has {(rows, cols)}"
-            f", the grid has rows in [{-got[2]}, {got[0]}] and cols in "
+            f"the ranks disagree on mesh_shape: this rank has {shape_name}"
+            f", the grid has pods in [{(lo >> 32) + 1}, {(hi >> 32) + 1}], "
+            f"rows in [{lo & 0xFFFFFFFF}, {hi & 0xFFFFFFFF}] and cols in "
             f"[{-got[3]}, {got[1]}]")
     rank = dist.get_rank()
-    i, j = divmod(rank, cols)
-    row_group = col_group = None
-    # every rank creates every group, columns first, then rows
-    for jj in range(cols):
-        g = dist.new_group([ii * cols + jj for ii in range(rows)])
-        if jj == j:
-            row_group = g
-    for ii in range(rows):
-        g = dist.new_group([ii * cols + jj for jj in range(cols)])
-        if ii == i:
-            col_group = g
-    mesh = NMFMesh(rows, cols, rank, device, row_group, col_group)
+    coords = {"pod": rank // (rows * cols), "data": (rank // cols) % rows,
+              "model": rank % cols}
+    extent = {"pod": pods, "data": rows, "model": cols}
+
+    def rank_of(c):
+        return (c["pod"] * rows + c["data"]) * cols + c["model"]
+
+    def made(varies, shared):
+        """Every group of the ranks that differ along ``varies`` (one for
+        each value of the ``shared`` coordinates, in row-major order),
+        made by every rank; returns this rank's."""
+        mine = None
+        for fixed in itertools.product(*(range(extent[a]) for a in shared)):
+            c = dict(zip(shared, fixed))
+            members = [rank_of({**c, **dict(zip(varies, v))})
+                       for v in itertools.product(
+                           *(range(extent[a]) for a in varies))]
+            g = dist.new_group(sorted(members))
+            if all(coords[a] == c[a] for a in shared):
+                mine = g
+        return mine
+
+    groups = {varies: made(varies, shared)
+              for varies, shared in (_GROUPS if pods > 1 else _GROUPS[:2])}
+    mesh = NMFMesh(rows, cols, rank, device, pods, groups)
     _MESHES[key] = mesh
     return mesh
 
@@ -271,9 +400,9 @@ def _rank_main(rank: int, world: int, backend: str, init_method: str,
 def spawn_mesh(fn: Callable, rows: int, cols: int, *, backend: str,
                device: str, init_file: Optional[str] = None,
                args: tuple = (), timeout: float = 300.0,
-               threads: Optional[int] = None) -> list:
-    """Run ``fn(rank, *args)`` in ``rows * cols`` new processes (the spawn
-    start method), each a rank of one process group, and return their
+               threads: Optional[int] = None, pods: int = 1) -> list:
+    """Run ``fn(rank, *args)`` in ``pods * rows * cols`` new processes (the
+    spawn start method), each a rank of one process group, and return their
     results by rank.
 
     ``backend`` is the collective transport (``"gloo"`` or ``"nccl"``),
@@ -289,8 +418,8 @@ def spawn_mesh(fn: Callable, rows: int, cols: int, *, backend: str,
     A rank that raises, exits or is still running after ``timeout``
     seconds makes this raise ``RuntimeError`` (with the rank's traceback)
     after every other rank was stopped; nothing is rerun."""
-    rows, cols = _check_shape(rows, cols)
-    world = rows * cols
+    rows, cols, pods = _check_shape(rows, cols, pods)
+    world = pods * rows * cols
     ctx = torch.multiprocessing.get_context("spawn")
     tmpdir = None
     if init_file is None:
@@ -352,6 +481,8 @@ def spawn_mesh(fn: Callable, rows: int, cols: int, *, backend: str,
         if tmpdir is not None and not os.listdir(tmpdir):
             os.rmdir(tmpdir)
     if failure is not None:
-        raise RuntimeError(f"spawn_mesh {rows}x{cols} ({backend}): "
+        raise RuntimeError(f"spawn_mesh "
+                           f"{'x'.join(map(str, _shape_name(rows, cols, pods)))}"
+                           f" ({backend}): "
                            f"{failure}")
     return [out[r] for r in range(world)]

@@ -74,7 +74,8 @@ def main(argv=None):
     if args.data != 1 or args.model != 1:
         ap.error(f"--data {args.data} --model {args.model}: sharding the "
                  "parameters over a mesh (param_pspecs, FSDP / TP) is not "
-                 "ported (ROADMAP queue 1 item 8); run with --data 1 "
+                 "ported (ROADMAP queue 1, the item \"parameter "
+                 "sharding\"); run with --data 1 "
                  "--model 1")
 
     if args.deterministic:

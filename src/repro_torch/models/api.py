@@ -2,10 +2,11 @@
 init, input specs, random batches, the loss and the train step, and the
 serving steps.
 
-Only the families backed by ``models/transformer.py`` are ported: ``dense``
-and ``vlm``.  The others raise ``NotImplementedError`` from
-:func:`module_for`.  The sharding specs (``param_pspecs`` and the rest:
-one card, no FSDP / TP mesh) are not ported.
+The ported families are ``dense`` and ``vlm`` (``models/transformer.py``)
+and ``moe`` (``models/moe.py``).  The others raise ``NotImplementedError``
+from :func:`module_for`, naming the ROADMAP item that ports them.  The
+sharding specs (``param_pspecs`` and the rest: one card, no FSDP / TP
+mesh) are not ported.
 
 The function that makes a step names its attention path: the serving
 steps take the flash kernel, the loss and the train step the
@@ -20,7 +21,7 @@ from typing import TYPE_CHECKING, Callable, Dict, NamedTuple, Union
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 from repro_torch.models.common import ArchConfig
 from repro_torch.training.optimizer import (
     AdamW,
@@ -38,24 +39,28 @@ __all__ = ["FAMILY", "TensorSpec", "module_for", "input_specs", "make_batch",
 FAMILY = {
     "dense": transformer,
     "vlm": transformer,
+    "moe": moe,
 }
 
-#: ROADMAP (queue 1, item 15) entry of each family still to port
+#: each family still to port: the reference's modules, and the title of
+#: its ROADMAP item (queue 1)
 _NOT_PORTED = {
-    "moe": "models/moe.py",
-    "hybrid": "models/hybrid.py and models/mamba.py",
-    "ssm": "models/xlstm.py",
-    "encdec": "models/encdec.py",
+    "hybrid": ("models/hybrid.py and models/mamba.py", "the `hybrid` family"),
+    "ssm": ("models/xlstm.py", "the `ssm` family"),
+    "encdec": ("models/encdec.py", "the `encdec` family"),
 }
 
 
 def module_for(cfg: ArchConfig):
     if cfg.family in FAMILY:
         return FAMILY[cfg.family]
-    where = _NOT_PORTED.get(cfg.family, "an unknown family")
+    if cfg.family not in _NOT_PORTED:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is unknown")
+    where, item = _NOT_PORTED[cfg.family]
     raise NotImplementedError(
-        f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-        f"{where}, ROADMAP queue 1 item 15")
+        f"family {cfg.family!r} ({cfg.name}) is not ported yet: {where}; "
+        f"ROADMAP queue 1, the item \"{item}\"")
 
 
 class TensorSpec(NamedTuple):

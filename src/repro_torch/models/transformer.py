@@ -122,22 +122,29 @@ class Transformer(nn.Module):
         """Every layer's weights and the unembedding matrix in ``dtype``.
         Outside autograd the copies are kept and reused until a parameter
         is changed or moved (its version counter or storage changes)."""
-        if torch.is_grad_enabled():
-            return ([layer.weights(dtype) for layer in self.layers],
-                    unembed_matrix(self, self.cfg).to(dtype))
-        stamp = (dtype,) + tuple((p.data_ptr(), p._version)
-                                 for p in self.parameters())
-        if self._cast is None or self._cast[0] != stamp:
-            self._cast = None     # free the old copies before casting anew
-            self._cast = (stamp, (
-                [layer.weights(dtype) for layer in self.layers],
-                unembed_matrix(self, self.cfg).to(dtype)))
-        return self._cast[1]
+        return cached_cast(self, dtype, lambda: (
+            [layer.weights(dtype) for layer in self.layers],
+            unembed_matrix(self, self.cfg).to(dtype)))
 
     def forward(self, tokens, extra_embeds=None,
                 compute_dtype=torch.bfloat16, unembed: bool = True):
         return forward(self, tokens, self.cfg, extra_embeds=extra_embeds,
                        compute_dtype=compute_dtype, unembed=unembed)
+
+
+def cached_cast(model: nn.Module, dtype, make):
+    """``make()`` (the model's weights cast to ``dtype``), kept on
+    ``model._cast`` outside autograd and reused until a parameter is
+    changed or moved (its version counter or storage changes); under
+    autograd made afresh, so gradients reach the parameters."""
+    if torch.is_grad_enabled():
+        return make()
+    stamp = (dtype,) + tuple((p.data_ptr(), p._version)
+                             for p in model.parameters())
+    if model._cast is None or model._cast[0] != stamp:
+        model._cast = None     # free the old copies before casting anew
+        model._cast = (stamp, make())
+    return model._cast[1]
 
 
 # ---------------------------------------------------------------------------

@@ -54,13 +54,10 @@ def init_error_state(params: Params, ndp: int) -> Tree:
 
 
 def _data_index(mesh, data_axes: Tuple[str, ...]) -> int:
-    """This rank's position along ``data_axes`` (row-major, as the
-    reference's ``P(data_axes)`` lays the batch out)."""
-    index = 0
-    for ax in data_axes:
-        index = index * mesh.axis_size((ax,)) + (mesh.i if ax == "data"
-                                                 else mesh.j)
-    return index
+    """This rank's position along ``data_axes`` (``"pod"``, ``"data"``,
+    ``"model"``; row-major in that order, as the reference's
+    ``P(data_axes)`` lays the batch out)."""
+    return mesh.index(data_axes)
 
 
 def make_compressed_grad_fn(loss_fn: Callable, mesh,

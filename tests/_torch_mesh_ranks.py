@@ -1,5 +1,6 @@
 """Rank bodies for the mesh tests (``test_torch_mesh.py``,
-``test_torch_sharded.py``, ``test_torch_sharded_stream.py``).
+``test_torch_sharded.py``, ``test_torch_sharded_stream.py``,
+``test_torch_moe_ep.py``).
 
 Each function runs in a process started by
 :func:`repro_torch.launch.mesh.spawn_mesh` (one rank of a gloo group on
@@ -256,3 +257,108 @@ def compressed_grads(rank, arrays, density, steps):
                         err_in=err["w"].numpy(), err=new["w"].numpy()))
         err = new
     return out, collective_counts()
+
+
+#: every axis set of a grid of several pods
+AXIS_SETS = (("pod",), ("data",), ("model",), ("pod", "data"),
+             ("pod", "model"), ("data", "model"), ("pod", "data", "model"))
+
+
+def _exchange(mesh, rank):
+    """``all_to_all`` over each axis set of more than one rank: part g of
+    ``1000 * rank + arange(2 * n)`` (two rows a part) goes to the g-th rank
+    of the set."""
+    out = {}
+    for axes in AXIS_SETS:
+        n = mesh.axis_size(axes)
+        if n > 1:
+            x = 1000.0 * rank + torch.arange(2.0 * n)
+            out[axes] = mesh.all_to_all(x, axes).numpy()
+    return out
+
+
+def multipod(rank, arrays, density):
+    """Eight ranks as a 2x2x2 (pod, data, model) grid, and the same ranks
+    as a 4x2 grid: this rank's coordinates, a sum of the rank over every
+    axis set and an ``all_to_all`` over each; ``dist_topk_threshold`` and
+    ``DistTopK(40, ("pod", "data"))`` of the rows of ``x``; the reference
+    test's 10-iteration fit (``make_sharded_als(mesh, ("pod", "data"),
+    "model", ...)`` on ``torch-csr``) on 2x2x2 and on 4x2 with its
+    collectives; compressed gradients over ``("pod", "data")``."""
+    from repro_torch.backend.sharded import make_sharded_als
+    from repro_torch.core.topk import DistTopK, dist_topk_threshold
+    from repro_torch.launch.mesh import (
+        collective_counts, make_nmf_mesh, reset_collective_counts,
+    )
+    from repro_torch.training import init_error_state, make_compressed_grad_fn
+
+    mesh = make_nmf_mesh(2, 2, device="cpu", pods=2)
+    one = torch.tensor([float(rank)])
+    out = dict(coords=(mesh.p, mesh.i, mesh.j), shape=mesh.shape,
+               row_index=mesh.index(("pod", "data")),
+               sums={axes: float(mesh.all_reduce(one, axes))
+                     for axes in AXIS_SETS},
+               exchange=_exchange(mesh, rank))
+    xb = torch.from_numpy(arrays["x"])[mesh.row_block(arrays["x"].shape[0])]
+    out["tau"] = float(dist_topk_threshold(xb, 40, mesh, ("pod", "data")))
+    out["kept"] = (DistTopK(40, mesh, ("pod", "data"))(xb) != 0).numpy()
+
+    def fit(m, rows_axes):
+        engine = make_sharded_als(
+            m, rows_axes, "model",
+            sparsify_u=DistTopK(40, m, rows_axes),
+            sparsify_v=DistTopK(100, m, ("model",)), inner="torch-csr")
+        dist = engine.distribute(arrays["a"])
+        u0 = torch.from_numpy(arrays["u0"])[m.row_block(
+            arrays["u0"].shape[0])]
+        reset_collective_counts()
+        r = engine(dist, u0, 10)
+        return dict(err=r.error.numpy(), res=r.residual.numpy(),
+                    u=r.u.numpy(), v=r.v.numpy(),
+                    collectives=collective_counts())
+
+    out["fit_2x2x2"] = fit(mesh, ("pod", "data"))
+    out["fit_4x2"] = fit(make_nmf_mesh(4, 2, device="cpu"), ("data",))
+
+    def loss_fn(params, batch):
+        return torch.mean((batch["x"] @ params["w"] - batch["y"]) ** 2)
+
+    params = {"w": torch.from_numpy(arrays["w"])}
+    batch = {"x": torch.from_numpy(arrays["bx"]),
+             "y": torch.from_numpy(arrays["by"])}
+    grad_fn = make_compressed_grad_fn(loss_fn, mesh, ("pod", "data"),
+                                      density)
+    loss, g, err = grad_fn(params, batch, init_error_state(params, 4))
+    out["compressed"] = dict(loss=float(loss), g=g["w"].numpy(),
+                             err=err["w"].numpy())
+    return out
+
+
+def moe_ep(rank, data_path, grids):
+    """``moe_ffn_ep`` of the smoke olmoe config on each ``(pods, rows,
+    cols)`` grid of these ranks, for the inputs ``x`` and ``x_odd`` of the
+    file: this rank's output, its block and the collectives counted."""
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.launch.mesh import (
+        collective_counts, make_nmf_mesh, reset_collective_counts,
+    )
+    from repro_torch.models.moe import ep_block, moe_ffn_ep
+
+    d = np.load(data_path)
+    cfg = smoke_config(ARCHS["olmoe-1b-7b"])
+    p = {n: torch.from_numpy(d[n]) for n in ("router", "w_gate", "w_up",
+                                              "w_down")}
+    out = {}
+    for pods, rows, cols in grids:
+        mesh = make_nmf_mesh(rows, cols, device="cpu", pods=pods)
+        for name in ("x", "x_odd"):
+            x = torch.from_numpy(d[name])
+            reset_collective_counts()
+            y = moe_ffn_ep(p, x, cfg, mesh)
+            bsl, ssl = ep_block(mesh, x.shape[0], x.shape[1])
+            out[(pods, rows, cols, name)] = dict(
+                y=y.numpy(), block=(bsl.start, bsl.stop, ssl.start,
+                                    ssl.stop),
+                counts=collective_counts())
+        out[(pods, rows, cols, "exchange")] = _exchange(mesh, rank)
+    return out

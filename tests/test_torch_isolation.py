@@ -9,7 +9,9 @@
   That holds for the LM path's flash-attention wrapper too.
 * The LM training half (the loss, the train step, the train launcher) takes
   the plain attention path its step maker names, never the flash kernel,
-  and its entry points raise without a card too.
+  and its entry points raise without a card too; so do the moe family's.
+* The grid's ``all_to_all`` stages through the host under gloo because the
+  initialized backend says so, never because a call failed.
 """
 import ast
 import dataclasses
@@ -257,3 +259,53 @@ def test_train_step_takes_the_plain_path_and_prefill_the_kernel(on_card):
     with pytest.raises(_Launched):
         api.make_prefill_step(cfg)(model, {"tokens": batch["tokens"]})
     assert _build.launch_counts()["flash_attention"] == 0
+
+
+def test_the_moe_modules_are_held_to_the_import_rule():
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"src/repro_torch/models/moe.py",
+            "src/repro_torch/configs/olmoe_1b_7b.py",
+            "src/repro_torch/configs/qwen3_moe_235b_a22b.py"} <= names
+
+
+def test_all_to_all_stages_by_the_backend_never_by_a_caught_failure():
+    """``NMFMesh.all_to_all`` copies a CUDA tensor through the host under
+    gloo because the initialized backend says so: the method catches
+    nothing."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    tree = ast.parse(Path(mesh_mod.__file__).read_text())
+    method = next(n for n in ast.walk(tree)
+                  if isinstance(n, ast.FunctionDef) and n.name == "all_to_all")
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(method))
+    assert "get_backend" in ast.unparse(method)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen3-moe-235b-a22b"])
+def test_moe_train_step_takes_the_plain_path_and_prefill_the_kernel(on_card,
+                                                                    arch):
+    cfg = smoke_config(ARCHS[arch])
+    model = api.init_params(cfg, 0, device="cpu")
+    batch = api.make_batch(cfg, ShapeSpec("t", 16, 2, "train"), 1,
+                           device="cpu")
+    opt = AdamW()
+    _, state, loss = api.make_train_step(cfg, opt)(model, opt.init(model),
+                                                   batch)
+    assert torch.isfinite(loss) and int(state.step) == 1
+    with pytest.raises(_Launched):
+        api.make_prefill_step(cfg)(model, {"tokens": batch["tokens"]})
+    assert _build.launch_counts()["flash_attention"] == 0
+
+
+def test_moe_entry_points_raise_without_a_card(monkeypatch):
+    cfg = smoke_config(ARCHS["olmoe-1b-7b"])
+    model = api.init_params(cfg, 0, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.init_params(cfg, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(cfg, model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "olmoe-1b-7b", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "olmoe-1b-7b", "--smoke", "--steps", "1"])

@@ -17,8 +17,20 @@ against the reference (``repro.launch.mesh``, ``repro.core.distributed``,
   that fails.
 * A rank's own block fingerprints alike on every rank (an ``all_reduce``
   of every block's digest).
+* The ``"pod"`` axis: eight gloo ranks as a 2x2x2 (pod, data, model)
+  grid, its groups and ``all_to_all``; the reference's
+  ``test_dist_als_multipod_axes`` inputs fitted with ``make_sharded_als(
+  mesh, ("pod", "data"), "model", ...)`` at that test's bar, within 1e-4
+  of the reference's own 2x2x2 run (on eight XLA host devices in a
+  subprocess) and bitwise the same ranks' 4x2 fit; ``DistTopK(40, ("pod",
+  "data"))``; compressed gradients over ``("pod", "data")`` at the
+  reference's conservation bar.
 """
+import json
+import os
+import subprocess
 import sys
+import textwrap
 from pathlib import Path
 
 import jax
@@ -29,6 +41,7 @@ import scipy.sparse as sp
 import torch
 
 from repro.core.distributed import distribute_bsr as ref_distribute_bsr
+from repro.core import init_u0 as ref_init_u0
 from repro.core.distributed import distribute_csr as ref_distribute_csr
 from repro.data import synthetic_journal_corpus as ref_corpus
 from repro.kernels.bsr import BSR as RefBSR
@@ -47,6 +60,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 import _torch_mesh_ranks as ranks  # noqa: E402
 
 SPAWN_TIMEOUT = 60.0
+SRC = str(Path(__file__).resolve().parents[1] / "src")
 
 
 @pytest.fixture(scope="module")
@@ -336,3 +350,174 @@ def test_block_fingerprints_agree_over_the_grid(corpus, tmp_path):
     moved = _spawn(ranks.block_fingerprints, (2, 2), tmp_path, changed,
                    (2, 2))
     assert moved[0]["cuda-bsr"]["digest"] != out[0]["cuda-bsr"]["digest"]
+
+
+# ---------------------------------------------------------------------------
+# the "pod" axis: eight gloo ranks as a 2x2x2 grid
+# ---------------------------------------------------------------------------
+
+_MULTIPOD_REF = textwrap.dedent("""
+    import json, sys
+    import jax, numpy as np
+    from jax.sharding import PartitionSpec as P, NamedSharding
+    from repro.compat import set_mesh
+    from repro.backend.sharded import make_sharded_als
+    from repro.core.distributed import distribute_csr
+    from repro.core.topk import DistTopK
+    d = np.load(sys.argv[1])
+    mesh = jax.make_mesh((2, 2, 2), ("pod", "data", "model"))
+    dist = distribute_csr(d["a"], 4, 2)
+    with set_mesh(mesh):
+        run = make_sharded_als(mesh, ("pod", "data"), "model",
+                               sparsify_u=DistTopK(40, ("pod", "data")),
+                               sparsify_v=DistTopK(100, ("model",)))
+        a_sh = NamedSharding(mesh, P(("pod", "data"), "model", None, None))
+        dist = jax.tree_util.tree_map(lambda x: jax.device_put(x, a_sh),
+                                      dist)
+        u0 = jax.device_put(d["u0"],
+                            NamedSharding(mesh, P(("pod", "data"), None)))
+        res = run(dist, u0, 10)
+    print(json.dumps({"err": np.asarray(res.error).tolist(),
+                      "res": np.asarray(res.residual).tolist()}))
+""")
+
+
+@pytest.fixture(scope="module")
+def multipod(tmp_path_factory):
+    """The inputs of ``tests/test_distributed.py::test_dist_als_multipod_
+    axes`` (128 x 64, 4 journals, seed 2, k = 4), the eight ranks'
+    results, and the reference's 2x2x2 trace (run at the same time)."""
+    tmp = tmp_path_factory.mktemp("multipod")
+    a_sp, _ = ref_corpus(n_terms=128, n_docs=64, n_journals=4, seed=2)
+    rng = np.random.default_rng(3)
+    arrays = dict(
+        a=np.asarray(ref_to_dense(a_sp)),
+        u0=np.asarray(ref_init_u0(jax.random.PRNGKey(2), 128, 4)),
+        x=rng.standard_normal((128, 4)).astype(np.float32),
+        # tests/test_distributed.py:108-141's least-squares problem
+        w=np.random.default_rng(0).standard_normal((8, 4)).astype(
+            np.float32),
+        bx=np.random.default_rng(1).standard_normal((16, 8)).astype(
+            np.float32),
+        by=np.random.default_rng(2).standard_normal((16, 4)).astype(
+            np.float32))
+    np.savez(tmp / "in.npz", **arrays)
+    env = dict(os.environ, PYTHONPATH=SRC,
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    ref = subprocess.Popen([sys.executable, "-c", _MULTIPOD_REF,
+                            str(tmp / "in.npz")], env=env, text=True,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        out = spawn_mesh(ranks.multipod, 2, 2, pods=2, backend="gloo",
+                         device="cpu", init_file=str(tmp / "store"),
+                         args=(arrays, 0.25), timeout=2 * SPAWN_TIMEOUT,
+                         threads=1)
+    finally:
+        stdout, stderr = ref.communicate(timeout=600)
+    assert ref.returncode == 0, stderr[-3000:]
+    return arrays, out, json.loads(stdout.strip().splitlines()[-1])
+
+
+def test_pod_grid_is_row_major_with_a_group_per_axis_set(multipod):
+    """Rank r sits at (p, i, j) with r = (p * 2 + i) * 2 + j; a sum over an
+    axis set runs over the ranks that share the other coordinates."""
+    _, out, _ = multipod
+    coords = [divmod(r // 2, 2) + (r % 2,) for r in range(8)]
+    for rank, rec in enumerate(out):
+        assert rec["coords"] == coords[rank] and rec["shape"] == (2, 2, 2)
+        assert rec["row_index"] == rank // 2
+        for axes, got in rec["sums"].items():
+            fixed = [n for n, ax in enumerate(("pod", "data", "model"))
+                     if ax not in axes]
+            want = sum(r for r in range(8) if all(
+                coords[r][n] == coords[rank][n] for n in fixed))
+            assert got == want, (rank, axes)
+
+
+def test_all_to_all_over_each_pod_grid_axis_set(multipod):
+    """``all_to_all`` over an axis set: rank g of the set receives part g of
+    every member's tensor, in the members' order (the reference's
+    ``all_to_all(..., tiled=True)`` on dim 0)."""
+    _, out, _ = multipod
+    coords = [divmod(r // 2, 2) + (r % 2,) for r in range(8)]
+    for rank, rec in enumerate(out):
+        for axes, got in rec["exchange"].items():
+            fixed = [n for n, ax in enumerate(("pod", "data", "model"))
+                     if ax not in axes]
+            members = [r for r in range(8) if all(
+                coords[r][n] == coords[rank][n] for n in fixed)]
+            me = members.index(rank)
+            want = np.concatenate([1000.0 * m + np.arange(2 * me, 2 * me + 2)
+                                   for m in members])
+            np.testing.assert_array_equal(got, want.astype(np.float32))
+
+
+def test_dist_topk_over_pod_and_data_is_one_rank_over_the_whole_factor(
+        multipod):
+    """``DistTopK(40, ("pod", "data"))`` on the four row blocks gives the
+    threshold and kept set of one rank holding the whole factor."""
+    arrays, out, _ = multipod
+    whole = make_nmf_mesh(1, 1, device="cpu")
+    x = torch.from_numpy(arrays["x"])
+    tau = float(dist_topk_threshold(x, 40, whole, ("pod", "data")))
+    kept = (DistTopK(40, whole, ("pod", "data"))(x) != 0).numpy()
+    for rank, rec in enumerate(out):
+        assert rec["tau"] == tau
+        np.testing.assert_array_equal(
+            rec["kept"], kept[32 * (rank // 2):32 * (rank // 2 + 1)])
+
+
+def test_multipod_fit_meets_the_reference_bars(multipod):
+    """Its own bar (``tests/test_distributed.py:105``: the last error
+    finite and below 1.0) and the trace bar against the reference's 2x2x2
+    run (1e-4, ``tests/test_backends.py:365-380``)."""
+    _, out, ref = multipod
+    fit = out[0]["fit_2x2x2"]
+    assert np.isfinite(fit["err"][-1]) and fit["err"][-1] < 1.0
+    np.testing.assert_allclose(fit["err"], ref["err"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(fit["res"], ref["res"], rtol=0, atol=1e-4)
+    for rec in out:
+        np.testing.assert_array_equal(rec["fit_2x2x2"]["err"], fit["err"])
+
+
+def test_multipod_fit_is_bitwise_the_4x2_fit(multipod):
+    """Rows over ("pod", "data") are one group of the ranks that share a
+    column: the 2x2x2 fit reduces in the 4x2 fit's order, with the same
+    collectives, and its factors and traces are bitwise that fit's."""
+    _, out, _ = multipod
+    for rec in out:
+        a, b = rec["fit_2x2x2"], rec["fit_4x2"]
+        for key in ("err", "res", "u", "v"):
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+        assert a["collectives"] == b["collectives"]
+        assert a["collectives"]["all_reduce"] > 0
+
+
+def test_compressed_gradients_over_pod_and_data_are_conserved(multipod):
+    """``make_compressed_grad_fn`` over ("pod", "data") (four blocks of the
+    batch; the model axis holds copies): the sparse mean gradient plus the
+    mean error slot is the whole gradient within 1e-5
+    (``tests/test_distributed.py:108-141``)."""
+    arrays, out, _ = multipod
+    w = torch.from_numpy(arrays["w"]).requires_grad_(True)
+    loss = torch.mean((torch.from_numpy(arrays["bx"]) @ w
+                       - torch.from_numpy(arrays["by"])) ** 2)
+    (full,) = torch.autograd.grad(loss, w)
+    loss = loss.detach()
+    by_dp = {rec["row_index"]: rec["compressed"] for rec in out}
+    assert sorted(by_dp) == [0, 1, 2, 3]
+    recon = out[0]["compressed"]["g"] + np.mean(
+        [c["err"] for c in by_dp.values()], axis=0)
+    assert np.max(np.abs(recon - full.numpy())) < 1e-5
+    for rec in out:
+        np.testing.assert_array_equal(rec["compressed"]["g"],
+                                      out[0]["compressed"]["g"])
+        assert rec["compressed"]["loss"] == pytest.approx(float(loss),
+                                                          rel=1e-6)
+
+
+def test_a_pod_grid_needs_its_world():
+    with pytest.raises(ValueError, match=r"mesh_shape \(2, 2, 2\) needs 8"):
+        make_nmf_mesh(2, 2, device="cpu", pods=2)
+    with pytest.raises(ValueError, match="must be positive"):
+        make_nmf_mesh(2, 2, device="cpu", pods=0)
