@@ -145,7 +145,7 @@ Phases (any failed check raises, and the script exits non-zero):
 21. the LM training half: (a) llama3.2-1b at full width and depth, f32
     parameters from a seed, ``make_train_step`` (bf16 compute, remat, two
     microbatches) on train_4k's sequence of 4096 at a global batch of 8
-    (cut from 256), a warm-up step and 5 timed ones: ms a step, tokens/s,
+    (cut from 256), a warm-up step and 3 timed ones: ms a step, tokens/s,
     model FLOPs, peak memory, the card's busy share in a profiler window,
     a microbatch's time split (forward, backward with its recompute, the
     loss chunks, the optimizer); every loss finite, step 0's equal to the
@@ -182,6 +182,29 @@ Phases (any failed check raises, and the script exits non-zero):
     the card, grids 2x2 and 2x1x2, one full-width layer on 4 x 256 tokens
     in f32: every rank's block within 1e-5 of the plain single-process
     body, ``all_to_all`` calls and bytes, ms a layer.
+23. the hybrid and ssm families (zamba2-7b and xlstm-125m, f32 parameters
+    from a seed): (a) zamba2-7b serving at full width and depth (81 Mamba2
+    layers, the shared block 13 times): ``make_prefill_step`` on 4 x 4096
+    (first call, the median of 3, tokens/s, peak memory, busy share; the
+    flash kernel launched 13 times, and 13 launches of its hd-112
+    instantiation in the profiler window), 1 x 32768, a ``ServingEngine``
+    draining 16 requests, an f32 forward over 64 tokens (the f32 kernel
+    at hd 112) against 64 f32 decode steps (2e-2); (b) one full-width
+    Mamba block and the shared block on 256 tokens in f32, card against
+    CPU (1e-4), the block's decode against its forward (2e-2); (c)
+    zamba2-7b training at full width, depth cut to 15 and batch to 2 x
+    4096 (bf16, remat, AdamW, two microbatches: ms a step, tokens/s, model
+    FLOPs and their share of the bf16 peak, peak memory; step 0's loss
+    against the serving path's cross-entropy, no hand-written kernel
+    launched); (d) xlstm-125m serving at full width and depth: prefills
+    at 4 x 4096 and 1 x 32768 with the sLSTM layers' share of the time,
+    the engine, one long_500k decode step at position 524,287 (state
+    bytes constant), an mLSTM and an sLSTM block card against CPU (1e-4)
+    and the mLSTM decode against its parallel form (5e-2); (e) xlstm-125m
+    training at full depth, batch cut to 8 x 4096; (f) the flash kernel at
+    zamba2's shape (B=4, H=32, S=4096, hd=112) against its bound, its
+    plain version and ``scaled_dot_product_attention``, and the last two
+    at olmoe's heads (hd 128).
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -383,14 +406,18 @@ def flash_flops(b, h, sq, t, hd, causal):
     return 4.0 * b * h * hd * pairs
 
 
-def profiled(name, fn, calls=1):
+def profiled(name, fn, calls=1, count=None, cpu=True):
     """Device busy share and kernels per call in a profiler window of
-    ``calls`` calls of ``fn``; logs the top kernels."""
+    ``calls`` calls of ``fn``; logs the top kernels.  ``count`` (names'
+    substrings) adds the launches of the kernels whose name holds each.
+    ``cpu=False`` traces the device alone: a window of ~10^5 host ops
+    takes minutes to summarise."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu
+                                            else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
@@ -416,7 +443,9 @@ def profiled(name, fn, calls=1):
     return dict(window_s=window_s, device_busy_us=dev_us,
                 device_busy_share=busy, kernels_per_call=n_kernels / calls,
                 top_kernels=[dict(us=x, count=c, name=k[:120])
-                             for x, c, k in by_kernel[:10]])
+                             for x, c, k in by_kernel[:10]],
+                launches_matching={m: sum(c for _, c, k in by_kernel
+                                          if m in k) for m in count or ()})
 
 
 def device_us(fn, match, calls=50):
@@ -2334,9 +2363,10 @@ def run_tile_slice(dev, a_sp, op, res3, u0, paths, results, rows):
 
 #: phase 21: llama3.2-1b training at full width and depth on train_4k's
 #: sequence (4096), the global batch cut from 256 to 8 (one card, a run's
-#: time limit) in two microbatches of 4; the held checks at full width with
-#: 2 layers; four gloo ranks for the compressed gradients
-TRAIN = dict(batch=8, microbatches=2, timed=5, check_layers=2,
+#: time limit) in two microbatches of 4, 3 timed steps (5 until phase 23
+#: came: the script's time limit); the held checks at full width with 2
+#: layers; four gloo ranks for the compressed gradients
+TRAIN = dict(batch=8, microbatches=2, timed=3, check_layers=2,
              check_batch=2, check_seq=1024, attn_seq=4096, density=0.25,
              cli=("--batch", "2", "--seq", "32"))
 
@@ -3151,6 +3181,648 @@ def run_moe_slice(dev, paths, results, cfg=None, sizes=MOE):
     results["moe"] = out
 
 
+#: phase 23: the hybrid (zamba2-7b, src/repro/configs/zamba2_7b.py) and ssm
+#: (xlstm-125m, src/repro/configs/xlstm_125m.py) families at full width:
+#: serving at full depth (4 x 4096 and 1 x 32768 prefills, a 16-request
+#: ServingEngine, an f32 prefill against decode); zamba2 training with the
+#: depth cut from 81 to 15 (two groups of 6 and a tail of 3: parameters,
+#: AdamW's moments and gradients of 81 layers, ~20 B a parameter, would
+#: take ~135 GB) and the global batch cut from 256 to 2; xlstm training at
+#: full depth with the global batch cut from 256 to 8 (its sLSTM loop runs
+#: 4096 steps a layer a microbatch: a run's time limit); the flash kernel
+#: at zamba2's head size 112
+RECURRENT = dict(prefill_batch=4, prefill_seq=4096, long_seq=32768,
+                 block_tokens=256, decode_check=64, hybrid_train_layers=15,
+                 hybrid_train_batch=2, xlstm_train_batch=8, train_seq=4096,
+                 microbatches=2, hybrid_timed=1, xlstm_timed=0,
+                 long_pos=524287, long_prompt=16, flash_reps=20,
+                 plain_reps=3, hybrid_prompt=8, hybrid_max_new=8)
+HYBRID_ARCH, SSM_ARCH = "zamba2-7b", "xlstm-125m"
+#: flash at zamba2's shared block (B, H, Hkv, S, hd) and at olmoe's heads
+FLASH_HD112 = (4, 32, 32, 4096, 112)
+FLASH_OLMOE = (4, 16, 16, 4096, 128)
+
+
+def recurrent_flops(cfg, b, s):
+    """Model FLOPs of one forward of a hybrid or xlstm model over (b, s)
+    tokens, 2 a multiply-add: every projection, the chunkwise SSD (chunks
+    of 128: C B^T, the decayed sums with x and the state's read and
+    update), the shared block's projections and causal attention after
+    each group, the mLSTM's chunkwise products (chunks of 256) and the
+    sLSTM's recurrence, and the unembedding.  A train step is 3 times
+    this (no recompute)."""
+    d, tokens = cfg.d_model, float(b) * s
+    out = 2 * d * cfg.vocab * tokens
+    if cfg.family == "hybrid":
+        di, n = 2 * d, cfg.ssm_state
+        h, p, q = di // cfg.ssm_head_dim, cfg.ssm_head_dim, min(128, s)
+        mamba = 2 * (d * (2 * di + 2 * n + h) + di * d) \
+            + 2 * (q * n + h * q * p + 2 * h * p * n)
+        shared = 2 * (d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d
+                      + 3 * d * cfg.d_ff)
+        groups = cfg.n_layers // cfg.attn_every
+        out += tokens * (cfg.n_layers * mamba + groups * shared)
+        out += groups * 4.0 * b * cfg.n_heads * cfg.hd * s * (s + 1) / 2
+        return out
+    h, up = cfg.n_heads, 2 * d
+    hd_m, hd_s, q = up // h, d // h, min(256, s)
+    mlstm = 2 * (d * 2 * up + 3 * up * up + up * 2 * h + up * d) \
+        + 2 * h * (2 * q * hd_m + 3 * hd_m * hd_m)
+    slstm = 2 * (d * 4 * d + d * d) + 2 * h * hd_s * 4 * hd_s
+    n_s = len(cfg.slstm_at)
+    return out + tokens * ((cfg.n_layers - n_s) * mlstm + n_s * slstm)
+
+
+def _serve_model(name, cfg, model, step, sizes, dev, paths, key, card,
+                 profile_count=None):
+    """The prefill of one model at B x S (first call with its launches,
+    then the median of 3), a profiler window of one call, and one 1 x
+    long_seq prefill; returns the numbers."""
+    import torch
+
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.kernels import _build
+    from repro_torch.models import api
+
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    b, s_len = sizes["prefill_batch"], sizes["prefill_seq"]
+    batch = api.make_batch(cfg, ShapeSpec("prefill", s_len, b, "prefill"),
+                           seed=1, device=dev)
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    logits = step(model, batch)
+    sync()
+    first_s = time.perf_counter() - t0
+    paths[key] = _build.launch_counts()
+    if tuple(logits.shape) != (b, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"the {name} prefill's logits are not finite "
+                             "(B, vocab)")
+    runs = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        step(model, batch)
+        sync()
+        runs.append(1e3 * (time.perf_counter() - t0))
+    ms = float(np.median(runs))
+    peak = torch.cuda.max_memory_allocated() if card else 0
+    log(f"[recurrent] {name} prefill B={b} x S={s_len}: logits "
+        f"{tuple(logits.shape)} finite; first call {first_s:.3f} s (the "
+        f"bf16 copies cast); {ms:.2f} ms (median of "
+        f"{[round(x, 2) for x in runs]}), {b * s_len / ms * 1e3:.0f} "
+        f"tokens/s; peak memory {peak / 2**30:.2f} GiB; launches "
+        f"{paths[key]}")
+    out = dict(first_s=first_s, runs_ms=runs, ms=ms,
+               tokens_per_s=b * s_len / ms * 1e3, peak_bytes=peak,
+               launches=paths[key])
+    if card:
+        t0 = time.perf_counter()
+        out["profile"] = profiled(f"{name} prefill B={b} x S={s_len}",
+                                  lambda: step(model, batch),
+                                  count=profile_count, cpu=False)
+        log(f"[recurrent] the profiler window and its summary took "
+            f"{time.perf_counter() - t0:.1f} s")
+    del logits, batch
+    # one prefill at prefill_32k's length, the batch cut from 32 to 1
+    long_batch = api.make_batch(
+        cfg, ShapeSpec("prefill_32k cut", sizes["long_seq"], 1, "prefill"),
+        seed=3, device=dev)
+    if card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    logits = step(model, long_batch)
+    sync()
+    long_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if card else 0
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"the {name} 1 x {sizes['long_seq']} prefill's "
+                             "logits are not finite")
+    log(f"[recurrent] {name} prefill 1 x {sizes['long_seq']} (prefill_32k, "
+        f"batch cut from 32 to 1: one card): finite, {long_s:.3f} s, "
+        f"{sizes['long_seq'] / long_s:.0f} tokens/s, peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    out["long"] = dict(seconds=long_s, peak_bytes=peak,
+                       seq=sizes["long_seq"])
+    return out
+
+
+def _free(card, what):
+    """Collect the cycles that still hold tensors (the first
+    ``torch.utils.checkpoint`` call of a process imports a module lazily
+    and leaves its callers' frames, a train step's model and state, in a
+    cycle) and return the card's cache; logs what stays allocated."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+        log(f"[recurrent] before {what}: "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+
+
+def _drain(name, cfg, model, dev, card, prompt=None, max_new=None):
+    """A ServingEngine (max_batch 8, max_seq 512) draining 16 requests of
+    ``prompt``-token prompts (32), ``max_new`` (32) new tokens each:
+    seconds, tokens/s, ms a decode call."""
+    import torch
+
+    from repro_torch.serving import Request, ServingEngine
+
+    prompt, max_new = prompt or SERVE["prompt"], max_new or SERVE["max_new"]
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    rng = np.random.default_rng(2)
+    engine = ServingEngine(cfg, model, max_batch=SERVE["max_batch"],
+                           max_seq=SERVE["max_seq"], device=dev)
+    calls = []
+    inner = engine._decode
+
+    def counted(*a):
+        calls.append(1)
+        return inner(*a)
+
+    engine._decode = counted
+    reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab,
+                                               prompt).tolist(),
+                    max_new=max_new)
+            for i in range(SERVE["requests"])]
+    for r in reqs:
+        engine.submit(r)
+    sync()
+    t0 = time.perf_counter()
+    done = engine.run_until_drained()
+    sync()
+    serve_s = time.perf_counter() - t0
+    emitted = sum(len(r.out) for r in reqs)
+    if len(done) != len(reqs) or any(r.error or not r.out for r in reqs):
+        raise AssertionError(f"the {name} serving engine did not drain "
+                             "every request with tokens")
+    tick_ms = 1e3 * serve_s / len(calls)
+    log(f"[recurrent] {name} ServingEngine (max_batch {SERVE['max_batch']},"
+        f" max_seq {SERVE['max_seq']}; prompts of {prompt}, max_new "
+        f"{max_new}) drained {len(done)} requests: "
+        f"{emitted} tokens in {serve_s:.3f} s, {emitted / serve_s:.1f} "
+        f"tokens/s; {len(calls)} decode calls (prompt tokens one a call, as "
+        f"the reference's engine feeds them), {tick_ms:.3f} ms a call; the "
+        "engine decodes every slot at the first active slot's position and "
+        "feeds each prompt through every slot's state (ROADMAP queue 3 item "
+        "1), so this measures time, not answers")
+    return dict(seconds=serve_s, tokens=emitted,
+                tokens_per_s=emitted / serve_s, decode_calls=len(calls),
+                tick_ms=tick_ms, prompt=prompt, max_new=max_new)
+
+
+def _train_model(name, cfg, sizes, batch, timed, dev, paths, key, card,
+                 reduced):
+    """Warm-up and ``timed`` steps of ``make_train_step`` (bf16, remat,
+    AdamW, two microbatches) at a global batch of ``batch`` (``timed`` 0:
+    the first step alone, timed and counted itself, where a step's
+    seconds dwarf its set-up); step 0's loss against the serving path's
+    cross-entropy on the same batch; no hand-written kernel launched."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import api
+    from repro_torch.training import AdamW
+
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    _free(card, f"training {name}")
+    tshape = ShapeSpec("train_4k cut", sizes["train_seq"], batch, "train")
+    m = sizes["microbatches"]
+    model = api.init_params(cfg, 0, device=dev)
+    n = sum(p.numel() for p in model.parameters())
+    opt = AdamW()
+    state = opt.init(model)
+    step = api.make_train_step(cfg, opt, microbatches=m)
+    batches = [synthetic_batch(cfg, tshape, i, dev)
+               for i in range(timed + 1)]
+    mod = api.module_for(cfg)
+    ce = []
+    with torch.no_grad():
+        rows = max(1, batch // 2)
+        for r in range(0, batch, rows):
+            lg = mod.forward(model, batches[0]["tokens"][r:r + rows], cfg)
+            y = batches[0]["labels"][r:r + rows, 1:].long()
+            ce.append(-torch.log_softmax(lg[:, :-1], -1).gather(
+                -1, y[..., None]).mean() * lg.shape[0])
+            del lg
+    ce0 = float(torch.stack(ce).sum()) / batch
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    if not timed:
+        _build.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    model, state, loss = step(model, state, batches[0])
+    losses.append(float(loss))
+    warm_s = time.perf_counter() - t0
+    if timed:
+        _build.reset_launch_counts()
+    else:
+        step_ms.append(1e3 * warm_s)
+    for bt in batches[1:]:
+        sync()
+        t0 = time.perf_counter()
+        model, state, loss = step(model, state, bt)
+        losses.append(float(loss))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    paths[key] = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if card else 0
+    tokens = batch * tshape.seq_len
+    flops = 3.0 * recurrent_flops(cfg, batch, tshape.seq_len)
+    med = float(np.median(step_ms))
+    log(f"[recurrent] training {name} ({reduced}): {n:,} parameters; "
+        f"{batch} x {tshape.seq_len} tokens in {m} microbatches, bf16 "
+        f"compute, remat, AdamW; "
+        + (f"warm-up step {warm_s:.2f} s; " if timed else
+           "the first step timed itself (no warm-up); ")
+        + f"{len(step_ms)} steps {[round(x, 1) for x in step_ms]} ms (median "
+        f"{med:.1f} ms, {tokens / med * 1e3:.0f} tokens/s); model FLOPs a "
+        f"step {flops:.4e}, {flops / med / 1e9:.1f} TFLOP/s, "
+        f"{100 * flops / (med / 1e3) / BF16_FLOPS:.2f}% of the bf16 peak; "
+        f"peak memory {peak / 2**30:.2f} GiB; losses "
+        f"{[round(x, 4) for x in losses]}; hand-written kernels launched "
+        f"{paths[key]}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"a {name} train step's loss is not finite: "
+                             f"{losses}")
+    close(f"{name} step 0's loss against the serving path's cross-entropy",
+          torch.tensor(losses[0]), torch.tensor(ce0), 5e-2, 1e-1)
+    if any(paths[key].values()):
+        raise AssertionError(f"the {name} train step launched a "
+                             f"hand-written kernel ({paths[key]})")
+    log(f"[recurrent] {name} step 0's loss {losses[0]:.4f}; the serving "
+        f"path's cross-entropy on the same batch {ce0:.4f} (bar rtol 5e-2, "
+        f"atol 1e-1); ln(vocab) {math.log(cfg.vocab):.4f}")
+    del model, state, batches, step
+    return dict(n_params=n, warmup_s=warm_s, step_ms=step_ms, median_ms=med,
+                tokens_per_s=tokens / med * 1e3, model_flops=flops,
+                mfu=flops / (med / 1e3) / BF16_FLOPS, peak_bytes=peak,
+                losses=losses, serving_ce0=ce0, launches=paths[key],
+                batch=batch, seq=tshape.seq_len, reduced=reduced)
+
+
+def run_recurrent_slice(dev, paths, results, rows, cfgs=None,
+                        sizes=RECURRENT):
+    """Phase 23: the hybrid and ssm families at full width.  (a)
+    zamba2-7b serving at full depth (4 x 4096 prefill with 13 flash
+    launches at hd 112, 1 x 32768, a ServingEngine, an f32 prefill against
+    decode); (b) one full-width Mamba block and the shared block on 256
+    tokens in f32, card against CPU, and the block's decode against its
+    forward; (c) zamba2-7b training at 15 layers; (d) xlstm-125m serving
+    at full depth (prefills with the sLSTM layers' share, the engine, one
+    long_500k decode step, an mLSTM and an sLSTM block card against CPU,
+    mLSTM decode against parallel); (e) xlstm-125m training; (f) the flash
+    kernel at zamba2's shape and its yardsticks.  ``cfgs`` (hybrid, ssm)
+    and ``sizes`` shrink it for a rehearsal on the CPU."""
+    import dataclasses as dc
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import api, hybrid, mamba, xlstm
+    from repro_torch.models.transformer import layer_fwd
+
+    t_phase = time.perf_counter()
+    card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    hcfg, xcfg = cfgs or (ARCHS[HYBRID_ARCH], ARCHS[SSM_ARCH])
+    out = {"part_seconds": {}}
+    t_mark = [t_phase]
+
+    def took(part):
+        now = time.perf_counter()
+        out["part_seconds"][part] = now - t_mark[0]
+        log(f"[recurrent] 23({part}) took {now - t_mark[0]:.1f} s")
+        t_mark[0] = now
+
+    _free(card, f"serving {hcfg.name}")
+    groups = hcfg.n_layers // hcfg.attn_every
+
+    # -- 23(a). zamba2-7b serving at full width and depth --------------------
+    t0 = time.perf_counter()
+    model = api.init_params(hcfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    sync()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[recurrent] {hcfg.name} at full width ({hcfg.n_layers} Mamba2 "
+        f"layers, d_model {hcfg.d_model}, d_inner {2 * hcfg.d_model}, "
+        f"{mamba.n_ssm_heads(hcfg)} SSM heads of {hcfg.ssm_head_dim}, state "
+        f"{hcfg.ssm_state}; the shared block after every {hcfg.attn_every}: "
+        f"{groups} applications, {hcfg.n_heads}/{hcfg.n_kv_heads} heads of "
+        f"{hcfg.hd}, d_ff {hcfg.d_ff}; vocab {hcfg.vocab}): {n_params:,} "
+        f"parameters in f32, drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    long_len = sizes["long_pos"] + 1
+    kv_long = groups * long_len * hcfg.kv_dim * 2 * 2
+    log(f"[recurrent] {hcfg.name} long_500k does not fit one card: its "
+        f"{groups} shared-block KV caches at {long_len} positions take "
+        f"{groups} x {long_len} x {hcfg.kv_dim} x 2 (K, V) x 2 B = "
+        f"{kv_long / 1e9:.1f} GB in bf16 (it waits for parameter and cache "
+        "sharding over several cards)")
+    match = f"flash_fwd_bf16_wgmma<{hcfg.hd}>"
+    a = _serve_model(hcfg.name, hcfg, model, api.make_prefill_step(hcfg),
+                     sizes, dev, paths, "hybrid_prefill", card,
+                     profile_count=(match,))
+    a["n_params"] = n_params
+    a["long_500k_kv_bytes"] = kv_long
+    if card:
+        if paths["hybrid_prefill"]["flash_attention"] != groups:
+            raise AssertionError(
+                f"the zamba2 prefill launched the flash kernel "
+                f"{paths['hybrid_prefill']['flash_attention']} times, not "
+                f"{groups}")
+        seen = a["profile"]["launches_matching"][match]
+        if seen != groups:
+            raise AssertionError(f"the profiler window shows {seen} launches"
+                                 f" of {match}, not {groups}")
+        log(f"[recurrent] the profiler window shows {seen} launches of "
+            f"{match} a prefill (the shared block's attention at hd "
+            f"{hcfg.hd})")
+    a["serve"] = _drain(hcfg.name, hcfg, model, dev, card,
+                        sizes["hybrid_prompt"], sizes["hybrid_max_new"])
+
+    # f32 prefill against f32 decode over 64 tokens (the f32 flash kernel
+    # at hd 112 on the model's path), the reference's Mamba bar
+    s = sizes["decode_check"]
+    toks = torch.randint(0, hcfg.vocab, (1, s), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(4))
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        full = hybrid.forward(model, toks, hcfg, compute_dtype=torch.float32)
+    f32_launches = _build.launch_counts()["flash_attention"]
+    cache = hybrid.init_cache(hcfg, 1, s, dtype=torch.float32, device=dev)
+    for t in range(s):
+        logits, cache = hybrid.decode_step(model, cache, toks[:, t], t, hcfg,
+                                           compute_dtype=torch.float32)
+    dec_err = close(f"{hcfg.name} f32 prefill against decode",
+                    logits, full[:, -1, :], 2e-2, 2e-2)
+    if card and f32_launches != groups:
+        raise AssertionError(f"the f32 prefill launched the flash kernel "
+                             f"{f32_launches} times, not {groups}")
+    log(f"[recurrent] {hcfg.name} f32 forward over {s} tokens (the f32 "
+        f"flash kernel at hd {hcfg.hd}, {f32_launches} launches) against "
+        f"{s} f32 decode steps: last-position logits within 2e-2 (max abs "
+        f"err {dec_err:.3e})")
+    a["decode_vs_prefill_err"] = dec_err
+    del full, cache, logits
+    took("a")
+
+    # -- 23(b). one Mamba block and the shared block, f32, card against CPU -
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((1, sizes["block_tokens"], hcfg.d_model), generator=gen)
+    xd = x.to(dev)
+    positions = torch.arange(x.shape[1], dtype=torch.int32)[None]
+    mp = model.groups[0][0].leaves(torch.float32)
+    mp_cpu = {k: v.detach().cpu() for k, v in mp.items()}
+    sp = model.shared.weights(torch.float32)
+    sp_cpu = {k: ({n: t.detach().cpu() for n, t in v.items()}
+                  if isinstance(v, dict) else v.detach().cpu())
+              for k, v in sp.items()}
+    with torch.no_grad():
+        y_card = mamba.mamba_block(mp, xd, hcfg)
+        mamba_err = close("a full-width Mamba block, card against CPU (f32)",
+                          y_card.cpu(), mamba.mamba_block(mp_cpu, x, hcfg),
+                          1e-4, 1e-4)
+        shared_err = close(
+            "the shared block, card against CPU (f32)",
+            layer_fwd(sp, xd, hcfg, positions.to(dev)).cpu(),
+            layer_fwd(sp_cpu, x, hcfg, positions), 1e-4, 1e-4)
+        st = mamba.init_mamba_state(hcfg, 1, device=dev)
+        steps = []
+        for t in range(x.shape[1]):
+            y_t, st = mamba.mamba_decode(mp, xd[:, t:t + 1], st, hcfg)
+            steps.append(y_t)
+        mdec_err = close("the Mamba block's decode against its forward",
+                         torch.cat(steps, 1), y_card, 2e-2, 2e-2)
+    log(f"[recurrent] one full-width Mamba block on {x.shape[1]} tokens "
+        f"(f32): card against CPU within 1e-4 (max abs err "
+        f"{mamba_err:.3e}); the shared block (attention through the f32 "
+        f"flash kernel at hd {hcfg.hd}, MLP): within 1e-4 (max abs err "
+        f"{shared_err:.3e}); the block's {x.shape[1]} decode steps against "
+        f"its forward on the card within 2e-2 (max abs err {mdec_err:.3e})")
+    out["hybrid_blocks"] = dict(mamba_err=mamba_err, shared_err=shared_err,
+                                decode_err=mdec_err)
+    out["hybrid_serve"] = a
+    del model, mp, mp_cpu, sp, sp_cpu, y_card, steps
+    took("b")
+
+    # -- 23(c). zamba2-7b training, depth cut to 15 ---------------------------
+    ht = sizes["hybrid_train_layers"]
+    cfg15 = dc.replace(hcfg, n_layers=ht)
+    g15, t15 = divmod(ht, hcfg.attn_every)
+    out["hybrid_train"] = _train_model(
+        cfg15.name, cfg15, sizes, sizes["hybrid_train_batch"],
+        sizes["hybrid_timed"], dev, paths, "hybrid_train", card,
+        f"full width; n_layers {hcfg.n_layers} -> {ht} ({g15} groups of "
+        f"{hcfg.attn_every} and a tail of {t15}); global batch 256 -> "
+        f"{sizes['hybrid_train_batch']}")
+    took("c")
+
+    # -- 23(d). xlstm-125m serving at full width and depth ------------------
+    _free(card, f"serving {xcfg.name}")
+    model = api.init_params(xcfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    n_x = sum(p.numel() for p in model.parameters())
+    log(f"[recurrent] {xcfg.name} at full width and depth ({xcfg.n_layers} "
+        f"layers, sLSTM at {xcfg.slstm_at}, d_model {xcfg.d_model}, "
+        f"{xcfg.n_heads} heads: mLSTM heads of "
+        f"{2 * xcfg.d_model // xcfg.n_heads}, sLSTM heads of "
+        f"{xcfg.d_model // xcfg.n_heads}; "
+        f"vocab {xcfg.vocab}): {n_x:,} parameters in f32")
+    d = _serve_model(xcfg.name, xcfg, model, api.make_prefill_step(xcfg),
+                     sizes, dev, paths, "ssm_prefill", card)
+    d["n_params"] = n_x
+    # the sLSTM layers' share: each layer of one prefill timed alone
+    b, s_len = sizes["prefill_batch"], sizes["prefill_seq"]
+    toks = torch.randint(0, xcfg.vocab, (b, s_len), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(6))
+    layer_ms = []
+    with torch.no_grad():
+        layers, _ = model.compute_weights(torch.bfloat16)
+        h = model.embed[toks.long()].to(torch.bfloat16)
+        for li, p in enumerate(layers):
+            sync()
+            t0 = time.perf_counter()
+            if li in xcfg.slstm_at:
+                h, _ = xlstm.slstm_seq(p, h, xcfg)
+            else:
+                h = xlstm.mlstm_parallel(p, h, xcfg)
+            sync()
+            layer_ms.append(1e3 * (time.perf_counter() - t0))
+    s_ms = sum(layer_ms[i] for i in xcfg.slstm_at)
+    log(f"[recurrent] {xcfg.name} prefill B={b} x S={s_len}, each layer "
+        f"timed alone: {[round(x, 1) for x in layer_ms]} ms; the sLSTM "
+        f"layers {s_ms:.1f} ms of {sum(layer_ms):.1f} ms "
+        f"({100 * s_ms / sum(layer_ms):.1f}%: {s_len} steps a layer, each a "
+        f"handful of small launches)")
+    d["layer_ms"] = layer_ms
+    d["slstm_share"] = s_ms / sum(layer_ms)
+    del h, toks
+    d["serve"] = _drain(xcfg.name, xcfg, model, dev, card)
+    # long_500k: one decode step at position 524,287 from a state carried
+    # through a prompt; the state is the same size at every position
+    states = xlstm.init_state(xcfg, 1, device=dev)
+    nbytes = sum(t.numel() * t.element_size() for st in states
+                 for t in st.values())
+    prompt = torch.randint(0, xcfg.vocab, (sizes["long_prompt"],),
+                           device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(7))
+    for t in range(prompt.shape[0]):
+        _, states = xlstm.decode_step(model, states, prompt[t:t + 1], t, xcfg)
+    sync()
+    t0 = time.perf_counter()
+    logits, states = xlstm.decode_step(model, states, prompt[-1:],
+                                       sizes["long_pos"], xcfg)
+    sync()
+    long_ms = 1e3 * (time.perf_counter() - t0)
+    after = sum(t.numel() * t.element_size() for st in states
+                for t in st.values())
+    if not bool(torch.isfinite(logits).all()) or after != nbytes:
+        raise AssertionError("the long_500k decode step's logits are not "
+                             "finite or its state changed size")
+    log(f"[recurrent] {xcfg.name} long_500k: one decode step at position "
+        f"{sizes['long_pos']:,} after a {prompt.shape[0]}-token prompt: "
+        f"logits finite, {long_ms:.3f} ms; the state {after:,} bytes, as at "
+        "position 0 (constant in the position)")
+    d["long_500k"] = dict(state_bytes=after, ms=long_ms,
+                          pos=sizes["long_pos"])
+    # an mLSTM and an sLSTM block, f32, card against CPU; mLSTM decode
+    # against its parallel form
+    x = torch.randn((1, sizes["block_tokens"], xcfg.d_model),
+                    generator=torch.Generator().manual_seed(8))
+    xd = x.to(dev)
+    errs = {}
+    with torch.no_grad():
+        for li in (0, xcfg.slstm_at[0]):
+            p = model.layers[li].leaves(torch.float32)
+            pc = {k: v.detach().cpu() for k, v in p.items()}
+            if li in xcfg.slstm_at:
+                got, want = (xlstm.slstm_seq(p, xd, xcfg)[0],
+                             xlstm.slstm_seq(pc, x, xcfg)[0])
+                errs["slstm"] = close("an sLSTM block, card against CPU",
+                                      got.cpu(), want, 1e-4, 1e-4)
+            else:
+                got = xlstm.mlstm_parallel(p, xd, xcfg)
+                errs["mlstm"] = close("an mLSTM block, card against CPU",
+                                      got.cpu(),
+                                      xlstm.mlstm_parallel(pc, x, xcfg),
+                                      1e-4, 1e-4)
+                st = xlstm.init_mlstm_state(xcfg, 1, device=dev)
+                steps = []
+                for t in range(x.shape[1]):
+                    y_t, st = xlstm.mlstm_decode(p, xd[:, t:t + 1], st, xcfg)
+                    steps.append(y_t)
+                errs["mlstm_decode"] = close(
+                    "the mLSTM block's decode against its parallel form",
+                    torch.cat(steps, 1), got, 5e-2, 5e-2)
+    log(f"[recurrent] on {x.shape[1]} tokens (f32): an mLSTM block card "
+        f"against CPU within 1e-4 (max abs err {errs['mlstm']:.3e}), an "
+        f"sLSTM block within 1e-4 ({errs['slstm']:.3e}); the mLSTM decode "
+        f"against its parallel form within 5e-2 "
+        f"({errs['mlstm_decode']:.3e})")
+    d["block_errs"] = errs
+    out["ssm_serve"] = d
+    del model, layers, p, pc
+    took("d")
+
+    # -- 23(e). xlstm-125m training at full width and depth ------------------
+    out["ssm_train"] = _train_model(
+        xcfg.name, xcfg, sizes, sizes["xlstm_train_batch"],
+        sizes["xlstm_timed"], dev, paths, "ssm_train", card,
+        f"full width and depth; global batch 256 -> "
+        f"{sizes['xlstm_train_batch']}")
+    took("e")
+
+    # -- 23(f). the flash kernel at the new shapes ----------------------------
+    _free(card, "the flash timings")
+    flash = {}
+    for name, (b, h, hkv, s, hd) in (("zamba2 hd 112", FLASH_HD112),
+                                     ("olmoe hd 128", FLASH_OLMOE)):
+        gen = torch.Generator(device=dev).manual_seed(hd)
+        q, k, v = (torch.randn((b, s, n, hd), generator=gen, device=dev)
+                   .to(torch.bfloat16).transpose(1, 2)
+                   for n in (h, hkv, hkv))
+        item = dict(shape=[b, h, hkv, s, hd])
+        flops = flash_flops(b, h, s, s, hd, True)
+        item["bound"] = bound_ms(2 * b * s * hd * (2 * h + 2 * hkv), flops,
+                                 BF16_FLOPS)
+        timed = cuda_ms if card else (lambda *a, **kw: None)
+        item["plain_ms"] = timed(
+            lambda: ref.flash_attention_ref(q, k, v, causal=True,
+                                            groups=h // hkv),
+            reps=sizes["plain_reps"], warmup=1)
+        item["library_ms"] = timed(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            reps=sizes["flash_reps"])
+        if hd == hcfg.hd:
+            with torch.no_grad():
+                got = flash_attention(q, k, v, causal=True, groups=h // hkv)
+                item["max_abs_err"] = close(
+                    "flash at zamba2's shape (bf16)", got,
+                    ref.flash_attention_ref(q, k, v, causal=True,
+                                            groups=h // hkv),
+                    *FLASH_TOL["bfloat16"])
+                q32, k32, v32 = (t[:, :, :1024].float() for t in (q, k, v))
+                item["f32_max_abs_err"] = close(
+                    "flash at zamba2's heads (f32, 1024 rows)",
+                    flash_attention(q32, k32, v32, causal=True),
+                    ref.flash_attention_ref(q32, k32, v32, causal=True),
+                    *FLASH_TOL["float32"])
+            item["ms"] = timed(lambda: flash_attention(
+                q, k, v, causal=True, groups=h // hkv),
+                reps=sizes["flash_reps"])
+            item["padded_bound_ms"] = bound_ms(
+                0, flash_flops(b, h, s, s, 128, True), BF16_FLOPS)[0]
+        flash[name] = item
+        log(f"[recurrent] flash at {name} (B={b}, H=Hkv={h}, S={s}, bf16, "
+            f"causal): kernel {item.get('ms')} ms; bound "
+            f"{item['bound'][0]:.4f} ms by {item['bound'][1]} "
+            f"({flops:.4e} FLOPs)"
+            + (f", padded to 128 {item['padded_bound_ms']:.4f} ms"
+               if "padded_bound_ms" in item else "")
+            + f"; plain {item['plain_ms']} ms; "
+            f"scaled_dot_product_attention {item['library_ms']} ms"
+            + (f"; against its plain version max abs err "
+               f"{item['max_abs_err']:.3e} (bf16), "
+               f"{item['f32_max_abs_err']:.3e} (f32)"
+               if "max_abs_err" in item else ""))
+    z = flash["zamba2 hd 112"]
+    rows["flash_attention"].setdefault("extra", {})["hd112"] = dict(
+        shape=z["shape"], ms=z["ms"], bound_ms=z["bound"][0],
+        padded_bound_ms=z["padded_bound_ms"], plain_ms=z["plain_ms"],
+        library_ms=z["library_ms"], max_abs_err=z["max_abs_err"],
+        f32_max_abs_err=z["f32_max_abs_err"],
+        launches_a_prefill=paths["hybrid_prefill"]["flash_attention"])
+    o = flash["olmoe hd 128"]
+    rows["flash_attention"]["extra"]["olmoe_shape"] = dict(
+        shape=o["shape"], plain_ms=o["plain_ms"],
+        library_ms=o["library_ms"], bound_ms=o["bound"][0])
+    out["flash"] = {nm: {k: v for k, v in it.items() if k != "bound"}
+                    | {"bound_ms": it["bound"][0]}
+                    for nm, it in flash.items()}
+    took("f")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[recurrent] phase 23 took {out['seconds']:.1f} s")
+    results["recurrent"] = out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -3773,6 +4445,8 @@ def main(argv=None) -> int:
     run_train_slice(dev, paths, results)
     # -- 22. the moe family: olmoe-1b-7b served, trained, expert-parallel ---
     run_moe_slice(dev, paths, results)
+    # -- 23. the hybrid and ssm families: zamba2-7b and xlstm-125m ----------
+    run_recurrent_slice(dev, paths, results, rows)
 
     owner = {"project_mask": "fit", "bsr_spmm_gram": "fit",
              "bsr_spmm": "transform", "gram": "unfused_fit",

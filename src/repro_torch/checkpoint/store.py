@@ -13,10 +13,14 @@ step-indexed snapshots of a flat dict (the NMF fits) or of a parameter tree
   and order are those of the reference's ``_flatten_with_names`` for the
   same tree in the reference's form: a tuple's items are ``0``, ``1``, …,
   a ``NamedTuple``'s fields ``.step``, ``.mu``, …, a dict's keys sorted,
-  and a model's parameters (an ``nn.Module``, or a dict keyed by its
-  ``named_parameters``, as ``AdamState.mu``) in the reference's stacked
-  layout: ``layers.<i>.attn.wq`` is row i of the leaf ``layers/attn/wq``.
-  So either package restores the other's checkpoints.
+  a list's items ``0``, ``1``, … in order, and a model's parameters (an
+  ``nn.Module``, or a dict keyed by its ``named_parameters``, as
+  ``AdamState.mu``) in the reference's layout of the model's family
+  (``repro_torch.layout``; the family is read from the first model in
+  the tree, the dense layout without one): ``layers.<i>.attn.wq`` is row
+  i of the leaf ``layers/attn/wq``, a hybrid's ``groups.<g>.<e>.in_proj``
+  row (g, e) of ``groups/in_proj``.  So either package restores the
+  other's checkpoints.
 * **NMF factors** — :func:`save_nmf_factors_sparse` stores U and V in the
   paper's compressed top-t form (flat indices + values), the reference's
   file format.
@@ -28,9 +32,9 @@ the host on the caller and writes on a daemon thread.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
-import re
 import shutil
 import threading
 import time
@@ -41,13 +45,11 @@ import torch
 from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.layout import family_of, reference_leaf
 
 __all__ = ["save_checkpoint", "latest_step", "load_checkpoint_arrays",
            "restore_checkpoint", "AsyncCheckpointer",
            "save_nmf_factors_sparse", "restore_nmf_factors_sparse"]
-
-#: a per-layer parameter: row i of the reference's stacked leaf
-_LAYER_KEY = re.compile(r"^layers\.(\d+)\.(.+)$")
 
 
 def _host(x) -> np.ndarray:
@@ -83,55 +85,68 @@ def _is_flat(tree) -> bool:
         for v in tree.values())
 
 
-def _param_leaves(named: Mapping[str, Any], prefix: Tuple[str, ...]
-                  ) -> List[Tuple[Tuple[str, ...], list, bool]]:
+#: a leaf: its path, its tensors (the rows of a stacked leaf in order) and
+#: the stacked axes' sizes (``()`` for a leaf that is not stacked)
+Leaf = Tuple[Tuple[str, ...], list, Tuple[int, ...]]
+
+
+def _order(leaf: Leaf):
+    """The reference's flatten order: dict keys sorted, list items by
+    index."""
+    return tuple((0, int(p), "") if p.isdigit() else (1, 0, p)
+                 for p in leaf[0])
+
+
+def _param_leaves(named: Mapping[str, Any], prefix: Tuple[str, ...],
+                  family: Optional[str]) -> List[Leaf]:
     """A model's parameters (keyed by ``named_parameters``) as the
-    reference's leaves, sorted: ``(path, tensors, stacked)``, the rows of a
-    stacked leaf in layer order."""
-    plain, stacked = {}, {}
+    reference's leaves of ``family``, in its order."""
+    rows: Dict[Tuple[str, ...], Dict[Tuple[int, ...], Any]] = {}
     for name, t in named.items():
-        m = _LAYER_KEY.match(name)
-        if m:
-            path = prefix + ("layers",) + tuple(m.group(2).split("."))
-            stacked.setdefault(path, {})[int(m.group(1))] = t
-        else:
-            plain[prefix + tuple(name.split("."))] = t
-    out = [(path, [t], False) for path, t in plain.items()]
-    for path, rows in stacked.items():
-        if sorted(rows) != list(range(len(rows))):
-            raise ValueError(f"{'/'.join(path)}: layers {sorted(rows)} are "
-                             "not 0..L-1")
-        out.append((path, [rows[i] for i in range(len(rows))], True))
-    return sorted(out, key=lambda leaf: leaf[0])
+        path, index = reference_leaf(name, family)
+        rows.setdefault(prefix + path, {})[index] = t
+    out = []
+    for path, by_index in rows.items():
+        rank = len(next(iter(by_index)))
+        shape = tuple(1 + max(i[a] for i in by_index) for a in range(rank))
+        want = list(itertools.product(*map(range, shape)))
+        if sorted(by_index) != want:
+            raise ValueError(f"{'/'.join(path)}: rows {sorted(by_index)} do "
+                             f"not fill a stack of {shape}")
+        out.append((path, [by_index[i] for i in want], shape))
+    return sorted(out, key=_order)
 
 
-def _tree_leaves(tree, prefix: Tuple[str, ...] = ()
-                 ) -> List[Tuple[Tuple[str, ...], list, bool]]:
-    """Every leaf of ``tree`` in the reference's flatten order."""
+def _tree_leaves(tree, prefix: Tuple[str, ...] = (),
+                 family: Optional[str] = None) -> List[Leaf]:
+    """Every leaf of ``tree`` in the reference's flatten order, a model's
+    parameters in ``family``'s layout."""
     if isinstance(tree, nn.Module):
-        return _param_leaves(dict(tree.named_parameters()), prefix)
+        return _param_leaves(dict(tree.named_parameters()), prefix, family)
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return [leaf for f in tree._fields
                 for leaf in _tree_leaves(getattr(tree, f),
-                                         prefix + ("." + f,))]
+                                         prefix + ("." + f,), family)]
     if isinstance(tree, (tuple, list)):
         return [leaf for i, sub in enumerate(tree)
-                for leaf in _tree_leaves(sub, prefix + (str(i),))]
+                for leaf in _tree_leaves(sub, prefix + (str(i),), family)]
     if _is_flat(tree):
-        return _param_leaves(tree, prefix)
+        return _param_leaves(tree, prefix, family)
     if isinstance(tree, Mapping):
         return [leaf for key in sorted(tree)
-                for leaf in _tree_leaves(tree[key], prefix + (str(key),))]
-    return [(prefix, [tree], False)]
+                for leaf in _tree_leaves(tree[key], prefix + (str(key),),
+                                         family)]
+    return [(prefix, [tree], ())]
 
 
 def _host_leaves(tree) -> Tuple[List[str], List[np.ndarray], List[str]]:
     """Names, owned host arrays and dtype names of ``tree``'s leaves."""
     names, arrays, dtypes = [], [], []
-    for path, parts, stk in _tree_leaves(tree):
+    for path, parts, stk in _tree_leaves(tree, family=family_of(tree)):
         host = [_owned(t) for t in parts]
         names.append("/".join(path))
-        arrays.append(np.stack(host) if stk else host[0])
+        arrays.append(np.stack(host).reshape(stk + host[0].shape) if stk
+                      else host[0])
         dtypes.append(_dtype_name(parts[0]))
     return names, arrays, dtypes
 
@@ -206,7 +221,8 @@ def restore_checkpoint(ckpt_dir: str, step: int, like):
         manifest = json.load(f)
     dtypes = dict(zip(manifest["names"], manifest["dtypes"]))
     leaves = [("/".join(p), parts, stk)
-              for p, parts, stk in _tree_leaves(like)]
+              for p, parts, stk in _tree_leaves(like,
+                                                family=family_of(like))]
     want = [name for name, _, _ in leaves]
     if set(want) != set(arrays):
         raise ValueError(
@@ -222,13 +238,14 @@ def restore_checkpoint(ckpt_dir: str, step: int, like):
             src = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
         else:
             src = torch.from_numpy(a)
-        shape = ((len(parts),) if stk else ()) + tuple(parts[0].shape)
+        shape = stk + tuple(parts[0].shape)
         if tuple(src.shape) != shape or src.dtype != parts[0].dtype:
             raise ValueError(f"{name}: checkpoint holds {tuple(src.shape)} "
                              f"{src.dtype}, the tree {shape} "
                              f"{parts[0].dtype}")
+        rows = src.reshape((-1,) + tuple(parts[0].shape))
         for i, t in enumerate(parts):
-            t.copy_(src[i] if stk else src)
+            t.copy_(rows[i])
     return like
 
 

@@ -1,13 +1,14 @@
 """Architecture registry and assigned input shapes (port of
 ``repro.configs``), for the families the port runs: the dense decoders,
-the internvl2 language model (``vlm``) and the mixtures of experts
-(``moe``); and the paper's NMF experiment
-configurations (``NMF_CONFIGS``, a copy of the reference's).
+the internvl2 language model (``vlm``), the mixtures of experts
+(``moe``), the Mamba2 hybrid (``hybrid``) and xLSTM (``ssm``); and the
+paper's NMF experiment configurations (``NMF_CONFIGS``, a copy of the
+reference's).
 
 Each architecture has its own module (``repro_torch.configs.<id>`` with
 dashes mapped to underscores) exporting ``CONFIG``, field for field the
 reference's.  ``smoke_config`` gives the same reduced variants as the
-reference's for these families.
+reference's for every family, ``encdec`` included.
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ from repro_torch.configs.phi4_mini_3_8b import CONFIG as phi4_mini_3_8b
 from repro_torch.configs.deepseek_coder_33b import CONFIG as deepseek_coder_33b
 from repro_torch.configs.qwen3_moe_235b_a22b import CONFIG as qwen3_moe_235b_a22b
 from repro_torch.configs.olmoe_1b_7b import CONFIG as olmoe_1b_7b
+from repro_torch.configs.zamba2_7b import CONFIG as zamba2_7b
+from repro_torch.configs.xlstm_125m import CONFIG as xlstm_125m
 from repro_torch.configs.internvl2_76b import CONFIG as internvl2_76b
 from repro_torch.configs.nmf_paper import NMF_CONFIGS
 
@@ -34,6 +37,8 @@ ARCHS: Dict[str, ArchConfig] = {
         deepseek_coder_33b,
         qwen3_moe_235b_a22b,
         olmoe_1b_7b,
+        zamba2_7b,
+        xlstm_125m,
         internvl2_76b,
     ]
 }
@@ -70,6 +75,14 @@ def smoke_config(cfg: ArchConfig) -> ArchConfig:
     )
     if cfg.family == "moe":
         overrides.update(n_experts=8, moe_top_k=2)
+    if cfg.family in ("hybrid", "ssm"):
+        overrides.update(ssm_state=16, ssm_head_dim=16)
+    if cfg.family == "hybrid":
+        overrides.update(n_layers=5, attn_every=2)
+    if cfg.family == "encdec":
+        overrides.update(n_enc_layers=2)
+    if cfg.name.startswith("xlstm"):
+        overrides.update(n_layers=4, slstm_at=(1, 3), head_dim=None)
     if cfg.family == "vlm":
         overrides.update(n_patches=8)
     return dataclasses.replace(cfg, **overrides)

@@ -12,32 +12,45 @@ the reference package:
 * the initial guess crosses as numpy too: ``EnforcedNMF.fit(a, u0=u0)``
   takes a numpy ``u0``.  ``jax.random`` cannot be reproduced in torch, so
   parity checks hand both packages one numpy ``u0``;
-* :func:`transformer_from_reference` — an LM parameter pytree
-  (``jax.tree.map(np.asarray, params)``) as the port's ``Transformer``,
-  or, for the moe family, its ``MoETransformer`` (each stacked expert
-  tensor one parameter a layer);
+* :func:`model_from_reference` — an LM parameter pytree
+  (``jax.tree.map(np.asarray, params)``) as the port's model of its
+  family: a ``Transformer`` (dense, vlm), a ``MoETransformer`` (each
+  stacked expert tensor one parameter a layer), a ``Hybrid`` (the (G, E,
+  ...) groups and (T, ...) tail unstacked into Mamba blocks) or an
+  ``XLSTM`` (the reference's list of layers copied as it is);
 * :func:`adam_state_from_reference` — the reference's ``AdamState`` for
   those parameters as the port's, so that both optimizers start from one
   state.
+
+The leaves are placed by ``repro_torch.layout``, the one map from the
+port's parameter names to the reference's stacked leaves.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.bsr import BSR, _make_bsr
-from repro_torch.models.common import ArchConfig, attention_shapes, mlp_shapes
-from repro_torch.models.moe import MoETransformer, moe_shapes
+from repro_torch.layout import reference_leaf
+from repro_torch.models.common import ArchConfig
+from repro_torch.models.hybrid import Hybrid
+from repro_torch.models.moe import MoETransformer
 from repro_torch.models.transformer import Transformer
+from repro_torch.models.xlstm import XLSTM
 from repro_torch.nmf.config import NMFConfig
 from repro_torch.nmf.estimator import EnforcedNMF
 from repro_torch.training.optimizer import AdamState
 
 __all__ = ["bsr_from_reference", "estimator_from_reference",
-           "transformer_from_reference", "adam_state_from_reference"]
+           "model_from_reference", "adam_state_from_reference"]
+
+#: the port's model class of each family
+_MODELS = {"dense": Transformer, "vlm": Transformer, "moe": MoETransformer,
+           "hybrid": Hybrid, "ssm": XLSTM}
 
 
 def bsr_from_reference(tiles, block_cols, shape: Tuple[int, int],
@@ -75,37 +88,46 @@ def estimator_from_reference(u, v, m_ref: int, config: NMFConfig,
     return model
 
 
+def _model(cfg: ArchConfig, device) -> nn.Module:
+    if cfg.family not in _MODELS:
+        raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) has "
+                                  "no model in the port")
+    return _MODELS[cfg.family](cfg, torch.float32, device)
+
+
+def _placed(cfg: ArchConfig
+            ) -> Dict[str, Tuple[str, Tuple[int, ...], Tuple[int, ...]]]:
+    """Port parameter name -> (reference path, row index, row shape) for
+    ``cfg``'s model (built on the meta device: shapes only)."""
+    return {name: ("/".join(path), index, tuple(p.shape))
+            for name, p in _model(cfg, "meta").named_parameters()
+            for path, index in [reference_leaf(name, cfg.family)]}
+
+
 def _reference_leaves(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
     """Path ("layers/attn/wq", …) -> shape of every leaf of the reference's
-    parameter pytree of ``cfg``'s family (dense / vlm, or moe: the MLP
-    block is ``moe`` and the unembedding is always its own); per-layer
-    leaves are stacked along L."""
-    L = cfg.n_layers
-    moe = cfg.family == "moe"
-    shapes = {"embed": (cfg.vocab, cfg.d_model), "norm_f": (cfg.d_model,),
-              "layers/norm_attn": (L, cfg.d_model),
-              "layers/norm_mlp": (L, cfg.d_model)}
-    for block, leaves in (("attn", attention_shapes(cfg)),
-                          ("moe", moe_shapes(cfg)) if moe else
-                          ("mlp", mlp_shapes(cfg))):
-        for name, shape in leaves.items():
-            shapes[f"layers/{block}/{name}"] = (L,) + shape
-    if moe or not cfg.tie_embeddings:
-        shapes["unembed"] = (cfg.d_model, cfg.vocab)
-    return shapes
+    parameter pytree of ``cfg``: a stacked leaf's shape is its stacked
+    axes' sizes in front of a row's."""
+    rows: Dict[str, tuple] = {}
+    for path, index, shape in _placed(cfg).values():
+        rows.setdefault(path, (shape, []))[1].append(index)
+    return {path: tuple(1 + max(i[a] for i in idx)
+                        for a in range(len(idx[0]))) + shape
+            for path, (shape, idx) in rows.items()}
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, object]:
-    if isinstance(tree, dict):
+    if isinstance(tree, (dict, list, tuple)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
         out = {}
-        for key, sub in tree.items():
+        for key, sub in items:
             out.update(_flatten(sub, f"{prefix}{key}/"))
         return out
     return {prefix[:-1]: tree}
 
 
 def _checked_leaves(tree, cfg: ArchConfig) -> Dict[str, object]:
-    """``tree``'s leaves by path, checked against ``cfg``'s dense layout."""
+    """``tree``'s leaves by path, checked against ``cfg``'s layout."""
     want = _reference_leaves(cfg)
     got = _flatten(tree)
     if set(got) != set(want):
@@ -127,27 +149,23 @@ def _checked_leaves(tree, cfg: ArchConfig) -> Dict[str, object]:
 def _unstacked(got: Dict[str, object], cfg: ArchConfig
                ) -> Dict[str, np.ndarray]:
     """Port parameter name (``layers.3.attn.wq``) -> f32 array: each
-    stacked leaf's rows under their layers' names."""
+    parameter's row of its reference leaf."""
+    leaves: Dict[str, np.ndarray] = {}
     out = {}
-    for path in _reference_leaves(cfg):
-        x = np.asarray(got[path], dtype=np.float32)
-        if path.startswith("layers/"):
-            rest = path[len("layers/"):].replace("/", ".")
-            for i in range(cfg.n_layers):
-                out[f"layers.{i}.{rest}"] = np.array(x[i])
-        else:
-            out[path.replace("/", ".")] = np.array(x)
+    for name, (path, index, _) in _placed(cfg).items():
+        if path not in leaves:
+            leaves[path] = np.asarray(got[path], dtype=np.float32)
+        out[name] = np.array(leaves[path][index])
     return out
 
 
 def adam_state_from_reference(state, cfg: ArchConfig,
                               device: DeviceLike = None) -> AdamState:
     """The port's :class:`AdamState` from the reference's (``step``, ``mu``,
-    ``nu``; numpy leaves) for ``cfg``'s dense parameters: μ and ν unstacked
-    into f32 tensors keyed like the model's ``named_parameters`` (a
-    ``Transformer``'s, or a ``MoETransformer``'s for the moe family), the
-    step an int32 scalar.  Raises ``ValueError`` as
-    :func:`transformer_from_reference` does."""
+    ``nu``; numpy leaves) for ``cfg``'s parameters: μ and ν unstacked
+    into f32 tensors keyed like the model's ``named_parameters``, the step
+    an int32 scalar.  Raises ``ValueError`` as
+    :func:`model_from_reference` does."""
     step, mu, nu = state
     dev = resolve_device(device)
     moments = [{name: torch.from_numpy(x).to(dev)
@@ -158,20 +176,18 @@ def adam_state_from_reference(state, cfg: ArchConfig,
                                   device=dev), *moments)
 
 
-def transformer_from_reference(params, cfg: ArchConfig,
-                               device: DeviceLike = None
-                               ) -> Union[Transformer, MoETransformer]:
-    """The port's model holding the reference's parameters: ``params`` is
-    the reference's pytree with numpy leaves; a :class:`Transformer` for
-    the dense and vlm families, a :class:`MoETransformer` for moe (the
-    router ``(L, d, E)`` and the expert tensors ``(L, E, d, f)`` / ``(L, E,
-    f, d)`` unstacked into each layer's ``moe`` block).  The stacked
-    ``(L, ...)`` layer leaves are unstacked into the layer list; nothing is
-    transposed (both keep ``(in, out)``).  Raises ``ValueError`` when the
-    tree's leaves, shapes or dtypes are not those of ``cfg``."""
-    cls = MoETransformer if cfg.family == "moe" else Transformer
-    return _filled(cls(cfg, torch.float32, resolve_device(device)), params,
-                   cfg)
+def model_from_reference(params, cfg: ArchConfig, device: DeviceLike = None
+                         ) -> nn.Module:
+    """The port's model of ``cfg``'s family holding the reference's
+    parameters: ``params`` is the reference's pytree with numpy leaves.
+    Each stacked leaf is unstacked into the port's per-layer modules (a
+    moe router ``(L, d, E)`` and expert tensors ``(L, E, d, f)``; a
+    hybrid's ``(G, E, ...)`` groups and ``(T, ...)`` tail); xlstm's list
+    of layers is copied as it is; nothing is transposed (both keep ``(in,
+    out)``).  Raises ``ValueError`` when the tree's leaves, shapes or
+    dtypes are not those of ``cfg``."""
+    return _filled(_model(cfg, resolve_device(device)), params, cfg)
+
 
 
 def _filled(model, params, cfg: ArchConfig):

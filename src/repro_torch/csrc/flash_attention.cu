@@ -37,6 +37,15 @@
 //  * Shared memory holds each tile as panels of 64 columns (128-byte rows,
 //    128B swizzle; hd 32 and 16 take one panel of 64- and 32-byte rows with
 //    the matching swizzle), the canonical layouts wgmma reads.
+//  * hd 112 (zamba2-7b's shared block) runs on hd 128's layout: 112 = 64 +
+//    48, and 96-byte rows have no swizzle mode.  The TMA maps' innermost
+//    extent is the true 112, so the second panel's box (columns 64-127)
+//    comes back zero past column 111, and the full box's bytes still
+//    complete the barrier.  S = Q K^T takes 7 k-steps (columns 0-111);
+//    O += P V runs at N = 128, where columns 112-127 of the accumulator
+//    stay zero (V's are); the epilogue stores columns 0-111 only, so a
+//    (B, S, H, 112) output's next head is never written.  The extra MMA
+//    work is P V's 128 / 112; N = 112 (a legal wgmma width) was not tried.
 //  * S = Q K^T: wgmma m64n128k16, A = Q and B = K from shared memory, both
 //    K-major, f32 accumulators; hd / 16 steps, each advancing the
 //    descriptors' start address by 32 bytes inside a swizzle row (and by a
@@ -60,7 +69,9 @@
 //  * One block per (b, h, tile of kRows = 64 query rows), 8 warps of 8 rows
 //    each.  The TPU's sequential KV grid axis becomes a loop inside the
 //    block; m, l and the (8 rows x hd) accumulator of each warp live in
-//    registers (each lane owns hd / 32 output columns).
+//    registers (each lane owns columns lane + 32 j, j < ceil(hd / 32): at
+//    hd 112 four a lane, the fourth guarded, kept by lanes 0-15 only;
+//    shared memory holds hd 112 unpadded).
 //  * Per KV tile of kKeys = 64 keys, K (stored transposed, rows padded to
 //    65 words so the transposing store hits 32 banks) and V are staged in
 //    shared memory, zero-filled past T.  The Q tile is staged once.
@@ -75,9 +86,12 @@
 //  * Any Sq and T: rows past Sq are computed on zeros and not written; keys
 //    past T score -1e30 and read zero V.
 //
+// The scale is the caller's (hd^-0.5 of the true head size), never derived
+// from a template size.
+//
 // C interface (loaded with ctypes): launches on the given stream, does not
 // synchronise, returns cudaGetLastError(), cudaErrorInvalidValue for a head
-// size or type it was not built for, or 1000 + the CUresult with which
+// size (16, 32, 64, 112, 128) or type it was not built for, or 1000 + the CUresult with which
 // cuTensorMapEncodeTiled refused a bf16 operand.  cuTensorMapEncodeTiled is
 // reached through cudaGetDriverEntryPoint, so the library needs no -lcuda.
 
@@ -317,6 +331,9 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<64>(q, k, v, o, b, h, sq, t, groups, causal, scale, st,
                         stream);
+    case 112:
+      return launch<112>(q, k, v, o, b, h, sq, t, groups, causal, scale, st,
+                         stream);
     case 128:
       return launch<128>(q, k, v, o, b, h, sq, t, groups, causal, scale, st,
                          stream);
@@ -342,14 +359,16 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared-memory geometry of a tile of head size D: panels of kPanelCols
 // columns, each row of a panel kSwizzle bytes, swizzled in kSwizzle bytes.
+// kPad is the layout's head size: 112 takes 128's, zero past column 111.
 template <int D>
 struct Geom {
-  static constexpr int kSwizzle = D >= 64 ? 128 : 2 * D;
+  static constexpr int kPad = D > 64 ? 128 : D;
+  static constexpr int kSwizzle = kPad >= 64 ? 128 : 2 * kPad;
   static constexpr int kPanelCols = kSwizzle / 2;
-  static constexpr int kPanels = D / kPanelCols;
+  static constexpr int kPanels = kPad / kPanelCols;
   static constexpr int kStepsPerPanel = kPanelCols / 16;
-  static constexpr int kQBytes = kRows * D * 2;
-  static constexpr int kTileBytes = kKeys * D * 2;   // one K or V tile
+  static constexpr int kQBytes = kRows * kPad * 2;
+  static constexpr int kTileBytes = kKeys * kPad * 2;   // one K or V tile
   static constexpr int kQPanelBytes = kRows * kSwizzle;
   static constexpr int kKVPanelBytes = kKeys * kSwizzle;
   // wgmma descriptor layout type: 1 = 128B, 2 = 64B, 3 = 32B swizzle
@@ -685,9 +704,9 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
     const int col0 = 2 * (lane % 4);
     const uint32_t q_wg = s_q + 64 * wg * G::kSwizzle;
 
-    float acc[D / 2];
+    float acc[G::kPad / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < G::kPad / 2; ++i) acc[i] = 0.f;
     float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
 
     mbar_wait(bar_q, 0);
@@ -757,7 +776,8 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
       l_lo = l_lo * alpha_lo + sum_lo;
       l_hi = l_hi * alpha_hi + sum_hi;
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= (i & 2) ? alpha_hi : alpha_lo;
+      for (int i = 0; i < G::kPad / 2; ++i)
+        acc[i] *= (i & 2) ? alpha_hi : alpha_lo;
 
       // O += P V: k-step kk takes keys 16 kk .. 16 kk + 15, which are the
       // accumulator registers 8 kk .. 8 kk + 7, i.e. p[4 kk .. 4 kk + 3]
@@ -766,12 +786,12 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
       for (int kk = 0; kk < kKeys / 16; ++kk) {
         const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                                p[4 * kk + 3]};
-        wgmma_pv<D>(acc, a, mnmajor_desc<D>(v_tile, kk));
+        wgmma_pv<G::kPad>(acc, a, mnmajor_desc<D>(v_tile, kk));
       }
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) reg_fence(acc[i]);
+      for (int i = 0; i < G::kPad / 2; ++i) reg_fence(acc[i]);
 #pragma unroll
       for (int i = 0; i < 32; ++i) reg_fence(p[i]);
       mbar_arrive(bar_empty + 8 * s);
@@ -786,7 +806,7 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
     const float den_hi = fmaxf(l_hi, 1e-30f);
     __nv_bfloat16* ob = o + b * osb + h * osh;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {  // columns < D: never the next head
       const int col = 8 * j + col0;
       if (row_lo < sq)
         *reinterpret_cast<__nv_bfloat162*>(ob + row_lo * oss + col) =
@@ -826,8 +846,9 @@ EncodeTiledFn encode_fn() {
 }
 
 // A 4-D map over one (B, heads, rows, hd) operand given by element strides:
-// dimension 0 is hd, dimensions 1-3 are rows, heads and batch ordered by
-// stride; the box is one panel of `box_rows` rows.  Sets *perm (see pick).
+// dimension 0 is hd (the true D: a box past it is zero-filled), dimensions
+// 1-3 are rows, heads and batch ordered by stride; the box is one panel of
+// `box_rows` rows.  Sets *perm (see pick).
 template <int D>
 int encode(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int rows,
            int heads, int batch, long long sb, long long sh, long long ss,
@@ -914,6 +935,9 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
     case 64:
       return launch<64>(q, k, v, o, b, h, sq, t, groups, causal, scale, st,
                         stream);
+    case 112:
+      return launch<112>(q, k, v, o, b, h, sq, t, groups, causal, scale, st,
+                         stream);
     case 128:
       return launch<128>(q, k, v, o, b, h, sq, t, groups, causal, scale, st,
                          stream);

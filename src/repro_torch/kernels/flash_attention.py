@@ -32,8 +32,8 @@ from repro_torch.kernels import _build, ref
 
 __all__ = ["flash_attention", "check_operands", "HEAD_DIMS"]
 
-#: head sizes the kernel is built for
-HEAD_DIMS = (16, 32, 64, 128)
+#: head sizes the kernel is built for (112, zamba2-7b's, on 128's layout)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

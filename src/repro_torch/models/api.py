@@ -2,9 +2,10 @@
 init, input specs, random batches, the loss and the train step, and the
 serving steps.
 
-The ported families are ``dense`` and ``vlm`` (``models/transformer.py``)
-and ``moe`` (``models/moe.py``).  The others raise ``NotImplementedError``
-from :func:`module_for`, naming the ROADMAP item that ports them.  The
+The ported families are ``dense`` and ``vlm`` (``models/transformer.py``),
+``moe`` (``models/moe.py``), ``hybrid`` (``models/hybrid.py``) and ``ssm``
+(``models/xlstm.py``).  ``encdec`` raises ``NotImplementedError`` from
+:func:`module_for`, naming the ROADMAP item that ports it.  The
 sharding specs (``param_pspecs`` and the rest: one card, no FSDP / TP
 mesh) are not ported.
 
@@ -21,7 +22,7 @@ from typing import TYPE_CHECKING, Callable, Dict, NamedTuple, Union
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import moe, transformer
+from repro_torch.models import hybrid, moe, transformer, xlstm
 from repro_torch.models.common import ArchConfig
 from repro_torch.training.optimizer import (
     AdamW,
@@ -40,13 +41,13 @@ FAMILY = {
     "dense": transformer,
     "vlm": transformer,
     "moe": moe,
+    "hybrid": hybrid,
+    "ssm": xlstm,
 }
 
 #: each family still to port: the reference's modules, and the title of
 #: its ROADMAP item (queue 1)
 _NOT_PORTED = {
-    "hybrid": ("models/hybrid.py and models/mamba.py", "the `hybrid` family"),
-    "ssm": ("models/xlstm.py", "the `ssm` family"),
     "encdec": ("models/encdec.py", "the `encdec` family"),
 }
 
@@ -211,7 +212,13 @@ def init_params(cfg: ArchConfig, seed: Union[int, torch.Generator] = 0,
 
 def init_decode_cache(cfg: ArchConfig, shape: ShapeSpec,
                       dtype=torch.bfloat16, device: DeviceLike = None):
-    """Zeroed KV cache for a shape cell: (L, B, seq_len, Hkv, hd) each."""
-    return module_for(cfg).init_cache(cfg, shape.global_batch, shape.seq_len,
-                                      dtype=dtype,
-                                      device=resolve_device(device))
+    """The zeroed decode state of a shape cell: the KV cache ((L, B,
+    seq_len, Hkv, hd) each; a hybrid's Mamba states beside its shared
+    block's K and V), or for ``ssm`` the recurrent states, one dict a
+    layer, whose size does not depend on ``seq_len`` (and ``dtype`` does
+    not apply: they are f32)."""
+    mod, dev = module_for(cfg), resolve_device(device)
+    if cfg.family == "ssm":
+        return mod.init_state(cfg, shape.global_batch, device=dev)
+    return mod.init_cache(cfg, shape.global_batch, shape.seq_len,
+                          dtype=dtype, device=dev)

@@ -12,7 +12,9 @@ here:
 
 * prefill runs every prompt token through ``_step_one``, which decodes
   *every* slot at that position and so overwrites the other active slots'
-  cache rows there;
+  cache rows there, and, for a recurrent state (Mamba, mLSTM, sLSTM),
+  advances every other slot's state by this slot's prompt, so concurrent
+  requests change each other's tokens;
 * ``step`` decodes all slots at the first active slot's position;
 * the prompt is cut to ``max_seq - max_new`` tokens.
 """
@@ -44,8 +46,9 @@ class Request:
 
 
 class ServingEngine:
-    """``params`` is the model (a ``Transformer``), moved to ``device``: the
-    card unless the CPU is asked for."""
+    """``params`` is the model, moved to ``device``: the card unless the
+    CPU is asked for.  The decode state is the family's KV cache, or for
+    ``ssm`` its recurrent states (``init_state``)."""
 
     def __init__(self, cfg: ArchConfig, params, max_batch: int = 8,
                  max_seq: int = 512, eos_id: int = 2,
@@ -55,10 +58,16 @@ class ServingEngine:
         self.max_batch = max_batch
         self.max_seq = max_seq
         self.eos_id = eos_id
+        if cfg.family == "encdec":
+            raise NotImplementedError("use encdec.prefill/decode_step "
+                                      "directly")
         mod = api.module_for(cfg)
         self.params = params.to(self.device)
-        self.cache = mod.init_cache(cfg, max_batch, max_seq,
-                                    device=self.device)
+        if cfg.family == "ssm":
+            self.cache = mod.init_state(cfg, max_batch, device=self.device)
+        else:
+            self.cache = mod.init_cache(cfg, max_batch, max_seq,
+                                        device=self.device)
         self._decode = api.make_decode_step(cfg)
         self.slots: List[Optional[Request]] = [None] * max_batch
         self.pos = np.zeros(max_batch, np.int32)

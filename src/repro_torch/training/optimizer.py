@@ -11,30 +11,33 @@ overwritten (the port's form of the reference's buffer donation), and the
 returned state holds the same μ and ν with the new step.
 
 Weight decay is decoupled and falls on the leaves that have two or more
-dims *in the reference's layout*.  The reference stacks each per-layer
-leaf along a leading L axis, so a layer's norm weights (``layers.<i>.
-norm_attn``, ``norm_mlp``: (d,) here, (L, d) there) and its biases are
-decayed, and ``norm_f`` is not: :func:`reference_ndim` counts the stacked
-axis.
+dims *in the reference's layout* (``repro_torch.layout``), which depends
+on the family.  The dense and moe models stack each per-layer leaf along
+a leading L axis, so a layer's norm weights (``layers.<i>.norm_attn``:
+(d,) here, (L, d) there) and its biases are decayed, and ``norm_f`` is
+not.  The hybrid stacks its groups twice, (G, E, ...), and its tail once,
+so every Mamba vector (``A_log``, ``D``, ``dt_bias``, the norms) is
+decayed, and its shared block not at all; xlstm keeps a list of unlike
+layers, so none of its vectors is.  :func:`reference_ndim` counts the
+stacked axes; :meth:`AdamW.update` reads the family from the model
+(``params.cfg``; a dict of tensors takes the dense layout).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-import re
-from typing import Callable, Dict, Mapping, NamedTuple, Tuple, Union
+from typing import (Callable, Dict, Mapping, NamedTuple, Optional, Tuple,
+                    Union)
 
 import torch
 from torch import nn
+
+from repro_torch.layout import family_of, reference_leaf
 
 __all__ = ["AdamW", "AdamState", "named_parameters", "reference_ndim",
            "value_and_grad"]
 
 Params = Union[nn.Module, Mapping[str, torch.Tensor]]
-
-#: a per-layer parameter's name: the reference stacks it along L
-_LAYER = re.compile(r"^layers\.\d+\.")
-
 
 class AdamState(NamedTuple):
     step: torch.Tensor                  # int32 scalar
@@ -52,10 +55,12 @@ def named_parameters(params: Params) -> Dict[str, torch.Tensor]:
                     f"tensors, not {type(params).__name__}")
 
 
-def reference_ndim(name: str, p: torch.Tensor) -> int:
-    """The number of dims of leaf ``name`` in the reference's layout: a
-    per-layer parameter (``layers.<i>.…``) has the stacked L axis there."""
-    return p.dim() + (1 if _LAYER.match(name) else 0)
+def reference_ndim(name: str, p: torch.Tensor,
+                   family: Optional[str] = None) -> int:
+    """The number of dims of leaf ``name`` in the reference's layout of
+    ``family`` (None: the dense layout): its own, and the stacked axes in
+    front of it there."""
+    return p.dim() + len(reference_leaf(name, family)[1])
 
 
 def value_and_grad(loss_fn: Callable, params: Params, batch
@@ -108,6 +113,7 @@ class AdamW:
                params: Params) -> Tuple[Params, AdamState]:
         """One AdamW step in place; returns ``(params, new state)``."""
         named = named_parameters(params)
+        family = family_of(params)
         if set(grads) != set(named):
             raise ValueError(
                 f"gradients do not match the parameters: missing "
@@ -125,7 +131,7 @@ class AdamW:
             m.mul_(b1).add_((1 - b1) * g32)
             n.mul_(b2).add_((1 - b2) * g32 * g32)
             delta = (m / c1) / (torch.sqrt(n / c2) + self.eps)
-            if reference_ndim(name, p) >= 2:   # decoupled weight decay
+            if reference_ndim(name, p, family) >= 2:   # decoupled decay
                 delta = delta + self.weight_decay * p.float()
             p.copy_((p.float() - lr * delta).to(p.dtype))
         return params, AdamState(step, state.mu, state.nu)

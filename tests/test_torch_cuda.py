@@ -202,6 +202,15 @@ def _qkv_on_card(card, b, h, hkv, s, t, hd, dtype, strided=False,
     (2, 8, 2, 513, 513, 64, True, torch.bfloat16, True),
     (1, 6, 2, 257, 257, 128, False, torch.bfloat16, True),
     (2, 4, 4, 129, 129, 16, True, torch.bfloat16, True),
+    # hd 112 (zamba2-7b's shared block): bf16 on hd 128's layout, f32 with
+    # a guarded fourth column a lane; strided (B, S, H, 112) views with
+    # H = 32, so a store past column 111 would land in the next head
+    (1, 32, 32, 256, 256, 112, True, torch.bfloat16, True),
+    (2, 32, 32, 300, 300, 112, True, torch.bfloat16, True),
+    (1, 32, 32, 192, 320, 112, False, torch.bfloat16, True),
+    (1, 4, 2, 450, 70, 112, True, torch.bfloat16, False),
+    (1, 32, 32, 200, 200, 112, True, torch.float32, True),
+    (1, 4, 4, 130, 250, 112, False, torch.float32, False),
 ])
 def test_flash_kernel_matches_plain_version(card, b, h, hkv, s, t, hd,
                                             causal, dtype, strided):
@@ -223,7 +232,7 @@ def test_flash_kernel_matches_plain_version(card, b, h, hkv, s, t, hd,
         rtol=rtol, atol=atol)
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128])
 def test_flash_bf16_kernel_is_deterministic(card, hd):
     """No atomics and no split over keys: two calls give bitwise the same
     output."""
@@ -267,6 +276,65 @@ def test_prefill_on_card_matches_cpu(card):
     on_card = step(model.to(card), {"tokens": tokens.to(card)})
     assert _build.launch_counts()["flash_attention"] == cfg.n_layers
     torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=5e-2, atol=1e-1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_at_hd_112_leaves_the_next_head_alone(card, dtype):
+    """The kernel stores columns 0-111 only: launched (through its C
+    entry point, which takes any output strides) on heads 0 and 2 of a
+    (B, S, 3, 112) buffer, it leaves head 1, a sentinel that a store of
+    columns 112-127 of head 0 would reach, untouched."""
+    import ctypes
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=card).manual_seed(112)
+    q, k, v = (torch.randn((1, 128, 3, 112), generator=gen, device=card)
+               .to(dtype) for _ in range(3))
+    buf = torch.full((1, 128, 3, 112), 7.0, dtype=dtype, device=card)
+    view = buf[:, :, ::2].transpose(1, 2)               # heads 0 and 2
+    sub = [x[:, :, ::2].transpose(1, 2) for x in (q, k, v)]
+    fa.check_operands(*sub, 1)
+    fa.check_operands(view, view, view, 1)
+    strides = (ctypes.c_longlong * 12)(*(
+        s for x in (*sub, view) for s in x.stride()[:3]))
+    rc = fa._lib().flash_attention_fwd(
+        fa._DTYPE_CODES[dtype], 112, sub[0].data_ptr(), sub[1].data_ptr(),
+        sub[2].data_ptr(), view.data_ptr(), 1, 2, 128, 128, 1, 1,
+        112 ** -0.5, strides, _build.stream_ptr(card))
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert bool((buf[:, :, 1] == 7.0).all())
+    rtol, atol = (1e-4, 1e-5) if dtype == torch.float32 else (1e-2, 2e-3)
+    torch.testing.assert_close(
+        view.float(), ref.flash_attention_ref(*sub).float(), rtol=rtol,
+        atol=atol)
+
+
+def test_hybrid_and_xlstm_prefill_on_card_match_cpu(card):
+    """The zamba2 and xlstm smoke configs' prefill on the card against the
+    CPU (bf16, the reference's bar); the hybrid's shared block at hd 112
+    launches the flash kernel once a group."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.models import api
+
+    for arch in ("zamba2-7b", "xlstm-125m"):
+        cfg = smoke_config(ARCHS[arch])
+        if cfg.family == "hybrid":
+            cfg = dataclasses.replace(cfg, head_dim=112)
+        model = api.init_params(cfg, 0, device="cpu")
+        tokens = torch.randint(0, cfg.vocab, (2, 128),
+                               generator=torch.Generator().manual_seed(1))
+        step = api.make_prefill_step(cfg)
+        on_cpu = step(model, {"tokens": tokens})
+        _build.reset_launch_counts()
+        on_card = step(model.to(card), {"tokens": tokens.to(card)})
+        want = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+        assert _build.launch_counts()["flash_attention"] == want
+        torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=5e-2,
+                                   atol=1e-1)
 
 
 def _bits(x):

@@ -16,7 +16,9 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention as ref_flash
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.flash_attention import check_operands, flash_attention
+from repro_torch.kernels.flash_attention import (
+    HEAD_DIMS, check_operands, flash_attention,
+)
 
 
 def _qkv(seed, b, h, hkv, s, t, hd):
@@ -49,6 +51,17 @@ def test_flash_matches_reference(b, h, hkv, s, t, hd, causal):
     q, k, v = _qkv(b + s, b, h, hkv, s, t, hd)
     got, want = _both(q, k, v, causal, h // hkv)
     assert got.shape == (b, h, s, hd)
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("b,h,hkv,s,t,causal", [
+    (1, 4, 2, 64, 64, True), (2, 2, 2, 48, 80, False)])
+def test_flash_at_hd_112_matches_reference(b, h, hkv, s, t, causal):
+    """zamba2-7b's head size: the plain version against the reference's
+    kernel (whole-hd blocks), causal and not; the scale is 112^-0.5."""
+    q, k, v = _qkv(112 + s, b, h, hkv, s, t, 112)
+    got, want = _both(q, k, v, causal, h // hkv, bq=16, bk=16)
+    assert got.shape == (b, h, s, 112)
     np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
 
 
@@ -178,6 +191,16 @@ def test_check_operands_takes_strided_views_of_the_model():
         q = torch.zeros((2, 8, 4, 64), dtype=dtype).transpose(1, 2)
         kv = torch.zeros((2, 8, 2, 64), dtype=dtype).transpose(1, 2)
         check_operands(q, kv, kv, 2)
+
+
+def test_check_operands_takes_hd_112_strided_views():
+    """hd 112 is taken: zamba2-7b's (B, S, 32, 112) projections, viewed as
+    (B, 32, S, 112), have head strides of 224 bytes and row strides of
+    7168 in bf16, multiples of 16 as TMA needs."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros((2, 8, 32, 112), dtype=dtype).transpose(1, 2)
+        check_operands(q, q, q, 1)
+    assert 112 in HEAD_DIMS
 
 
 def test_check_operands_leaves_f32_strides_to_the_cuda_core_kernel():

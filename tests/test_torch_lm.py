@@ -6,7 +6,7 @@ The reference runs its attention through the Pallas flash kernel in
 interpret mode (``common.use_flash_kernel(True, interpret=True)``, reset in
 a ``finally`` as ``tests/test_kernels.py:237-241`` does), because the port's
 ``attention`` always goes through its flash wrapper.  Weights cross as
-numpy through ``transformer_from_reference``; token ids and activations are
+numpy through ``model_from_reference``; token ids and activations are
 made with numpy.  Tolerances are the reference's: 2e-3 in f32
 (``tests/test_kernels.py:243``, ``tests/test_models_smoke.py:90-91``) and
 rtol 5e-2 / atol 1e-1 in bf16 (``tests/test_kernels.py:71``).
@@ -31,16 +31,16 @@ from repro.models import transformer as ref_tf
 from repro.serving import Request as RefRequest
 from repro.serving import ServingEngine as RefEngine
 from repro_torch.configs import ARCHS, SHAPES, ShapeSpec, smoke_config
-from repro_torch.convert import transformer_from_reference
+from repro_torch.convert import model_from_reference
 from repro_torch.kernels import _build
-from repro_torch.models import api, common, moe, transformer
+from repro_torch.models import api, common, hybrid, moe, transformer, xlstm
 from repro_torch.serving import Request, ServingEngine
 
 F32_TOL = dict(rtol=2e-3, atol=2e-3)
 BF16_TOL = dict(rtol=5e-2, atol=1e-1)
 PORTED = ("codeqwen1.5-7b", "deepseek-coder-33b", "internvl2-76b",
           "llama3.2-1b", "olmoe-1b-7b", "phi4-mini-3.8b",
-          "qwen3-moe-235b-a22b")
+          "qwen3-moe-235b-a22b", "xlstm-125m", "zamba2-7b")
 
 
 @contextlib.contextmanager
@@ -67,7 +67,7 @@ def _models(arch, seed=0, bias_seed=None):
             tree["layers"]["attn"][name] = (
                 0.1 * rng.standard_normal(leaf.shape)).astype(np.float32)
         params = jax.tree.map(jnp.asarray, tree)
-    return cfg, pcfg, params, transformer_from_reference(tree, pcfg,
+    return cfg, pcfg, params, model_from_reference(tree, pcfg,
                                                          device="cpu")
 
 
@@ -85,20 +85,25 @@ def _assert_close(got, want, tol):
 # configs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", sorted(REF_ARCHS))
 def test_config_and_smoke_config_match_reference(arch):
-    assert dataclasses.asdict(ARCHS[arch]) == \
-        dataclasses.asdict(REF_ARCHS[arch])
-    assert dataclasses.asdict(smoke_config(ARCHS[arch])) == \
-        dataclasses.asdict(ref_smoke_config(REF_ARCHS[arch]))
-    assert ARCHS[arch].hd == REF_ARCHS[arch].hd
-    assert ARCHS[arch].q_dim == REF_ARCHS[arch].q_dim
+    """Every reference arch: the port's config field for field, and
+    ``smoke_config`` with every family's overrides; an arch the port has
+    no config for yet (seamless, encdec) is built from the reference's
+    fields."""
+    ref = REF_ARCHS[arch]
+    cfg = ARCHS.get(arch) or common.ArchConfig(**dataclasses.asdict(ref))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+    assert dataclasses.asdict(smoke_config(cfg)) == \
+        dataclasses.asdict(ref_smoke_config(ref))
+    assert cfg.hd == ref.hd and cfg.q_dim == ref.q_dim
+    assert smoke_config(cfg).hd == ref_smoke_config(ref).hd
 
 
 def test_ported_archs_are_the_dense_and_vlm_families():
-    """The dense, vlm and moe families are ported."""
+    """The dense, vlm, moe, hybrid and ssm families are ported."""
     want = {n for n, c in REF_ARCHS.items()
-            if c.family in ("dense", "vlm", "moe")}
+            if c.family in ("dense", "vlm", "moe", "hybrid", "ssm")}
     assert set(ARCHS) == want == set(PORTED)
     assert {n: dataclasses.asdict(s) for n, s in SHAPES.items()} == \
         {n: dataclasses.asdict(s) for n, s in REF_SHAPES.items()}
@@ -338,12 +343,14 @@ def test_serve_launcher_runs_on_the_cpu_when_asked(capsys):
 
 @pytest.mark.parametrize("family", ["moe", "hybrid", "ssm", "encdec"])
 def test_unported_family_raises_with_its_roadmap_item(family):
-    """A family still to port raises, naming its ROADMAP item by title;
-    ``moe`` is ported and returns its module."""
+    """A family still to port (``encdec``) raises, naming its ROADMAP item
+    by title; ``moe``, ``hybrid`` and ``ssm`` are ported and return their
+    modules."""
     cfg = next(c for c in REF_ARCHS.values() if c.family == family)
     port_cfg = common.ArchConfig(**dataclasses.asdict(cfg))
-    if family == "moe":
-        assert api.module_for(port_cfg) is moe
+    ported = {"moe": moe, "hybrid": hybrid, "ssm": xlstm}
+    if family in ported:
+        assert api.module_for(port_cfg) is ported[family]
         return
     with pytest.raises(NotImplementedError,
                        match=f'ROADMAP queue 1, the item "the `{family}` '
@@ -429,4 +436,4 @@ def test_converter_refuses_a_mismatched_tree(case):
     elif case == "config":
         pcfg = smoke_config(ARCHS["codeqwen1.5-7b"])   # needs qkv biases
     with pytest.raises(ValueError):
-        transformer_from_reference(tree, pcfg, device="cpu")
+        model_from_reference(tree, pcfg, device="cpu")

@@ -2,7 +2,7 @@
 chunked loss, ``lm_loss``, AdamW, the train step, the pytree checkpoints
 and the train launcher, each held against the reference on the same inputs.
 
-Parameters cross as numpy through ``transformer_from_reference`` (and the
+Parameters cross as numpy through ``model_from_reference`` (and the
 optimizer state through ``adam_state_from_reference``); token ids,
 activations and gradients are made with numpy; the reference runs under
 ``jax.jit`` on the CPU with its flash kernel off (its default, the path it
@@ -37,7 +37,7 @@ from repro_torch.checkpoint import (
 )
 from repro_torch.configs import ARCHS, ShapeSpec, smoke_config
 from repro_torch.convert import (
-    adam_state_from_reference, transformer_from_reference,
+    adam_state_from_reference, model_from_reference,
 )
 from repro_torch.launch import train as train_mod
 from repro_torch.models import api, common, transformer
@@ -68,7 +68,7 @@ def _models(arch, seed=0):
     pcfg = smoke_config(ARCHS[arch])
     params = ref_api.init_params(cfg, jax.random.PRNGKey(seed))
     tree = jax.tree.map(np.asarray, params)
-    return cfg, pcfg, params, transformer_from_reference(tree, pcfg,
+    return cfg, pcfg, params, model_from_reference(tree, pcfg,
                                                          device="cpu")
 
 
@@ -376,7 +376,7 @@ def test_adamw_decays_the_reference_leaves_of_ndim_two():
         tree["layers"]["attn"][name] = rng.standard_normal(
             leaf.shape).astype(np.float32)
     params = jax.tree.map(jnp.asarray, tree)
-    model = transformer_from_reference(tree, pcfg, device="cpu")
+    model = model_from_reference(tree, pcfg, device="cpu")
     zeros = jax.tree.map(np.zeros_like, tree)
     ref_p, _ = jax.jit(RefAdamW(lr=1e-2, warmup=1).update)(
         zeros, RefAdamState(jnp.int32(0), zeros, zeros), params)
