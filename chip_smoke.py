@@ -205,6 +205,31 @@ Phases (any failed check raises, and the script exits non-zero):
     zamba2's shape (B=4, H=32, S=4096, hd=112) against its bound, its
     plain version and ``scaled_dot_product_attention``, and the last two
     at olmoe's heads (hd 128).
+24. the encdec family (seamless-m4t-large-v2, f32 parameters from a
+    seed, 2,034,784,256 of them): (a) serving at full width and depth:
+    ``make_prefill_step`` (the encoder) on 4 x 4096 frames (first call,
+    the median of 3, frames/s, peak memory, busy share; the flash kernel
+    launched 24 times, not causal, and 24 launches in the profiler
+    window), one 1 x 32768 encode (prefill_32k, batch cut from 32 to 1), a
+    generation (``prefill`` of 8 x 4096 frames with every layer's cross K
+    / V, 32 greedy ``decode_step`` s from token 0: ms a step, tokens/s, 24
+    flash launches a step at one query row, the unembedding's share, a
+    profiler window of one step), one decode step at decode_32k's lengths
+    (enc_len 32768, max_dec 4096, batch cut from 128 to 8, the cross K / V
+    from a seed); (b) in f32 at full width, one encoder layer, one decoder
+    layer and ``_cross_kv`` on the card against the CPU (1e-4), and an f32
+    prefill of 64 frames with 16 decode steps against ``decode_train``
+    (2e-3); (c) training at full width and depth, 8 x 4096 frames and 8 x
+    512 tokens (global batch cut from 256 to 8) in two microbatches: a
+    warm-up and 3 timed steps, tokens/s, model FLOPs and their share of the
+    bf16 peak, peak memory; every loss finite, step 0's equal to
+    ``seq2seq_loss`` on the serving path's memory (the bf16 bar), no
+    hand-written kernel launched; the train launcher at the smoke config
+    killed and resumed, bitwise; (d) the flash kernel at the encoder's
+    shape (B=4, H=Hkv=16, S=T=4096, hd=64, not causal) and at one query
+    row against 4096 and 32768 frames of a cache (B=8), each against its
+    plain version, its bound and ``scaled_dot_product_attention``, and in
+    f32 with fewer rows.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -321,6 +346,19 @@ def cuda_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def host_ms(fn, reps, sync):
+    """Host-clock ms of each of ``reps`` calls of ``fn``, each between two
+    calls of ``sync`` (the card's synchronize, or nothing on the CPU)."""
+    times = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return times
+
+
 def bound_ms(nbytes, flops, peak_flops=None):
     """The least time the card could take: bytes at the HBM rate or
     operations at ``peak_flops``, whichever is longer, and which it is."""
@@ -406,23 +444,33 @@ def flash_flops(b, h, sq, t, hd, causal):
     return 4.0 * b * h * hd * pairs
 
 
-def profiled(name, fn, calls=1, count=None, cpu=True):
-    """Device busy share and kernels per call in a profiler window of
-    ``calls`` calls of ``fn``; logs the top kernels.  ``count`` (names'
-    substrings) adds the launches of the kernels whose name holds each.
-    ``cpu=False`` traces the device alone: a window of ~10^5 host ops
-    takes minutes to summarise."""
+PROFILE_ATTEMPTS = 3
+
+
+def _trace(fn, calls, cpu, warmup):
+    """One profiler window of ``calls`` calls of ``fn``: the device kernels
+    as ``(us, launches, name)``, largest first, and the window's seconds.
+    ``warmup`` traces one more call of ``fn`` first and drops it (the
+    profiler's warm-up step)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu
                                             else [])
-    with profile(activities=activities) as prof:
+    steps = schedule(wait=0, warmup=1, active=1, repeat=1) if warmup \
+        else None
+    with profile(activities=activities, schedule=steps) as prof:
+        if warmup:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
         window_s = time.perf_counter() - t0
+        if warmup:
+            prof.step()
     by_kernel = []
     for evt in prof.key_averages():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
@@ -431,6 +479,37 @@ def profiled(name, fn, calls=1, count=None, cpu=True):
                 t_us = evt.self_cuda_time_total
             by_kernel.append((t_us, evt.count, evt.key))
     by_kernel.sort(reverse=True)
+    return by_kernel, window_s
+
+
+def _matching(by_kernel, match):
+    """Launches and device us of the kernels whose name holds ``match``."""
+    hits = [(x, c) for x, c, k in by_kernel if match in k]
+    return sum(c for _, c in hits), sum(x for x, _ in hits)
+
+
+def profiled(name, fn, calls=1, expect=None, cpu=True, warmup=False):
+    """Device busy share and kernels per call in a profiler window of
+    ``calls`` calls of ``fn``; logs the top kernels.  ``expect`` (names'
+    substrings, each to the launches the window must hold) adds the
+    launches of the kernels whose name holds each; the caller checks them.
+    ``cpu=False`` traces the device alone: a window of ~10^5 host ops
+    takes minutes to summarise.  ``warmup`` traces one more call of
+    ``fn`` first and drops it (the profiler's warm-up step).  A window
+    can lose kernel records (the launch counters saw 24 flash launches
+    where a window held 23, three windows in a row; a window of 50
+    epilogue calls held none): a window that holds fewer launches of a
+    name than ``expect`` gives is traced again, up to
+    ``PROFILE_ATTEMPTS`` windows, and the last one is returned."""
+    expect = expect or {}
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        by_kernel, window_s = _trace(fn, calls, cpu, warmup)
+        seen = {m: _matching(by_kernel, m)[0] for m in expect}
+        short = {m: (c, expect[m]) for m, c in seen.items() if c < expect[m]}
+        if not short:
+            break
+        log(f"[profile] {name}: window {attempt} of {PROFILE_ATTEMPTS} lost "
+            f"kernel records (launches seen, expected: {short})")
     dev_us = sum(x for x, _, _ in by_kernel)
     n_kernels = sum(c for _, c, _ in by_kernel)
     busy = dev_us / (window_s * 1e6)
@@ -444,33 +523,23 @@ def profiled(name, fn, calls=1, count=None, cpu=True):
                 device_busy_share=busy, kernels_per_call=n_kernels / calls,
                 top_kernels=[dict(us=x, count=c, name=k[:120])
                              for x, c, k in by_kernel[:10]],
-                launches_matching={m: sum(c for _, c, k in by_kernel
-                                          if m in k) for m in count or ()})
+                launches_matching=seen, windows=attempt)
 
 
 def device_us(fn, match, calls=50):
     """Mean device time in us of the kernels whose name contains ``match``
-    over ``calls`` calls of ``fn`` (profiler), after one warm-up call: the
-    kernel's own time, whatever the host takes to launch it."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for evt in prof.key_averages():
-        if (evt.device_type == torch.autograd.DeviceType.CUDA
-                and match in evt.key):
-            t_us = getattr(evt, "self_device_time_total", None)
-            total += evt.self_cuda_time_total if t_us is None else t_us
-            count += evt.count
-    if count == 0:
-        raise AssertionError(f"no device kernel matching {match!r} ran")
-    return total / count
+    over ``calls`` calls of ``fn`` (profiler, after a traced warm-up call
+    that is dropped): the kernel's own time, whatever the host takes to
+    launch it.  A window that holds no such kernel is traced again, up to
+    ``PROFILE_ATTEMPTS`` windows (see :func:`profiled`)."""
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        count, total = _matching(_trace(fn, calls, False, True)[0], match)
+        if count:
+            return total / count
+        log(f"[profile] {match}: window {attempt} of {PROFILE_ATTEMPTS} of "
+            f"{calls} calls holds no such kernel")
+    raise AssertionError(f"no device kernel matching {match!r} ran in "
+                         f"{PROFILE_ATTEMPTS} profiler windows")
 
 
 def sass_counts(library, ops=("HGMMA", "HMMA")):
@@ -2893,16 +2962,6 @@ def run_moe_slice(dev, paths, results, cfg=None, sizes=MOE):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
 
-    def host_ms(fn, reps):
-        times = []
-        for _ in range(reps):
-            sync()
-            t0 = time.perf_counter()
-            fn()
-            sync()
-            times.append(1e3 * (time.perf_counter() - t0))
-        return times
-
     # -- 22(a). serving at full width and depth ------------------------------
     t0 = time.perf_counter()
     model = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -2933,7 +2992,7 @@ def run_moe_slice(dev, paths, results, cfg=None, sizes=MOE):
         raise AssertionError(f"the moe prefill launched the flash kernel "
                              f"{paths['moe_prefill']['flash_attention']} "
                              f"times, not n_layers = {cfg.n_layers}")
-    runs = host_ms(lambda: step(model, batch), 3)
+    runs = host_ms(lambda: step(model, batch), 3, sync)
     prefill_ms = float(np.median(runs))
     peak = torch.cuda.max_memory_allocated() if card else 0
     cap = max(int(math.ceil(b * s_len * cfg.moe_top_k / cfg.n_experts
@@ -2978,7 +3037,7 @@ def run_moe_slice(dev, paths, results, cfg=None, sizes=MOE):
     tok = torch.randint(0, cfg.vocab, (SERVE["max_batch"],), device=dev,
                         dtype=torch.int32)
     decode = api.make_decode_step(cfg)
-    ticks = host_ms(lambda: decode(model, cache, tok, 64), 10)
+    ticks = host_ms(lambda: decode(model, cache, tok, 64), 10, sync)
     tick_ms = float(np.median(ticks))
     log(f"[moe] ServingEngine (max_batch {SERVE['max_batch']}, max_seq "
         f"{SERVE['max_seq']}) drained {len(done)} requests: {emitted} tokens"
@@ -3234,7 +3293,7 @@ def recurrent_flops(cfg, b, s):
 
 
 def _serve_model(name, cfg, model, step, sizes, dev, paths, key, card,
-                 profile_count=None):
+                 profile_expect=None):
     """The prefill of one model at B x S (first call with its launches,
     then the median of 3), a profiler window of one call, and one 1 x
     long_seq prefill; returns the numbers."""
@@ -3283,7 +3342,7 @@ def _serve_model(name, cfg, model, step, sizes, dev, paths, key, card,
         t0 = time.perf_counter()
         out["profile"] = profiled(f"{name} prefill B={b} x S={s_len}",
                                   lambda: step(model, batch),
-                                  count=profile_count, cpu=False)
+                                  expect=profile_expect, cpu=False)
         log(f"[recurrent] the profiler window and its summary took "
             f"{time.perf_counter() - t0:.1f} s")
     del logits, batch
@@ -3312,7 +3371,7 @@ def _serve_model(name, cfg, model, step, sizes, dev, paths, key, card,
     return out
 
 
-def _free(card, what):
+def _free(card, what, tag="recurrent"):
     """Collect the cycles that still hold tensors (the first
     ``torch.utils.checkpoint`` call of a process imports a module lazily
     and leaves its callers' frames, a train step's model and state, in a
@@ -3324,7 +3383,7 @@ def _free(card, what):
     gc.collect()
     if card:
         torch.cuda.empty_cache()
-        log(f"[recurrent] before {what}: "
+        log(f"[{tag}] before {what}: "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
 
 
@@ -3539,7 +3598,7 @@ def run_recurrent_slice(dev, paths, results, rows, cfgs=None,
     match = f"flash_fwd_bf16_wgmma<{hcfg.hd}>"
     a = _serve_model(hcfg.name, hcfg, model, api.make_prefill_step(hcfg),
                      sizes, dev, paths, "hybrid_prefill", card,
-                     profile_count=(match,))
+                     profile_expect={match: groups})
     a["n_params"] = n_params
     a["long_500k_kv_bytes"] = kv_long
     if card:
@@ -3821,6 +3880,539 @@ def run_recurrent_slice(dev, paths, results, rows, cfgs=None,
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[recurrent] phase 23 took {out['seconds']:.1f} s")
     results["recurrent"] = out
+
+
+#: phase 24: the encdec family (seamless-m4t-large-v2,
+#: src/repro/configs/seamless_m4t_large_v2.py) at full width: serving at
+#: full depth (a 4 x 4096-frame prefill; one 1 x 32768 encode, prefill_32k's
+#: batch cut from 32 to 1; a generation of 8 rows x 4096 frames, 32 greedy
+#: decode steps; one decode step at decode_32k's lengths, its batch cut
+#: from 128 to 8: 25.8 GB of cross K / V); card against CPU in f32; training
+#: at full width and depth with train_4k's global batch cut from 256 to 8;
+#: the flash kernel at the encoder's and the cross-attention's shapes
+ENCDEC = dict(prefill_batch=4, prefill_seq=4096, long_seq=32768,
+              gen_batch=8, gen_seq=4096, gen_steps=32, d32_batch=8,
+              d32_enc=32768, d32_dec=4096, d32_steps=5, block_tokens=256,
+              block_dec=32, check_seq=64, check_steps=16, train_batch=8,
+              train_seq=4096, microbatches=2, timed=3, flash_reps=20,
+              plain_reps=3, unembed_reps=50,
+              cli=("--batch", "2", "--seq", "32"))
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+#: flash at the encoder (B, H, Hkv, Sq, T, hd; not causal) and at the
+#: decoder's cross-attention, one query row against the memory
+FLASH_ENCODER = (4, 16, 16, 4096, 4096, 64)
+FLASH_CROSS = {"cross T=4096": (8, 16, 16, 1, 4096, 64),
+               "cross T=32768": (8, 16, 16, 1, 32768, 64)}
+
+
+def encdec_flops(cfg, b, s_enc, s_dec):
+    """Model FLOPs of one forward of the encoder over (b, s_enc) frames and
+    the teacher-forced decoder over (b, s_dec) tokens, 2 a multiply-add:
+    every projection, the encoder's attention over all (row, key) pairs,
+    the decoder's causal self-attention, its cross K / V of the memory and
+    its cross-attention over every frame, and the unembedding.  A train
+    step is 3 times this (no recompute)."""
+    d, ff, hh = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.hd
+    attn_proj = 2 * (d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d)
+    mlp_f = 2 * 3 * d * ff
+    enc = float(b) * s_enc * (attn_proj + mlp_f + 4 * hh * s_enc)
+    dec_tok = float(b) * s_dec * (
+        attn_proj + 2 * (d * cfg.q_dim + cfg.q_dim * d) + mlp_f
+        + 4 * hh * (s_dec + 1) / 2 + 4 * hh * s_enc)
+    cross_kv = float(b) * s_enc * 2 * 2 * d * cfg.kv_dim
+    return (cfg.n_enc_layers * enc + cfg.n_layers * (dec_tok + cross_kv)
+            + 2.0 * d * cfg.vocab * b * s_dec)
+
+
+def _cache_views(b, h, hkv, t, hd, dtype, dev, seed):
+    """q (B, H, 1, hd), the view of a (B, 1, H, hd) projection, and k, v
+    (B, Hkv, T, hd), the views of layer 1 of an (L=2, B, T, Hkv, hd)
+    cache, as a decode step's cross-attention passes them."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, 1, h, hd), generator=gen, device=dev).to(dtype)
+    kv = []
+    for _ in range(2):
+        c = torch.empty((2, b, t, hkv, hd), dtype=dtype, device=dev)
+        c.normal_(generator=gen)
+        kv.append(c[1].transpose(1, 2))
+    return q.transpose(1, 2), kv[0], kv[1]
+
+
+def run_encdec_slice(dev, paths, results, rows, cfg=None, sizes=ENCDEC):
+    """Phase 24: the encdec family at full width.  (a) seamless-m4t-large-v2
+    serving at full depth: ``make_prefill_step`` on 4 x 4096 frames (24
+    flash launches, in the counts and in the profiler window), a 1 x 32768
+    encode, a generation (``prefill`` of 8 x 4096, 32 greedy
+    ``decode_step`` s, 24 flash launches a step at one query row, the
+    unembedding's share), one decode step at decode_32k's lengths; (b) one
+    encoder layer, one decoder layer and ``_cross_kv``, card against CPU in
+    f32, and an f32 prefill with 16 decode steps against ``decode_train``;
+    (c) training at full width and depth (8 x 4096 frames, 8 x 512
+    tokens, two microbatches), step 0's loss against ``seq2seq_loss`` on
+    the serving path's memory, no hand-written kernel, the train launcher
+    killed and resumed; (d) the flash kernel at the encoder's and the
+    cross-attention's shapes against its plain version, its bound and
+    ``scaled_dot_product_attention``.  ``cfg`` and ``sizes`` shrink it for
+    a rehearsal on the CPU."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import ARCHS, ShapeSpec
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import api, encdec
+    from repro_torch.models.common import chunked_lm_loss
+    from repro_torch.models.transformer import layer_fwd
+    from repro_torch.training import AdamW
+
+    t_phase = time.perf_counter()
+    card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    cfg = cfg or ARCHS[ENCDEC_ARCH]
+    out = {"part_seconds": {}}
+    t_mark = [t_phase]
+    n_enc, n_dec = cfg.n_enc_layers, cfg.n_layers
+
+    def took(part):
+        now = time.perf_counter()
+        out["part_seconds"][part] = now - t_mark[0]
+        log(f"[encdec] 24({part}) took {now - t_mark[0]:.1f} s")
+        t_mark[0] = now
+
+    def want_launches(what, got, n):
+        if card and got != n:
+            raise AssertionError(f"{what} launched the flash kernel {got} "
+                                 f"times, not {n}")
+
+    _free(card, f"serving {cfg.name}", "encdec")
+
+    # -- 24(a). serving at full width and depth ------------------------------
+    t0 = time.perf_counter()
+    model = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    sync()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[encdec] {cfg.name} at full width and depth ({n_enc} encoder and "
+        f"{n_dec} decoder layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff},"
+        f" vocab {cfg.vocab}): {n_params:,} parameters in f32, drawn on the "
+        f"card in {time.perf_counter() - t0:.2f} s")
+    a = dict(n_params=n_params)
+    step = api.make_prefill_step(cfg)
+    b, s_len = sizes["prefill_batch"], sizes["prefill_seq"]
+    batch = api.make_batch(cfg, ShapeSpec("prefill", s_len, b, "prefill"),
+                           seed=1, device=dev)
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    memory = step(model, batch)
+    sync()
+    first_s = time.perf_counter() - t0
+    paths["encdec_prefill"] = _build.launch_counts()
+    if tuple(memory.shape) != (b, s_len, cfg.d_model) or \
+            not bool(torch.isfinite(memory).all()):
+        raise AssertionError("the encdec prefill's memory is not finite "
+                             "(B, S, d)")
+    want_launches("the encdec prefill",
+                  paths["encdec_prefill"]["flash_attention"], n_enc)
+    runs = host_ms(lambda: step(model, batch), 3, sync)
+    ms = float(np.median(runs))
+    peak = torch.cuda.max_memory_allocated() if card else 0
+    log(f"[encdec] prefill (the encoder) B={b} x S={s_len} frames: memory "
+        f"{tuple(memory.shape)} finite; first call {first_s:.3f} s (the "
+        f"bf16 copies cast); {ms:.2f} ms (median of "
+        f"{[round(x, 2) for x in runs]}), {b * s_len / ms * 1e3:.0f} "
+        f"frames/s; peak memory {peak / 2**30:.2f} GiB; launches "
+        f"{paths['encdec_prefill']}")
+    a["prefill"] = dict(first_s=first_s, runs_ms=runs, ms=ms,
+                        frames_per_s=b * s_len / ms * 1e3, peak_bytes=peak,
+                        launches=paths["encdec_prefill"])
+    if card:
+        match = f"flash_fwd_bf16_wgmma<{cfg.hd}>"
+        prof = profiled(f"{cfg.name} prefill B={b} x S={s_len}",
+                        lambda: step(model, batch), expect={match: n_enc},
+                        cpu=False, warmup=True)
+        a["prefill"]["profile"] = prof
+        if prof["launches_matching"][match] != n_enc:
+            raise AssertionError(
+                f"the profiler window shows {prof['launches_matching'][match]}"
+                f" launches of {match}, not {n_enc}")
+        log(f"[encdec] the profiler window shows {n_enc} launches of "
+            f"{match} a prefill (the encoder's self-attention, not causal)")
+    del memory, batch
+
+    # one encode at prefill_32k's length, the batch cut from 32 to 1
+    long_batch = api.make_batch(
+        cfg, ShapeSpec("prefill_32k cut", sizes["long_seq"], 1, "prefill"),
+        seed=3, device=dev)
+    if card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    memory = step(model, long_batch)
+    sync()
+    long_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if card else 0
+    if not bool(torch.isfinite(memory).all()):
+        raise AssertionError(f"the 1 x {sizes['long_seq']} encode is not "
+                             "finite")
+    log(f"[encdec] encode 1 x {sizes['long_seq']} frames (prefill_32k, batch"
+        f" cut from 32 to 1: one card): finite, {long_s:.3f} s, "
+        f"{sizes['long_seq'] / long_s:.0f} frames/s, peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    a["long"] = dict(seconds=long_s, peak_bytes=peak, seq=sizes["long_seq"])
+    del memory, long_batch
+
+    # a generation: prefill (encode + every layer's cross K / V), then
+    # greedy decode steps from token 0, as the reference's test starts
+    gb, gs = sizes["gen_batch"], sizes["gen_seq"]
+    max_dec = max(gs // cfg.dec_ratio, 16)
+    frames = api.make_batch(cfg, ShapeSpec("gen", gs, gb, "prefill"),
+                            seed=5, device=dev)["frame_embeds"]
+    if card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    cache, memory = encdec.prefill(model, frames, cfg, max_dec=max_dec)
+    sync()
+    gen_prefill_s = time.perf_counter() - t0
+    paths["encdec_gen_prefill"] = _build.launch_counts()
+    want_launches("the generation's prefill",
+                  paths["encdec_gen_prefill"]["flash_attention"], n_enc)
+    kv_bytes = sum(cache[k].numel() * cache[k].element_size()
+                   for k in ("ck", "cv"))
+    token = torch.zeros((gb,), dtype=torch.int32, device=dev)
+    decode = api.make_decode_step(cfg)
+    decode(model, cache, token, 0)          # warm-up: row 0, rewritten
+    _build.reset_launch_counts()
+    step_ms, tokens = [], []
+    for pos in range(sizes["gen_steps"]):
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = decode(model, cache, token, pos)
+        token = logits.argmax(-1).to(torch.int32)
+        sync()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        tokens.append(token)
+    paths["encdec_decode"] = _build.launch_counts()
+    if not bool(torch.isfinite(logits).all()) or \
+            tuple(logits.shape) != (gb, cfg.vocab):
+        raise AssertionError("the decode step's logits are not finite "
+                             "(B, vocab)")
+    want_launches(f"{sizes['gen_steps']} decode steps",
+                  paths["encdec_decode"]["flash_attention"],
+                  n_dec * sizes["gen_steps"])
+    dec_ms = float(np.median(step_ms))
+    w = model.compute_weights(torch.bfloat16)[2]
+    xh = torch.randn((gb, cfg.d_model), device=dev).to(torch.bfloat16)
+    timed = cuda_ms if card else (lambda *a_, **kw: float("nan"))
+    unembed_ms = timed(lambda: xh @ w, reps=sizes["unembed_reps"])
+    gen = dict(prefill_s=gen_prefill_s, max_dec=max_dec,
+               cross_kv_bytes=kv_bytes, step_ms=step_ms, ms=dec_ms,
+               tokens_per_s=gb / dec_ms * 1e3, unembed_ms=unembed_ms,
+               unembed_share=unembed_ms / dec_ms,
+               launches=paths["encdec_decode"],
+               tokens=torch.stack(tokens, 1)[0].tolist())
+    if card:
+        gen["profile"] = profiled(f"{cfg.name} decode step (batch {gb})",
+                                  lambda: decode(model, cache, token,
+                                                 sizes["gen_steps"]),
+                                  cpu=False, warmup=True)
+    log(f"[encdec] generation: prefill {gb} x {gs} frames (cross K / V of "
+        f"{n_dec} layers, {kv_bytes / 1e9:.2f} GB; max_dec {max_dec}) "
+        f"{gen_prefill_s:.3f} s; {sizes['gen_steps']} greedy decode steps "
+        f"from token 0: {dec_ms:.3f} ms a step (median; "
+        f"{[round(x, 2) for x in step_ms[:4]]} ...), {gb / dec_ms * 1e3:.1f}"
+        f" tokens/s; flash launches "
+        f"{paths['encdec_decode']['flash_attention']} ({n_dec} a step, one query row against {gs} frames); the "
+        f"unembedding ({gb} x {cfg.d_model} by {cfg.d_model} x {cfg.vocab}, "
+        f"bf16) alone {unembed_ms:.4f} ms, {100 * unembed_ms / dec_ms:.1f}% "
+        f"of a step; row 0's tokens {gen['tokens'][:8]} ...")
+    a["generation"] = gen
+    del cache, memory, frames, logits, xh, w
+
+    # one decode step at decode_32k's lengths, the batch cut from 128 to 8,
+    # the cross K / V filled from a seed
+    db, de, dd = sizes["d32_batch"], sizes["d32_enc"], sizes["d32_dec"]
+    if card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    cache = encdec.init_cache(cfg, db, dd, de, device=dev)
+    g32 = torch.Generator(device=dev).manual_seed(6)
+    for key in ("ck", "cv"):     # by index: no view outlives the loop
+        for i in range(n_dec):
+            cache[key][i].normal_(generator=g32)
+    token = torch.randint(0, cfg.vocab, (db,), device=dev, generator=g32,
+                          dtype=torch.int32)
+    _build.reset_launch_counts()
+    d32_ms = host_ms(lambda: decode(model, cache, token, 0),
+                     sizes["d32_steps"], sync)
+    paths["encdec_decode_32k"] = _build.launch_counts()
+    logits = decode(model, cache, token, 1)[0]
+    peak = torch.cuda.max_memory_allocated() if card else 0
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("the decode_32k step's logits are not finite")
+    want_launches("the decode_32k steps",
+                  paths["encdec_decode_32k"]["flash_attention"],
+                  n_dec * sizes["d32_steps"])
+    kv32 = sum(cache[k].numel() * cache[k].element_size()
+               for k in ("ck", "cv"))
+    log(f"[encdec] decode_32k (enc_len {de}, max_dec {dd}, batch cut from "
+        f"128 to {db}: cross K / V {kv32 / 1e9:.2f} GB in bf16; at 128 rows "
+        f"{kv32 * 128 / db / 1e9:.0f} GB): {float(np.median(d32_ms)):.3f} ms"
+        f" a step (median of {[round(x, 2) for x in d32_ms]}); logits "
+        f"finite; peak memory {peak / 2**30:.2f} GiB; {n_dec} flash launches"
+        " a step")
+    a["decode_32k"] = dict(step_ms=d32_ms, ms=float(np.median(d32_ms)),
+                           cross_kv_bytes=kv32, peak_bytes=peak,
+                           launches=paths["encdec_decode_32k"])
+    out["serve"] = a
+    del cache, logits, token
+    _free(card, "the f32 checks", "encdec")
+    took("a")
+
+    # -- 24(b). card against CPU in f32 at full width; decode against
+    # decode_train ------------------------------------------------------------
+    g = torch.Generator().manual_seed(7)
+    bt, bd = sizes["block_tokens"], sizes["block_dec"]
+    x = torch.randn((1, bt, cfg.d_model), generator=g)
+    xd = torch.randn((1, bd, cfg.d_model), generator=g)
+    mem = torch.randn((1, bt, cfg.d_model), generator=g)
+    ep = model.enc_layers[0].weights(torch.float32)
+    dp = model.dec_layers[0].weights(torch.float32)
+
+    def on_cpu(p):
+        return {k: ({n: t.detach().cpu() for n, t in v.items()}
+                    if isinstance(v, dict) else v.detach().cpu())
+                for k, v in p.items()}
+
+    ep_cpu, dp_cpu = on_cpu(ep), on_cpu(dp)
+    pos_e = torch.arange(bt, dtype=torch.int32)[None]
+    pos_d = torch.arange(bd, dtype=torch.int32)[None]
+    errs = {}
+    with torch.no_grad():
+        errs["encoder_layer"] = close(
+            "an encoder layer, card against CPU (f32)",
+            layer_fwd(ep, x.to(dev), cfg, pos_e.to(dev), causal=False).cpu(),
+            layer_fwd(ep_cpu, x, cfg, pos_e, causal=False), 1e-4, 1e-4)
+        errs["decoder_layer"] = close(
+            "a decoder layer, card against CPU (f32)",
+            encdec.dec_layer_fwd(dp, xd.to(dev), mem.to(dev), cfg,
+                                 pos_d.to(dev)).cpu(),
+            encdec.dec_layer_fwd(dp_cpu, xd, mem, cfg, pos_d), 1e-4, 1e-4)
+        kc, vc = encdec._cross_kv(dp["cross_attn"], mem.to(dev), cfg)
+        kw, vw = encdec._cross_kv(dp_cpu["cross_attn"], mem, cfg)
+        errs["cross_kv"] = max(
+            close("_cross_kv K, card against CPU (f32)", kc.cpu(), kw,
+                  1e-4, 1e-4),
+            close("_cross_kv V, card against CPU (f32)", vc.cpu(), vw,
+                  1e-4, 1e-4))
+        # f32 prefill and decode steps against decode_train's logits
+        cs, ns = sizes["check_seq"], sizes["check_steps"]
+        gen32 = torch.Generator(device=dev).manual_seed(8)
+        fe = torch.randn((1, cs, cfg.d_model), generator=gen32, device=dev)
+        toks = torch.randint(0, cfg.vocab, (1, ns), generator=gen32,
+                             device=dev)
+        _build.reset_launch_counts()
+        cache, memory = encdec.prefill(model, fe, cfg, max_dec=ns,
+                                       compute_dtype=torch.float32)
+        for t in range(ns):
+            logits, cache = encdec.decode_step(model, cache, toks[:, t], t,
+                                               cfg,
+                                               compute_dtype=torch.float32)
+        f32_launches = _build.launch_counts()["flash_attention"]
+        full = encdec.decode_train(model, memory, toks, cfg, remat=False,
+                                   compute_dtype=torch.float32)
+        errs["decode_vs_decode_train"] = close(
+            "f32 decode against decode_train", logits, full[:, -1, :], 2e-3,
+            2e-3)
+    want_launches("the f32 prefill and decode steps", f32_launches,
+                  n_enc + n_dec * ns)
+    log(f"[encdec] f32 at full width, card against CPU: an encoder layer on "
+        f"{bt} frames (the f32 flash kernel, not causal) within 1e-4 (max "
+        f"abs err {errs['encoder_layer']:.3e}); a decoder layer on {bd} "
+        f"tokens against {bt} frames {errs['decoder_layer']:.3e}; _cross_kv "
+        f"{errs['cross_kv']:.3e}.  An f32 prefill of {cs} frames and {ns} "
+        f"decode steps ({f32_launches} f32 flash launches) against "
+        f"decode_train's f32 logits at position {ns - 1}: within 2e-3 (max "
+        f"abs err {errs['decode_vs_decode_train']:.3e})")
+    out["f32_checks"] = errs
+    del model, ep, dp, ep_cpu, dp_cpu, cache, memory, full, logits
+    took("b")
+
+    # -- 24(c). training at full width and depth ------------------------------
+    _free(card, f"training {cfg.name}", "encdec")
+    tb, ts, m = sizes["train_batch"], sizes["train_seq"], sizes["microbatches"]
+    tshape = ShapeSpec("train_4k cut", ts, tb, "train")
+    model = api.init_params(cfg, 0, device=dev)
+    opt = AdamW()
+    state = opt.init(model)
+    train_step = api.make_train_step(cfg, opt, microbatches=m)
+    batches = [synthetic_batch(cfg, tshape, i, dev)
+               for i in range(sizes["timed"] + 1)]
+    s_dec = batches[0]["tokens"].shape[1]
+    # step 0's loss against seq2seq_loss on the serving path's memory (the
+    # flash kernel, no autograd), row block by row block
+    ce = []
+    with torch.no_grad():
+        rows_ = max(1, tb // 2)
+        for r in range(0, tb, rows_):
+            sub = {k: v[r:r + rows_] for k, v in batches[0].items()}
+            memory = step(model, sub)
+            hidden = encdec.decode_train(model, memory, sub["tokens"], cfg,
+                                         unembed=False)
+            ce.append(chunked_lm_loss(hidden, model.unembed, sub["labels"])
+                      * sub["tokens"].shape[0])
+            del memory, hidden
+    ce0 = float(torch.stack(ce).sum()) / tb
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    losses, step_ms = [], []
+    sync()
+    t0 = time.perf_counter()
+    model, state, loss = train_step(model, state, batches[0])
+    losses.append(float(loss))
+    warm_s = time.perf_counter() - t0
+    for bt_ in batches[1:]:
+        sync()
+        t0 = time.perf_counter()
+        model, state, loss = train_step(model, state, bt_)
+        losses.append(float(loss))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    paths["encdec_train"] = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if card else 0
+    med = float(np.median(step_ms))
+    flops = 3.0 * encdec_flops(cfg, tb, ts, s_dec)
+    tok = tb * (ts + s_dec)
+    log(f"[encdec] training {cfg.name} at full width and depth (global batch"
+        f" 256 -> {tb}): {tb} x {ts} frames and {tb} x {s_dec} tokens in {m}"
+        f" microbatches, bf16 compute, remat, AdamW; warm-up step "
+        f"{warm_s:.2f} s; {len(step_ms)} steps "
+        f"{[round(x, 1) for x in step_ms]} ms (median {med:.1f} ms, "
+        f"{tok / med * 1e3:.0f} frames + tokens/s); model FLOPs a step "
+        f"{flops:.4e}, {flops / med / 1e9:.1f} TFLOP/s, "
+        f"{100 * flops / (med / 1e3) / BF16_FLOPS:.2f}% of the bf16 peak; "
+        f"peak memory {peak / 2**30:.2f} GiB; losses "
+        f"{[round(x, 4) for x in losses]}; hand-written kernels launched "
+        f"{paths['encdec_train']}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"an encdec train step's loss is not finite: "
+                             f"{losses}")
+    close("encdec step 0's loss against seq2seq_loss on the serving path's "
+          "memory", torch.tensor(losses[0]), torch.tensor(ce0), 5e-2, 1e-1)
+    if any(paths["encdec_train"].values()):
+        raise AssertionError(f"the encdec train step launched a hand-written "
+                             f"kernel ({paths['encdec_train']})")
+    log(f"[encdec] step 0's loss {losses[0]:.4f}; seq2seq_loss on the "
+        f"serving path's memory {ce0:.4f} (bar rtol 5e-2, atol 1e-1); "
+        f"ln(vocab) {math.log(cfg.vocab):.4f}")
+    out["train"] = dict(warmup_s=warm_s, step_ms=step_ms, median_ms=med,
+                        tokens_per_s=tok / med * 1e3, model_flops=flops,
+                        mfu=flops / (med / 1e3) / BF16_FLOPS,
+                        peak_bytes=peak, losses=losses, serving_ce0=ce0,
+                        launches=paths["encdec_train"], batch=tb,
+                        frames=ts, tokens=s_dec)
+    del model, state, batches, train_step, loss
+    _free(card, "the train launcher", "encdec")
+    out["train"]["launcher"] = launcher_kill_and_resume(cfg.name,
+                                                        sizes["cli"], card)
+    took("c")
+
+    # -- 24(d). the flash kernel at this family's shapes ----------------------
+    _free(card, "the flash timings", "encdec")
+    timed = cuda_ms if card else (lambda *a_, **kw: None)
+    flash = {}
+    b, h, hkv, sq, t, hd = FLASH_ENCODER
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q, k, v = (torch.randn((b, n, sq, hd), generator=gen, device=dev)
+               .to(torch.bfloat16) for n in (h, hkv, hkv))
+    cases = {"encoder": (q, k, v)}
+    for name, (b2, h2, hkv2, _, t2, hd2) in FLASH_CROSS.items():
+        cases[name] = _cache_views(b2, h2, hkv2, t2, hd2, torch.bfloat16,
+                                   dev, seed=t2)
+    for name, (q, k, v) in cases.items():
+        b2, h2, sq2, hd2 = q.shape
+        hkv2, t2 = k.shape[1], k.shape[2]
+        flops = flash_flops(b2, h2, sq2, t2, hd2, False)
+        nbytes = 2 * (2 * b2 * sq2 * h2 * hd2 + 2 * b2 * t2 * hkv2 * hd2)
+        item = dict(shape=[b2, h2, hkv2, sq2, t2, hd2], flops=flops,
+                    bytes=nbytes)
+        item["bound"] = bound_ms(nbytes, flops, BF16_FLOPS)
+        with torch.no_grad():
+            got = flash_attention(q, k, v, causal=False,
+                                  groups=h2 // hkv2)
+            plain = ref.flash_attention_ref(q, k, v, causal=False,
+                                            groups=h2 // hkv2)
+            item["max_abs_err"] = close(f"flash at {name} (bf16)", got,
+                                        plain, *FLASH_TOL["bfloat16"])
+        del got, plain
+        item["ms"] = timed(lambda: flash_attention(
+            q, k, v, causal=False, groups=h2 // hkv2),
+            reps=sizes["flash_reps"])
+        item["plain_ms"] = timed(lambda: ref.flash_attention_ref(
+            q, k, v, causal=False, groups=h2 // hkv2),
+            reps=sizes["plain_reps"], warmup=1)
+        item["library_ms"] = timed(
+            lambda: F.scaled_dot_product_attention(q, k, v),
+            reps=sizes["flash_reps"])
+        flash[name] = item
+        log(f"[encdec] flash at {name} (B={b2}, H=Hkv={h2}, Sq={sq2}, "
+            f"T={t2}, hd={hd2}, bf16, not causal): kernel {item['ms']} ms; "
+            f"bound {item['bound'][0]:.4f} ms by {item['bound'][1]} "
+            f"({flops:.4e} FLOPs, {nbytes / 1e6:.1f} MB); plain "
+            f"{item['plain_ms']} ms; scaled_dot_product_attention "
+            f"{item['library_ms']} ms; against its plain version max abs "
+            f"err {item['max_abs_err']:.3e}")
+    del cases, q, k, v
+    # f32 (the CUDA-core kernel) with fewer rows: the encoder's heads at
+    # 1024 frames, and one query row against 4096 frames of a cache
+    q32, k32, v32 = (torch.randn((2, n, 1024, 64), generator=gen,
+                                 device=dev) for n in (16, 16, 16))
+    f32_errs = {"encoder 1024": close(
+        "flash at the encoder's heads (f32, 1024 frames)",
+        flash_attention(q32, k32, v32, causal=False),
+        ref.flash_attention_ref(q32, k32, v32, causal=False),
+        *FLASH_TOL["float32"])}
+    qc, kc, vc = _cache_views(8, 16, 16, 4096, 64, torch.float32, dev, 10)
+    f32_errs["cross T=4096"] = close(
+        "flash at one query row (f32, T=4096)",
+        flash_attention(qc, kc, vc, causal=False),
+        ref.flash_attention_ref(qc, kc, vc, causal=False),
+        *FLASH_TOL["float32"])
+    log(f"[encdec] flash in f32 against its plain version: {f32_errs}")
+    del q32, k32, v32, qc, kc, vc
+    e = flash["encoder"]
+    rows["flash_attention"].setdefault("extra", {})["encdec"] = dict(
+        {nm: {key: (it["bound"][0] if key == "bound" else it[key])
+              for key in ("shape", "ms", "plain_ms", "library_ms", "bound",
+                          "max_abs_err")}
+         for nm, it in flash.items()},
+        f32_max_abs_err=f32_errs,
+        launches_a_prefill=paths["encdec_prefill"]["flash_attention"],
+        launches_a_decode_step=paths["encdec_decode"]["flash_attention"]
+        // sizes["gen_steps"])
+    out["flash"] = {nm: {k_: v_ for k_, v_ in it.items() if k_ != "bound"}
+                    | {"bound_ms": it["bound"][0],
+                       "bound_by": it["bound"][1]}
+                    for nm, it in flash.items()}
+    out["flash_f32_errs"] = f32_errs
+    log(f"[encdec] the encoder's flash {e['ms']} ms against its bound "
+        f"{e['bound'][0]:.4f} ms and SDPA {e['library_ms']} ms")
+    took("d")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[encdec] phase 24 took {out['seconds']:.1f} s")
+    results["encdec"] = out
 
 
 def main(argv=None) -> int:
@@ -4447,6 +5039,8 @@ def main(argv=None) -> int:
     run_moe_slice(dev, paths, results)
     # -- 23. the hybrid and ssm families: zamba2-7b and xlstm-125m ----------
     run_recurrent_slice(dev, paths, results, rows)
+    # -- 24. the encdec family: seamless-m4t-large-v2 -----------------------
+    run_encdec_slice(dev, paths, results, rows)
 
     owner = {"project_mask": "fit", "bsr_spmm_gram": "fit",
              "bsr_spmm": "transform", "gram": "unfused_fit",

@@ -1,6 +1,7 @@
 """Architecture registry and assigned input shapes (port of
-``repro.configs``), for the families the port runs: the dense decoders,
-the internvl2 language model (``vlm``), the mixtures of experts
+``repro.configs``): every architecture of the reference's registry, in
+its order — the seamless encoder-decoder (``encdec``), the dense
+decoders, the internvl2 language model (``vlm``), the mixtures of experts
 (``moe``), the Mamba2 hybrid (``hybrid``) and xLSTM (``ssm``); and the
 paper's NMF experiment configurations (``NMF_CONFIGS``, a copy of the
 reference's).
@@ -8,7 +9,7 @@ reference's).
 Each architecture has its own module (``repro_torch.configs.<id>`` with
 dashes mapped to underscores) exporting ``CONFIG``, field for field the
 reference's.  ``smoke_config`` gives the same reduced variants as the
-reference's for every family, ``encdec`` included.
+reference's for every family.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Dict
 
 from repro_torch.models.common import ArchConfig
 
+from repro_torch.configs.seamless_m4t_large_v2 import CONFIG as seamless_m4t_large_v2
 from repro_torch.configs.codeqwen1_5_7b import CONFIG as codeqwen1_5_7b
 from repro_torch.configs.llama3_2_1b import CONFIG as llama3_2_1b
 from repro_torch.configs.phi4_mini_3_8b import CONFIG as phi4_mini_3_8b
@@ -31,6 +33,7 @@ from repro_torch.configs.nmf_paper import NMF_CONFIGS
 ARCHS: Dict[str, ArchConfig] = {
     c.name: c
     for c in [
+        seamless_m4t_large_v2,
         codeqwen1_5_7b,
         llama3_2_1b,
         phi4_mini_3_8b,

@@ -17,7 +17,8 @@ the reference package:
   family: a ``Transformer`` (dense, vlm), a ``MoETransformer`` (each
   stacked expert tensor one parameter a layer), a ``Hybrid`` (the (G, E,
   ...) groups and (T, ...) tail unstacked into Mamba blocks) or an
-  ``XLSTM`` (the reference's list of layers copied as it is);
+  ``XLSTM`` (the reference's list of layers copied as it is) or an
+  ``EncDec`` (the stacked ``enc_layers`` and ``dec_layers`` unstacked);
 * :func:`adam_state_from_reference` — the reference's ``AdamState`` for
   those parameters as the port's, so that both optimizers start from one
   state.
@@ -37,6 +38,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.bsr import BSR, _make_bsr
 from repro_torch.layout import reference_leaf
 from repro_torch.models.common import ArchConfig
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.hybrid import Hybrid
 from repro_torch.models.moe import MoETransformer
 from repro_torch.models.transformer import Transformer
@@ -50,7 +52,7 @@ __all__ = ["bsr_from_reference", "estimator_from_reference",
 
 #: the port's model class of each family
 _MODELS = {"dense": Transformer, "vlm": Transformer, "moe": MoETransformer,
-           "hybrid": Hybrid, "ssm": XLSTM}
+           "hybrid": Hybrid, "ssm": XLSTM, "encdec": EncDec}
 
 
 def bsr_from_reference(tiles, block_cols, shape: Tuple[int, int],
@@ -182,7 +184,8 @@ def model_from_reference(params, cfg: ArchConfig, device: DeviceLike = None
     parameters: ``params`` is the reference's pytree with numpy leaves.
     Each stacked leaf is unstacked into the port's per-layer modules (a
     moe router ``(L, d, E)`` and expert tensors ``(L, E, d, f)``; a
-    hybrid's ``(G, E, ...)`` groups and ``(T, ...)`` tail); xlstm's list
+    hybrid's ``(G, E, ...)`` groups and ``(T, ...)`` tail; an encdec's
+    encoder and decoder stacks); xlstm's list
     of layers is copied as it is; nothing is transposed (both keep ``(in,
     out)``).  Raises ``ValueError`` when the tree's leaves, shapes or
     dtypes are not those of ``cfg``."""

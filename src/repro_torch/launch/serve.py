@@ -36,6 +36,10 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = smoke_config(ARCHS[args.arch]) if args.smoke else ARCHS[args.arch]
+    if cfg.family == "encdec":
+        raise SystemExit("enc-dec serving uses repro_torch.models.encdec."
+                         "prefill / decode_step directly (see "
+                         "tests/test_torch_encdec.py)")
     params = api.init_params(cfg, 0, device=device)
     engine = ServingEngine(cfg, params, max_batch=args.max_batch,
                            max_seq=args.max_seq, device=device)

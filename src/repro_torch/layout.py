@@ -14,11 +14,15 @@ path and to the index of its row in the stacked leaf, by family:
   group with one weight set and is not stacked;
 * ssm (xlstm): the reference's ``layers`` is a Python list of unlike
   blocks, so ``layers.<i>.norm`` is the leaf ``layers/<i>/norm``, not
-  stacked.
+  stacked;
+* encdec: ``enc_layers.<i>.attn.wq`` is row ``(i,)`` of
+  ``enc_layers/attn/wq`` (L_enc, ...), ``dec_layers.<i>.cross_attn.wk``
+  row ``(i,)`` of ``dec_layers/cross_attn/wk`` (L, ...).
 
-Every other parameter (``embed``, ``norm_f``, ``unembed``) is a leaf of its
-own.  The optimizer's weight-decay rule, the checkpoints and the converter
-all read the reference's layout through this one function.
+Every other parameter (``embed``, ``norm_f``, ``unembed``; an encdec's
+``norm_enc`` and ``norm_dec``) is a leaf of its own.  The optimizer's
+weight-decay rule, the checkpoints and the converter all read the
+reference's layout through this one function.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ __all__ = ["reference_leaf", "family_of"]
 _LAYER = re.compile(r"^layers\.(\d+)\.(.+)$")
 _GROUP = re.compile(r"^groups\.(\d+)\.(\d+)\.(.+)$")
 _TAIL = re.compile(r"^tail\.(\d+)\.(.+)$")
+_STACKS = re.compile(r"^(enc_layers|dec_layers)\.(\d+)\.(.+)$")
 
 
 def reference_leaf(name: str, family: Optional[str] = None
@@ -50,6 +55,12 @@ def reference_leaf(name: str, family: Optional[str] = None
             return ("tail",) + tuple(m.group(2).split(".")), (int(m.group(1)),)
         return tuple(name.split(".")), ()
     if family == "ssm":
+        return tuple(name.split(".")), ()
+    if family == "encdec":
+        m = _STACKS.match(name)
+        if m:
+            return ((m.group(1),) + tuple(m.group(3).split(".")),
+                    (int(m.group(2)),))
         return tuple(name.split(".")), ()
     m = _LAYER.match(name)
     if m:

@@ -1,5 +1,5 @@
 """LM substrate of the port (port of ``repro.models``): the dense, vlm,
-moe, hybrid and ssm families and the serving steps around them."""
+moe, hybrid, ssm and encdec families and the serving steps around them."""
 from repro_torch.models import api
 from repro_torch.models.common import ArchConfig
 

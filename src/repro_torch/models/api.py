@@ -2,10 +2,11 @@
 init, input specs, random batches, the loss and the train step, and the
 serving steps.
 
-The ported families are ``dense`` and ``vlm`` (``models/transformer.py``),
-``moe`` (``models/moe.py``), ``hybrid`` (``models/hybrid.py``) and ``ssm``
-(``models/xlstm.py``).  ``encdec`` raises ``NotImplementedError`` from
-:func:`module_for`, naming the ROADMAP item that ports it.  The
+Every family of the reference is ported: ``dense`` and ``vlm``
+(``models/transformer.py``), ``moe`` (``models/moe.py``), ``hybrid``
+(``models/hybrid.py``), ``ssm`` (``models/xlstm.py``) and ``encdec``
+(``models/encdec.py``: its loss is ``seq2seq_loss``, its prefill step
+returns the encoder memory, its decode cache holds the cross K / V).  The
 sharding specs (``param_pspecs`` and the rest: one card, no FSDP / TP
 mesh) are not ported.
 
@@ -22,7 +23,7 @@ from typing import TYPE_CHECKING, Callable, Dict, NamedTuple, Union
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import hybrid, moe, transformer, xlstm
+from repro_torch.models import encdec, hybrid, moe, transformer, xlstm
 from repro_torch.models.common import ArchConfig
 from repro_torch.training.optimizer import (
     AdamW,
@@ -43,25 +44,21 @@ FAMILY = {
     "moe": moe,
     "hybrid": hybrid,
     "ssm": xlstm,
-}
-
-#: each family still to port: the reference's modules, and the title of
-#: its ROADMAP item (queue 1)
-_NOT_PORTED = {
-    "encdec": ("models/encdec.py", "the `encdec` family"),
+    "encdec": encdec,
 }
 
 
 def module_for(cfg: ArchConfig):
-    if cfg.family in FAMILY:
-        return FAMILY[cfg.family]
-    if cfg.family not in _NOT_PORTED:
+    if cfg.family not in FAMILY:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is unknown")
-    where, item = _NOT_PORTED[cfg.family]
-    raise NotImplementedError(
-        f"family {cfg.family!r} ({cfg.name}) is not ported yet: {where}; "
-        f"ROADMAP queue 1, the item \"{item}\"")
+    return FAMILY[cfg.family]
+
+
+def _dec_len(cfg: ArchConfig, frames: int) -> int:
+    """An encdec decoder's length for ``frames`` encoder frames (the
+    audio-to-text compression ``dec_ratio``, at least 16)."""
+    return max(frames // cfg.dec_ratio, 16)
 
 
 class TensorSpec(NamedTuple):
@@ -74,6 +71,15 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, TensorSpec]:
     module_for(cfg)
     b, s = shape.global_batch, shape.seq_len
     i32, bf16 = torch.int32, torch.bfloat16
+    if cfg.family == "encdec":
+        dec = _dec_len(cfg, s)
+        if shape.kind == "train":
+            return {"frame_embeds": TensorSpec((b, s, cfg.d_model), bf16),
+                    "tokens": TensorSpec((b, dec), i32),
+                    "labels": TensorSpec((b, dec), i32)}
+        if shape.kind == "prefill":
+            return {"frame_embeds": TensorSpec((b, s, cfg.d_model), bf16)}
+        return {"token": TensorSpec((b,), i32)}   # decode
     if cfg.family == "vlm":
         text = s - cfg.n_patches
         patches = TensorSpec((b, cfg.n_patches, cfg.d_model), bf16)
@@ -123,10 +129,12 @@ def make_batch(cfg: ArchConfig, shape: ShapeSpec,
 def make_loss_fn(cfg: ArchConfig, remat: bool = True,
                  compute_dtype=torch.bfloat16) -> Callable:
     """``loss_fn(params, batch)`` -> scalar f32: the family's ``lm_loss``
-    on the plain attention path, its layers in ``compute_dtype`` (the
-    reference's default bf16; f32 for checks at the reference's f32
-    bars)."""
-    return functools.partial(module_for(cfg).lm_loss, cfg=cfg, remat=remat,
+    (``encdec``: ``seq2seq_loss``) on the plain attention path, its layers
+    in ``compute_dtype`` (the reference's default bf16; f32 for checks at
+    the reference's f32 bars)."""
+    mod = module_for(cfg)
+    loss = mod.seq2seq_loss if cfg.family == "encdec" else mod.lm_loss
+    return functools.partial(loss, cfg=cfg, remat=remat,
                              compute_dtype=compute_dtype)
 
 
@@ -174,11 +182,16 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, remat: bool = True,
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:
     """``prefill_step(params, batch)`` -> next-token logits (B, vocab) in
-    f32: the full forward in bf16 without autograd, last position."""
+    f32: the full forward in bf16 without autograd, last position.  For
+    ``encdec`` it is the encoder memory (B, S, d) in bf16, as the
+    reference's."""
     mod = module_for(cfg)
 
     def prefill_step(params, batch):
         with torch.no_grad():
+            if cfg.family == "encdec":
+                return mod.encode(params, batch["frame_embeds"], cfg,
+                                  remat=False)
             logits = mod.forward(params, batch["tokens"], cfg,
                                  extra_embeds=batch.get("patch_embeds"))
             return logits[:, -1, :].clone()   # frees the (B, S, vocab) rest
@@ -214,11 +227,18 @@ def init_decode_cache(cfg: ArchConfig, shape: ShapeSpec,
                       dtype=torch.bfloat16, device: DeviceLike = None):
     """The zeroed decode state of a shape cell: the KV cache ((L, B,
     seq_len, Hkv, hd) each; a hybrid's Mamba states beside its shared
-    block's K and V), or for ``ssm`` the recurrent states, one dict a
-    layer, whose size does not depend on ``seq_len`` (and ``dtype`` does
-    not apply: they are f32)."""
+    block's K and V; an ``encdec`` decoder's K and V of ``max(seq_len //
+    dec_ratio, 16)`` rows beside the cross K / V of ``seq_len`` frames),
+    or for ``ssm`` the recurrent states, one dict a layer, whose size does
+    not depend on ``seq_len`` (and ``dtype`` does not apply: they are
+    f32)."""
     mod, dev = module_for(cfg), resolve_device(device)
     if cfg.family == "ssm":
         return mod.init_state(cfg, shape.global_batch, device=dev)
+    if cfg.family == "encdec":
+        s = shape.seq_len
+        return mod.init_cache(cfg, shape.global_batch,
+                              max_dec=_dec_len(cfg, s),
+                              enc_len=s, dtype=dtype, device=dev)
     return mod.init_cache(cfg, shape.global_batch, shape.seq_len,
                           dtype=dtype, device=dev)

@@ -248,12 +248,13 @@ def _plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention(p: Params, x: torch.Tensor, cfg: ArchConfig,
-              positions: torch.Tensor, causal: bool = True,
+              positions: Optional[torch.Tensor], causal: bool = True,
               kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               flash: bool = True) -> torch.Tensor:
     """Full-sequence attention: through the flash kernel's wrapper
     (``flash``, no backward), or the differentiable plain path.  ``kv`` is
-    a cross-attention memory (no rope, not causal)."""
+    a cross-attention memory (no rope, not causal; ``positions`` is not
+    read)."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
     if kv is not None:

@@ -183,16 +183,20 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
 # ---------------------------------------------------------------------------
 
 def layer_fwd(p: Weights, x: torch.Tensor, cfg: ArchConfig,
-              positions: torch.Tensor, flash: bool = True) -> torch.Tensor:
+              positions: torch.Tensor, flash: bool = True,
+              causal: bool = True) -> torch.Tensor:
+    """Self-attention (causal, or not for an encoder) and the MLP, each
+    after its norm and added to the residual stream."""
     h = x + attention(p["attn"], rmsnorm(x, p["norm_attn"], cfg.norm_eps),
-                      cfg, positions, flash=flash)
+                      cfg, positions, causal=causal, flash=flash)
     return h + mlp(p["mlp"], rmsnorm(h, p["norm_mlp"], cfg.norm_eps))
 
 
 def _remat_layer(x: torch.Tensor, layer: Layer, cfg: ArchConfig,
-                 positions: torch.Tensor, compute_dtype, flash: bool
-                 ) -> torch.Tensor:
-    return layer_fwd(layer.weights(compute_dtype), x, cfg, positions, flash)
+                 positions: torch.Tensor, compute_dtype, flash: bool,
+                 causal: bool = True) -> torch.Tensor:
+    return layer_fwd(layer.weights(compute_dtype), x, cfg, positions, flash,
+                     causal)
 
 
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,

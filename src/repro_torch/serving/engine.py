@@ -59,8 +59,9 @@ class ServingEngine:
         self.max_seq = max_seq
         self.eos_id = eos_id
         if cfg.family == "encdec":
-            raise NotImplementedError("use encdec.prefill/decode_step "
-                                      "directly")
+            raise NotImplementedError(
+                "enc-dec serving uses repro_torch.models.encdec.prefill / "
+                "decode_step directly (prefill, then greedy decode steps)")
         mod = api.module_for(cfg)
         self.params = params.to(self.device)
         if cfg.family == "ssm":

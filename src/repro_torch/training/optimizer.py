@@ -18,7 +18,9 @@ a leading L axis, so a layer's norm weights (``layers.<i>.norm_attn``:
 not.  The hybrid stacks its groups twice, (G, E, ...), and its tail once,
 so every Mamba vector (``A_log``, ``D``, ``dt_bias``, the norms) is
 decayed, and its shared block not at all; xlstm keeps a list of unlike
-layers, so none of its vectors is.  :func:`reference_ndim` counts the
+layers, so none of its vectors is; the encdec stacks its encoder and
+decoder layers once each, so their norms are decayed and ``norm_enc`` /
+``norm_dec`` are not.  :func:`reference_ndim` counts the
 stacked axes; :meth:`AdamW.update` reads the family from the model
 (``params.cfg``; a dict of tensors takes the dense layout).
 """

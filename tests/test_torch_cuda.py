@@ -171,8 +171,16 @@ def _qkv_on_card(card, b, h, hkv, s, t, hd, dtype, strided=False,
                  seed=0):
     """q (B, H, S, hd), k and v (B, Hkv, T, hd) drawn on the card; with
     ``strided`` each is the (B, H, S, hd) view of a (B, S, H, hd) tensor,
-    as the model passes its projections."""
+    as the model passes its projections; with ``strided="cache"`` k and v
+    are the views of layer 1 of an (L=2, B, T, Hkv, hd) cache, as an encdec
+    decode step passes its cross K / V."""
     gen = torch.Generator(device=card).manual_seed(seed)
+    if strided == "cache":
+        q = torch.randn((b, s, h, hd), generator=gen, device=card)
+        kv = [torch.randn((2, b, t, hkv, hd), generator=gen,
+                          device=card).to(dtype)[1].transpose(1, 2)
+              for _ in range(2)]
+        return [q.to(dtype).transpose(1, 2)] + kv
     out = []
     for (bb, hh, ss) in ((b, h, s), (b, hkv, t), (b, hkv, t)):
         if strided:
@@ -211,6 +219,14 @@ def _qkv_on_card(card, b, h, hkv, s, t, hd, dtype, strided=False,
     (1, 4, 2, 450, 70, 112, True, torch.bfloat16, False),
     (1, 32, 32, 200, 200, 112, True, torch.float32, True),
     (1, 4, 4, 130, 250, 112, False, torch.float32, False),
+    # seamless-m4t-large-v2: a decode step's cross-attention, one query row
+    # against 4096 frames read in place from a cache; the encoder's
+    # self-attention, not causal, at H = Hkv = 16
+    (8, 16, 16, 1, 4096, 64, False, torch.bfloat16, "cache"),
+    (8, 16, 16, 1, 4096, 64, False, torch.float32, "cache"),
+    (2, 8, 2, 1, 700, 64, False, torch.bfloat16, "cache"),
+    (3, 4, 4, 1, 130, 128, False, torch.bfloat16, "cache"),
+    (1, 16, 16, 2048, 2048, 64, False, torch.bfloat16, True),
 ])
 def test_flash_kernel_matches_plain_version(card, b, h, hkv, s, t, hd,
                                             causal, dtype, strided):
@@ -230,6 +246,41 @@ def test_flash_kernel_matches_plain_version(card, b, h, hkv, s, t, hd,
         out.float(), ref.flash_attention_ref(q, k, v, causal=causal,
                                              groups=h // hkv).float(),
         rtol=rtol, atol=atol)
+
+
+def test_encdec_launches_flash_once_per_attention(card, monkeypatch):
+    """One full-width seamless-m4t-large-v2 encoder layer and decoder layer:
+    ``prefill`` launches the kernel once (the encoder's self-attention) and
+    a ``decode_step`` once (the cross-attention at one query row); neither
+    the kernel's plain version nor the plain attention path runs."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import api, common, encdec
+
+    cfg = dataclasses.replace(ARCHS["seamless-m4t-large-v2"], n_layers=1,
+                              n_enc_layers=1)
+    model = api.init_params(cfg, 0, device=card)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain attention path ran on the card")
+
+    monkeypatch.setattr(ref, "flash_attention_ref", refuse)
+    monkeypatch.setattr(common, "_plain_attention", refuse)
+    gen = torch.Generator(device=card).manual_seed(3)
+    frames = torch.randn((2, 300, cfg.d_model), generator=gen,
+                         device=card).to(torch.bfloat16)
+    _build.reset_launch_counts()
+    cache, memory = encdec.prefill(model, frames, cfg, max_dec=16)
+    assert _build.launch_counts()["flash_attention"] == 1
+    token = torch.zeros((2,), dtype=torch.int32, device=card)
+    for pos in range(3):
+        logits, cache = encdec.decode_step(model, cache, token, pos, cfg)
+        token = logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["flash_attention"] == 4
+    assert logits.shape == (2, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
 
 
 @pytest.mark.parametrize("hd", [16, 32, 64, 112, 128])

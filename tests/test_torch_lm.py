@@ -33,14 +33,17 @@ from repro.serving import ServingEngine as RefEngine
 from repro_torch.configs import ARCHS, SHAPES, ShapeSpec, smoke_config
 from repro_torch.convert import model_from_reference
 from repro_torch.kernels import _build
-from repro_torch.models import api, common, hybrid, moe, transformer, xlstm
+from repro_torch.models import (
+    api, common, encdec, hybrid, moe, transformer, xlstm,
+)
 from repro_torch.serving import Request, ServingEngine
 
 F32_TOL = dict(rtol=2e-3, atol=2e-3)
 BF16_TOL = dict(rtol=5e-2, atol=1e-1)
 PORTED = ("codeqwen1.5-7b", "deepseek-coder-33b", "internvl2-76b",
           "llama3.2-1b", "olmoe-1b-7b", "phi4-mini-3.8b",
-          "qwen3-moe-235b-a22b", "xlstm-125m", "zamba2-7b")
+          "qwen3-moe-235b-a22b", "seamless-m4t-large-v2", "xlstm-125m",
+          "zamba2-7b")
 
 
 @contextlib.contextmanager
@@ -88,11 +91,9 @@ def _assert_close(got, want, tol):
 @pytest.mark.parametrize("arch", sorted(REF_ARCHS))
 def test_config_and_smoke_config_match_reference(arch):
     """Every reference arch: the port's config field for field, and
-    ``smoke_config`` with every family's overrides; an arch the port has
-    no config for yet (seamless, encdec) is built from the reference's
-    fields."""
+    ``smoke_config`` with every family's overrides."""
     ref = REF_ARCHS[arch]
-    cfg = ARCHS.get(arch) or common.ArchConfig(**dataclasses.asdict(ref))
+    cfg = ARCHS[arch]
     assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
     assert dataclasses.asdict(smoke_config(cfg)) == \
         dataclasses.asdict(ref_smoke_config(ref))
@@ -101,10 +102,10 @@ def test_config_and_smoke_config_match_reference(arch):
 
 
 def test_ported_archs_are_the_dense_and_vlm_families():
-    """The dense, vlm, moe, hybrid and ssm families are ported."""
-    want = {n for n, c in REF_ARCHS.items()
-            if c.family in ("dense", "vlm", "moe", "hybrid", "ssm")}
-    assert set(ARCHS) == want == set(PORTED)
+    """Every family is ported: ``ARCHS`` is the reference's registry, in
+    its order."""
+    assert list(ARCHS) == list(REF_ARCHS)
+    assert set(ARCHS) == set(PORTED)
     assert {n: dataclasses.asdict(s) for n, s in SHAPES.items()} == \
         {n: dataclasses.asdict(s) for n, s in REF_SHAPES.items()}
 
@@ -343,19 +344,14 @@ def test_serve_launcher_runs_on_the_cpu_when_asked(capsys):
 
 @pytest.mark.parametrize("family", ["moe", "hybrid", "ssm", "encdec"])
 def test_unported_family_raises_with_its_roadmap_item(family):
-    """A family still to port (``encdec``) raises, naming its ROADMAP item
-    by title; ``moe``, ``hybrid`` and ``ssm`` are ported and return their
-    modules."""
+    """Every family is ported and returns its module (``encdec``, the last
+    one, since its slice); an unknown family raises."""
     cfg = next(c for c in REF_ARCHS.values() if c.family == family)
     port_cfg = common.ArchConfig(**dataclasses.asdict(cfg))
-    ported = {"moe": moe, "hybrid": hybrid, "ssm": xlstm}
-    if family in ported:
-        assert api.module_for(port_cfg) is ported[family]
-        return
-    with pytest.raises(NotImplementedError,
-                       match=f'ROADMAP queue 1, the item "the `{family}` '
-                             'family"'):
-        api.module_for(port_cfg)
+    ported = {"moe": moe, "hybrid": hybrid, "ssm": xlstm, "encdec": encdec}
+    assert api.module_for(port_cfg) is ported[family]
+    with pytest.raises(NotImplementedError, match="is unknown"):
+        api.module_for(dataclasses.replace(port_cfg, family="rnn"))
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "internvl2-76b"])

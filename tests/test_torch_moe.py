@@ -373,19 +373,14 @@ def test_module_for_returns_the_moe_module(arch):
     ("hybrid", "the `hybrid` family"), ("ssm", "the `ssm` family"),
     ("encdec", "the `encdec` family")])
 def test_unported_families_name_their_item_by_title(family, title):
-    """``encdec``, still to port, names its ROADMAP item by title; the
-    hybrid and ssm families are ported and return their modules."""
+    """The hybrid, ssm and encdec families are ported and return their
+    modules (the titles name the ROADMAP items that ported them)."""
     cfg = next(c for c in REF_ARCHS.values() if c.family == family)
-    if family in ("hybrid", "ssm"):
-        assert api.module_for(common.ArchConfig(
-            **dataclasses.asdict(cfg))) is api.FAMILY[family]
-        assert api.FAMILY[family].__name__.rsplit(".", 1)[-1] == \
-            {"hybrid": "hybrid", "ssm": "xlstm"}[family]
-        return
-    with pytest.raises(NotImplementedError) as info:
-        api.module_for(common.ArchConfig(**dataclasses.asdict(cfg)))
-    assert f'ROADMAP queue 1, the item "{title}"' in str(info.value)
-    assert "item 15" not in str(info.value)
+    assert title == f"the `{family}` family"
+    assert api.module_for(common.ArchConfig(
+        **dataclasses.asdict(cfg))) is api.FAMILY[family]
+    assert api.FAMILY[family].__name__.rsplit(".", 1)[-1] == \
+        {"hybrid": "hybrid", "ssm": "xlstm", "encdec": "encdec"}[family]
 
 
 def test_converter_copies_the_stacked_experts():
