@@ -159,7 +159,9 @@ Phases (any failed check raises, and the script exits non-zero):
     flash kernel against the plain path (the reference's bars); (c)
     ``python -m repro_torch.launch.train --smoke --deterministic`` stopped
     at 6 steps and rerun to 9, its state bitwise an uninterrupted run's,
-    with the ``AsyncCheckpointer`` seconds a save; (d)
+    with the ``AsyncCheckpointer`` seconds a save, for llama3.2-1b and for
+    the smoke configs of phases 22 and 24 (olmoe-1b-7b,
+    seamless-m4t-large-v2), all in the same two waves; (d)
     ``make_compressed_grad_fn`` on four gloo ranks sharing the card at
     density 0.25, conservation within 1e-5.
 22. the moe family (olmoe-1b-7b, f32 parameters from a seed): (a) serving
@@ -177,11 +179,11 @@ Phases (any failed check raises, and the script exits non-zero):
     model FLOPs counting the active experts and their share of the bf16
     peak, peak memory; every loss finite, step 0's equal to the serving
     path's cross-entropy (the reference's bf16 bar), no hand-written
-    kernel launched; the train launcher at the smoke olmoe config killed
-    and resumed, bitwise; (c) ``moe_ffn_ep`` on four gloo ranks sharing
-    the card, grids 2x2 and 2x1x2, one full-width layer on 4 x 256 tokens
-    in f32: every rank's block within 1e-5 of the plain single-process
-    body, ``all_to_all`` calls and bytes, ms a layer.
+    kernel launched (the train launcher at the smoke olmoe config is
+    killed and resumed in 21(c)); (c) ``moe_ffn_ep`` on four gloo ranks
+    sharing the card, grids 2x2 and 2x1x2, one full-width layer on 4 x
+    256 tokens in f32: every rank's block within 1e-5 of the plain
+    single-process body, ``all_to_all`` calls and bytes, ms a layer.
 23. the hybrid and ssm families (zamba2-7b and xlstm-125m, f32 parameters
     from a seed): (a) zamba2-7b serving at full width and depth (81 Mamba2
     layers, the shared block 13 times): ``make_prefill_step`` on 4 x 4096
@@ -197,11 +199,12 @@ Phases (any failed check raises, and the script exits non-zero):
     FLOPs and their share of the bf16 peak, peak memory; step 0's loss
     against the serving path's cross-entropy, no hand-written kernel
     launched); (d) xlstm-125m serving at full width and depth: prefills
-    at 4 x 4096 and 1 x 32768 with the sLSTM layers' share of the time,
-    the engine, one long_500k decode step at position 524,287 (state
-    bytes constant), an mLSTM and an sLSTM block card against CPU (1e-4)
-    and the mLSTM decode against its parallel form (5e-2); (e) xlstm-125m
-    training at full depth, batch cut to 8 x 4096; (f) the flash kernel at
+    at 4 x 4096 (the profiler window at 4 x 1024) and 1 x 8192 with the
+    sLSTM layers' share of the time, the engine, one long_500k decode
+    step at position 524,287 (state bytes constant), an mLSTM and an
+    sLSTM block card against CPU (1e-4) and the mLSTM decode against its
+    parallel form (5e-2); (e) xlstm-125m training at full depth, batch
+    cut to 4 x 4096 in one microbatch; (f) the flash kernel at
     zamba2's shape (B=4, H=32, S=4096, hd=112) against its bound, its
     plain version and ``scaled_dot_product_attention``, and the last two
     at olmoe's heads (hd 128).
@@ -224,12 +227,28 @@ Phases (any failed check raises, and the script exits non-zero):
     warm-up and 3 timed steps, tokens/s, model FLOPs and their share of the
     bf16 peak, peak memory; every loss finite, step 0's equal to
     ``seq2seq_loss`` on the serving path's memory (the bf16 bar), no
-    hand-written kernel launched; the train launcher at the smoke config
-    killed and resumed, bitwise; (d) the flash kernel at the encoder's
+    hand-written kernel launched (the train launcher at the smoke config
+    is killed and resumed in 21(c)); (d) the flash kernel at the encoder's
     shape (B=4, H=Hkv=16, S=T=4096, hd=64, not causal) and at one query
     row against 4096 and 32768 frames of a cache (B=8), each against its
     plain version, its bound and ``scaled_dot_product_attention``, and in
     f32 with fewer rows.
+25. parameter sharding (``training/sharding.py``: FSDP over ``"data"``,
+    tensor parallelism over ``"model"``) on a 2x2 grid of four gloo ranks
+    sharing the card: (a) llama3.2-1b at full width, depth cut from 16 to
+    4, a global batch of 4 x 1024 in bf16 with remat, a warm-up step and 3
+    timed ones: ms a step, tokens/s, each rank's peak memory, each rank's
+    parameter + moment bytes against the 1x1 run's (equal to the
+    reference's per-device shard bytes), ``all_reduce`` calls and bytes a
+    step; every loss finite and equal on every rank, step 0's the 1x1
+    loss on the same parameters and batch within the bf16 bar, no
+    hand-written kernel launched; (b) in f32 at full width with 2 layers
+    on 2 x 256 tokens: the sharded loss and gradients, gathered whole,
+    against the 1x1 step's (1e-4 / 1e-5, 1e-3 / 1e-5); (c) ``python -m
+    torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train
+    --smoke --deterministic --data 2 --model 2 --dist-backend gloo``
+    stopped at 6 and rerun to 9, bitwise an uninterrupted 2x2 run, and its
+    step-6 checkpoint resumed on 4x1 within 1e-4.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -2487,12 +2506,14 @@ def _compress_rank(rank, arrays, device, density):
     return out, collective_counts()
 
 
-def launcher_kill_and_resume(arch, cli, card):
-    """``python -m repro_torch.launch.train --arch ARCH --smoke
-    --deterministic`` stopped at 6 steps (checkpoints every 3) and rerun to
-    9, against an uninterrupted 9-step run: the step-9 states must be
-    bitwise equal.  Returns the seconds, the checkpointer's lines and the
-    leaf count."""
+def launcher_kill_and_resume(archs, cli, card):
+    """For each of ``archs``: ``python -m repro_torch.launch.train --arch
+    ARCH --smoke --deterministic`` stopped at 6 steps (checkpoints every 3)
+    and rerun to 9, against an uninterrupted 9-step run: the step-9 states
+    must be bitwise equal.  Every architecture's runs go in the same two
+    waves (the stopped and the uninterrupted runs, then the reruns).
+    Returns, by architecture, the seconds of the waves, the checkpointer's
+    lines and the leaf count."""
     import os
     import shutil
     import tempfile
@@ -2502,12 +2523,13 @@ def launcher_kill_and_resume(arch, cli, card):
     root = tempfile.mkdtemp(prefix="train-ck-")
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
                                           / "src"))
-    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-            arch, "--smoke", "--ckpt-every", "3", "--deterministic",
-            *cli] + ([] if card else ["--device", "cpu"])
-    run = lambda *a: subprocess.Popen(base + list(a), env=env,
-                                      stdout=subprocess.PIPE,
-                                      stderr=subprocess.PIPE, text=True)
+
+    def run(arch, *a):
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               arch, "--smoke", "--ckpt-every", "3", "--deterministic",
+               *cli, *a] + ([] if card else ["--device", "cpu"])
+        return subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
 
     def finish(p):
         try:
@@ -2520,31 +2542,43 @@ def launcher_kill_and_resume(arch, cli, card):
         return o
 
     t0 = time.perf_counter()
-    a_dir, b_dir = os.path.join(root, "a"), os.path.join(root, "b")
-    first, whole = run("--steps", "6", "--ckpt-dir", a_dir), \
-        run("--steps", "9", "--ckpt-dir", b_dir)
-    first_out, whole_out = finish(first), finish(whole)
-    resumed_out = finish(run("--steps", "9", "--ckpt-dir", a_dir))
+    dirs = {arch: (os.path.join(root, arch, "a"), os.path.join(root, arch,
+                                                               "b"))
+            for arch in archs}
+    wave = {arch: (run(arch, "--steps", "6", "--ckpt-dir", a),
+                   run(arch, "--steps", "9", "--ckpt-dir", b))
+            for arch, (a, b) in dirs.items()}
+    outs = {arch: [finish(p) for p in ps] for arch, ps in wave.items()}
+    wave = {arch: run(arch, "--steps", "9", "--ckpt-dir", a)
+            for arch, (a, _) in dirs.items()}
+    for arch, p in wave.items():
+        outs[arch].append(finish(p))
     cli_s = time.perf_counter() - t0
-    if "resuming from checkpoint step 6" not in resumed_out:
-        raise AssertionError(f"the rerun did not resume from step 6: "
-                             f"{resumed_out[-2000:]}")
-    got, _ = load_checkpoint_arrays(a_dir, 9)
-    want, _ = load_checkpoint_arrays(b_dir, 9)
-    differ = [n for n in want if not np.array_equal(got[n], want[n])]
-    if got.keys() != want.keys() or differ:
-        raise AssertionError(f"the resumed run's step-9 state differs from "
-                             f"the uninterrupted run's in {differ}")
-    saves = [ln for ln in (first_out + resumed_out + whole_out).splitlines()
-             if ln.startswith("checkpoints:")]
-    log(f"[train] python -m repro_torch.launch.train --arch {arch} "
-        f"--smoke --deterministic: stopped at 6 steps, rerun to 9 (\"resuming"
-        f" from checkpoint step 6\"); parameters, mu, nu and step at step 9 "
-        f"bitwise the uninterrupted 9-step run's ({len(want)} leaves, "
-        f"torch.use_deterministic_algorithms on); three runs "
-        f"{cli_s:.1f} s; AsyncCheckpointer {saves}")
+    result = {}
+    for arch, (a_dir, b_dir) in dirs.items():
+        first_out, whole_out, resumed_out = outs[arch]
+        if "resuming from checkpoint step 6" not in resumed_out:
+            raise AssertionError(f"the {arch} rerun did not resume from step "
+                                 f"6: {resumed_out[-2000:]}")
+        got, _ = load_checkpoint_arrays(a_dir, 9)
+        want, _ = load_checkpoint_arrays(b_dir, 9)
+        differ = [n for n in want if not np.array_equal(got[n], want[n])]
+        if got.keys() != want.keys() or differ:
+            raise AssertionError(f"the {arch} resumed run's step-9 state "
+                                 f"differs from the uninterrupted run's in "
+                                 f"{differ}")
+        saves = [ln for ln in (first_out + resumed_out + whole_out
+                               ).splitlines() if ln.startswith("checkpoints:")]
+        log(f"[train] python -m repro_torch.launch.train --arch {arch} "
+            f"--smoke --deterministic: stopped at 6 steps, rerun to 9 "
+            f"(\"resuming from checkpoint step 6\"); parameters, mu, nu and "
+            f"step at step 9 bitwise the uninterrupted 9-step run's "
+            f"({len(want)} leaves, torch.use_deterministic_algorithms on); "
+            f"{3 * len(dirs)} runs of {len(dirs)} architectures in two waves"
+            f" {cli_s:.1f} s; AsyncCheckpointer {saves}")
+        result[arch] = dict(seconds=cli_s, saves=saves, leaves=len(want))
     shutil.rmtree(root, ignore_errors=True)
-    return dict(seconds=cli_s, saves=saves, leaves=len(want))
+    return result
 
 
 def run_train_slice(dev, paths, results, cfg=None, sizes=TRAIN):
@@ -2812,8 +2846,11 @@ def run_train_slice(dev, paths, results, cfg=None, sizes=TRAIN):
         "/ 2e-3)")
     out["held"] = held
 
-    # -- 21(c). the train launcher, killed at 6 steps and resumed to 9 -----
-    out["cli"] = launcher_kill_and_resume(LM_ARCH, sizes["cli"], card)
+    # -- 21(c). the train launcher, killed at 6 steps and resumed to 9, at
+    # the smoke config of this family and of phases 22 and 24's -----------
+    out["cli"] = launcher_kill_and_resume(
+        sizes.get("cli_archs", (LM_ARCH, MOE_ARCH, ENCDEC_ARCH)),
+        sizes["cli"], card)
 
     # -- 21(d). compressed gradients on four gloo ranks -----------------------
     arrays = {"w": np.random.default_rng(0).standard_normal((8, 4))
@@ -2865,8 +2902,7 @@ MOE_ARCH = "olmoe-1b-7b"
 MOE = dict(prefill_batch=4, prefill_seq=4096, layer_tokens=256,
            check_layers=2, check_batch=2, check_seq=1024,
            train_layers=4, train_batch=2, train_seq=4096, microbatches=2,
-           timed=3, ep_batch=4, ep_seq=256, ep_timed=5, ep_seed=7,
-           cli=("--batch", "2", "--seq", "32"))
+           timed=3, ep_batch=4, ep_seq=256, ep_timed=5, ep_seed=7)
 #: expert parallelism's grids, (pods, rows, cols): (data, model) = 2x2 and
 #: (pod, data, model) = 2x1x2
 EP_GRIDS = ((1, 2, 2), (2, 1, 2))
@@ -2936,8 +2972,8 @@ def run_moe_slice(dev, paths, results, cfg=None, sizes=MOE):
     2 layers in bf16.  (b) training at full width, 4 layers: bf16, remat,
     AdamW, two microbatches; ms a step, tokens/s, model FLOPs counting the
     active experts, peak memory; step 0's loss against the serving path's
-    cross-entropy; the train launcher killed and resumed at the smoke
-    config.  (c) expert parallelism on four gloo ranks sharing the card,
+    cross-entropy (the launcher's kill and resume at the smoke config runs
+    in 21(c)).  (c) expert parallelism on four gloo ranks sharing the card,
     against the plain single-process body.  ``cfg`` and ``sizes`` shrink
     it for a rehearsal on the CPU."""
     import math
@@ -3199,7 +3235,6 @@ def run_moe_slice(dev, paths, results, cfg=None, sizes=MOE):
     del model, state, batches, step
     if card:
         torch.cuda.empty_cache()
-    out["cli"] = launcher_kill_and_resume(MOE_ARCH, sizes["cli"], card)
 
     # -- 22(c). expert parallelism on four gloo ranks sharing the card -------
     device = "cuda:0" if card else "cpu"
@@ -3247,13 +3282,16 @@ def run_moe_slice(dev, paths, results, cfg=None, sizes=MOE):
 #: depth cut from 81 to 15 (two groups of 6 and a tail of 3: parameters,
 #: AdamW's moments and gradients of 81 layers, ~20 B a parameter, would
 #: take ~135 GB) and the global batch cut from 256 to 2; xlstm training at
-#: full depth with the global batch cut from 256 to 8 (its sLSTM loop runs
-#: 4096 steps a layer a microbatch: a run's time limit); the flash kernel
-#: at zamba2's head size 112
+#: full depth with the global batch cut from 256 to 4 in one microbatch
+#: (its sLSTM loop runs 4096 steps a layer a microbatch: a run's time
+#: limit), its profiler window over a 4 x 1024 prefill and its long
+#: prefill cut to 1 x 8192 (the same loop, ~5k launches a 1024 steps;
+#: since phase 25 came); the flash kernel at zamba2's head size 112
 RECURRENT = dict(prefill_batch=4, prefill_seq=4096, long_seq=32768,
                  block_tokens=256, decode_check=64, hybrid_train_layers=15,
-                 hybrid_train_batch=2, xlstm_train_batch=8, train_seq=4096,
-                 microbatches=2, hybrid_timed=1, xlstm_timed=0,
+                 hybrid_train_batch=2, xlstm_train_batch=4, train_seq=4096,
+                 microbatches=2, xlstm_microbatches=1, hybrid_timed=1,
+                 xlstm_timed=0, xlstm_profile_seq=1024, xlstm_long_seq=8192,
                  long_pos=524287, long_prompt=16, flash_reps=20,
                  plain_reps=3, hybrid_prompt=8, hybrid_max_new=8)
 HYBRID_ARCH, SSM_ARCH = "zamba2-7b", "xlstm-125m"
@@ -3293,10 +3331,11 @@ def recurrent_flops(cfg, b, s):
 
 
 def _serve_model(name, cfg, model, step, sizes, dev, paths, key, card,
-                 profile_expect=None):
+                 profile_expect=None, profile_seq=None, long_seq=None):
     """The prefill of one model at B x S (first call with its launches,
-    then the median of 3), a profiler window of one call, and one 1 x
-    long_seq prefill; returns the numbers."""
+    then the median of 3), a profiler window of one call (at B x
+    ``profile_seq`` if given), and one 1 x ``long_seq`` prefill (default
+    ``sizes["long_seq"]``); returns the numbers."""
     import torch
 
     from repro_torch.configs import ShapeSpec
@@ -3340,15 +3379,22 @@ def _serve_model(name, cfg, model, step, sizes, dev, paths, key, card,
                launches=paths[key])
     if card:
         t0 = time.perf_counter()
-        out["profile"] = profiled(f"{name} prefill B={b} x S={s_len}",
-                                  lambda: step(model, batch),
+        p_len = profile_seq or s_len
+        p_batch = batch if p_len == s_len else api.make_batch(
+            cfg, ShapeSpec("prefill", p_len, b, "prefill"), seed=1,
+            device=dev)
+        out["profile"] = profiled(f"{name} prefill B={b} x S={p_len}",
+                                  lambda: step(model, p_batch),
                                   expect=profile_expect, cpu=False)
         log(f"[recurrent] the profiler window and its summary took "
             f"{time.perf_counter() - t0:.1f} s")
+        del p_batch
     del logits, batch
-    # one prefill at prefill_32k's length, the batch cut from 32 to 1
+    # one prefill at prefill_32k's length (or the cut ``long_seq``), the
+    # batch cut from 32 to 1
+    long_seq = long_seq or sizes["long_seq"]
     long_batch = api.make_batch(
-        cfg, ShapeSpec("prefill_32k cut", sizes["long_seq"], 1, "prefill"),
+        cfg, ShapeSpec("prefill_32k cut", long_seq, 1, "prefill"),
         seed=3, device=dev)
     if card:
         torch.cuda.empty_cache()
@@ -3360,14 +3406,14 @@ def _serve_model(name, cfg, model, step, sizes, dev, paths, key, card,
     long_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() if card else 0
     if not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"the {name} 1 x {sizes['long_seq']} prefill's "
+        raise AssertionError(f"the {name} 1 x {long_seq} prefill's "
                              "logits are not finite")
-    log(f"[recurrent] {name} prefill 1 x {sizes['long_seq']} (prefill_32k, "
-        f"batch cut from 32 to 1: one card): finite, {long_s:.3f} s, "
-        f"{sizes['long_seq'] / long_s:.0f} tokens/s, peak memory "
-        f"{peak / 2**30:.2f} GiB")
-    out["long"] = dict(seconds=long_s, peak_bytes=peak,
-                       seq=sizes["long_seq"])
+    log(f"[recurrent] {name} prefill 1 x {long_seq} (prefill_32k, "
+        f"batch cut from 32 to 1: one card"
+        f"{'' if long_seq == sizes['long_seq'] else '; length cut'}): "
+        f"finite, {long_s:.3f} s, {long_seq / long_s:.0f} tokens/s, peak "
+        f"memory {peak / 2**30:.2f} GiB")
+    out["long"] = dict(seconds=long_s, peak_bytes=peak, seq=long_seq)
     return out
 
 
@@ -3439,9 +3485,10 @@ def _drain(name, cfg, model, dev, card, prompt=None, max_new=None):
 
 
 def _train_model(name, cfg, sizes, batch, timed, dev, paths, key, card,
-                 reduced):
+                 reduced, microbatches=None):
     """Warm-up and ``timed`` steps of ``make_train_step`` (bf16, remat,
-    AdamW, two microbatches) at a global batch of ``batch`` (``timed`` 0:
+    AdamW, ``microbatches`` of them, by default ``sizes["microbatches"]``)
+    at a global batch of ``batch`` (``timed`` 0:
     the first step alone, timed and counted itself, where a step's
     seconds dwarf its set-up); step 0's loss against the serving path's
     cross-entropy on the same batch; no hand-written kernel launched."""
@@ -3458,7 +3505,7 @@ def _train_model(name, cfg, sizes, batch, timed, dev, paths, key, card,
     sync = torch.cuda.synchronize if card else (lambda: None)
     _free(card, f"training {name}")
     tshape = ShapeSpec("train_4k cut", sizes["train_seq"], batch, "train")
-    m = sizes["microbatches"]
+    m = microbatches or sizes["microbatches"]
     model = api.init_params(cfg, 0, device=dev)
     n = sum(p.numel() for p in model.parameters())
     opt = AdamW()
@@ -3503,7 +3550,8 @@ def _train_model(name, cfg, sizes, batch, timed, dev, paths, key, card,
     flops = 3.0 * recurrent_flops(cfg, batch, tshape.seq_len)
     med = float(np.median(step_ms))
     log(f"[recurrent] training {name} ({reduced}): {n:,} parameters; "
-        f"{batch} x {tshape.seq_len} tokens in {m} microbatches, bf16 "
+        f"{batch} x {tshape.seq_len} tokens in {m} "
+        f"microbatch{'es' if m > 1 else ''}, bf16 "
         f"compute, remat, AdamW; "
         + (f"warm-up step {warm_s:.2f} s; " if timed else
            "the first step timed itself (no warm-up); ")
@@ -3706,7 +3754,9 @@ def run_recurrent_slice(dev, paths, results, rows, cfgs=None,
         f"{xcfg.d_model // xcfg.n_heads}; "
         f"vocab {xcfg.vocab}): {n_x:,} parameters in f32")
     d = _serve_model(xcfg.name, xcfg, model, api.make_prefill_step(xcfg),
-                     sizes, dev, paths, "ssm_prefill", card)
+                     sizes, dev, paths, "ssm_prefill", card,
+                     profile_seq=sizes["xlstm_profile_seq"],
+                     long_seq=sizes["xlstm_long_seq"])
     d["n_params"] = n_x
     # the sLSTM layers' share: each layer of one prefill timed alone
     b, s_len = sizes["prefill_batch"], sizes["prefill_seq"]
@@ -3806,7 +3856,7 @@ def run_recurrent_slice(dev, paths, results, rows, cfgs=None,
         xcfg.name, xcfg, sizes, sizes["xlstm_train_batch"],
         sizes["xlstm_timed"], dev, paths, "ssm_train", card,
         f"full width and depth; global batch 256 -> "
-        f"{sizes['xlstm_train_batch']}")
+        f"{sizes['xlstm_train_batch']}", sizes["xlstm_microbatches"])
     took("e")
 
     # -- 23(f). the flash kernel at the new shapes ----------------------------
@@ -3895,8 +3945,7 @@ ENCDEC = dict(prefill_batch=4, prefill_seq=4096, long_seq=32768,
               d32_enc=32768, d32_dec=4096, d32_steps=5, block_tokens=256,
               block_dec=32, check_seq=64, check_steps=16, train_batch=8,
               train_seq=4096, microbatches=2, timed=3, flash_reps=20,
-              plain_reps=3, unembed_reps=50,
-              cli=("--batch", "2", "--seq", "32"))
+              plain_reps=3, unembed_reps=50)
 ENCDEC_ARCH = "seamless-m4t-large-v2"
 #: flash at the encoder (B, H, Hkv, Sq, T, hd; not causal) and at the
 #: decoder's cross-attention, one query row against the memory
@@ -3951,8 +4000,8 @@ def run_encdec_slice(dev, paths, results, rows, cfg=None, sizes=ENCDEC):
     f32, and an f32 prefill with 16 decode steps against ``decode_train``;
     (c) training at full width and depth (8 x 4096 frames, 8 x 512
     tokens, two microbatches), step 0's loss against ``seq2seq_loss`` on
-    the serving path's memory, no hand-written kernel, the train launcher
-    killed and resumed; (d) the flash kernel at the encoder's and the
+    the serving path's memory, no hand-written kernel (the launcher's kill
+    and resume at the smoke config runs in 21(c)); (d) the flash kernel at the encoder's and the
     cross-attention's shapes against its plain version, its bound and
     ``scaled_dot_product_attention``.  ``cfg`` and ``sizes`` shrink it for
     a rehearsal on the CPU."""
@@ -4324,9 +4373,6 @@ def run_encdec_slice(dev, paths, results, rows, cfg=None, sizes=ENCDEC):
                         launches=paths["encdec_train"], batch=tb,
                         frames=ts, tokens=s_dec)
     del model, state, batches, train_step, loss
-    _free(card, "the train launcher", "encdec")
-    out["train"]["launcher"] = launcher_kill_and_resume(cfg.name,
-                                                        sizes["cli"], card)
     took("c")
 
     # -- 24(d). the flash kernel at this family's shapes ----------------------
@@ -4413,6 +4459,329 @@ def run_encdec_slice(dev, paths, results, rows, cfg=None, sizes=ENCDEC):
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[encdec] phase 24 took {out['seconds']:.1f} s")
     results["encdec"] = out
+
+
+#: phase 25: parameter sharding (FSDP over "data", tensor parallelism over
+#: "model") on a 2x2 grid of four gloo ranks sharing the card: llama3.2-1b
+#: at full width, depth cut from 16 to 4 (a run's time limit: every gather
+#: crosses the host under gloo), a global batch of 4 x 1024 in bf16 with
+#: remat; f32 gradients at full width with 2 layers on 2 x 256 tokens; the
+#: launcher at the smoke config under torch.distributed.run
+SHARD = dict(grid=(2, 2), layers=4, batch=4, seq=1024, timed=3,
+             check_layers=2, check_batch=2, check_seq=256)
+
+
+def _shard_rank(rank, sizes, device):
+    """One rank of phase 25(a, b): the sharded train step of llama3.2-1b on
+    the 2x2 grid.  (a) at full width with ``layers`` layers, a warm-up step
+    and ``timed`` timed steps in bf16 (host clock ending in a synchronize),
+    this rank's state bytes, peak memory, collectives and kernel launches;
+    (b) in f32 with ``check_layers`` layers: one step's gradients gathered
+    whole, held on rank 0 against the 1x1 step's on the same parameters
+    and batch."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS, ShapeSpec
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import (
+        collective_counts, make_local_mesh, reset_collective_counts,
+    )
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import api
+    from repro_torch.training import AdamW, sharding
+    from repro_torch.training.optimizer import value_and_grad
+
+    dev = torch.device(device)
+    card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    mesh = make_local_mesh(*sizes["grid"], device=dev)
+    base = sizes.get("cfg") or ARCHS[LM_ARCH]
+    out = {}
+
+    # -- (a) bf16 steps ------------------------------------------------------
+    cfg = dataclasses.replace(base, n_layers=sizes["layers"])
+    model = api.init_params(cfg, 0, device=dev)
+    shards = sharding.shard_model(model, mesh)
+    opt = AdamW()
+    state = opt.init(model)
+    step = sharding.make_train_step(cfg, opt, shards)
+    shape = ShapeSpec("shard", sizes["seq"], sizes["batch"], "train")
+    batches = [synthetic_batch(cfg, shape, i, dev)
+               for i in range(sizes["timed"] + 1)]
+    losses, step_s = [], []
+    sync()
+    t0 = time.perf_counter()
+    model, state, loss = step(model, state, batches[0])
+    losses.append(float(loss))
+    warm_s = time.perf_counter() - t0
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_collective_counts()
+    _build.reset_launch_counts()
+    for b in batches[1:]:
+        sync()
+        t0 = time.perf_counter()
+        model, state, loss = step(model, state, b)
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+    out["a"] = dict(losses=losses, warm_s=warm_s, step_s=step_s,
+                    counts=collective_counts(),
+                    launches=_build.launch_counts(),
+                    peak=torch.cuda.max_memory_allocated() if card else 0,
+                    state_bytes=sharding.state_bytes(model, state),
+                    plan=(shards.tp_attn, shards.tp_mlp, shards.tp_vocab))
+    del model, state, step, batches, loss
+
+    # -- (b) f32 gradients against 1x1 ---------------------------------------
+    cfg = dataclasses.replace(base, n_layers=sizes["check_layers"])
+    shape = ShapeSpec("shard check", sizes["check_seq"],
+                      sizes["check_batch"], "train")
+    batch = synthetic_batch(cfg, shape, 0, dev)
+    model = api.init_params(cfg, 1, device=dev)
+    shards = sharding.shard_model(model, mesh)
+    got = {}
+
+    class Capture(AdamW):
+        def update(self, grads, state, params):
+            got.update(grads)
+            return params, state
+
+    opt = Capture()
+    _, _, loss = sharding.make_train_step(
+        cfg, opt, shards, compute_dtype=torch.float32)(
+        model, opt.init(model), batch)
+    grads = sharding.gather_named(shards, got)
+    del got, model
+    if rank != 0:
+        return out
+    # rank 0 holds the gathered gradients against the 1x1 step's
+    whole = api.init_params(cfg, 1, device=dev)
+    loss1, want = value_and_grad(api.make_loss_fn(
+        cfg, compute_dtype=torch.float32), whole, batch)
+    del whole
+    err, worst = 0.0, 0.0
+    for name, g in grads.items():
+        w = want[name]
+        err = max(err, float((g - w).abs().max()))
+        worst = max(worst, float(((g - w).abs() / (1e-5 + 1e-3 * w.abs())
+                                  ).max()))
+    out["b"] = dict(loss=float(loss), loss_1x1=float(loss1), grad_err=err,
+                    grad_worst=worst, leaves=len(grads))
+    return out
+
+
+def launcher_across_grids(card):
+    """``python -m torch.distributed.run --nproc-per-node 4 -m
+    repro_torch.launch.train --arch llama3.2-1b --smoke --deterministic
+    --data 2 --model 2 --dist-backend gloo``: stopped at 6 (checkpoints
+    every 3) beside an uninterrupted run to 9; then the stopped one resumed
+    to 9 on 2x2 (bitwise the uninterrupted run) while a copy of its step-6
+    checkpoint resumes on 4x1 (within 1e-4)."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import load_checkpoint_arrays
+
+    root = tempfile.mkdtemp(prefix="shard-ck-")
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"), OMP_NUM_THREADS="1")
+
+    def run(ckpt, steps, data=2, model=2):
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(data * model), "-m",
+               "repro_torch.launch.train", "--arch", LM_ARCH, "--smoke",
+               "--deterministic", "--ckpt-every", "3", "--steps", str(steps),
+               "--ckpt-dir", ckpt, "--data", str(data), "--model",
+               str(model), "--dist-backend", "gloo", "--batch", "4",
+               "--seq", "32"]
+        return subprocess.Popen(cmd + ([] if card else ["--device", "cpu"]),
+                                env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    def finish(p, *again):
+        """The output of run ``p`` (started as ``run(*again)``) once it
+        exits 0; a run whose gloo group failed to connect, before any step
+        (gloo's flake on one host), is started again, up to twice."""
+        for _ in range(3):
+            try:
+                o, e = p.communicate(timeout=300)
+            finally:
+                p.kill()
+            if p.returncode == 0 or "connectFullMesh failed" not in e:
+                break
+            log(f"[shard] a launcher's gloo group failed to connect; "
+                f"started again: {again}")
+            p = run(*again)
+        if p.returncode != 0:
+            raise AssertionError(f"the sharded train launcher exited "
+                                 f"{p.returncode}: {e[-3000:]}")
+        return o
+
+    t0 = time.perf_counter()
+    a, b, c = (os.path.join(root, k) for k in ("a", "b", "4x1"))
+    first, whole = run(a, 6), run(b, 9)
+    outs = [finish(first, a, 6), finish(whole, b, 9)]
+    shutil.copytree(os.path.join(a, "step_6"), os.path.join(c, "step_6"))
+    resumed, other = run(a, 9), run(c, 9, 4, 1)
+    outs += [finish(resumed, a, 9), finish(other, c, 9, 4, 1)]
+    secs = time.perf_counter() - t0
+    for o in outs[2:]:
+        if "resuming from checkpoint step 6" not in o:
+            raise AssertionError(f"a rerun did not resume from step 6: "
+                                 f"{o[-2000:]}")
+    want, _ = load_checkpoint_arrays(b, 9)
+    got, _ = load_checkpoint_arrays(a, 9)
+    differ = [n for n in want if not np.array_equal(got[n], want[n])]
+    if got.keys() != want.keys() or differ:
+        raise AssertionError(f"the 2x2 resumed run's step-9 state differs "
+                             f"from the uninterrupted run's in {differ}")
+    got, _ = load_checkpoint_arrays(c, 9)
+    diff = {n: float(np.max(np.abs(got[n].astype(np.float64) - want[n])))
+            for n in want}
+    for n in want:
+        if not np.allclose(got[n], want[n], rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"the 4x1 resume's {n} is not within 1e-4 "
+                                 f"of the 2x2 run's (max abs diff "
+                                 f"{diff[n]:.3e})")
+    top = max(diff, key=diff.get)
+    params = max(v for n, v in diff.items() if n.startswith("0/"))
+    log(f"[shard] python -m torch.distributed.run --nproc-per-node 4 -m "
+        f"repro_torch.launch.train --arch {LM_ARCH} --smoke --deterministic "
+        f"--data 2 --model 2 --dist-backend gloo: stopped at 6, rerun to 9 "
+        f"(\"resuming from checkpoint step 6\"), bitwise the uninterrupted "
+        f"2x2 run ({len(want)} leaves); its step-6 checkpoint resumed on 4x1:"
+        f" within 1e-4 (max abs diff {diff[top]:.3e} in {top}, the "
+        f"parameters {params:.3e}); four runs in two waves {secs:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(seconds=secs, leaves=len(want), max_diff_4x1=diff[top],
+                max_diff_leaf=top, max_diff_params=params)
+
+
+def run_shard_slice(dev, paths, results, sizes=SHARD):
+    """Phase 25: parameter sharding on a 2x2 grid of four gloo ranks
+    sharing the card.  (a) llama3.2-1b at full width with its depth cut to
+    ``layers``: ms a step, tokens/s, each rank's peak memory and state
+    bytes against the 1x1 run's, ``all_reduce`` calls and bytes a step;
+    every loss finite, step 0's the 1x1 loss on the same parameters and
+    batch within the bf16 bar; (b) f32 gradients at full width with 2
+    layers, gathered, against 1x1's (1e-3 / 1e-5); (c) the launcher's kill
+    and resume on 2x2 and on 4x1.  ``sizes`` may carry a ``cfg`` to shrink
+    it for a rehearsal on the CPU."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs import ARCHS, ShapeSpec
+    from repro_torch.launch.mesh import spawn_mesh
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import api
+    from repro_torch.training import sharding
+
+    t_phase = time.perf_counter()
+    card = dev.type == "cuda"
+    base = sizes.get("cfg") or ARCHS[LM_ARCH]
+    cfg = dataclasses.replace(base, n_layers=sizes["layers"])
+    rows, cols = sizes["grid"]
+    if card:
+        torch.cuda.empty_cache()
+    log(f"[shard] {cfg.name} at full width, depth cut from {base.n_layers} "
+        f"to {cfg.n_layers}, on a {rows}x{cols} grid of four gloo ranks "
+        "sharing the card (FSDP over data, tensor parallelism over model; "
+        "every collective an all_reduce through the host: not a multi-card "
+        f"result); global batch {sizes['batch']} x {sizes['seq']}, bf16, "
+        "remat")
+    device = f"cuda:{dev.index or 0}" if card else "cpu"
+    t0 = time.perf_counter()
+    recs = spawn_mesh(_shard_rank, rows, cols, backend="gloo", device=device,
+                      args=(sizes, device), timeout=600.0)
+    spawn_s = time.perf_counter() - t0
+
+    # the 1x1 loss on the same parameters and batch (this process joins no
+    # group), and the reference's per-device shard bytes of the grid
+    model = api.init_params(cfg, 0, device=dev)
+    shape = ShapeSpec("shard", sizes["seq"], sizes["batch"], "train")
+    with torch.no_grad():
+        loss1 = float(api.make_loss_fn(cfg)(
+            model, synthetic_batch(cfg, shape, 0, dev)))
+    specs = api.param_pspecs(cfg, model, sharding.RULES,
+                             {"data": rows, "model": cols})
+    whole_bytes, per_rank = 0, 0
+    for name, p in model.named_parameters():
+        parts = 1
+        for ax in specs[name]:
+            parts *= {"data": rows, "model": cols}.get(ax, 1) if ax else 1
+        whole_bytes += 3 * p.numel() * 4
+        per_rank += 3 * p.numel() * 4 // parts
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    if card:
+        torch.cuda.empty_cache()
+
+    a = [r["a"] for r in recs]
+    losses = a[0]["losses"]
+    med = float(np.median(a[0]["step_s"]))
+    tokens = sizes["batch"] * sizes["seq"]
+    calls = a[0]["counts"]["all_reduce"] / sizes["timed"]
+    nbytes = a[0]["counts"]["bytes"] / sizes["timed"]
+    flops = train_flops(cfg, sizes["batch"], sizes["seq"])
+    paths["shard_train"] = a[0]["launches"]
+    log(f"[shard] (a) {n_params:,} parameters; the blocks split over model "
+        f"(attention, MLP, vocabulary): {a[0]['plan']}; warm-up step "
+        f"{a[0]['warm_s']:.2f} s; {sizes['timed']} steps "
+        f"{[round(1e3 * x, 1) for x in a[0]['step_s']]} ms (median "
+        f"{1e3 * med:.1f} ms, {tokens / med:.0f} tokens/s; slowest rank's "
+        f"median {1e3 * max(np.median(r['step_s']) for r in a):.1f} ms); "
+        f"model FLOPs a step {flops:.4e} ({100 * flops / med / BF16_FLOPS:.2f}"
+        f"% of the bf16 peak); "
+        f"losses {[round(x, 4) for x in losses]}; all_reduce a step "
+        f"{calls:.0f} calls, {nbytes / 1e6:.1f} MB (rank 0); peak memory a "
+        f"rank {[round(r['peak'] / 2**30, 2) for r in a]} GiB; parameters "
+        f"+ mu + nu a rank {[r['state_bytes'] for r in a]} bytes against "
+        f"{whole_bytes} at 1x1 ({per_rank / whole_bytes:.4f} of it, the "
+        f"reference's per-device shard); launches of the hand-written "
+        f"kernels {a[0]['launches']}; spawn to result {spawn_s:.1f} s")
+    if not all(math.isfinite(x) for r in a for x in r["losses"]):
+        raise AssertionError("a sharded step's loss is not finite")
+    if any(r["losses"] != losses for r in a):
+        raise AssertionError("the ranks disagree on the loss")
+    if any(r["state_bytes"] != per_rank for r in a):
+        raise AssertionError(f"a rank holds other than the reference's "
+                             f"per-device shard bytes {per_rank}")
+    close("step 0's sharded loss against the 1x1 loss",
+          torch.tensor(losses[0]), torch.tensor(loss1), 5e-2, 1e-1)
+    log(f"[shard] step 0's loss {losses[0]:.4f} on the grid, {loss1:.4f} at "
+        "1x1 on the same parameters and batch (bar rtol 5e-2, atol 1e-1)")
+    if any(a[0]["launches"].values()):
+        raise AssertionError("the sharded step launched a hand-written "
+                             f"kernel ({a[0]['launches']})")
+    b = recs[0]["b"]
+    log(f"[shard] (b) f32, full width, {sizes['check_layers']} layers, "
+        f"{sizes['check_batch']} x {sizes['check_seq']}: loss {b['loss']:.6f}"
+        f" on the grid, {b['loss_1x1']:.6f} at 1x1; {b['leaves']} gradients "
+        f"gathered whole within rtol 1e-3, atol 1e-5 of 1x1's (max abs err "
+        f"{b['grad_err']:.3e}, {b['grad_worst']:.3f} of the bar at worst)")
+    close("the sharded f32 loss against 1x1's", torch.tensor(b["loss"]),
+          torch.tensor(b["loss_1x1"]), 1e-4, 1e-5)
+    if b["grad_worst"] > 1.0:
+        raise AssertionError("a sharded f32 gradient is not within rtol "
+                             "1e-3, atol 1e-5 of 1x1's")
+    out = dict(n_params=n_params, layers=cfg.n_layers, losses=losses,
+               loss_1x1=loss1, step_s=[r["step_s"] for r in a],
+               warm_s=a[0]["warm_s"], median_ms=1e3 * med,
+               tokens_per_s=tokens / med, model_flops=flops,
+               mfu=flops / med / BF16_FLOPS, all_reduce_calls=calls,
+               all_reduce_bytes=nbytes, peak_bytes=[r["peak"] for r in a],
+               state_bytes=[r["state_bytes"] for r in a],
+               whole_state_bytes=whole_bytes, plan=a[0]["plan"],
+               check=b, spawn_s=spawn_s)
+    out["launcher"] = launcher_across_grids(card)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[shard] phase 25 took {out['seconds']:.1f} s")
+    results["shard"] = out
 
 
 def main(argv=None) -> int:
@@ -5041,6 +5410,8 @@ def main(argv=None) -> int:
     run_recurrent_slice(dev, paths, results, rows)
     # -- 24. the encdec family: seamless-m4t-large-v2 -----------------------
     run_encdec_slice(dev, paths, results, rows)
+    # -- 25. parameter sharding over a 2x2 grid -----------------------------
+    run_shard_slice(dev, paths, results)
 
     owner = {"project_mask": "fit", "bsr_spmm_gram": "fit",
              "bsr_spmm": "transform", "gram": "unfused_fit",

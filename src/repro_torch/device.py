@@ -3,7 +3,9 @@
 There is no silent fallback.  A caller that does not name a device gets
 ``cuda``; if no card is visible that is an error, because a CPU run of the
 port measures PyTorch's CPU kernels, not the program this package is for.
-The CPU path exists for the test suite, which asks for it by name.
+The CPU path exists for the test suite, which asks for it by name; the
+``meta`` device, asked for by name too, gives shapes without data (the
+sharding specs of a full-size model or decode state).
 """
 from __future__ import annotations
 
@@ -48,8 +50,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         configure_numerics()
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu' "
+                         "('meta' for shapes without data)")
     return dev
 
 

@@ -47,8 +47,9 @@ import torch.distributed as dist
 
 from repro_torch.device import DeviceLike, resolve_device
 
-__all__ = ["NMFMesh", "make_nmf_mesh", "spawn_mesh", "collective_counts",
-           "reset_collective_counts", "AXES", "ROW_AXES"]
+__all__ = ["NMFMesh", "make_nmf_mesh", "make_local_mesh", "spawn_mesh",
+           "collective_counts", "reset_collective_counts", "AXES",
+           "ROW_AXES"]
 
 #: the reference's axis names: U's rows shard over ("pod", "data"), V's
 #: over "model"
@@ -250,16 +251,18 @@ class NMFMesh:
         return self.block(m, ("model",))
 
     def gather(self, x: torch.Tensor, total: int,
-               axis: Union[str, Sequence[str]]) -> torch.Tensor:
-        """The whole (total, k) factor from this rank's block of rows
-        (:meth:`block` over ``axis``), on every rank: the block written
-        into a zero-filled buffer, then summed over the axis (only
+               axis: Union[str, Sequence[str]], dim: int = 0
+               ) -> torch.Tensor:
+        """The whole tensor, ``total`` long along ``dim``, from this rank's
+        block of it (:meth:`block` over ``axis``), on every rank: the block
+        written into a zero-filled buffer, then summed over the axis (only
         ``all_reduce``; a sum with zeros is exact)."""
         if self.axis_size(axis) == 1:
             return x
-        out = torch.zeros((total,) + tuple(x.shape[1:]), dtype=x.dtype,
-                          device=x.device)
-        out[self.block(total, axis)] = x
+        shape = list(x.shape)
+        shape[dim] = total
+        out = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        out[(slice(None),) * (dim % x.dim()) + (self.block(total, axis),)] = x
         return self.all_reduce(out, axis)
 
 
@@ -377,9 +380,31 @@ def make_nmf_mesh(rows: int, cols: int, device: DeviceLike = None,
 # Spawning a grid of ranks on one host
 # ---------------------------------------------------------------------------
 
+def make_local_mesh(data: int = 1, model: int = 1,
+                    device: DeviceLike = None) -> NMFMesh:
+    """The ``data x model`` grid of the train launcher (the reference's
+    ``make_local_mesh``) over the process group the caller initialized:
+    :func:`make_nmf_mesh` with rows over ``"data"`` and columns over
+    ``"model"``; 1x1 with none."""
+    return make_nmf_mesh(data, model, device=device)
+
+
+#: what gloo raises when the ranks' transport fails to connect the group
+#: (a pair's socket closed by its peer while the mesh is made): the one
+#: failure :func:`spawn_mesh` starts a grid again for
+_CONNECT_FAILED = "connectFullMesh failed"
+
+#: grid starts :func:`spawn_mesh` makes at most
+_STARTS = 3
+
+
 def _rank_main(rank: int, world: int, backend: str, init_method: str,
                device: str, threads: Optional[int], fn: Callable,
                args: tuple, results) -> None:
+    """One rank: join the group, run ``fn``, report ``(rank, status,
+    value)``: status True with ``fn``'s result, False with a traceback,
+    or ``"connect"`` when a group's transport failed to connect (the
+    world's, or a subgroup's that ``fn`` made)."""
     try:
         if threads is not None:
             torch.set_num_threads(threads)
@@ -393,50 +418,31 @@ def _rank_main(rank: int, world: int, backend: str, init_method: str,
             dist.destroy_process_group()
         results.put((rank, True, out))
     except BaseException:  # every failure reaches the parent, then exits
-        results.put((rank, False, traceback.format_exc()))
+        tb = traceback.format_exc()
+        results.put((rank, "connect" if _CONNECT_FAILED in tb else False,
+                     tb))
         raise SystemExit(1)
 
 
-def spawn_mesh(fn: Callable, rows: int, cols: int, *, backend: str,
-               device: str, init_file: Optional[str] = None,
-               args: tuple = (), timeout: float = 300.0,
-               threads: Optional[int] = None, pods: int = 1) -> list:
-    """Run ``fn(rank, *args)`` in ``pods * rows * cols`` new processes (the
-    spawn start method), each a rank of one process group, and return their
-    results by rank.
-
-    ``backend`` is the collective transport (``"gloo"`` or ``"nccl"``),
-    named by the caller.  ``device`` is every rank's device (``"cpu"``, or
-    a card, which each rank makes its current device: several gloo ranks
-    may share one card, NCCL takes one rank a card).  The ranks meet
-    through a ``file://`` store at ``init_file`` (by default a new file in
-    a temporary directory; removed afterwards), not a port, so several
-    grids may start at once.  ``fn`` must be importable by name and return
-    something picklable (numbers, numpy arrays, CPU tensors).  ``threads``
-    caps each rank's intra-op threads.
-
-    A rank that raises, exits or is still running after ``timeout``
-    seconds makes this raise ``RuntimeError`` (with the rank's traceback)
-    after every other rank was stopped; nothing is rerun."""
-    rows, cols, pods = _check_shape(rows, cols, pods)
-    world = pods * rows * cols
+def _start_grid(fn: Callable, world: int, backend: str, device: str,
+                init_file: str, args: tuple, timeout: float,
+                threads: Optional[int]):
+    """Start ``world`` ranks on the store ``init_file`` and collect them:
+    ``(results by rank, failure or None, whether the failure is a group's
+    transport failing to connect)``.  Every rank is stopped and
+    joined, and the store removed, before it returns."""
     ctx = torch.multiprocessing.get_context("spawn")
-    tmpdir = None
-    if init_file is None:
-        tmpdir = tempfile.mkdtemp(prefix="nmf-mesh-")
-        init_file = os.path.join(tmpdir, "store")
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main,
                          args=(r, world, backend,
                                f"file://{os.path.abspath(init_file)}",
-                               device, threads, fn, tuple(args),
-                               results),
+                               device, threads, fn, args, results),
                          daemon=True)
              for r in range(world)]
     for p in procs:
         p.start()
     out: Dict[int, Any] = {}
-    failure = None
+    failure, connect = None, False
     deadline = time.monotonic() + timeout
     try:
         while len(out) < world and failure is None:
@@ -460,10 +466,11 @@ def spawn_mesh(fn: Callable, rows: int, cols: int, *, backend: str,
                     break
                 else:
                     continue
-            if ok:
+            if ok is True:
                 out[rank] = val
             else:
                 failure = f"rank {rank} failed:\n{val}"
+                connect = ok == "connect"
     finally:
         for p in procs:
             if failure is not None and p.is_alive():
@@ -478,6 +485,50 @@ def spawn_mesh(fn: Callable, rows: int, cols: int, *, backend: str,
             os.unlink(init_file)
         except OSError:
             pass
+    return out, failure, connect
+
+
+def spawn_mesh(fn: Callable, rows: int, cols: int, *, backend: str,
+               device: str, init_file: Optional[str] = None,
+               args: tuple = (), timeout: float = 300.0,
+               threads: Optional[int] = None, pods: int = 1) -> list:
+    """Run ``fn(rank, *args)`` in ``pods * rows * cols`` new processes (the
+    spawn start method), each a rank of one process group, and return their
+    results by rank.
+
+    ``backend`` is the collective transport (``"gloo"`` or ``"nccl"``),
+    named by the caller.  ``device`` is every rank's device (``"cpu"``, or
+    a card, which each rank makes its current device: several gloo ranks
+    may share one card, NCCL takes one rank a card).  The ranks meet
+    through a ``file://`` store at ``init_file`` (by default a new file in
+    a temporary directory; removed afterwards), not a port, so several
+    grids may start at once.  ``fn`` must be importable by name and return
+    something picklable (numbers, numpy arrays, CPU tensors).  ``threads``
+    caps each rank's intra-op threads.
+
+    A rank that raises, exits or is still running after ``timeout``
+    seconds makes this raise ``RuntimeError`` (with the rank's traceback)
+    after every other rank was stopped.  Nothing is rerun but a grid
+    whose group failed to connect (gloo's ``connectFullMesh``, making the
+    world's group or a subgroup): every rank, a finished one too, is
+    started anew on a fresh store, up to ``_STARTS`` starts in all.  That
+    is a flake of gloo's transport on one host (~2% of 2x2 grids), not a
+    failure of the ranks' work."""
+    rows, cols, pods = _check_shape(rows, cols, pods)
+    world = pods * rows * cols
+    tmpdir = None
+    if init_file is None:
+        tmpdir = tempfile.mkdtemp(prefix="nmf-mesh-")
+        init_file = os.path.join(tmpdir, "store")
+    try:
+        for start in range(_STARTS):
+            store = init_file if start == 0 else f"{init_file}.{start}"
+            out, failure, connect = _start_grid(
+                fn, world, backend, device, store, tuple(args), timeout,
+                threads)
+            if not connect:
+                break
+    finally:
         if tmpdir is not None and not os.listdir(tmpdir):
             os.rmdir(tmpdir)
     if failure is not None:

@@ -17,9 +17,23 @@ Runs on the card unless ``--device cpu`` is given.  Fault tolerance:
   embedding's backward otherwise adds with atomics on the card), so a
   resumed run ends bitwise where an uninterrupted one does.
 
-One process trains on one device.  The parameter sharding of ``--data`` /
-``--model`` above 1 (the reference's ``param_pspecs``: FSDP and tensor
-parallelism) is not ported and is refused.
+With ``--data D --model M`` above 1x1 the parameters are sharded over a
+``D x M`` grid (``training/sharding.py``: the reference's ``param_pspecs``
+as FSDP over ``"data"`` and tensor parallelism over ``"model"``), one
+process a rank under ``torch.distributed.run``, the transport named by
+``--dist-backend`` (``nccl``, one card a rank; ``gloo``, which also lets
+several ranks share one card, or runs on the CPU):
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.train --arch llama3.2-1b --smoke \
+        --data 2 --model 2 --dist-backend gloo [--device cpu]
+
+Every rank draws the same batch and takes its block; only rank 0 prints.
+A world size other than ``D x M`` is refused, and so is a family whose
+layers are not sharded yet (moe, hybrid, ssm, encdec).  Checkpoints hold
+whole leaves under a 1x1 run's names (gathered, written by rank 0), and a
+resume keeps each rank's block: any grid shape, 1x1 included, resumes any
+other (the reference's elastic restart).
 """
 from __future__ import annotations
 
@@ -29,6 +43,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import (
     AsyncCheckpointer,
@@ -37,8 +52,9 @@ from repro_torch.checkpoint import (
 )
 from repro_torch.configs import ARCHS, ShapeSpec, smoke_config
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import api
-from repro_torch.training import AdamW
+from repro_torch.training import AdamW, sharding
 
 
 def synthetic_batch(cfg, shape: ShapeSpec, step: int,
@@ -70,13 +86,29 @@ def main(argv=None):
                          "card)")
     ap.add_argument("--device", default=None,
                     help="'cuda' (the default) or 'cpu'")
+    ap.add_argument("--dist-backend", default="nccl",
+                    choices=["nccl", "gloo"],
+                    help="collective transport of a grid run: nccl (one "
+                         "card a rank) or gloo (ranks may share a card, or "
+                         "run on the CPU)")
     args = ap.parse_args(argv)
-    if args.data != 1 or args.model != 1:
+    cfg = ARCHS[args.arch]
+    if args.smoke:
+        cfg = smoke_config(cfg)
+    grid = args.data * args.model
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.data < 1 or args.model < 1:
+        ap.error(f"--data {args.data} --model {args.model}: both must be "
+                 "at least 1")
+    if grid > 1 and cfg.family not in sharding.FAMILIES:
         ap.error(f"--data {args.data} --model {args.model}: sharding the "
-                 "parameters over a mesh (param_pspecs, FSDP / TP) is not "
-                 "ported (ROADMAP queue 1, the item \"parameter "
-                 "sharding\"); run with --data 1 "
-                 "--model 1")
+                 f"{cfg.family!r} family over the grid is not ported "
+                 "(ROADMAP queue 1, the item \"sharding moe, hybrid, ssm "
+                 "and encdec\"); run it with --data 1 --model 1")
+    if world != grid:
+        ap.error(f"--data {args.data} --model {args.model} needs {grid} "
+                 f"ranks, have {world}: start them with python -m "
+                 f"torch.distributed.run --nproc-per-node {grid}")
 
     if args.deterministic:
         # cuBLAS is deterministic only with a fixed workspace; read when
@@ -84,43 +116,74 @@ def main(argv=None):
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         torch.use_deterministic_algorithms(True)
     device = resolve_device(args.device)
-    cfg = ARCHS[args.arch]
-    if args.smoke:
-        cfg = smoke_config(cfg)
+    rank = 0
+    if grid > 1:
+        if args.dist_backend == "nccl" and device.type != "cuda":
+            ap.error("--dist-backend nccl needs the card; use gloo with "
+                     "--device cpu")
+        if device.type == "cuda":
+            local = int(os.environ.get("LOCAL_RANK", "0"))
+            device = resolve_device(
+                f"cuda:{local % torch.cuda.device_count()}")
+            torch.cuda.set_device(device)
+        dist.init_process_group(args.dist_backend, init_method="env://")
+        rank = dist.get_rank()
+    say = print if rank == 0 else (lambda *a, **k: None)
     shape = ShapeSpec("cli", args.seq, args.batch, "train")
     opt = AdamW(total_steps=max(args.steps, 2))
     params = api.init_params(cfg, 0, device=device)
+    shards = None
+    if grid > 1:
+        shards = sharding.shard_model(
+            params, make_local_mesh(args.data, args.model, device))
     opt_state = opt.init(params)
+
+    def state():
+        """The tree a checkpoint holds: whole leaves, on every rank."""
+        if shards is None:
+            return params, opt_state
+        return sharding.gather_state(params, opt_state, shards)
+
     start = 0
     ckpt = None
     if args.ckpt_dir:
-        ckpt = AsyncCheckpointer(args.ckpt_dir)
+        ckpt = AsyncCheckpointer(args.ckpt_dir) if rank == 0 else None
         last = latest_step(args.ckpt_dir)
         if last is not None:
-            print(f"resuming from checkpoint step {last}", flush=True)
-            params, opt_state = restore_checkpoint(args.ckpt_dir, last,
-                                                   (params, opt_state))
+            say(f"resuming from checkpoint step {last}", flush=True)
+            if shards is None:
+                restore_checkpoint(args.ckpt_dir, last, (params, opt_state))
+            else:
+                sharding.restore_state(args.ckpt_dir, last, params,
+                                       opt_state, shards)
             start = last
 
-    step_fn = api.make_train_step(cfg, opt)
+    step_fn = (api.make_train_step(cfg, opt) if shards is None
+               else sharding.make_train_step(cfg, opt, shards))
     t0 = time.time()
     for step in range(start, args.steps):
         batch = synthetic_batch(cfg, shape, step, device)
         params, opt_state, loss = step_fn(params, opt_state, batch)
         if step % 5 == 0 or step == args.steps - 1:
-            print(f"step {step:5d}  loss {float(loss):.4f}  "
-                  f"({(time.time() - t0):.1f}s)", flush=True)
-        if ckpt and (step + 1) % args.ckpt_every == 0:
-            ckpt.save(step + 1, (params, opt_state))
-    if ckpt:
-        ckpt.save(args.steps, (params, opt_state))
-        ckpt.wait()
-        st = ckpt.stats
-        print(f"checkpoints: {st['saves']} saves, "
-              f"{st['copy_s'] / st['saves']:.4f} s each on the caller "
-              f"(device to host), {st['write_s'] / st['saves']:.4f} s each "
-              "on the writer thread", flush=True)
-    print("done")
+            say(f"step {step:5d}  loss {float(loss):.4f}  "
+                f"({(time.time() - t0):.1f}s)", flush=True)
+        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+            tree = state()
+            if ckpt:
+                ckpt.save(step + 1, tree)
+    if args.ckpt_dir:
+        tree = state()
+        if ckpt:
+            ckpt.save(args.steps, tree)
+            ckpt.wait()
+            st = ckpt.stats
+            print(f"checkpoints: {st['saves']} saves, "
+                  f"{st['copy_s'] / st['saves']:.4f} s each on the caller "
+                  f"(device to host), {st['write_s'] / st['saves']:.4f} s "
+                  "each on the writer thread", flush=True)
+    if grid > 1:
+        dist.destroy_process_group()
+    say("done")
 
 
 if __name__ == "__main__":

@@ -6,9 +6,18 @@ Every family of the reference is ported: ``dense`` and ``vlm``
 (``models/transformer.py``), ``moe`` (``models/moe.py``), ``hybrid``
 (``models/hybrid.py``), ``ssm`` (``models/xlstm.py``) and ``encdec``
 (``models/encdec.py``: its loss is ``seq2seq_loss``, its prefill step
-returns the encoder memory, its decode cache holds the cross K / V).  The
-sharding specs (``param_pspecs`` and the rest: one card, no FSDP / TP
-mesh) are not ported.
+returns the encoder memory, its decode cache holds the cross K / V).
+
+The sharding specs are the reference's for every family:
+:func:`param_pspecs`, :func:`batch_axes_for`, :func:`batch_pspecs` and
+:func:`cache_pspecs`.  A spec is a tuple over a tensor's own dims, each
+entry ``None``, an axis name or a tuple of names: the reference's
+``PartitionSpec`` with the stacked leading axes of a parameter dropped
+(``layout.reference_leaf`` counts them).  A mesh is anything that gives
+axis sizes by name: a mapping, or an ``NMFMesh``.  The train step that
+places the parameters by these specs is ``training/sharding.py``; the
+reference's ``constrain`` hints have no function in the port, where the
+placement is explicit in those layers.
 
 The function that makes a step names its attention path: the serving
 steps take the flash kernel, the loss and the train step the
@@ -18,11 +27,13 @@ trains with it off).
 from __future__ import annotations
 
 import functools
-from typing import TYPE_CHECKING, Callable, Dict, NamedTuple, Union
+from typing import (TYPE_CHECKING, Any, Callable, Dict, Mapping, NamedTuple,
+                    Optional, Tuple, Union)
 
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.layout import reference_leaf
 from repro_torch.models import encdec, hybrid, moe, transformer, xlstm
 from repro_torch.models.common import ArchConfig
 from repro_torch.training.optimizer import (
@@ -36,7 +47,8 @@ if TYPE_CHECKING:  # repro_torch.configs imports this package
 
 __all__ = ["FAMILY", "TensorSpec", "module_for", "input_specs", "make_batch",
            "make_loss_fn", "make_train_step", "make_prefill_step",
-           "make_decode_step", "init_params", "init_decode_cache"]
+           "make_decode_step", "init_params", "init_decode_cache",
+           "param_pspecs", "batch_axes_for", "batch_pspecs", "cache_pspecs"]
 
 FAMILY = {
     "dense": transformer,
@@ -242,3 +254,179 @@ def init_decode_cache(cfg: ArchConfig, shape: ShapeSpec,
                               enc_len=s, dtype=dtype, device=dev)
     return mod.init_cache(cfg, shape.global_batch, shape.seq_len,
                           dtype=dtype, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# Sharding rules
+# ---------------------------------------------------------------------------
+
+#: (second-to-last dim, last dim) logical sharding by leaf name; the
+#: stacked leading dims are never sharded.  The reference's table.
+_RULES: Dict[str, Tuple[Optional[str], Optional[str]]] = {
+    # in-projections: (d_in -> fsdp, d_out -> tensor)
+    "wq": ("fsdp", "tp"), "wk": ("fsdp", "tp"), "wv": ("fsdp", "tp"),
+    "w_gate": ("fsdp", "tp"), "w_up": ("fsdp", "tp"),
+    "in_proj": ("fsdp", "tp"), "w_if": ("fsdp", None), "w_in": ("fsdp", "tp"),
+    # out-projections: (d_in -> tensor, d_out -> fsdp)
+    "wo": ("tp", "fsdp"), "w_down": ("tp", "fsdp"), "out_proj": ("tp", "fsdp"),
+    # embeddings
+    "embed": ("tp", "fsdp"),      # (vocab, d)
+    "unembed": ("fsdp", "tp"),    # (d, vocab)
+    # moe router
+    "router": ("fsdp", None),
+    # mamba conv (K, channels)
+    "conv_w": (None, "tp"),
+    # xlstm block-diagonal recurrence (h, hd, 4hd): small, replicated
+    "r": (None, None),
+}
+
+#: MoE expert weights (E, d_in, d_out): the expert dim takes "ep"
+_MOE_EXPERT_LEAVES = {"w_gate", "w_up", "w_down"}
+
+#: a spec entry: no axis, an axis name, or a tuple of names
+Axis = Union[None, str, Tuple[str, ...]]
+
+
+def _axis_sizes(mesh) -> Dict[str, int]:
+    """Axis name -> size of ``mesh``: a mapping as it is, an ``NMFMesh``
+    as ``{"data": rows, "model": cols}`` (and ``"pod"`` with several
+    pods), the axes the reference's mesh of that shape names."""
+    if isinstance(mesh, Mapping):
+        return dict(mesh)
+    sizes = {"data": mesh.rows, "model": mesh.cols}
+    if mesh.pods > 1:
+        sizes["pod"] = mesh.pods
+    return sizes
+
+
+def _guard(axes: Axis, dim_size: int, sizes: Dict[str, int]) -> Axis:
+    """``axes`` if the product of their sizes divides ``dim_size``, else
+    None (replicated along them); an axis the mesh lacks counts 1 in a
+    tuple and drops a single name, as the reference's guards do."""
+    if axes is None:
+        return None
+    if isinstance(axes, tuple):
+        n = 1
+        for a in axes:
+            n *= sizes.get(a, 1)
+    else:
+        n = sizes.get(axes)
+    return axes if n and dim_size % n == 0 else None
+
+
+def _named_shapes(params) -> Dict[str, Tuple[int, ...]]:
+    if isinstance(params, Mapping):
+        return {name: tuple(t.shape) for name, t in params.items()}
+    return {name: tuple(p.shape) for name, p in params.named_parameters()}
+
+
+def param_pspecs(cfg: ArchConfig, params, rules: Dict[str, Any],
+                 mesh=None) -> Dict[str, Tuple[Axis, ...]]:
+    """The spec of every parameter of ``params`` (an ``nn.Module``, or a
+    mapping of its ``named_parameters`` names to tensors of any device,
+    ``meta`` included), keyed by that name: a tuple over the parameter's
+    own dims.
+
+    ``rules`` maps the logical axes ``"fsdp"``, ``"tp"``, ``"ep"`` to mesh
+    axis names (or None), e.g. ``{"fsdp": "data", "tp": "model", "ep":
+    "model"}``.  A leaf is matched by the innermost key of its path in the
+    reference's pytree (``layout.reference_leaf``), in a moe context when
+    any key on the path is ``"moe"``; the spec is the reference's over the
+    stacked leaf, its stacked dims dropped.  With ``mesh`` an axis whose
+    size does not divide its dim is dropped (replicated along it), e.g.
+    seamless's 256,206-word vocabulary over a "model" axis of 16."""
+    sizes = None if mesh is None else _axis_sizes(mesh)
+    out = {}
+    for name, shape in _named_shapes(params).items():
+        path, index = reference_leaf(name, cfg.family)
+        ndim, lead_n = len(index) + len(shape), len(index)
+        key = path[-1]
+        if ndim <= 1 or key not in _RULES:
+            out[name] = (None,) * len(shape)
+            continue
+        a, b = _RULES[key]
+        spec = [rules.get(a), rules.get(b)]
+        lead: list = [None] * (ndim - 2)
+        if "moe" in path and key in _MOE_EXPERT_LEAVES and ndim >= 3:
+            # (..., E, d_in, d_out): the expert dim takes "ep", which then
+            # leaves the other two
+            lead[-1] = rules.get("ep")
+            spec = [s if s != rules.get("ep") else None for s in spec]
+        full = (lead + spec)[lead_n:]
+        if sizes is not None:
+            full = [_guard(ax, shape[i], sizes) for i, ax in enumerate(full)]
+        out[name] = tuple(full)
+    return out
+
+
+def batch_axes_for(global_batch: int, mesh, candidates: Tuple[str, ...]
+                   ) -> Tuple[str, ...]:
+    """The axes of ``candidates`` (those the mesh has, in order) that the
+    batch is split over: each is taken while the product so far still
+    divides ``global_batch``."""
+    sizes = _axis_sizes(mesh)
+    axes, prod = [], 1
+    for a in candidates:
+        if a not in sizes:
+            continue
+        if global_batch % (prod * sizes[a]) == 0:
+            axes.append(a)
+            prod *= sizes[a]
+    return tuple(axes)
+
+
+def batch_pspecs(cfg: ArchConfig, shape: ShapeSpec, mesh,
+                 seq_axis: Optional[str] = None
+                 ) -> Dict[str, Tuple[Axis, ...]]:
+    """Specs of the input batch of :func:`input_specs`: the batch dim over
+    the data-parallel axes (``("pod", "data")`` as far as they divide it),
+    the sequence over ``seq_axis``, the rest replicated."""
+    dp = batch_axes_for(shape.global_batch, mesh, ("pod", "data"))
+    bspec = dp if dp else None
+    specs = {}
+    for name, spec in input_specs(cfg, shape).items():
+        ndim = len(spec.shape)
+        specs[name] = ((bspec,) if ndim == 1 else
+                       (bspec, seq_axis) + (None,) * (ndim - 2))
+    return specs
+
+
+def cache_pspecs(cfg: ArchConfig, shape: ShapeSpec, mesh, cache):
+    """Specs of a decode state (``cache``, any tree of dicts, lists and
+    tensors, as :func:`init_decode_cache` makes it; None stays None), in
+    its structure: the batch over the data-parallel axes; a KV cache's
+    sequence over ``"model"`` (length parallelism); Mamba and mLSTM states
+    over their heads, a Mamba conv window over its channels, where
+    ``"model"`` divides them.  A leaf is matched by its innermost key."""
+    sizes = _axis_sizes(mesh)
+    dp = batch_axes_for(shape.global_batch, mesh, ("pod", "data"))
+    bspec = dp if dp else None
+    model = "model" if "model" in sizes else None
+
+    def spec(name, leaf):
+        nd = leaf.dim()
+        if name in ("k", "v", "ck", "cv") and nd == 5:
+            prop = [None, bspec, model, None, None]      # (L, B, S, Hkv, hd)
+        elif name == "ssm" and nd >= 4:
+            prop = [None] * (nd - 4) + [bspec, model, None, None]
+        elif name == "conv" and nd >= 3:
+            prop = [None] * (nd - 3) + [bspec, None, model]
+        elif name == "C" and nd == 4:                    # mLSTM (B, H, hd, hd)
+            prop = [bspec, model, None, None]
+        elif nd >= 2:
+            prop = [None] * (nd - 2) + [bspec, None]
+        else:
+            return (None,) * nd
+        return tuple(_guard(ax, leaf.shape[i], sizes)
+                     for i, ax in enumerate(prop))
+
+    def walk(node, name):
+        if node is None:
+            return None
+        if isinstance(node, Mapping):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, name) for v in node)
+        return spec(name, node)
+
+    return walk(cache, None)

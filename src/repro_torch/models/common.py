@@ -23,14 +23,18 @@ Full-sequence attention takes one of two paths, named by the caller
   backward.  The loss and the train step take it (``flash=False``).
 
 ``chunked_lm_loss`` is the reference's vocabulary-chunked cross-entropy,
-each chunk's logits recomputed in backward.  ``constrain`` (a sharding
-hint, a no-op on one device) is not ported.
+each chunk's logits recomputed in backward.  ``logical_to_mesh`` maps logical axis names to
+mesh axes.  ``constrain`` (a sharding hint to GSPMD) has no function here:
+the sharded train step (``training/sharding.py``) places every tensor
+itself, and the places where the reference constrains (the heads after
+the projections, the scores, the chunked loss's logits, the MoE buffer)
+are its tensor-parallel split points.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,7 +45,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 __all__ = ["ArchConfig", "dense_init", "attention_shapes", "mlp_shapes",
            "init_attention", "init_mlp", "rmsnorm", "rope_freqs", "apply_rope",
            "swiglu", "attention", "attention_decode", "mlp",
-           "chunked_lm_loss"]
+           "chunked_lm_loss", "logical_to_mesh"]
 
 Params = Mapping[str, torch.Tensor]
 
@@ -350,3 +354,17 @@ def chunked_lm_loss(hidden: torch.Tensor, unembed: torch.Tensor,
                                    y[:, i:i + c], valid[i:i + c],
                                    compute_dtype, use_reentrant=False)
     return total / (b * (s - 1))
+
+
+def logical_to_mesh(spec_tree: Any, rules: Mapping[str, Any]) -> Any:
+    """Map the logical axis names of every spec in ``spec_tree`` (a tuple
+    of names or None, in dicts and lists) to mesh axes by ``rules``; a
+    name ``rules`` lacks (and None) maps to None."""
+    if isinstance(spec_tree, tuple) and all(
+            isinstance(e, (str, type(None))) for e in spec_tree):
+        return tuple(rules.get(ax) for ax in spec_tree)
+    if isinstance(spec_tree, Mapping):
+        return {k: logical_to_mesh(v, rules) for k, v in spec_tree.items()}
+    if isinstance(spec_tree, (list, tuple)):
+        return type(spec_tree)(logical_to_mesh(v, rules) for v in spec_tree)
+    return spec_tree

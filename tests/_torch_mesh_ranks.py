@@ -1,6 +1,6 @@
 """Rank bodies for the mesh tests (``test_torch_mesh.py``,
 ``test_torch_sharded.py``, ``test_torch_sharded_stream.py``,
-``test_torch_moe_ep.py``).
+``test_torch_moe_ep.py``, ``test_torch_sharding.py``).
 
 Each function runs in a process started by
 :func:`repro_torch.launch.mesh.spawn_mesh` (one rank of a gloo group on
@@ -361,4 +361,58 @@ def moe_ep(rank, data_path, grids):
                                     ssl.stop),
                 counts=collective_counts())
         out[(pods, rows, cols, "exchange")] = _exchange(mesh, rank)
+    return out
+
+
+def sharded_steps(rank, grids, cases_path):
+    """One f32 sharded train step on each ``(data, model)`` grid of these
+    ranks for each ``(key, arch, whole parameters, batch)`` of the pickled
+    list at ``cases_path`` (a file: arguments this large would start the
+    ranks one after another), keyed ``(grid, key)``: the loss (every
+    rank), this rank's bytes of parameters, mu and nu, the blocks that ran
+    split over "model", and on rank 0 the gradients gathered whole and the
+    collectives counted."""
+    import pickle
+
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.launch.mesh import (
+        collective_counts, make_local_mesh, reset_collective_counts,
+    )
+    from repro_torch.models import api
+    from repro_torch.training import AdamW, sharding
+
+    with open(cases_path, "rb") as f:
+        cases = pickle.load(f)
+    out = {}
+    for grid in grids:
+        mesh = make_local_mesh(*grid, device="cpu")
+        for key, arch, whole, batch in cases:
+            cfg = smoke_config(ARCHS[arch])
+            model = api.init_params(cfg, 0, device="cpu")
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    p.copy_(torch.from_numpy(whole[name]))
+            shards = sharding.shard_model(model, mesh)
+            got = {}
+
+            class Capture(AdamW):
+                def update(self, grads, state, params):
+                    got.update(grads)
+                    return params, state
+
+            opt = Capture()
+            state = opt.init(model)
+            reset_collective_counts()
+            step = sharding.make_train_step(cfg, opt, shards,
+                                            compute_dtype=torch.float32)
+            _, _, loss = step(model, state, {k: torch.from_numpy(v)
+                                             for k, v in batch.items()})
+            counts = collective_counts()
+            grads = sharding.gather_named(shards, got)
+            rec = out[(grid, key)] = dict(
+                loss=float(loss), bytes=sharding.state_bytes(model, state),
+                plan=(shards.tp_attn, shards.tp_mlp, shards.tp_vocab))
+            if rank == 0:
+                rec.update(grads={n: g.numpy() for n, g in grads.items()},
+                           counts=counts)
     return out

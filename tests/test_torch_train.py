@@ -568,10 +568,37 @@ def test_train_launcher_kill_and_resume_is_bitwise(tmp_path):
     assert whole.stdout.splitlines()[-1] == "done"
 
 
-def test_train_launcher_refuses_parameter_sharding(tmp_path):
-    out = _train("--steps", 1, "--data", 2, expect=2)
-    assert "not ported" in out.stderr
-    assert 'queue 1, the item "parameter sharding"' in out.stderr
+@pytest.mark.parametrize("data,model,world", [(2, 2, 1), (1, 1, 2),
+                                               (4, 1, 2)])
+def test_train_launcher_refuses_a_world_size_other_than_the_grid(
+        monkeypatch, capsys, data, model, world):
+    """A ``data x model`` grid needs that many ranks, no more and no
+    fewer: refused before any process group or parameter is made."""
+    monkeypatch.setenv("WORLD_SIZE", str(world))
+    with pytest.raises(SystemExit) as exc:
+        train_mod.main(["--arch", "llama3.2-1b", "--smoke", "--device",
+                        "cpu", "--data", str(data), "--model", str(model)])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert f"needs {data * model} ranks, have {world}" in err
+    assert f"--nproc-per-node {data * model}" in err
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "zamba2-7b", "xlstm-125m",
+                                  "seamless-m4t-large-v2"])
+def test_train_launcher_refuses_unported_families_on_a_grid(
+        monkeypatch, capsys, arch):
+    """Only the dense and vlm layers are sharded: another family on a grid
+    is refused, naming its ROADMAP item."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(SystemExit) as exc:
+        train_mod.main(["--arch", arch, "--smoke", "--device", "cpu",
+                        "--model", "2"])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert f"sharding the {ARCHS[arch].family!r} family" in err
+    assert ('ROADMAP queue 1, the item "sharding moe, hybrid, ssm and '
+            'encdec"') in err
 
 
 def test_synthetic_batch_is_a_function_of_the_step():
