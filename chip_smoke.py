@@ -249,6 +249,22 @@ Phases (any failed check raises, and the script exits non-zero):
     --smoke --deterministic --data 2 --model 2 --dist-backend gloo``
     stopped at 6 and rerun to 9, bitwise an uninterrupted 2x2 run, and its
     step-6 checkpoint resumed on 4x1 within 1e-4.
+26. the dry-run on the ``meta`` device (``launch/dryrun.py``,
+    ``launch/cost_analysis.py``) against what phases 3/7, 9/11 and 25
+    measured, no new card run: (a) phase 3's PubMed fit on ``cuda-bsr``
+    with the ingested operand moved to ``meta`` (its occupied-tile counts
+    kept): launches by kernel, as the dry-run's counter records them,
+    equal to phase 3's exactly, the predicted peak beside phase 7's, each
+    kernel's FLOPs and bytes as a bound and a roofline share of its phase
+    7 time; (b) the llama3.2-1b prefill at 4 x 4096: 16 flash launches
+    exactly, the counted FLOPs beside phase 11's prefill time, the
+    predicted peak beside phase 9's; (c) phase 25's cell on a fake 2x2
+    grid: a rank's parameter + moment bytes and its ``all_reduce`` calls
+    and bytes a step equal to phase 25's exactly, the predicted peak
+    beside its ranks'.  Each predicted peak must be within 10% of the
+    measured one (the measured: ``max_memory_allocated`` less what was
+    resident before the step, plus the step's argument bytes).  The meta
+    branches launch nothing: the card's launch counts stay as they were.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -448,19 +464,26 @@ def _fused_rc(b, u, kb):
 
 
 def gram_flops(n, k):
-    """FLOPs of U^T U for U (n, k): G is symmetric, so the function needs
-    only its k (k + 1) / 2 distinct entries, 2 n each."""
-    return float(n) * k * (k + 1)
+    """FLOPs of U^T U for U (n, k), the kernel module's own count
+    (``kernels.gram.cost``: its k (k + 1) / 2 distinct entries)."""
+    import torch
+
+    from repro_torch.kernels.gram import cost
+
+    return cost(torch.empty((n, k), device="meta"))[0]
 
 
 def flash_flops(b, h, sq, t, hd, causal):
     """Multiply-add FLOPs of Q K^T and P V over the (row, key) pairs the
-    mask keeps: with absolute indices, row i keeps keys 0..min(i, T - 1)."""
-    if causal:
-        pairs = sum(min(i + 1, t) for i in range(sq))
-    else:
-        pairs = sq * t
-    return 4.0 * b * h * hd * pairs
+    mask keeps, the kernel module's own count
+    (``kernels.flash_attention.cost``)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import cost
+
+    kv = torch.empty((b, 1, t, hd), device="meta")
+    return cost(torch.empty((b, h, sq, hd), device="meta"), kv, kv,
+                causal)[0]
 
 
 PROFILE_ATTEMPTS = 3
@@ -689,6 +712,7 @@ def run_lm_slice(dev, paths, checks, rows, results):
     _build.reset_launch_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     logits = step(model, batch)
     torch.cuda.synchronize()
@@ -706,7 +730,8 @@ def run_lm_slice(dev, paths, checks, rows, results):
         raise AssertionError(f"prefill launched the flash kernel "
                              f"{paths['prefill']['flash_attention']} times, "
                              f"not n_layers = {cfg.n_layers}")
-    lm.update(prefill_first_s=first_s, prefill_peak_mem_bytes=peak)
+    lm.update(prefill_first_s=first_s, prefill_peak_mem_bytes=peak,
+              prefill_resident_bytes=resident)
 
     long_batch = {"tokens": torch.randint(
         0, cfg.vocab, (1, LONG_S), generator=gen, device=dev,
@@ -4784,6 +4809,165 @@ def run_shard_slice(dev, paths, results, sizes=SHARD):
     results["shard"] = out
 
 
+#: a predicted peak against the measured one (phase 26)
+PEAK_RTOL = 0.10
+
+
+def run_dryrun_slice(dev, op, u0, smi, paths, results, rows, sizes=SHARD):
+    """Phase 26: the dry-run on ``meta`` in this process, held against what
+    phases 3/7, 9/11 and 25 measured on the card (see the module's
+    docstring).  A predicted peak is a step's argument bytes plus the
+    largest sum of live temporaries; the measured one is the window's
+    ``max_memory_allocated`` less what was resident before the step, plus
+    the same argument bytes."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS, ShapeSpec
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cost_analysis import CostMode, bound_ms, tree_bytes
+    from repro_torch.launch.mesh import make_nmf_mesh
+    from repro_torch.models import api
+    from repro_torch.nmf import EnforcedNMF, NMFConfig, Sparsity
+
+    t_phase = time.perf_counter()
+    out, failed = {}, []
+    # the meta branches launch nothing: the card's counts stay as they are
+    card_counts = _build.launch_counts()
+
+    def peak_check(name, predicted, measured):
+        ratio = predicted / measured
+        ok = abs(ratio - 1.0) <= PEAK_RTOL
+        log(f"[dryrun] {name}: predicted peak {predicted / 2**30:.3f} GiB, "
+            f"measured {measured / 2**30:.3f} GiB ({ratio:.4f} of it; bar "
+            f"{PEAK_RTOL:.0%}) on {smi}")
+        if not ok:
+            failed.append(f"{name}: predicted peak {predicted} B is not "
+                          f"within {PEAK_RTOL:.0%} of the measured {measured}")
+        return dict(predicted=predicted, measured=measured, ratio=ratio)
+
+    # -- (a) the PubMed fit --------------------------------------------------
+    cfg = NMFConfig(k=K, iters=ITERS, sparsity=Sparsity(t_u=T_U, t_v=T_V),
+                    backend="cuda-bsr")
+    op_meta = op.to("meta")
+    u0_meta = torch.empty_like(u0, device="meta")
+    occ = results["data"]["occupied_tiles"]
+    for name, b in (("A", op_meta.bsr), ("At", op_meta.bsr_t)):
+        if b.occupied != occ[name]:
+            failed.append(f"(a) the meta operand's {name} keeps "
+                          f"{b.occupied} occupied tiles, the card's holds "
+                          f"{occ[name]}")
+    mode = CostMode()
+    with mode:
+        args = mode.track(op_meta, u0_meta)
+        EnforcedNMF(cfg, device="meta").fit(op_meta, u0=u0_meta)
+    launches = {name: int(mode.costs.launches.get(name, 0))
+                for name in _build.KERNELS}
+    if launches != paths["fit"]:
+        failed.append(f"(a) predicted launches {launches} != phase 3's "
+                      f"{paths['fit']}")
+    log(f"[dryrun] (a) PubMed fit, {ITERS} iterations on the meta operand: "
+        f"launches {launches} (phase 3: {paths['fit']})")
+    t = results["timing"]
+    card_args = tree_bytes((op, u0))
+    measured = t["fit_peak_mem_bytes"] - t["resident_before_fit_bytes"] \
+        + card_args
+    fit = dict(launches=launches, args=args, card_args=card_args,
+               peak=peak_check("(a) PubMed fit", mode.peak_bytes, measured),
+               kernels={})
+    dtype = u0.dtype
+    for name, row in (("bsr_spmm_gram", "bsr_spmm_gram"),
+                      ("relu_topk", "project_mask")):
+        n = mode.costs.launches[name]
+        fl, nb = (mode.costs.kernel_flops[name] / n,
+                  mode.costs.kernel_bytes[name] / n)
+        bound, by = bound_ms(fl, nb, dtype)
+        ms = rows[row]["ms"]
+        fit["kernels"][name] = dict(flops=fl, bytes=nb, bound_ms=bound,
+                                    bound_by=by, ms=ms, share=bound / ms)
+        log(f"[dryrun] (a) {name} a launch: {fl:.4e} FLOPs, {nb:.4e} bytes "
+            f"(from shapes only), bound {bound:.6f} ms by {by}; "
+            f"phase 7's {ms:.5f} ms: {100 * bound / ms:.1f}% of the roofline "
+            f"on {smi}")
+    out["fit"] = fit
+
+    # -- (b) the llama3.2-1b prefill ------------------------------------------
+    lm_cfg = ARCHS[LM_ARCH]
+    shape = ShapeSpec("prefill", PREFILL_S, PREFILL_B, "prefill")
+    model = api.init_params(lm_cfg, device="meta")
+    batch = {n: torch.empty(s.shape, dtype=s.dtype, device="meta")
+             for n, s in api.input_specs(lm_cfg, shape).items()}
+    mode = CostMode()
+    with mode:
+        args = mode.track(model, batch)
+        api.make_prefill_step(lm_cfg)(model, batch)
+    flash = int(mode.costs.launches.get("flash_attention", 0))
+    if flash != lm_cfg.n_layers:
+        failed.append(f"(b) predicted {flash} flash launches, not "
+                      f"{lm_cfg.n_layers}")
+    lm = results["lm"]
+    measured = lm["prefill_peak_mem_bytes"] - lm["prefill_resident_bytes"] \
+        + args
+    flops = mode.costs.flops
+    log(f"[dryrun] (b) {lm_cfg.name} prefill {PREFILL_B} x {PREFILL_S} on "
+        f"meta: {flash} flash launches (phase 9: "
+        f"{paths['prefill']['flash_attention']}); {flops:.4e} FLOPs counted "
+        f"(flash {mode.costs.kernel_flops['flash_attention']:.4e}) beside "
+        f"phase 11's {1e3 * lm['prefill_s']:.2f} ms: "
+        f"{flops / lm['prefill_s'] / 1e12:.1f} TFLOP/s, "
+        f"{100 * flops / lm['prefill_s'] / BF16_FLOPS:.1f}% of the bf16 peak "
+        f"on {smi}")
+    out["prefill"] = dict(flash_launches=flash, flops=flops,
+                          bytes=mode.costs.hbm_bytes,
+                          prefill_ms=1e3 * lm["prefill_s"],
+                          peak=peak_check("(b) prefill", mode.peak_bytes,
+                                          measured))
+    del model, batch
+
+    # -- (c) phase 25's cell on a fake 2x2 grid --------------------------------
+    shard = results["shard"]
+    sh_cfg = dataclasses.replace(lm_cfg, n_layers=sizes["layers"])
+    sh_shape = ShapeSpec("shard", sizes["seq"], sizes["batch"], "train")
+    rows_, cols_ = sizes["grid"]
+    with dryrun.fake_world(rows_ * cols_):
+        rec = dryrun.lower_cell(sh_cfg, sh_shape,
+                                make_nmf_mesh(rows_, cols_, device="meta"),
+                                microbatches=1)
+    ar = rec["collectives"]["all_reduce"]
+    log(f"[dryrun] (c) {sh_cfg.name}, {sizes['layers']} layers, "
+        f"{sizes['batch']} x {sizes['seq']} on a fake {rows_}x{cols_} grid: "
+        f"parameters + mu + nu a rank {rec['state_bytes']} B (phase 25: "
+        f"{shard['state_bytes'][0]}); all_reduce a step {ar['calls']:.0f} "
+        f"calls, {ar['bytes'] / 1e6:.1f} MB (phase 25: "
+        f"{shard['all_reduce_calls']:.0f}, "
+        f"{shard['all_reduce_bytes'] / 1e6:.1f} MB); {rec['flops']:.4e} "
+        f"FLOPs a rank a step")
+    if rec["state_bytes"] != shard["state_bytes"][0]:
+        failed.append(f"(c) state bytes {rec['state_bytes']} != phase 25's "
+                      f"{shard['state_bytes'][0]}")
+    if (ar["calls"] != shard["all_reduce_calls"]
+            or ar["bytes"] != shard["all_reduce_bytes"]):
+        failed.append(f"(c) all_reduce {ar} != phase 25's "
+                      f"{shard['all_reduce_calls']} calls, "
+                      f"{shard['all_reduce_bytes']} bytes")
+    out["shard"] = dict(state_bytes=rec["state_bytes"], all_reduce=ar,
+                        flops=rec["flops"],
+                        peak=peak_check("(c) sharded step, rank 0",
+                                        rec["bytes_per_device"],
+                                        max(shard["peak_bytes"])))
+    if _build.launch_counts() != card_counts:
+        failed.append(f"the dry-runs moved the card's launch counts from "
+                      f"{card_counts} to {_build.launch_counts()}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[dryrun] phase 26 took {out['seconds']:.1f} s")
+    results["dryrun"] = out
+    if failed:
+        raise AssertionError("the dry-run disagrees with the card: "
+                             + "; ".join(failed))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -5412,6 +5596,8 @@ def main(argv=None) -> int:
     run_encdec_slice(dev, paths, results, rows)
     # -- 25. parameter sharding over a 2x2 grid -----------------------------
     run_shard_slice(dev, paths, results)
+    # -- 26. the dry-run on meta against phases 3/7, 9/11 and 25 -----------
+    run_dryrun_slice(dev, op, u0, smi, paths, results, rows)
 
     owner = {"project_mask": "fit", "bsr_spmm_gram": "fit",
              "bsr_spmm": "transform", "gram": "unfused_fit",

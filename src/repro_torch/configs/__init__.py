@@ -9,12 +9,13 @@ reference's).
 Each architecture has its own module (``repro_torch.configs.<id>`` with
 dashes mapped to underscores) exporting ``CONFIG``, field for field the
 reference's.  ``smoke_config`` gives the same reduced variants as the
-reference's for every family.
+reference's for every family, and ``cell_supported`` which (architecture
+x shape) cells are defined, the reference's answer for all 40.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Tuple
 
 from repro_torch.models.common import ArchConfig
 
@@ -63,6 +64,15 @@ SHAPES: Dict[str, ShapeSpec] = {
 }
 
 
+def cell_supported(cfg: ArchConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether (arch x shape) is a defined cell, and why not: the
+    reference's rule (``repro.configs.cell_supported``)."""
+    if shape.name == "long_500k" and not cfg.supports_long:
+        return False, ("long_500k needs sub-quadratic attention; pure "
+                       "full-attention arch (skip per assignment)")
+    return True, ""
+
+
 def smoke_config(cfg: ArchConfig) -> ArchConfig:
     """Reduced same-family config for CPU smoke tests."""
     kv_ratio = max(cfg.n_heads // cfg.n_kv_heads, 1)
@@ -91,4 +101,5 @@ def smoke_config(cfg: ArchConfig) -> ArchConfig:
     return dataclasses.replace(cfg, **overrides)
 
 
-__all__ = ["ARCHS", "NMF_CONFIGS", "SHAPES", "ShapeSpec", "smoke_config"]
+__all__ = ["ARCHS", "NMF_CONFIGS", "SHAPES", "ShapeSpec", "cell_supported",
+           "smoke_config"]

@@ -7,11 +7,15 @@ takes seconds).  Libraries land in ``build/kernels/`` at the repository root,
 named by a hash of the source and the flags, so an edited source is rebuilt
 and an unchanged one is reused.
 
-Every wrapper counts its kernel launches here (:func:`count_launch`), so a
-run can show that the main path went through the kernels and not through
-their plain versions.  A wrapper runs its kernel only for CUDA tensors
-(:func:`on_card`); for CPU tensors it runs the plain version, and for a mix
-it raises.
+Every wrapper counts its kernel launches on the card here
+(:func:`count_launch`), so a run can show that the main path went through
+the kernels and not through their plain versions.  A wrapper runs its
+kernel only for CUDA tensors (:func:`on_card`); for CPU tensors it runs the
+plain version; for ``meta`` tensors (the dry-run, ``launch/dryrun.py``) it
+launches nothing and counts nothing here: it returns empty outputs of the
+kernel's shapes and gives the launch with the kernel's own FLOPs and bytes
+to the counting mode in force (``repro_torch.scan.record_kernel``), never
+running the plain version; for a mix it raises.
 """
 from __future__ import annotations
 
@@ -28,8 +32,8 @@ from typing import Dict
 import torch
 
 __all__ = ["KERNELS", "count_launch", "launch_counts", "reset_launch_counts",
-           "on_card", "check_rc", "library", "library_path", "build_all",
-           "stream_ptr"]
+           "on_card", "META", "check_rc", "library", "library_path",
+           "build_all", "stream_ptr"]
 
 #: the port's kernel wrappers, by name (``relu_topk`` and ``project_mask``
 #: are the two functions of ``csrc/project_mask.cu``)
@@ -60,10 +64,15 @@ def reset_launch_counts() -> None:
         _LAUNCHES[name] = 0
 
 
-def on_card(*tensors: torch.Tensor) -> bool:
+#: :func:`on_card`'s answer for ``meta`` tensors
+META = "meta"
+
+
+def on_card(*tensors: torch.Tensor):
     """True when every tensor is on one CUDA device (launch the kernel),
-    False when every tensor is on the CPU (run the plain version); raises
-    for anything else."""
+    False when every tensor is on the CPU (run the plain version),
+    :data:`META` when every tensor is on the ``meta`` device (record the
+    launch and its cost, run nothing); raises for anything else."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"kernel operands span several devices: "
@@ -73,6 +82,8 @@ def on_card(*tensors: torch.Tensor) -> bool:
         return True
     if dev.type == "cpu":
         return False
+    if dev.type == "meta":
+        return META
     raise ValueError(f"unsupported device {dev} for a kernel operand")
 
 

@@ -116,6 +116,10 @@ class BSR:
     uncovered_rows: Optional[torch.Tensor]
     #: the CUDA kernels' split of the slot stream over the card's SMs
     plan: SplitPlan
+    #: slots whose tile holds a nonzero entry (the rest is padding),
+    #: counted on the host at ingest and kept on every device, ``meta``
+    #: included
+    occupied: int
 
     @property
     def bm(self) -> int:
@@ -151,7 +155,7 @@ class BSR:
         unc = None if self.uncovered_rows is None else mv(self.uncovered_rows)
         return BSR(mv(self.tiles), mv(self.block_cols), self.shape,
                    mv(self.gram_flags), unc,
-                   _make_plan(self.nrb, self.bcap, device))
+                   _make_plan(self.nrb, self.bcap, device), self.occupied)
 
     def nnz(self) -> torch.Tensor:
         return torch.sum(self.tiles != 0)
@@ -206,10 +210,21 @@ def coverage(block_cols: np.ndarray, ncb: int):
     return flags, first_pos < size
 
 
+def _occupied(tiles: torch.Tensor) -> int:
+    """Slots of host ``tiles`` (nrb, bcap, bm, bk) whose tile holds a
+    nonzero entry."""
+    if tiles.numel() == 0:
+        return 0
+    lo, hi = torch.aminmax(tiles.reshape(tiles.shape[0] * tiles.shape[1],
+                                         -1), dim=1)
+    return int(((lo != 0) | (hi != 0)).sum())
+
+
 def _make_bsr(tiles: np.ndarray, bcols: np.ndarray, shape: Tuple[int, int],
               device, dtype: Optional[torch.dtype] = None) -> BSR:
-    """Wrap host arrays as a device :class:`BSR`, with its coverage; given
-    ``dtype``, the tiles are cast to it on the device."""
+    """Wrap host arrays as a device :class:`BSR`, with its coverage and its
+    occupied-tile count; given ``dtype``, the tiles are cast to it on the
+    device."""
     bk = tiles.shape[3]
     m = shape[1]
     ncb = -(-m // bk)
@@ -218,12 +233,13 @@ def _make_bsr(tiles: np.ndarray, bcols: np.ndarray, shape: Tuple[int, int],
     if not covered.all():
         unc = torch.from_numpy(~covered[np.arange(m) // bk]).to(device)
     nrb, bcap = bcols.shape
-    t = torch.from_numpy(np.ascontiguousarray(tiles)).to(device)
+    host = torch.from_numpy(np.ascontiguousarray(tiles))
+    t = host.to(device)
     if dtype is not None and t.dtype != dtype:
         t = t.to(dtype)
     return BSR(t, torch.from_numpy(bcols).to(device), shape,
                torch.from_numpy(flags).to(device), unc,
-               _make_plan(nrb, bcap, device))
+               _make_plan(nrb, bcap, device), _occupied(host))
 
 
 def replan(a: BSR, runs: int) -> BSR:

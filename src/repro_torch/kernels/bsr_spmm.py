@@ -21,7 +21,9 @@ the source.
 
 For CPU tensors the wrapper runs the plain version
 (``kernels.ref.bsr_spmm_ref``); for CUDA tensors it launches the kernel or
-raises.
+raises; for meta tensors (an operand moved to ``meta`` keeps its shapes and
+its occupied-tile count) it returns an empty product and records the launch
+and its :func:`cost`.
 """
 from __future__ import annotations
 
@@ -36,8 +38,9 @@ from repro_torch.kernels.autotune import (
     KB_WIDTHS, MAX_BK, MAX_BM, column_chunk, device_kind, resolve_tiles,
 )
 from repro_torch.kernels.bsr import BSR, BSROperand
+from repro_torch.scan import record_kernel
 
-__all__ = ["bsr_spmm", "bsr_spmm_t", "check_operands", "resolve_kb"]
+__all__ = ["bsr_spmm", "bsr_spmm_t", "check_operands", "resolve_kb", "cost"]
 
 #: the operand dtypes the kernels take (tiles and factor of one dtype)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -142,6 +145,26 @@ def stamps_ptr(a: BSR, stamps: Optional[torch.Tensor]) -> Optional[int]:
     return stamps.data_ptr()
 
 
+def cost(a: BSR, u: torch.Tensor, gram_out: bool = False) -> tuple:
+    """``(flops, bytes)`` of ``A @ U`` over the tiles ``a`` holds: its
+    occupied tiles (``a.occupied``, counted at ingest and kept on
+    ``meta``), 2 k FLOPs an entry of each; those tiles, the block columns
+    of every slot and U read once, the product written once.  With
+    ``gram_out`` (the fused kernel) also ``U^T U``: ``m k (k + 1)`` FLOPs
+    over its distinct entries and the f32 k x k result written once."""
+    k = u.shape[1]
+    tiles = a.occupied
+    flops = 2.0 * tiles * a.bm * a.bk * k
+    nbytes = (tiles * a.bm * a.bk * a.tiles.element_size()
+              + 4 * a.nrb * a.bcap
+              + u.numel() * u.element_size()
+              + a.shape[0] * k * u.element_size())
+    if gram_out:
+        flops += float(u.shape[0]) * k * (k + 1)
+        nbytes += 4 * k * k
+    return flops, float(nbytes)
+
+
 def bsr_spmm(a: BSR, u: torch.Tensor, kb: Optional[int] = None,
              stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``dense(A) @ U`` for BSR ``A`` (n x m) and dense ``U`` (m x k), in
@@ -150,9 +173,15 @@ def bsr_spmm(a: BSR, u: torch.Tensor, kb: Optional[int] = None,
     through the tile ledger.  Given ``stamps`` (a (runs, 2) int64 tensor on
     the card), the kernel writes each block's start and end time there
     (ns, ``%globaltimer``)."""
-    if not _build.on_card(a.tiles, a.block_cols, a.plan.bounds, u):
+    where = _build.on_card(a.tiles, a.block_cols, a.plan.bounds, u)
+    if not where:
         return ref.bsr_spmm_ref(a, u)
     check_operands(a, u)
+    if where is _build.META:
+        y = torch.empty((a.shape[0], u.shape[1]), dtype=u.dtype,
+                        device=u.device)
+        record_kernel("bsr_spmm", *cost(a, u))
+        return y
     kb = resolve_kb(a, u, kb)
     n, m = a.shape
     k = u.shape[1]

@@ -10,9 +10,10 @@ Q K^T and P V, TMA copies of Q, K and V from a producer warp into a
 two-stage ring.  f32 runs on the CUDA cores in IEEE f32 (tensor-core f32
 would be TF32).  The design notes are in the source.  For CPU tensors the
 wrapper runs the plain version (``kernels.ref.flash_attention_ref``); for
-CUDA tensors it launches a kernel or raises.  The kernels have no backward
-(the reference has none either), so the wrapper refuses operands that need
-a gradient.
+CUDA tensors it launches a kernel or raises; for meta tensors it returns an
+empty output and records the launch and its :func:`cost`.  The kernels have
+no backward (the reference has none either), so the wrapper refuses
+operands that need a gradient.
 
 The kernels read q, k and v through their strides, so the model hands them
 the transposed views of its (B, S, H, hd) projections without a copy, and
@@ -29,8 +30,9 @@ import functools
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.scan import record_kernel
 
-__all__ = ["flash_attention", "check_operands", "HEAD_DIMS"]
+__all__ = ["flash_attention", "check_operands", "cost", "HEAD_DIMS"]
 
 #: head sizes the kernel is built for (112, zamba2-7b's, on 128's layout)
 HEAD_DIMS = (16, 32, 64, 112, 128)
@@ -88,11 +90,36 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              "which the TMA copies need")
 
 
+def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         causal: bool = True) -> tuple:
+    """``(flops, bytes)`` of the attention function: 4 hd FLOPs (Q K^T and
+    P V, a multiply-add each) for every (row, key) pair the mask keeps
+    (row i keeps keys 0..min(i, T - 1) when causal: S (S + 1) / 2 pairs at
+    S = T), every head; q, k, v read once and the output written once."""
+    b, h, sq, hd = q.shape
+    t = k.shape[2]
+    if causal:
+        m = min(sq, t)
+        pairs = m * (m + 1) // 2 + (sq - m) * t
+    else:
+        pairs = sq * t
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return 4.0 * b * h * hd * pairs, float(nbytes)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, groups: int = 1) -> torch.Tensor:
     """Attention of q (B, H, Sq, hd) over k, v (B, Hkv, T, hd); query head
     h reads KV head ``h // groups``.  Returns (B, H, Sq, hd) in q's dtype."""
-    if not _build.on_card(q, k, v):
+    where = _build.on_card(q, k, v)
+    if where is _build.META:
+        check_operands(q, k, v, groups)
+        b, h, sq, hd = q.shape
+        out = torch.empty((b, sq, h, hd), dtype=q.dtype,
+                          device=q.device).transpose(1, 2)
+        record_kernel("flash_attention", *cost(q, k, v, causal))
+        return out
+    if not where:
         return ref.flash_attention_ref(q, k, v, causal=causal, groups=groups)
     check_operands(q, k, v, groups)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):

@@ -24,7 +24,10 @@ The kernel keeps the k x k Gram partial and two stages of (tile, full-rank
 slab) in a block's shared memory, so it takes a rank while
 ``kernels/autotune.py::fused_working_set`` fits the budget
 (``fused_max_k``: 75 at 128 x 128 f32 tiles, 149 at 128 x 64); the
-``cuda-bsr`` backend takes the separate launches past that.
+``cuda-bsr`` backend takes the separate launches past that.  For meta
+tensors the wrapper returns empty outputs and records one launch and its
+cost (``bsr_spmm.cost`` with the Gram), and the ``gram`` launch of the
+unreferenced rows where the card runs one.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from repro_torch.kernels.autotune import (
     SMEM_BUDGET, fused_max_k, fused_working_set,
 )
 from repro_torch.kernels.gram import gram
+from repro_torch.scan import record_kernel
 
 __all__ = ["bsr_spmm_gram", "bsr_spmm_gram_t"]
 
@@ -58,11 +62,11 @@ def bsr_spmm_gram(a: BSR, u: torch.Tensor, kb: Optional[int] = None,
     kernel template; ``None`` resolves it through the tile ledger, as
     ``bsr_spmm`` does), in ``U``'s dtype; the Gram is f32 and agrees with
     ``U^T U`` to f32 roundoff.  ``stamps`` as for ``bsr_spmm``."""
-    if not _build.on_card(a.tiles, a.block_cols, a.gram_flags,
-                          a.plan.bounds, u):
+    where = _build.on_card(a.tiles, a.block_cols, a.gram_flags,
+                           a.plan.bounds, u)
+    if not where:
         return ref.bsr_spmm_gram_ref(a, u)
     spmm_kernel.check_operands(a, u)
-    kb = spmm_kernel.resolve_kb(a, u, kb)
     n, m = a.shape
     k = u.shape[1]
     if fused_working_set(a.bm, a.bk, k, u.element_size()) > SMEM_BUDGET:
@@ -70,6 +74,13 @@ def bsr_spmm_gram(a: BSR, u: torch.Tensor, kb: Optional[int] = None,
             f"the fused kernel takes k <= "
             f"{fused_max_k(a.bm, a.bk, u.element_size())} at {a.bm} x "
             f"{a.bk} {u.dtype} tiles, got {k}")
+    if where is _build.META:
+        y = torch.empty((n, k), dtype=u.dtype, device=u.device)
+        g = torch.empty((k, k), dtype=torch.float32, device=u.device)
+        record_kernel("bsr_spmm_gram", *spmm_kernel.cost(a, u,
+                                                         gram_out=True))
+        return y, _add_unreferenced(a, u, g)
+    kb = spmm_kernel.resolve_kb(a, u, kb)
     y = torch.empty((n, k), dtype=u.dtype, device=u.device)
     g = torch.empty((k, k), dtype=torch.float32, device=u.device)
     tickets, part, gram_part = spmm_kernel.scratch(a, k, kb)

@@ -15,7 +15,8 @@ tile the last block to take an integer ticket sums them in block order
 keeps the tickets and the partials' scratch per device and allocates only
 G.  U is f32 or bf16 (widened as it is staged); G is f32 either way.  For
 CPU tensors it runs ``kernels.ref.gram_ref``; for CUDA tensors it launches
-or raises.
+or raises; for meta tensors it returns an empty G and records the launch and
+its :func:`cost`.
 """
 from __future__ import annotations
 
@@ -26,8 +27,9 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.scan import record_kernel
 
-__all__ = ["gram"]
+__all__ = ["gram", "cost"]
 
 #: per CUDA device: [tickets (int32, one per output tile, 0 between calls),
 #: partials' scratch, SM count]
@@ -83,10 +85,26 @@ def _check(u: torch.Tensor) -> None:
         raise ValueError("u must be contiguous")
 
 
+def cost(u: torch.Tensor) -> tuple:
+    """``(flops, bytes)`` of the function ``U^T U``: G is symmetric, so it
+    needs only its k (k + 1) / 2 distinct entries, 2 n FLOPs each; U read
+    once, the f32 G written once."""
+    n, k = u.shape
+    return float(n) * k * (k + 1), float(u.numel() * u.element_size()
+                                         + 4 * k * k)
+
+
 def gram(u: torch.Tensor) -> torch.Tensor:
     """``U^T @ U`` (k, k) in f32 for an (n, k) f32 or bf16 ``U`` (bf16
     entries widened, f32 accumulation)."""
-    if not _build.on_card(u):
+    where = _build.on_card(u)
+    if where is _build.META:
+        _check(u)
+        k = u.shape[1]
+        g = torch.empty((k, k), dtype=torch.float32, device=u.device)
+        record_kernel("gram", *cost(u))
+        return g
+    if not where:
         return ref.gram_ref(u)
     _check(u)
     lib = _lib()

@@ -21,7 +21,9 @@ functions:
 * :func:`project_mask` — the TPU kernel's own function, ``tau`` given.
 
 For CPU tensors each runs its plain version; for CUDA tensors it launches
-or raises.  Neither synchronises with the host.
+or raises; for meta tensors it returns empty outputs and records the launch
+and its cost (:func:`relu_topk_cost`, :func:`project_mask_cost`).  Neither
+synchronises with the host.
 """
 from __future__ import annotations
 
@@ -32,8 +34,10 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.scan import record_kernel
 
-__all__ = ["relu_topk", "project_mask", "relu_topk_plan", "STEPS_PER_ROUND"]
+__all__ = ["relu_topk", "project_mask", "relu_topk_plan", "relu_topk_cost",
+           "project_mask_cost", "STEPS_PER_ROUND"]
 
 #: bisection steps one count round of :func:`relu_topk` resolves (the
 #: kernel's ``kSteps``: 2^3 - 1 midpoints counted a round, 15 barriers for
@@ -85,6 +89,22 @@ def _check(x: torch.Tensor, name: str) -> None:
                          f"{x.numel()}")
 
 
+def relu_topk_cost(x: torch.Tensor, num_steps: int = 40) -> tuple:
+    """``(flops, bytes)`` of ``relu_topk``: the relu, ``num_steps``
+    bisection counts and the mask, one operation an entry each; x read
+    once, the masked factor and ``tau`` written once."""
+    n = x.numel()
+    return float((num_steps + 2) * n), float((2 * n + 1) * x.element_size())
+
+
+def project_mask_cost(x: torch.Tensor) -> tuple:
+    """``(flops, bytes)`` of the mask with ``tau`` given: the relu and the
+    comparison an entry; x and the f32 ``tau`` read once, the output
+    written once."""
+    n = x.numel()
+    return float(2 * n), float(2 * n * x.element_size() + 4)
+
+
 def relu_topk(x: torch.Tensor, t: int, num_steps: int = 40
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, tau)``: ``tau`` the ``num_steps``-step bisection threshold of
@@ -93,13 +113,19 @@ def relu_topk(x: torch.Tensor, t: int, num_steps: int = 40
     dtype (f32 or bf16; a bf16 ``x`` is bisected in f32 and ``tau`` rounded
     to bf16 at the end, as the reference does).  The kernel picks how many
     blocks share ``x`` from ``x.numel()`` (:func:`relu_topk_plan`)."""
-    if not _build.on_card(x):
+    where = _build.on_card(x)
+    if not where:
         return ref.relu_topk_ref(x, t, num_steps)
     _check(x, "relu_topk")
     if num_steps < 0:
         raise ValueError(f"num_steps must be >= 0, got {num_steps}")
     if x.numel() == 0:
         raise ValueError("relu_topk needs a non-empty x")
+    if where is _build.META:
+        out = torch.empty_like(x)
+        tau = torch.empty((), dtype=x.dtype, device=x.device)
+        record_kernel("relu_topk", *relu_topk_cost(x, num_steps))
+        return out, tau
     lib = _lib()
     out = torch.empty_like(x)
     tau = torch.empty((), dtype=x.dtype, device=x.device)
@@ -117,7 +143,8 @@ def project_mask(x: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
     """relu + threshold mask of a factor; ``tau`` is a 0-d f32 (or, for a
     bf16 ``x``, bf16) tensor on ``x``'s device, cast to ``x``'s dtype before
     the comparison as the reference casts it."""
-    if not _build.on_card(x, tau):
+    where = _build.on_card(x, tau)
+    if not where:
         return ref.project_mask_ref(x, tau)
     _check(x, "project_mask")
     if tau.dtype not in (torch.float32, x.dtype):
@@ -126,6 +153,9 @@ def project_mask(x: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"tau must hold one value, got {tuple(tau.shape)}")
     out = torch.empty_like(x)
     if x.numel() == 0:
+        return out
+    if where is _build.META:
+        record_kernel("project_mask", *project_mask_cost(x))
         return out
     lib = _lib()
     fn = (lib.project_mask_bf16 if x.dtype == torch.bfloat16

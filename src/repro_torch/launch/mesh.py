@@ -47,7 +47,8 @@ import torch.distributed as dist
 
 from repro_torch.device import DeviceLike, resolve_device
 
-__all__ = ["NMFMesh", "make_nmf_mesh", "make_local_mesh", "spawn_mesh",
+__all__ = ["NMFMesh", "make_nmf_mesh", "make_local_mesh",
+           "make_production_mesh", "spawn_mesh",
            "collective_counts", "reset_collective_counts", "AXES",
            "ROW_AXES"]
 
@@ -333,8 +334,9 @@ def make_nmf_mesh(rows: int, cols: int, device: DeviceLike = None,
     # and the transport works.  The pods ride above bit 32 of the rows, so
     # a 2-D grid's check is the one it always was
     code = rows + ((pods - 1) << 32)
+    # a meta grid (the dry-run's) checks on the host: meta holds no values
     shape = torch.tensor([code, cols, -code, -cols], dtype=torch.int64,
-                         device=device)
+                         device="cpu" if device.type == "meta" else device)
     dist.all_reduce(shape, op=dist.ReduceOp.MAX)
     _COLLECTIVES["all_reduce"] += 1
     _COLLECTIVES["bytes"] += 32
@@ -374,6 +376,29 @@ def make_nmf_mesh(rows: int, cols: int, device: DeviceLike = None,
     mesh = NMFMesh(rows, cols, rank, device, pods, groups)
     _MESHES[key] = mesh
     return mesh
+
+
+def make_production_mesh(multi_pod: bool = False) -> NMFMesh:
+    """The reference's production grid (``repro.launch.mesh.
+    make_production_mesh``): 16 x 16 over ``("data", "model")``, or with
+    ``multi_pod`` 2 x 16 x 16 over ``("pod", "data", "model")``, as rank
+    0's :class:`NMFMesh` on the ``meta`` device.
+
+    It is built only on the ``fake`` process group that the dry-run starts
+    (``launch.dryrun.fake_world``, world 256 or 512): its collectives
+    return at once and are counted as on a real grid.  Under any other
+    backend it refuses, so that no launcher builds a 256-rank grid by
+    mistake."""
+    pods = 2 if multi_pod else 1
+    world = pods * 256
+    if not (dist.is_available() and dist.is_initialized()) or \
+            dist.get_backend() != "fake":
+        raise RuntimeError(
+            "make_production_mesh builds the 16x16 / 2x16x16 grid only on "
+            "the dry-run's fake process group (repro_torch.launch.dryrun."
+            "fake_world); a real backend would need "
+            f"{world} processes")
+    return make_nmf_mesh(16, 16, device="meta", pods=pods)
 
 
 # ---------------------------------------------------------------------------

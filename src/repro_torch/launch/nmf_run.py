@@ -26,19 +26,117 @@ Every rank builds the same corpus and fits its block; only rank 0 prints.
 
 A run with ``--checkpoint-dir D`` snapshots every ``--checkpoint-every``
 iterations (chunks, blocks); a killed run restarted with ``--resume``
-continues from the newest snapshot (on a mesh: on any mesh shape).  The
-reference's ``nmf_input_specs`` and ``nmf_dryrun_cell`` lower through XLA
-and have no counterpart.
+continues from the newest snapshot (on a mesh: on any mesh shape).
+
+The pod-scale dry-run of the distributed fit (:func:`nmf_dryrun_cell`,
+the paper's "large" workload on 256 / 512 ranks) runs on the ``meta``
+device, with no card:
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --nmf [--multi-pod]
 """
 from __future__ import annotations
 
 import argparse
 import os
 import time
+from typing import Dict
 
 import torch
 
 from repro_torch.configs import NMF_CONFIGS
+
+
+def nmf_input_specs(n: int, m: int, k: int, cap: int, cap_t: int,
+                    r: int, c: int):
+    """Shapes and dtypes of the distributed factorization's inputs, the
+    reference's (``repro.launch.nmf_run.nmf_input_specs``): the padded-CSR
+    blocks of the ``r x c`` grid in both orientations (values, column ids)
+    and the whole ``u0``; a rank holds block (i, j) of the first four and
+    its rows of ``u0``."""
+    from repro_torch.models.api import TensorSpec
+
+    f32, i32 = torch.float32, torch.int32
+    n_loc, m_loc = n // r, m // c
+    return (
+        TensorSpec((r, c, n_loc, cap), f32),      # values
+        TensorSpec((r, c, n_loc, cap), i32),      # cols
+        TensorSpec((r, c, m_loc, cap_t), f32),    # values_t
+        TensorSpec((r, c, m_loc, cap_t), i32),    # cols_t
+        TensorSpec((n, k), f32),                  # u0
+    )
+
+
+def nmf_dryrun_cell(mesh, *, n: int = 4_000_000, m: int = 1_000_000,
+                    k: int = 256, nnz_per_row: int = 256, iters: int = 20,
+                    t_frac: float = 0.02) -> Dict:
+    """Rank 0's part of the paper's Alg. 2 at production scale on ``mesh``
+    (an ``NMFMesh`` of the dry-run's fake world, ``launch.dryrun``), run
+    on the ``meta`` device under a ``launch.cost_analysis.CostMode``: the
+    engine ``solver="distributed"`` executes (``make_sharded_als`` with
+    ``DistTopK`` on both factors, no error trace, its default inner
+    backend ``torch-csr``, the reference's padded-CSR leaves), on this
+    rank's block.  The reference's ``nmf_dryrun_cell`` lowers the same
+    engine through XLA.
+
+    Capacity sizing is the reference's: row nonzeros spread over C column
+    blocks with 2x skew margin; the transpose orientation likewise (column
+    nonzeros ``n * nnz_per_row / m``)."""
+    from repro_torch.backend.sharded import make_sharded_als
+    from repro_torch.core.distributed import DistCSR
+    from repro_torch.core.topk import DistTopK
+    from repro_torch.launch.cost_analysis import CostMode, tree_bytes
+    from repro_torch.sparse.csr import SpCSR
+
+    t0 = time.perf_counter()
+    rows_axes = ("pod", "data") if mesh.pods > 1 else ("data",)
+    r, c = mesh.axis_size(rows_axes), mesh.axis_size("model")
+    cap = max(2 * nnz_per_row // c, 4)
+    col_nnz = n * nnz_per_row // m
+    cap_t = max(2 * col_nnz // r, 4)
+    t_u = int(n * k * t_frac)
+    t_v = int(m * k * t_frac)
+    run = make_sharded_als(
+        mesh, rows_axes, "model",
+        sparsify_u=DistTopK(t_u, mesh, rows_axes),
+        sparsify_v=DistTopK(t_v, mesh, ("model",)),
+        track_error=False)
+    values, cols, values_t, cols_t, u0 = nmf_input_specs(n, m, k, cap, cap_t,
+                                                         r, c)
+
+    def block(spec):
+        return torch.empty(spec.shape[2:], dtype=spec.dtype, device="meta")
+
+    n_loc, m_loc = n // r, m // c
+    dist_block = DistCSR(
+        fwd=SpCSR(block(values), block(cols), (n_loc, m_loc)),
+        tsp=SpCSR(block(values_t), block(cols_t), (m_loc, n_loc)),
+        shape=(n, m), grid=(r, c), index=(mesh.index(rows_axes),
+                                          mesh.index("model")))
+    u0_rows = torch.empty((n_loc, k), dtype=u0.dtype, device="meta")
+    mode = CostMode()
+    with mode:
+        args = mode.track(dist_block.fwd.values, dist_block.fwd.cols,
+                          dist_block.tsp.values, dist_block.tsp.cols, u0_rows)
+        res = run(dist_block, u0_rows, iters)
+        out = tree_bytes(tuple(res))
+    costs = mode.costs
+    rec = {
+        "arch": "nmf-large-synthetic",
+        "shape": f"n{n}_m{m}_k{k}_iters{iters}",
+        "mesh": "x".join(map(str, mesh.shape)),
+        "status": "ok",
+        "flops": costs.flops,
+        "bytes_accessed": costs.hbm_bytes,
+        "argument_bytes": args,
+        "temp_bytes": max(mode.peak_bytes - args - out, 0),
+        "output_bytes": out,
+        "alias_bytes": 0,
+        "bytes_per_device": mode.peak_bytes,
+        "collectives": costs.collectives(),
+        "launches": dict(costs.launches),
+        "wall_s": round(time.perf_counter() - t0, 2),
+    }
+    return rec
 
 
 def main(argv=None):

@@ -33,6 +33,7 @@ from typing import (TYPE_CHECKING, Any, Callable, Dict, Mapping, NamedTuple,
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.scan import scan
 from repro_torch.layout import reference_leaf
 from repro_torch.models import encdec, hybrid, moe, transformer, xlstm
 from repro_torch.models.common import ArchConfig
@@ -177,15 +178,17 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, remat: bool = True,
             grads = {k: torch.zeros(p.shape, dtype=torch.float32,
                                     device=p.device)
                      for k, p in named_parameters(params).items()}
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=grads[next(iter(grads))].device)
-            for i in range(m):
+
+            def micro_step(loss, i):
                 micro = {k: x[i * n:(i + 1) * n] for k, x in batch.items()}
                 l, g = value_and_grad(loss_fn, params, micro)
                 for k, gi in g.items():
                     grads[k].add_(gi.float() / m)
-                loss = loss + l / m
-                del g
+                return loss + l / m, None
+
+            loss, _ = scan(micro_step, torch.zeros(
+                (), dtype=torch.float32,
+                device=grads[next(iter(grads))].device), range(m))
         params, opt_state = opt.update(grads, opt_state, params)
         return params, opt_state, loss
 
@@ -226,8 +229,14 @@ def init_params(cfg: ArchConfig, seed: Union[int, torch.Generator] = 0,
                 dtype=torch.float32, device: DeviceLike = None):
     """Random parameters (the reference initialises at random too; nothing
     is downloaded), drawn on ``device`` (the card unless the CPU is asked
-    for) from ``seed``: an int, or a generator on that device."""
+    for) from ``seed``: an int, or a generator on that device.  On the
+    ``meta`` device nothing is drawn: the model's shapes and dtype only."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        from repro_torch.convert import _MODELS
+
+        module_for(cfg)
+        return _MODELS[cfg.family](cfg, dtype, dev)
     gen = _generator(seed, dev)
     if gen.device.type != dev.type:
         raise ValueError(f"generator on {gen.device}, parameters asked for "

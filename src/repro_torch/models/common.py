@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.scan import scan
 
 __all__ = ["ArchConfig", "dense_init", "attention_shapes", "mlp_shapes",
            "init_attention", "init_mlp", "rmsnorm", "rope_freqs", "apply_rope",
@@ -246,9 +247,13 @@ def _plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     S, T = q.shape[1], k.shape[1]
     if not (S * T > _ATTN_CHUNK_THRESHOLD and S % _Q_CHUNK == 0):
         return _attend(q, k, v, cfg, causal, 0)
-    return torch.cat([checkpoint(_attend, q[:, i:i + _Q_CHUNK], k, v, cfg,
-                                 causal, i, use_reentrant=False)
-                      for i in range(0, S, _Q_CHUNK)], dim=1)
+
+    def block(_, i):
+        return None, checkpoint(_attend, q[:, i:i + _Q_CHUNK], k, v, cfg,
+                                causal, i, use_reentrant=False)
+
+    _, out = scan(block, None, range(0, S, _Q_CHUNK), dim=1)
+    return out.reshape(q.shape)
 
 
 def attention(p: Params, x: torch.Tensor, cfg: ArchConfig,
@@ -348,11 +353,14 @@ def chunked_lm_loss(hidden: torch.Tensor, unembed: torch.Tensor,
         n_chunks -= 1
     c = s // n_chunks
     w = unembed.to(compute_dtype)
-    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for i in range(0, s, c):
-        total = total + checkpoint(_chunk_nll, hidden[:, i:i + c], w,
-                                   y[:, i:i + c], valid[i:i + c],
-                                   compute_dtype, use_reentrant=False)
+
+    def chunk(total, i):
+        return total + checkpoint(_chunk_nll, hidden[:, i:i + c], w,
+                                  y[:, i:i + c], valid[i:i + c],
+                                  compute_dtype, use_reentrant=False), None
+
+    total, _ = scan(chunk, torch.zeros((), dtype=torch.float32,
+                                       device=hidden.device), range(0, s, c))
     return total / (b * (s - 1))
 
 

@@ -25,6 +25,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.scan import scan
 from repro_torch.models.common import ArchConfig, dense_init, rmsnorm
 from repro_torch.models.transformer import _Leaves
 
@@ -118,10 +119,9 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     bc = b.reshape(bsz, nc, q, n)
     cc = c.reshape(bsz, nc, q, n)
     state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
-    ys = []
-    # unbind: one backward node for all the chunks
-    for xk, adt_h, bk, ck in zip(xc.unbind(1), adtc.unbind(1), bc.unbind(1),
-                                 cc.unbind(1)):
+
+    def step(state, chunk):
+        xk, adt_h, bk, ck = chunk
         xk = xk.float().permute(0, 2, 1, 3)                     # (B,H,Q,P)
         bk, ck = bk.float(), ck.float()                         # (B,Q,N)
         # intra-chunk: (C B^T) * L, times x
@@ -136,8 +136,12 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         decay_states = torch.exp(a_cum[..., -1:] - a_cum)       # (B,H,Q)
         st = (xk * decay_states[..., None]).transpose(-1, -2) @ bk[:, None]
         state = state * torch.exp(a_cum[..., -1])[..., None, None] + st
-        ys.append((y_diag + y_off).permute(0, 2, 1, 3))         # (B,Q,H,P)
-    return torch.cat(ys, dim=1).to(x.dtype)
+        return state, (y_diag + y_off).permute(0, 2, 1, 3)     # (B,Q,H,P)
+
+    # unbind: one backward node for all the chunks
+    _, ys = scan(step, state, zip(xc.unbind(1), adtc.unbind(1),
+                                  bc.unbind(1), cc.unbind(1)), dim=1)
+    return ys.reshape(bsz, s, h, p).to(x.dtype)
 
 
 def causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

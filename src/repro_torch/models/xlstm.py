@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.scan import scan
 from repro_torch.models.common import (
     ArchConfig,
     chunked_lm_loss,
@@ -118,9 +119,10 @@ def mlstm_parallel(p: Weights, x: torch.Tensor, cfg: ArchConfig,
                           device=x.device)
     n_state = torch.zeros((b, h, hd), dtype=torch.float32, device=x.device)
     m_state = torch.full((b, h), _NEG, dtype=torch.float32, device=x.device)
-    ys = []
-    for qk, kk, vk, ik, fk in zip(*(torch.split(t, q, dim=1) for t in
-                                    (qh, kh, vh, i_log, f_log))):
+
+    def step(carry, chunk):
+        c_state, n_state, m_state = carry
+        qk, kk, vk, ik, fk = chunk
         # (B,Q,H,hd) x 3, (B,Q,H) x 2
         fcum = torch.cumsum(fk, dim=1)                      # inclusive
         # intra-chunk log decay D[t, j] = fcum[t] - fcum[j] + i[j], j <= t
@@ -139,7 +141,7 @@ def mlstm_parallel(p: Weights, x: torch.Tensor, cfg: ArchConfig,
         n_carry = torch.einsum("bthd,bhd->bth", qk, n_state) * cw
         denom_raw = scores.sum(dim=2) + n_carry
         denom = torch.maximum(denom_raw.abs(), torch.exp(-m_t))
-        ys.append((y_intra + y_carry) / denom[..., None])   # (B,Q,H,hd)
+        y_k = (y_intra + y_carry) / denom[..., None]        # (B,Q,H,hd)
         # the state carried out of this chunk
         f_total = fcum[:, -1, :]                            # (B,H)
         out_log = f_total[:, None, :] - fcum + ik           # (B,Q,H)
@@ -150,8 +152,12 @@ def mlstm_parallel(p: Weights, x: torch.Tensor, cfg: ArchConfig,
             "bjh,bjhd,bjhe->bhde", w_out, vk, kk)
         n_state = n_state * carry[..., None] + torch.einsum(
             "bjh,bjhd->bhd", w_out, kk)
-        m_state = m_new
-    y = torch.cat(ys, dim=1).reshape(b, s, up).to(x.dtype)
+        return (c_state, n_state, m_new), y_k
+
+    chunks = zip(*(torch.split(t, q, dim=1)
+                   for t in (qh, kh, vh, i_log, f_log)))
+    _, ys = scan(step, (c_state, n_state, m_state), chunks, dim=1)
+    y = ys.reshape(b, s, up).to(x.dtype)
     return _mlstm_out(p, x, y, gate, cfg)
 
 
@@ -249,12 +255,10 @@ def slstm_seq(p: Weights, x: torch.Tensor, cfg: ArchConfig,
     pre = (xn @ p["w_in"] + p["b"]).float()                  # (B,S,4d)
     if state is None:
         state = init_slstm_state(cfg, b, device=x.device)
-    c, n, m, hprev = state["c"], state["n"], state["m"], state["h"]
     r = p["r"].float()                                       # (H,hd,4hd)
-    ys = []
-    # unbind, not pre[:, t]: one backward node for all the steps, where
-    # each select's backward would write a whole (B, S, 4d) gradient
-    for pre_t in pre.unbind(1):
+
+    def step(carry, pre_t):
+        c, n, m, hprev = carry
         # a bmm over the heads: a broadcast matmul would save a (B, H,
         # hd, 4hd) copy of r for backward at every step
         rec = torch.bmm(hprev.transpose(0, 1), r).transpose(0, 1)
@@ -269,9 +273,14 @@ def slstm_seq(p: Weights, x: torch.Tensor, cfg: ArchConfig,
         c = fs * c + is_ * torch.tanh(z)
         n = fs * n + is_
         hprev = torch.sigmoid(o_) * c / torch.clamp_min(n, 1e-6)
-        m = m_new
-        ys.append(hprev)
-    y = torch.stack(ys, dim=1).reshape(b, s, d).to(x.dtype)
+        return (c, n, m_new, hprev), hprev
+
+    # unbind, not pre[:, t]: one backward node for all the steps, where
+    # each select's backward would write a whole (B, S, 4d) gradient
+    (c, n, m, hprev), ys = scan(
+        step, (state["c"], state["n"], state["m"], state["h"]),
+        pre.unbind(1), dim=1)
+    y = ys.reshape(b, s, d).to(x.dtype)
     y = rmsnorm(y, p["out_norm"], cfg.norm_eps)
     return x + y @ p["w_down"], {"c": c, "n": n, "m": m, "h": hprev}
 

@@ -165,7 +165,11 @@ def _with_checkpoint_stats(result: FitResult, ckpt) -> FitResult:
 def _read_health(health: torch.Tensor, mesh=None) -> int:
     """The first unhealthy iteration (chunk), -1 when healthy, read on the
     host; on a mesh agreed over the grid first (the least non-negative
-    index of any rank), so that every rank rolls back or none does."""
+    index of any rank), so that every rank rolls back or none does.  A
+    ``meta`` fit (the dry-run's, ``launch/dryrun.py``) holds no values to
+    read: it counts as healthy, as the run it stands for must be."""
+    if health.device.type == "meta":
+        return -1
     if mesh is not None and mesh.size > 1:
         big = torch.iinfo(torch.int32).max
         h = torch.where(health < 0, big, health).reshape(1).to(torch.int32)

@@ -55,6 +55,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.checkpoint import restore_checkpoint
+from repro_torch.scan import scan
 from repro_torch.launch.mesh import NMFMesh
 from repro_torch.models.api import batch_axes_for, param_pspecs
 from repro_torch.models.common import (
@@ -443,14 +444,23 @@ def lm_loss(model: nn.Module, batch: Dict[str, torch.Tensor], step: _Step,
 
 
 def make_train_step(cfg: ArchConfig, opt: AdamW, shards: Shards,
-                    remat: bool = True, compute_dtype=torch.bfloat16):
+                    remat: bool = True, compute_dtype=torch.bfloat16,
+                    microbatches: int = 1):
     """``train_step(model, opt_state, batch)`` -> ``(model, opt_state,
     loss)`` on the grid, ``model`` and ``opt_state`` holding this rank's
     blocks (:func:`shard_model`), ``batch`` the whole global batch on every
     rank.  Each rank takes its block of the batch (its dim 0 over the
     axes of ``batch_axes_for``, as ``batch_pspecs`` puts it), and the loss
-    returned is the global batch's, on every rank."""
+    returned is the global batch's, on every rank.  ``microbatches`` > 1
+    splits the rank's block into that many equal parts run one after the
+    other (``api.make_train_step``'s accumulation: each part's loss is its
+    sum over the global count, so the parts' gradients add up in an f32
+    buffer of the rank's blocks)."""
     mesh = shards.mesh
+    m = int(microbatches)
+    if m < 1:
+        raise ValueError(f"microbatches must be at least 1, got "
+                         f"{microbatches}")
 
     def train_step(model, opt_state, batch):
         b, s = batch["labels"].shape
@@ -460,9 +470,30 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, shards: Shards,
             batch = {k: v[rows] for k, v in batch.items()}
         step = _Step(cfg, shards, axes, compute_dtype)
         named = dict(model.named_parameters())
-        loss = lm_loss(model, batch, step, b * (s - 1), remat)
-        grads = torch.autograd.grad(loss, list(named.values()))
-        loss = mesh.all_reduce(loss.detach(), axes)
+        if m == 1:
+            loss = lm_loss(model, batch, step, b * (s - 1), remat)
+            grads = torch.autograd.grad(loss, list(named.values()))
+            loss = loss.detach()
+        else:
+            n = batch["labels"].shape[0]
+            if n % m:
+                raise ValueError(f"a rank's batch of {n} does not split "
+                                 f"into {m} microbatches")
+            n //= m
+            grads = [torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) for p in named.values()]
+
+            def micro_step(loss, i):
+                micro = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                part = lm_loss(model, micro, step, b * (s - 1), remat)
+                for acc, g in zip(grads, torch.autograd.grad(
+                        part, list(named.values()))):
+                    acc.add_(g.float())
+                return loss + part.detach(), None
+
+            loss, _ = scan(micro_step, torch.zeros(
+                (), dtype=torch.float32, device=grads[0].device), range(m))
+        loss = mesh.all_reduce(loss, axes)
         model, opt_state = opt.update(dict(zip(named, grads)), opt_state,
                                       model)
         return model, opt_state, loss
