@@ -262,9 +262,21 @@ Phases (any failed check raises, and the script exits non-zero):
     grid: a rank's parameter + moment bytes and its ``all_reduce`` calls
     and bytes a step equal to phase 25's exactly, the predicted peak
     beside its ranks'.  Each predicted peak must be within 10% of the
-    measured one (the measured: ``max_memory_allocated`` less what was
-    resident before the step, plus the step's argument bytes).  The meta
+    measured one (for (a) and (b) ``analysis.memory_guard``'s of phase
+    7's warm-up fit and phase 9's first prefill: ``max_memory_allocated``
+    less what was resident before the call, plus the call's argument
+    bytes; for (c) each rank's ``max_memory_allocated``).  The meta
     branches launch nothing: the card's launch counts stay as they were.
+27. the analyzer's runtime guards (``repro_torch.analysis.runtime``) on
+    the card: (a) ``memory_guard`` of the IR targets ``als[cuda-bsr]`` and
+    ``als[torch-csr]`` (``analysis/ir/targets.py``) on the card and on
+    ``meta``, at the canonical size (the IR gate's 512 x 384 operand; the
+    ratio printed: the allocator rounds each block to 512 bytes) and at
+    PubMed size on phase 7's operand (and its padded-CSR form), 3
+    iterations at k = 5, the planner's peak within 10% of the card's;
+    (b) a second identical fit under ``recompile_guard()``: zero ``nvcc``
+    builds, its kernels launched.  No kernel is added: the ``kernels``
+    line is unchanged.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -634,6 +646,7 @@ def run_lm_slice(dev, paths, checks, rows, results):
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.analysis import memory_guard
     from repro_torch.configs import ARCHS, ShapeSpec
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.flash_attention import flash_attention
@@ -711,12 +724,19 @@ def run_lm_slice(dev, paths, checks, rows, results):
                                           "prefill"), seed=1, device=dev)
     _build.reset_launch_counts()
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    resident = torch.cuda.memory_allocated()
+    kept = []
+
+    def prefill(m, b):
+        # memory_guard drops the call's result: keep the logits
+        kept.append(step(m, b))
+        return kept[0]
+
     t0 = time.perf_counter()
-    logits = step(model, batch)
-    torch.cuda.synchronize()
+    # the call's peak (the arguments plus what it added to what was
+    # resident) is phase 26's measured peak
+    guard = memory_guard(prefill, model, batch)
     first_s = time.perf_counter() - t0
+    logits = kept.pop()
     paths["prefill"] = _build.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     finite = bool(torch.isfinite(logits).all())
@@ -731,7 +751,7 @@ def run_lm_slice(dev, paths, checks, rows, results):
                              f"{paths['prefill']['flash_attention']} times, "
                              f"not n_layers = {cfg.n_layers}")
     lm.update(prefill_first_s=first_s, prefill_peak_mem_bytes=peak,
-              prefill_resident_bytes=resident)
+              prefill_guard_peak_bytes=guard.peak_bytes)
 
     long_batch = {"tokens": torch.randint(
         0, cfg.vocab, (1, LONG_S), generator=gen, device=dev,
@@ -4817,9 +4837,10 @@ def run_dryrun_slice(dev, op, u0, smi, paths, results, rows, sizes=SHARD):
     """Phase 26: the dry-run on ``meta`` in this process, held against what
     phases 3/7, 9/11 and 25 measured on the card (see the module's
     docstring).  A predicted peak is a step's argument bytes plus the
-    largest sum of live temporaries; the measured one is the window's
-    ``max_memory_allocated`` less what was resident before the step, plus
-    the same argument bytes."""
+    largest sum of live temporaries; the measured one of (a) and (b) is
+    ``analysis.memory_guard``'s of phase 7's warm-up fit and phase 9's
+    first prefill (the window's ``max_memory_allocated`` less what was
+    resident before the call, plus the same argument bytes)."""
     import dataclasses
 
     import torch
@@ -4827,7 +4848,7 @@ def run_dryrun_slice(dev, op, u0, smi, paths, results, rows, sizes=SHARD):
     from repro_torch.configs import ARCHS, ShapeSpec
     from repro_torch.kernels import _build
     from repro_torch.launch import dryrun
-    from repro_torch.launch.cost_analysis import CostMode, bound_ms, tree_bytes
+    from repro_torch.launch.cost_analysis import CostMode, bound_ms
     from repro_torch.launch.mesh import make_nmf_mesh
     from repro_torch.models import api
     from repro_torch.nmf import EnforcedNMF, NMFConfig, Sparsity
@@ -4871,11 +4892,10 @@ def run_dryrun_slice(dev, op, u0, smi, paths, results, rows, sizes=SHARD):
     log(f"[dryrun] (a) PubMed fit, {ITERS} iterations on the meta operand: "
         f"launches {launches} (phase 3: {paths['fit']})")
     t = results["timing"]
-    card_args = tree_bytes((op, u0))
-    measured = t["fit_peak_mem_bytes"] - t["resident_before_fit_bytes"] \
-        + card_args
+    card_args = t["fit_guard_argument_bytes"]
     fit = dict(launches=launches, args=args, card_args=card_args,
-               peak=peak_check("(a) PubMed fit", mode.peak_bytes, measured),
+               peak=peak_check("(a) PubMed fit", mode.peak_bytes,
+                               t["fit_guard_peak_bytes"]),
                kernels={})
     dtype = u0.dtype
     for name, row in (("bsr_spmm_gram", "bsr_spmm_gram"),
@@ -4908,8 +4928,6 @@ def run_dryrun_slice(dev, op, u0, smi, paths, results, rows, sizes=SHARD):
         failed.append(f"(b) predicted {flash} flash launches, not "
                       f"{lm_cfg.n_layers}")
     lm = results["lm"]
-    measured = lm["prefill_peak_mem_bytes"] - lm["prefill_resident_bytes"] \
-        + args
     flops = mode.costs.flops
     log(f"[dryrun] (b) {lm_cfg.name} prefill {PREFILL_B} x {PREFILL_S} on "
         f"meta: {flash} flash launches (phase 9: "
@@ -4923,7 +4941,7 @@ def run_dryrun_slice(dev, op, u0, smi, paths, results, rows, sizes=SHARD):
                           bytes=mode.costs.hbm_bytes,
                           prefill_ms=1e3 * lm["prefill_s"],
                           peak=peak_check("(b) prefill", mode.peak_bytes,
-                                          measured))
+                                          lm["prefill_guard_peak_bytes"]))
     del model, batch
 
     # -- (c) phase 25's cell on a fake 2x2 grid --------------------------------
@@ -4968,6 +4986,94 @@ def run_dryrun_slice(dev, op, u0, smi, paths, results, rows, sizes=SHARD):
                              + "; ".join(failed))
 
 
+def run_analysis_slice(dev, a_sp, op, u0, smi, results):
+    """Phase 27: the analyzer's runtime guards on the card (see the
+    module's docstring).  A guard's peak is the call's arguments plus the
+    largest sum of what it made: on the card the allocator's
+    ``max_memory_allocated`` less what was resident before the call, on
+    ``meta`` ``CostMode``'s, the number the IR gate budgets."""
+    import torch
+
+    from repro_torch.analysis import memory_guard, recompile_guard
+    from repro_torch.analysis.ir.targets import (
+        CANON, canon_operand, canon_u0, engine_fn,
+    )
+    from repro_torch.backend import get_backend
+    from repro_torch.kernels import _build
+    from repro_torch.nmf import EnforcedNMF, NMFConfig, Sparsity
+
+    t_phase = time.perf_counter()
+    out, failed = {"canon": {}, "pubmed": {}}, []
+
+    def held(size, backend, fn, card_args, meta_args, bar):
+        t0 = time.perf_counter()
+        card = memory_guard(fn, *card_args)
+        t1 = time.perf_counter()
+        plan = memory_guard(fn, *meta_args)
+        t2 = time.perf_counter()
+        ratio = plan.peak_bytes / card.peak_bytes
+        log(f"[analysis] (a) als[{backend}] at {size}: meta planner "
+            f"{plan.peak_bytes} B ({t2 - t1:.2f} s), card "
+            f"{card.peak_bytes} B ({t1 - t0:.2f} s; arguments "
+            f"{card.argument_bytes} B, scratch {card.temp_bytes} B): "
+            f"{ratio:.4f} of it"
+            + (f" (bar {bar:.0%})" if bar is not None else " (no bar: the "
+               "allocator rounds each block to 512 B)") + f" on {smi}")
+        if bar is not None and abs(ratio - 1.0) > bar:
+            failed.append(f"als[{backend}] at {size}: the planner's "
+                          f"{plan.peak_bytes} B is not within {bar:.0%} of "
+                          f"the card's {card.peak_bytes} B")
+        if plan.argument_bytes != card.argument_bytes:
+            failed.append(f"als[{backend}] at {size}: argument bytes "
+                          f"{plan.argument_bytes} on meta, "
+                          f"{card.argument_bytes} on the card")
+        return dict(meta=plan.peak_bytes, card=card.peak_bytes, ratio=ratio,
+                    arguments=card.argument_bytes, card_temp=card.temp_bytes)
+
+    # -- (a) memory_guard: the canonical size and PubMed's -------------------
+    for backend in ("cuda-bsr", "torch-csr"):
+        a = canon_operand(backend, dev)
+        out["canon"][backend] = held(
+            f"{CANON['n']}x{CANON['m']}", backend, engine_fn("als", backend),
+            (a, canon_u0(device=dev)), (a.to("meta"), canon_u0()), None)
+        del a
+    sizes = dict(n=N_TERMS, m=N_DOCS, k=K, iters=3)
+    u0_meta = torch.empty_like(u0, device="meta")
+    for backend, a in (("cuda-bsr", op),
+                       ("torch-csr", get_backend("torch-csr").prepare(
+                           a_sp, device=dev))):
+        out["pubmed"][backend] = held(
+            f"PubMed {N_TERMS}x{N_DOCS}", backend,
+            engine_fn("als", backend, **sizes), (a, u0), (a.to("meta"),
+                                                         u0_meta), PEAK_RTOL)
+        del a
+
+    # -- (b) recompile_guard: a second identical fit builds nothing ----------
+    t0 = time.perf_counter()
+    cfg = NMFConfig(k=CANON["k"], iters=CANON["iters"], backend="cuda-bsr",
+                    sparsity=Sparsity(t_u=CANON["t_u"], t_v=CANON["t_v"]))
+    a, u = canon_operand("cuda-bsr", dev), canon_u0(device=dev)
+    EnforcedNMF(cfg, device=dev).fit(a, u0=u)
+    before = _build.launch_counts()
+    with recompile_guard() as counter:
+        EnforcedNMF(cfg, device=dev).fit(a, u0=u)
+        torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.launch_counts().items()
+                if v != before[k]}
+    log(f"[analysis] (b) a second identical fit under recompile_guard(): "
+        f"{counter.count} nvcc builds, launches {launched} "
+        f"({time.perf_counter() - t0:.2f} s, both fits)")
+    if counter.count or not launched:
+        failed.append(f"(b) {counter.count} builds, launches {launched}")
+    out["recompile"] = dict(builds=counter.count, launches=launched)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[analysis] phase 27 took {out['seconds']:.1f} s on {smi}")
+    results["analysis"] = out
+    if failed:
+        raise AssertionError("the analyzer's guards disagree: "
+                             + "; ".join(failed))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -4986,6 +5092,7 @@ def main(argv=None) -> int:
         BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S,
     )
 
+    from repro_torch.analysis import memory_guard
     from repro_torch.backend import get_backend
     from repro_torch.convert import estimator_from_reference
     from repro_torch.core.nmf import init_u0, solve_gram
@@ -5455,11 +5562,12 @@ def main(argv=None) -> int:
     epilogue = [cuda_ms(lambda xw=xw, t=t: FusedReluTopK(t)(xw), reps=200)
                 for xw, t in pre.values()]
 
-    # the fit itself, on the already-ingested operand: one warm-up, then
-    # three timed fits (host clock, ending in a synchronize)
+    # the fit itself, on the already-ingested operand: one warm-up, whose
+    # peak ``memory_guard`` reads (the arguments plus what the call added
+    # to what was resident: phase 26's measured peak), then three timed
+    # fits (host clock, ending in a synchronize)
     timed = EnforcedNMF(cfg, device=dev)
-    timed.fit(op, u0=u0)
-    torch.cuda.synchronize()
+    fit_mem = memory_guard(timed.fit, op, u0=u0)
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
     fit_runs = []
@@ -5474,7 +5582,9 @@ def main(argv=None) -> int:
                   epilogue_ms=epilogue, epilogue_ms_per_iter=sum(epilogue),
                   epilogue_share=sum(epilogue) / per_iter_ms,
                   fit_peak_mem_bytes=torch.cuda.max_memory_allocated(),
-                  resident_before_fit_bytes=base_mem)
+                  resident_before_fit_bytes=base_mem,
+                  fit_guard_peak_bytes=fit_mem.peak_bytes,
+                  fit_guard_argument_bytes=fit_mem.argument_bytes)
     log(f"[time] cuda-bsr fit ({ITERS} iterations, operand ingested): "
         f"{fit_s * 1e3:.2f} ms (median of "
         f"{[round(1e3 * t, 2) for t in fit_runs]} ms), {per_iter_ms:.3f} ms "
@@ -5598,6 +5708,8 @@ def main(argv=None) -> int:
     run_shard_slice(dev, paths, results)
     # -- 26. the dry-run on meta against phases 3/7, 9/11 and 25 -----------
     run_dryrun_slice(dev, op, u0, smi, paths, results, rows)
+    # -- 27. the analyzer's runtime guards on the card -----------------------
+    run_analysis_slice(dev, a_sp, op, u0, smi, results)
 
     owner = {"project_mask": "fit", "bsr_spmm_gram": "fit",
              "bsr_spmm": "transform", "gram": "unfused_fit",

@@ -63,14 +63,15 @@ class TorchCsrBackend(LocalExecution):
 
     def prepare(self, a, dtype=None, device=None) -> SpCSR:
         device = resolve_device(device)
-        if not isinstance(a, SpCSR):
-            if hasattr(a, "tocoo"):  # scipy sparse
-                a = from_scipy(a)
-            else:
-                a = from_dense(a if isinstance(a, torch.Tensor)
-                               else np.asarray(a))
-        values = a.values.to(device=device, dtype=dtype)
-        return SpCSR(values, a.cols.to(device), a.shape)
+        if isinstance(a, SpCSR):
+            csr = a
+        elif hasattr(a, "tocoo"):  # scipy sparse
+            csr = from_scipy(a)
+        else:
+            csr = from_dense(a if isinstance(a, torch.Tensor)
+                             else np.asarray(a))
+        values = csr.values.to(device=device, dtype=dtype)
+        return SpCSR(values, csr.cols.to(device), csr.shape)
 
     def matmul(self, a, v):
         chunked, cd = _chunked_spmm_config(a, v.shape[1])

@@ -27,9 +27,9 @@ class TorchDenseBackend(LocalExecution):
     def prepare(self, a, dtype=None, device=None):
         device = resolve_device(device)
         if isinstance(a, SpCSR):
-            a = to_dense(a)  # this IS the dense backend: densifying is its contract
+            a = to_dense(a)  # repro: allow[no-densify] this IS the dense backend — densifying is its contract
         elif hasattr(a, "toarray"):  # scipy sparse, an explicitly dense ask
-            a = torch.from_numpy(np.asarray(a.toarray()))
+            a = torch.from_numpy(np.asarray(a.toarray()))  # repro: allow[no-densify] dense backend ingest boundary; the caller chose torch-dense
         elif not isinstance(a, torch.Tensor):
             a = torch.from_numpy(np.asarray(a))
         return a.to(device=device, dtype=dtype)

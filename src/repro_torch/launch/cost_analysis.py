@@ -26,7 +26,15 @@ by op, without a card.
 * Peak live bytes (the counterpart of ``memory_analysis()``): every new
   storage adds its bytes and a weak reference to it takes them off when it
   is freed; :meth:`CostMode.track` adds the storages the step is handed
-  (parameters, optimizer state, batch), which stay live throughout.
+  (parameters, optimizer state, batch), which stay live throughout.  With
+  the peak it keeps the op that reached it and the port's source line of
+  that op (``peak_op`` / ``peak_source``, the reference planner's
+  ``peak_eqn`` / ``peak_source``), and the largest single op result
+  (``largest_result``: bytes, op, source line).
+* ``coll_groups`` — the calls of each collective kind by the name of the
+  process group it was issued on, so that a caller holding the grid's
+  groups can name their axes (``repro_torch.analysis``'s collectives
+  pass).
 
 **Loops.**  An eager Python loop dispatches every iteration, so the
 reference's trip-count scaling is automatic, at the cost of dispatch time.
@@ -43,6 +51,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import os
+import sys
 import weakref
 from typing import Dict, List, Optional, Tuple
 
@@ -81,6 +91,10 @@ class Costs:
     kernel_flops: Dict[str, float] = dataclasses.field(default_factory=dict)
     kernel_bytes: Dict[str, float] = dataclasses.field(default_factory=dict)
 
+    #: process group name -> {kind: calls} of the collectives issued
+    coll_groups: Dict[str, Dict[str, float]] = dataclasses.field(
+        default_factory=dict)
+
     def _add(self, field: str, key: str, v: float) -> None:
         d = getattr(self, field)
         d[key] = d.get(key, 0.0) + v
@@ -94,6 +108,40 @@ class Costs:
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+_PKG = "repro_torch" + os.sep
+#: the counters' and the analyzer's own frames, never a source line of
+#: the step
+_SKIP = ("launch/cost_analysis.py", "scan.py", "analysis/")
+
+
+def port_source(depth: int = 1) -> Optional[str]:
+    """``repro_torch/<module>.py:<line>`` of the innermost frame of the
+    port below the caller (the counters' and the analyzer's own frames
+    skipped), or None: a path from the package down, the same on any
+    machine."""
+    frame = sys._getframe(depth)
+    while frame is not None:
+        name = frame.f_code.co_filename
+        at = name.rfind(_PKG)
+        if at >= 0:
+            rel = name[at + len(_PKG):].replace(os.sep, "/")
+            if not rel.startswith(_SKIP):
+                return f"repro_torch/{rel}:{frame.f_lineno}"
+        frame = frame.f_back
+    return None
+
+
+def _group_name(pg) -> str:
+    """The name of the process group a c10d op was dispatched with (a
+    boxed ``ProcessGroup``), or ``"?"`` where this torch cannot unbox it."""
+    unbox = getattr(getattr(torch.distributed, "ProcessGroup", None),
+                    "unbox", None)
+    try:
+        return str(unbox(pg).group_name)
+    except Exception:  # an unboxing this torch lacks: the group unnamed
+        return "?"
 
 
 def tree_bytes(tree) -> int:
@@ -131,6 +179,13 @@ class CostMode(CountingMode):
         self.costs = Costs()
         self.live_bytes = 0
         self.peak_bytes = 0
+        #: the op (schema name) and port source line at the peak
+        self.peak_op: Optional[str] = None
+        self.peak_source: Optional[str] = None
+        #: (bytes, op, port source line) of the largest single op result
+        self.largest_result: Tuple[int, Optional[str], Optional[str]] = (
+            0, None, None)
+        self._op: Optional[str] = None
         self._live: Dict[int, _Live] = {}
         # the forward scale of each active scaled body, its fresh storages
         self._frames: List[Tuple[int, List[_Live]]] = []
@@ -157,12 +212,21 @@ class CostMode(CountingMode):
         self.live_bytes += rec.nbytes
         for _, fresh in self._frames:
             fresh.append(rec)
-        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        self._peak()
+
+    def _peak(self) -> None:
+        """Raise the peak to the live bytes, noting the op and the port's
+        source line that reached it."""
+        if self.live_bytes > self.peak_bytes:
+            self.peak_bytes = self.live_bytes
+            self.peak_op = self._op
+            self.peak_source = port_source(2)
 
     def track(self, *trees) -> int:
         """Count the storages of ``trees`` (a step's arguments) as live;
         returns their bytes (each storage once)."""
         before = self.live_bytes
+        self._op = None
         for t in tensors(trees):
             self._see(t)
         return self.live_bytes - before
@@ -171,10 +235,11 @@ class CostMode(CountingMode):
         """Count the storages of ``tree`` as live, as ``nbytes`` in all: a
         rank handed a whole batch holds only its block of it.  Returns
         ``nbytes``."""
+        self._op = None
         for t in tensors(tree):
             self._see(t, 0)
         self.live_bytes += nbytes
-        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        self._peak()
         return nbytes
 
     # -- scale -------------------------------------------------------------
@@ -225,7 +290,7 @@ class CostMode(CountingMode):
                 if st is not None and st._cdata not in skip:
                     self.live_bytes += rec.nbytes * rec.mult * (n - 1)
                     rec.mult *= n
-            self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+            self._peak()
 
     # -- recording ---------------------------------------------------------
 
@@ -247,20 +312,28 @@ class CostMode(CountingMode):
         if func.namespace == "c10d":
             name = func._schema.name.split("::")[-1]
             kind = _COLLECTIVES.get(name, name)
-            src = args[1] if kind == "all_to_all" else args[0]
+            src, pg = (args[1], args[2]) if kind == "all_to_all" else \
+                (args[0], args[1])
             nbytes = sum(_nbytes(t) for t in tensors(src))
             c.coll_bytes += nbytes * f
             c._add("coll_by_kind", kind, nbytes * f)
             c._add("coll_calls", kind, f)
+            by_kind = c.coll_groups.setdefault(_group_name(pg), {})
+            by_kind[kind] = by_kind.get(kind, 0.0) + f
             return out
         packet = func.overloadpacket
         if packet in flop_registry:
             c.flops += f * flop_registry[packet](*args, **kwargs,
                                                  out_val=out)
         ins = tensors((args, kwargs))
+        op = func._schema.name.split("::")[-1]
         if not _is_alias(func, ins, outs):
             c.hbm_bytes += f * (sum(_nbytes(t) for t in ins)
                                 + sum(_nbytes(t) for t in outs))
+            biggest = max(_nbytes(t) for t in outs)
+            if biggest > self.largest_result[0]:
+                self.largest_result = (biggest, op, port_source(2))
+        self._op = op
         for t in outs:
             self._see(t)
         return out

@@ -34,7 +34,10 @@ token and the position).
 * ``ok`` — the port has the sharded step: rank 0's step ran under the
   counter.  Today that is ``train_4k`` of the dense and vlm families
   (``training/sharding.py``, AdamW, remat, 4 microbatches, as the
-  reference).  ``bytes_per_device`` is the step's peak of live bytes.
+  reference).  ``bytes_per_device`` is the step's peak of live bytes,
+  ``init_bytes`` the peak of the launcher's init
+  (``training/sharding.py::init_sharded``: the rank's blocks and one
+  whole leaf).
 * ``partial`` — no sharded step in the port yet: the exact
   ``argument_bytes``, and ``flops_global`` / ``bytes_global`` of the whole
   step run unsharded on ``meta`` at the cell's global batch; ``flops``,
@@ -197,6 +200,13 @@ def lower_cell(cfg: ArchConfig, shape: ShapeSpec, mesh,
         "argument_bytes": argument_bytes(cfg, shape, mesh, model, cache)}
     sharded = shape.kind == "train" and cfg.family in sharding.FAMILIES
     if sharded:
+        # the launcher's init (leaf by leaf into the blocks), its peak
+        # counted on a whole meta model made outside the counter
+        whole, init = _model(cfg, "meta"), CostMode()
+        with init:
+            sharding.init_sharded(cfg, mesh, 0, "meta", model=whole)
+        rec["init_bytes"] = init.peak_bytes
+        del whole
         opt = AdamW()
         shards = sharding.shard_model(model, mesh)
         state = opt.init(model)
@@ -277,7 +287,9 @@ def run_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, verbose: bool = True
         line = f"  argument {gib:.2f} GiB/device"
         if rec["status"] == "ok":
             line += (f", peak {rec['bytes_per_device'] / 2 ** 30:.2f} "
-                     f"GiB/device, flops={rec['flops']:.3e} "
+                     f"GiB/device (init "
+                     f"{rec['init_bytes'] / 2 ** 30:.2f}), "
+                     f"flops={rec['flops']:.3e} "
                      f"bytes={rec['bytes_accessed']:.3e}")
         else:
             line += (f"; whole step flops={rec['flops_global']:.3e} "

@@ -187,7 +187,13 @@ class NMFMesh:
         rank it is ``x`` itself."""
         if self.axis_size(axes) == 1:
             return x
-        y = x.detach().clone(memory_format=torch.contiguous_format)
+        return self._reduce_(
+            x.detach().clone(memory_format=torch.contiguous_format), axes, op)
+
+    def _reduce_(self, y: torch.Tensor, axes, op: str = "sum"
+                 ) -> torch.Tensor:
+        """:meth:`all_reduce` in place on ``y``, a contiguous buffer of the
+        caller's own."""
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
                "min": dist.ReduceOp.MIN}[op]
         dist.all_reduce(y, op=red, group=self._group(axes))
@@ -256,15 +262,16 @@ class NMFMesh:
                ) -> torch.Tensor:
         """The whole tensor, ``total`` long along ``dim``, from this rank's
         block of it (:meth:`block` over ``axis``), on every rank: the block
-        written into a zero-filled buffer, then summed over the axis (only
-        ``all_reduce``; a sum with zeros is exact)."""
+        written into a zero-filled buffer, then summed over the axis in
+        place (only ``all_reduce``; a sum with zeros is exact)."""
         if self.axis_size(axis) == 1:
             return x
         shape = list(x.shape)
         shape[dim] = total
         out = torch.zeros(shape, dtype=x.dtype, device=x.device)
         out[(slice(None),) * (dim % x.dim()) + (self.block(total, axis),)] = x
-        return self.all_reduce(out, axis)
+        # summed in place: the whole tensor is allocated once
+        return self._reduce_(out, axis)
 
 
 def _check_shape(rows: int, cols: int, pods: int = 1) -> Tuple[int, int, int]:

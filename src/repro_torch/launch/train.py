@@ -28,12 +28,16 @@ several ranks share one card, or runs on the CPU):
         -m repro_torch.launch.train --arch llama3.2-1b --smoke \
         --data 2 --model 2 --dist-backend gloo [--device cpu]
 
-Every rank draws the same batch and takes its block; only rank 0 prints.
+Each rank draws the model leaf by leaf and keeps its blocks
+(``sharding.init_sharded``: bitwise the blocks of the whole model's draw),
+and every rank draws the same batch and takes its block; only rank 0
+prints.
 A world size other than ``D x M`` is refused, and so is a family whose
 layers are not sharded yet (moe, hybrid, ssm, encdec).  Checkpoints hold
-whole leaves under a 1x1 run's names (gathered, written by rank 0), and a
-resume keeps each rank's block: any grid shape, 1x1 included, resumes any
-other (the reference's elastic restart).
+whole leaves under a 1x1 run's names (gathered one leaf at a time, kept
+and written by rank 0), and a resume keeps each rank's block: any grid
+shape, 1x1 included, resumes any other (the reference's elastic
+restart).
 """
 from __future__ import annotations
 
@@ -131,15 +135,19 @@ def main(argv=None):
     say = print if rank == 0 else (lambda *a, **k: None)
     shape = ShapeSpec("cli", args.seq, args.batch, "train")
     opt = AdamW(total_steps=max(args.steps, 2))
-    params = api.init_params(cfg, 0, device=device)
     shards = None
     if grid > 1:
-        shards = sharding.shard_model(
-            params, make_local_mesh(args.data, args.model, device))
+        # drawn leaf by leaf into the rank's blocks: no rank holds the
+        # whole model
+        params, shards = sharding.init_sharded(
+            cfg, make_local_mesh(args.data, args.model, device), 0, device)
+    else:
+        params = api.init_params(cfg, 0, device=device)
     opt_state = opt.init(params)
 
     def state():
-        """The tree a checkpoint holds: whole leaves, on every rank."""
+        """The tree a checkpoint holds: whole leaves (on rank 0 only; None
+        on the other ranks of a grid)."""
         if shards is None:
             return params, opt_state
         return sharding.gather_state(params, opt_state, shards)

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,8 +43,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.scan import scan
 
-__all__ = ["ArchConfig", "dense_init", "attention_shapes", "mlp_shapes",
-           "init_attention", "init_mlp", "rmsnorm", "rope_freqs", "apply_rope",
+__all__ = ["ArchConfig", "draw_device", "dense_init", "attention_shapes",
+           "mlp_shapes", "attention_leaves", "init_attention", "mlp_leaves",
+           "init_mlp", "rmsnorm", "rope_freqs", "apply_rope",
            "swiglu", "attention", "attention_decode", "mlp",
            "chunked_lm_loss", "logical_to_mesh"]
 
@@ -102,15 +103,23 @@ class ArchConfig:
 # Initializers
 # ---------------------------------------------------------------------------
 
-def dense_init(generator: torch.Generator, shape, dtype=torch.float32,
-               scale: Optional[float] = None) -> torch.Tensor:
+def draw_device(generator: Optional[torch.Generator]) -> torch.device:
+    """Where a draw from ``generator`` lands: its device, or ``meta`` (no
+    draw at all) for None."""
+    return torch.device("meta") if generator is None else generator.device
+
+
+def dense_init(generator: Optional[torch.Generator], shape,
+               dtype=torch.float32, scale: Optional[float] = None
+               ) -> torch.Tensor:
     """Normal(0, 1) * scale (default ``fan_in ** -0.5``), drawn from
-    ``generator`` on the generator's device."""
+    ``generator`` on its device and scaled in place (one tensor of
+    ``shape`` live); ``meta`` for a None generator."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     s = scale if scale is not None else fan_in ** -0.5
     x = torch.randn(tuple(shape), generator=generator,
-                    device=generator.device)
-    return (x * s).to(dtype)
+                    device=draw_device(generator))
+    return x.mul_(s).to(dtype)
 
 
 def attention_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
@@ -128,19 +137,37 @@ def mlp_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
             "w_down": (cfg.d_ff, cfg.d_model)}
 
 
+def attention_leaves(generator: Optional[torch.Generator], cfg: ArchConfig,
+                     dtype=torch.float32, prefix: str = ""
+                     ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """``(prefix + name, value)`` of one attention block's parameters, made
+    one at a time in draw order: projections from :func:`dense_init`,
+    biases (``qkv_bias``) zero."""
+    for name, shape in attention_shapes(cfg).items():
+        yield prefix + name, (
+            dense_init(generator, shape, dtype) if len(shape) == 2
+            else torch.zeros(shape, dtype=dtype,
+                             device=draw_device(generator)))
+
+
 def init_attention(generator: torch.Generator, cfg: ArchConfig,
                    dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """Projections from :func:`dense_init`, biases (``qkv_bias``) zero."""
-    return {name: (dense_init(generator, shape, dtype) if len(shape) == 2
-                   else torch.zeros(shape, dtype=dtype,
-                                    device=generator.device))
-            for name, shape in attention_shapes(cfg).items()}
+    return dict(attention_leaves(generator, cfg, dtype))
+
+
+def mlp_leaves(generator: Optional[torch.Generator], cfg: ArchConfig,
+               dtype=torch.float32, prefix: str = ""
+               ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """``(prefix + name, value)`` of one SwiGLU block's parameters from
+    :func:`dense_init`, drawn one at a time."""
+    for name, shape in mlp_shapes(cfg).items():
+        yield prefix + name, dense_init(generator, shape, dtype)
 
 
 def init_mlp(generator: torch.Generator, cfg: ArchConfig,
              dtype=torch.float32) -> Dict[str, torch.Tensor]:
-    return {name: dense_init(generator, shape, dtype)
-            for name, shape in mlp_shapes(cfg).items()}
+    return dict(mlp_leaves(generator, cfg, dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,7 @@ kernel has no backward.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -37,19 +37,20 @@ from repro_torch.models.common import (
     ArchConfig,
     attention,
     attention_decode,
+    attention_leaves,
     attention_shapes,
     chunked_lm_loss,
     dense_init,
-    init_attention,
-    init_mlp,
+    draw_device,
     mlp,
+    mlp_leaves,
     mlp_shapes,
     rmsnorm,
 )
 
-__all__ = ["Attention", "MLP", "Layer", "Transformer", "init_layer",
-           "init_params", "layer_fwd", "forward", "unembed_matrix", "lm_loss",
-           "init_cache", "decode_step"]
+__all__ = ["Attention", "MLP", "Layer", "Transformer", "layer_leaves",
+           "init_leaves", "init_layer", "init_params", "layer_fwd", "forward",
+           "unembed_matrix", "lm_loss", "init_cache", "decode_step"]
 
 Weights = Dict[str, torch.Tensor]
 
@@ -151,30 +152,61 @@ def cached_cast(model: nn.Module, dtype, make):
 # Initialisation
 # ---------------------------------------------------------------------------
 
+def layer_leaves(generator: Optional[torch.Generator], cfg: ArchConfig,
+                 dtype=torch.float32, prefix: str = ""
+                 ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """``(prefix + name, value)`` of one layer's parameters, made one at a
+    time in draw order: attention, then MLP, then the norms (ones, which
+    draw nothing)."""
+    yield from attention_leaves(generator, cfg, dtype, prefix + "attn.")
+    yield from mlp_leaves(generator, cfg, dtype, prefix + "mlp.")
+    for name in ("norm_attn", "norm_mlp"):
+        yield prefix + name, torch.ones(cfg.d_model, dtype=dtype,
+                                        device=draw_device(generator))
+
+
+def init_leaves(generator: Optional[torch.Generator], cfg: ArchConfig,
+                dtype=torch.float32) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Every parameter of a :class:`Transformer` as ``(its
+    named_parameters name, value)``, made one at a time in the order the
+    values are drawn from ``generator``: embed, layers 0..L-1, unembed,
+    then ``norm_f``.  This is the model's one draw sequence:
+    :func:`init_params` fills a whole model from it and
+    ``training.sharding.init_sharded`` keeps a rank's block of each leaf
+    as it comes.  A None ``generator`` gives the leaves on ``meta``."""
+    yield "embed", dense_init(generator, (cfg.vocab, cfg.d_model), dtype,
+                              scale=1.0)
+    for i in range(cfg.n_layers):
+        yield from layer_leaves(generator, cfg, dtype, f"layers.{i}.")
+    if not cfg.tie_embeddings:
+        yield "unembed", dense_init(generator, (cfg.d_model, cfg.vocab),
+                                    dtype)
+    yield "norm_f", torch.ones(cfg.d_model, dtype=dtype,
+                               device=draw_device(generator))
+
+
+def _fill(module: nn.Module, leaves) -> None:
+    with torch.no_grad():
+        for name, value in leaves:
+            module.get_parameter(name).copy_(value)
+
+
 def init_layer(generator: torch.Generator, cfg: ArchConfig,
                dtype=torch.float32, layer: Optional[Layer] = None) -> Layer:
-    """Draw one layer's weights (attention, then MLP; norms are ones) into
-    ``layer``, or into a new :class:`Layer` on the generator's device."""
+    """Draw one layer's weights (:func:`layer_leaves`) into ``layer``, or
+    into a new :class:`Layer` on the generator's device."""
     if layer is None:
         layer = Layer(cfg, dtype, generator.device)
-    layer.attn.fill(init_attention(generator, cfg, dtype))
-    layer.mlp.fill(init_mlp(generator, cfg, dtype))
+    _fill(layer, layer_leaves(generator, cfg, dtype))
     return layer
 
 
 def init_params(generator: torch.Generator, cfg: ArchConfig,
                 dtype=torch.float32) -> Transformer:
-    """A :class:`Transformer` on the generator's device, drawn in the order
-    embed, layers 0..L-1, unembed."""
+    """A :class:`Transformer` on the generator's device, filled from
+    :func:`init_leaves`."""
     model = Transformer(cfg, dtype, generator.device)
-    with torch.no_grad():
-        model.embed.copy_(dense_init(generator, (cfg.vocab, cfg.d_model),
-                                     dtype, scale=1.0))
-        for layer in model.layers:
-            init_layer(generator, cfg, dtype, layer)
-        if not cfg.tie_embeddings:
-            model.unembed.copy_(dense_init(generator,
-                                           (cfg.d_model, cfg.vocab), dtype))
+    _fill(model, init_leaves(generator, cfg, dtype))
     return model
 
 

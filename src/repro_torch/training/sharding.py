@@ -41,34 +41,39 @@ families (``models/transformer.py``).
   one card; NCCL takes the same calls.  Partial products are summed in
   f32; gathers (sums with zeros, exact) move the compute dtype.
 
-Checkpoints hold whole leaves (:func:`gather_state`, written by rank 0
-under a 1x1 run's names), and a restore keeps the rank's block
+**Initialisation.**  :func:`init_sharded` draws the model leaf by leaf
+on the rank's device from ``transformer.init_leaves``, the sequence
+``transformer.init_params`` fills a whole model from, keeps the rank's
+block of each leaf and frees the leaf before the next is drawn: no rank
+ever holds the whole model, and the blocks are bitwise
+``shard_model(api.init_params(cfg, seed))``'s.
+
+Checkpoints hold whole leaves (:func:`gather_state`, gathered one leaf at
+a time and kept on the host by rank 0 only, written by rank 0 under a 1x1
+run's names), and a restore keeps the rank's block
 (:func:`restore_state`), so any grid shape resumes any other.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.checkpoint import restore_checkpoint
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.scan import scan
 from repro_torch.launch.mesh import NMFMesh
+from repro_torch.models import api, transformer
 from repro_torch.models.api import batch_axes_for, param_pspecs
-from repro_torch.models.common import (
-    ArchConfig,
-    attention,
-    mlp,
-    rmsnorm,
-)
+from repro_torch.models.common import ArchConfig, attention, mlp, rmsnorm
 from repro_torch.training.optimizer import AdamState, AdamW
 
-__all__ = ["RULES", "FAMILIES", "Shards", "shard_model", "gather_named",
-           "gather_state", "restore_state", "state_bytes",
-           "make_train_step"]
+__all__ = ["RULES", "FAMILIES", "Shards", "shard_model", "init_sharded",
+           "gather_leaf", "gather_named", "gather_state", "restore_state",
+           "state_bytes", "make_train_step"]
 
 #: the reference launcher's rules (``repro.launch.train``)
 RULES = {"fsdp": "data", "tp": "model", "ep": "model"}
@@ -132,10 +137,9 @@ def _tp_plan(cfg: ArchConfig, specs, m: int) -> Tuple[bool, bool, bool]:
     return attn, ffn, vocab
 
 
-def shard_model(model: nn.Module, mesh: NMFMesh) -> Shards:
-    """Replace every parameter of ``model`` (a dense or vlm
-    ``Transformer``, whole) by this rank's block of it, in place, and
-    return where the blocks lie.  Every rank must pass the same model."""
+def _placement(model: nn.Module, mesh: NMFMesh) -> Shards:
+    """Where every parameter of ``model`` (a dense or vlm ``Transformer``,
+    whole, on any device, ``meta`` included) lies on ``mesh``."""
     cfg = model.cfg
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
@@ -144,45 +148,104 @@ def shard_model(model: nn.Module, mesh: NMFMesh) -> Shards:
             "hybrid, ssm and encdec\")")
     specs = param_pspecs(cfg, model, RULES, mesh)
     shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
-    shards = Shards(mesh, specs, shapes,
-                    *_tp_plan(cfg, specs, mesh.axis_size("model")))
+    return Shards(mesh, specs, shapes,
+                  *_tp_plan(cfg, specs, mesh.axis_size("model")))
+
+
+def _keep(model: nn.Module, name: str, block: torch.Tensor,
+          requires_grad: bool = True) -> None:
+    owner, _, leaf = name.rpartition(".")
+    setattr(model.get_submodule(owner), leaf,
+            nn.Parameter(block, requires_grad=requires_grad))
+
+
+def shard_model(model: nn.Module, mesh: NMFMesh) -> Shards:
+    """Replace every parameter of ``model`` (a dense or vlm
+    ``Transformer``, whole) by this rank's block of it, in place, and
+    return where the blocks lie.  Every rank must pass the same model."""
+    shards = _placement(model, mesh)
     with torch.no_grad():
         for name, p in list(model.named_parameters()):
-            owner, _, leaf = name.rpartition(".")
             blk = p[block_index(mesh, shards.dims(name))].clone(
                 memory_format=torch.contiguous_format)
-            setattr(model.get_submodule(owner), leaf,
-                    nn.Parameter(blk, requires_grad=p.requires_grad))
+            _keep(model, name, blk, p.requires_grad)
     return shards
+
+
+def init_sharded(cfg: ArchConfig, mesh: NMFMesh, seed: int = 0,
+                 device: DeviceLike = None,
+                 model: Optional[nn.Module] = None
+                 ) -> Tuple[nn.Module, Shards]:
+    """``(model, shards)``: a dense or vlm model of ``cfg`` holding this
+    rank's f32 blocks, drawn on ``device`` (the card unless the CPU or
+    ``meta`` is asked for) from ``seed`` through the model's own draw
+    sequence (``transformer.init_leaves``): each leaf drawn whole, its
+    block kept, the leaf freed before the next is drawn.  The blocks are
+    bitwise ``shard_model(api.init_params(cfg, seed))``'s; the peak is the
+    rank's blocks and one whole leaf.  On ``meta`` nothing is drawn.
+    ``model`` is the whole model on ``meta`` to fill (made here when None:
+    a counter of live bytes given one made outside it does not count its
+    meta storages)."""
+    dev = resolve_device(device)
+    if model is None:
+        model = api.init_params(cfg, dtype=torch.float32, device="meta")
+    shards = _placement(model, mesh)
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(int(seed)))
+    with torch.no_grad():
+        for name, whole in transformer.init_leaves(gen, cfg):
+            blk = whole[block_index(mesh, shards.dims(name))].clone(
+                memory_format=torch.contiguous_format)
+            del whole
+            _keep(model, name, blk)
+    return model, shards
 
 
 # ---------------------------------------------------------------------------
 # Whole leaves: checkpoints and checks
 # ---------------------------------------------------------------------------
 
+def gather_leaf(shards: Shards, name: str, block: torch.Tensor
+                ) -> torch.Tensor:
+    """The whole leaf ``name`` from this rank's ``block`` of it (a
+    parameter, μ or ν), on every rank; collective."""
+    t = block.detach()
+    for d, total, axes in shards.dims(name):
+        t = shards.mesh.gather(t, total, axes, d)
+    return t
+
+
 def gather_named(shards: Shards, blocks: Mapping[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
     """The whole leaf of every block in ``blocks`` (keyed by parameter
     name), on every rank; collective, in the order of ``blocks``."""
-    out = {}
-    for name, t in blocks.items():
-        t = t.detach()
-        for d, total, axes in shards.dims(name):
-            t = shards.mesh.gather(t, total, axes, d)
-        out[name] = t
-    return out
+    return {name: gather_leaf(shards, name, t) for name, t in blocks.items()}
 
 
 def gather_state(model: nn.Module, state: AdamState, shards: Shards):
-    """``(params, state)`` with whole leaves on the host: the parameters
-    as a dict keyed by name, μ and ν likewise, for a checkpoint under a
-    1x1 run's names.  Collective: every rank calls it (rank 0 writes)."""
+    """On rank 0, ``(params, state)`` with whole leaves on the host: the
+    parameters as a dict keyed by name, μ and ν likewise, for a checkpoint
+    under a 1x1 run's names; None on the other ranks.  Collective: every
+    rank calls it, one leaf at a time (the leaf gathered on the device,
+    copied to the host by rank 0 alone, and freed before the next one), so
+    a rank's device holds at most one whole leaf beside its state and only
+    rank 0's host holds the whole state."""
+    keep = shards.mesh.rank == 0
+
     def host(blocks):
-        return {n: t.cpu() for n, t in gather_named(shards, blocks).items()}
+        out = {}
+        for name, t in blocks.items():
+            whole = gather_leaf(shards, name, t)
+            if keep:
+                out[name] = whole.cpu()
+            del whole
+        return out
 
     params = host(dict(model.named_parameters()))
-    return params, AdamState(state.step.detach().cpu(), host(state.mu),
-                             host(state.nu))
+    mu, nu = host(state.mu), host(state.nu)
+    if not keep:
+        return None
+    return params, AdamState(state.step.detach().cpu(), mu, nu)
 
 
 @torch.no_grad()

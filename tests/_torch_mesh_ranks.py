@@ -416,3 +416,48 @@ def sharded_steps(rank, grids, cases_path):
                 rec.update(grads={n: g.numpy() for n, g in grads.items()},
                            counts=counts)
     return out
+
+
+def sharded_inits(rank, grids, archs):
+    """On each ``(data, model)`` grid of these ranks, for each arch at its
+    smoke config: whether ``sharding.init_sharded``'s blocks are bitwise
+    ``shard_model(api.init_params(cfg, 0))``'s (the names that differ),
+    and what ``gather_state`` returns on this rank: None, or (rank 0) the
+    names whose whole leaves differ from the whole model's, and the host
+    device of every leaf."""
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import api
+    from repro_torch.training import AdamW, sharding
+
+    out = {}
+    for grid in grids:
+        mesh = make_local_mesh(*grid, device="cpu")
+        for arch in archs:
+            cfg = smoke_config(ARCHS[arch])
+            want = api.init_params(cfg, 0, device="cpu")
+            whole = {n: p.detach().clone()
+                     for n, p in want.named_parameters()}
+            sharding.shard_model(want, mesh)
+            got, shards = sharding.init_sharded(cfg, mesh, 0, "cpu")
+            blocks = dict(want.named_parameters())
+            differ = sorted(n for n, p in got.named_parameters()
+                            if not torch.equal(p, blocks[n])
+                            or p.dtype != blocks[n].dtype)
+            state = AdamW().init(got)
+            tree = sharding.gather_state(got, state, shards)
+            rec = dict(differ=differ, names=sorted(blocks),
+                       state=None if tree is None else "kept")
+            if tree is not None:
+                params, st = tree
+                rec["whole_differ"] = sorted(
+                    n for n, t in whole.items()
+                    if not torch.equal(params[n], t))
+                rec["mu_shapes_ok"] = all(
+                    tuple(st.mu[n].shape) == tuple(t.shape)
+                    for n, t in whole.items())
+                rec["devices"] = sorted({str(t.device) for t in
+                                         (*params.values(), *st.mu.values(),
+                                          *st.nu.values())})
+            out[(grid, arch)] = rec
+    return out

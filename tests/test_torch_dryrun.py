@@ -703,3 +703,23 @@ def test_sharded_step_microbatches_accumulate_the_whole_step():
     assert losses[2] == pytest.approx(losses[1], rel=1e-5, abs=1e-5)
     for k, g in got[1.0].items():
         torch.testing.assert_close(got[2.0][k], g, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-coder-33b", "internvl2-76b"])
+def test_launcher_init_peak_under_the_step_peak(arch):
+    """The two ``train_4k`` cells the dry-run calls fitting on 16x16: the
+    sharded launcher's init (``sharding.init_sharded``, counted on meta)
+    peaks at the rank's parameter blocks and one whole leaf, under the
+    rank's step peak, and nowhere near the whole f32 model."""
+    with dryrun.fake_world(256):
+        mesh = make_production_mesh()
+        rec = dryrun.lower_cell(ARCHS[arch], SHAPES["train_4k"], mesh)
+    from repro_torch.convert import _model
+
+    shapes = [p.shape for p in _model(ARCHS[arch], "meta").parameters()]
+    model_bytes = 4 * sum(math.prod(s) for s in shapes)
+    leaf = 4 * max(math.prod(s) for s in shapes)
+    blocks = rec["state_bytes"] // 3          # parameters, mu, nu alike
+    assert rec["init_bytes"] <= blocks + leaf
+    assert rec["init_bytes"] < rec["bytes_per_device"]
+    assert rec["init_bytes"] < model_bytes / 16

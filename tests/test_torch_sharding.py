@@ -18,6 +18,12 @@ step (``training/sharding.py``) and launcher on gloo ranks on the CPU.
   reference's bars (loss 1e-4 / 1e-5, gradients 1e-3 / 1e-5,
   ``tests/test_substrate.py:33,55``); each rank's parameter, mu and nu
   bytes equal to the reference's per-device shard bytes.
+* The launcher's init on 2x2 and 4x1 gloo ranks: the model drawn leaf
+  by leaf into the rank's blocks (``init_sharded``) is bitwise the
+  whole model's draw cut by ``shard_model``, and ``gather_state`` keeps
+  the whole leaves, bitwise the whole draw's, on rank 0's host only;
+  counted on meta, the init holds the blocks and one whole leaf and a
+  checkpoint at most 1.5 of the largest leaf beside the state.
 * The launcher under ``torch.distributed.run`` on four gloo ranks:
   stopped at 6 on 2x2 and resumed to 9, bitwise the uninterrupted 2x2 run;
   its step-6 checkpoint resumed on 4x1 and on 1x1 within 1e-4 of it.
@@ -36,6 +42,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from jax.sharding import PartitionSpec as P
 
 from repro.configs import ARCHS as REF_ARCHS
@@ -322,6 +329,79 @@ def test_each_rank_holds_the_reference_shard_bytes(step_runs, grid):
             per_device += leaf.size * leaf.dtype.itemsize // parts
         assert [o[(GRIDS[grid], (arch, 4))]["bytes"] for o in out] == \
             [3 * per_device] * rows * cols, arch
+
+
+# ---------------------------------------------------------------------------
+# the launcher's init: leaf by leaf into the blocks
+# ---------------------------------------------------------------------------
+
+INIT_GRIDS = {"2x2": (2, 2), "4x1": (4, 1)}
+
+
+@pytest.fixture(scope="module")
+def init_runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("sharded-init")
+    return spawn_mesh(ranks.sharded_inits, 2, 2, backend="gloo",
+                      device="cpu", init_file=str(tmp / "store"),
+                      args=(list(INIT_GRIDS.values()), STEP_ARCHS),
+                      timeout=180.0, threads=1)
+
+
+@pytest.mark.parametrize("arch", STEP_ARCHS)
+@pytest.mark.parametrize("grid", sorted(INIT_GRIDS))
+def test_leaf_by_leaf_init_is_bitwise_the_whole_draw_cut(init_runs, grid,
+                                                         arch):
+    recs = [o[(INIT_GRIDS[grid], arch)] for o in init_runs]
+    for rank, rec in enumerate(recs):
+        assert rec["differ"] == [], (rank, rec["differ"])
+        assert rec["names"], rank
+    # the checkpoint's whole leaves: rank 0's host holds them, no other
+    # rank keeps anything
+    assert [r["state"] for r in recs] == ["kept"] + [None] * (len(recs) - 1)
+    assert recs[0]["whole_differ"] == [] and recs[0]["mu_shapes_ok"]
+    assert recs[0]["devices"] == ["cpu"]
+
+
+@pytest.mark.parametrize("grid", sorted(INIT_GRIDS))
+def test_checkpoint_gathers_one_leaf_at_a_time(grid):
+    """Counted on meta as rank 1 of a fake grid (no host copy): beside the
+    rank's state, a checkpoint holds at most the leaf being gathered and,
+    while its second axis is gathered, its part gathered over the first;
+    the launcher's init holds the rank's blocks and one whole leaf."""
+    import math
+
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.cost_analysis import CostMode
+    from repro_torch.training import AdamW, sharding
+
+    rows, cols = INIT_GRIDS[grid]
+    dist.init_process_group("fake", store=FakeStore(), rank=1,
+                            world_size=rows * cols)
+    world_id = id(dist.group.WORLD)
+    try:
+        mesh = mesh_mod.make_nmf_mesh(rows, cols, device="meta")
+        for arch in STEP_ARCHS:
+            cfg = smoke_config(ARCHS[arch])
+            whole = _model(cfg, "meta")
+            leaf = max(4 * math.prod(p.shape) for p in whole.parameters())
+            init = CostMode(scale_loops=False)
+            with init:
+                model, shards = sharding.init_sharded(cfg, mesh, 0, "meta",
+                                                      model=whole)
+            blocks = sum(4 * p.numel() for p in model.parameters())
+            assert blocks < init.peak_bytes <= blocks + leaf, arch
+            state = AdamW().init(model)
+            mode = CostMode(scale_loops=False)
+            with mode:
+                held = mode.track(model, state)
+                assert sharding.gather_state(model, state, shards) is None
+            assert leaf <= mode.peak_bytes - held <= 1.5 * leaf, arch
+    finally:
+        dist.destroy_process_group()
+        for key in [k for k in mesh_mod._MESHES if k[3] == world_id]:
+            del mesh_mod._MESHES[key]
 
 
 # ---------------------------------------------------------------------------
