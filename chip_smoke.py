@@ -121,7 +121,9 @@ Phases (any failed check raises, and the script exits non-zero):
     iterations, killed at snapshot 30 and resumed on 4x1, within 1e-4 of
     the uninterrupted 2x2 trace; (e) ``python -m torch.distributed.run
     --nproc-per-node 4 -m repro_torch.launch.nmf_run --solver distributed
-    --mesh 2x2 --dist-backend gloo --small`` exits 0; (f) the fit on a
+    --mesh 2x2 --dist-backend gloo --small`` exits 0, run beside phase
+    25's untimed work (a run's time limit; no timed window shares the host
+    with it); (f) the fit on a
     2x2x2 (pod, data, model) grid of eight gloo ranks sharing the card,
     rows over ``("pod", "data")`` through ``make_sharded_als``, bitwise
     the same ranks' 4x2 fit (one row group of the ranks that share a
@@ -145,7 +147,7 @@ Phases (any failed check raises, and the script exits non-zero):
 21. the LM training half: (a) llama3.2-1b at full width and depth, f32
     parameters from a seed, ``make_train_step`` (bf16 compute, remat, two
     microbatches) on train_4k's sequence of 4096 at a global batch of 8
-    (cut from 256), a warm-up step and 3 timed ones: ms a step, tokens/s,
+    (cut from 256), a warm-up step and 2 timed ones: ms a step, tokens/s,
     model FLOPs, peak memory, the card's busy share in a profiler window,
     a microbatch's time split (forward, backward with its recompute, the
     loss chunks, the optimizer); every loss finite, step 0's equal to the
@@ -161,14 +163,16 @@ Phases (any failed check raises, and the script exits non-zero):
     at 6 steps and rerun to 9, its state bitwise an uninterrupted run's,
     with the ``AsyncCheckpointer`` seconds a save, for llama3.2-1b and for
     the smoke configs of phases 22 and 24 (olmoe-1b-7b,
-    seamless-m4t-large-v2), all in the same two waves; (d)
+    seamless-m4t-large-v2), all in the same two waves, run beside the
+    build (phase 1), which no metric reads (a run's time limit; they need
+    no kernel of it and end before the corpus is made); (d)
     ``make_compressed_grad_fn`` on four gloo ranks sharing the card at
     density 0.25, conservation within 1e-5.
 22. the moe family (olmoe-1b-7b, f32 parameters from a seed): (a) serving
     at full width and depth: ``make_prefill_step`` on 4 x 4096 tokens
     (finite, the flash kernel launched n_layers = 16 times, first call and
     the median of 3, tokens/s, peak memory, busy share), a
-    ``ServingEngine`` (max_batch 8, max_seq 512) draining 16 requests and
+    ``ServingEngine`` (max_batch 8, max_seq 512) draining 8 requests and
     a decode tick; one full-width MoE layer (d 2048, 64 experts, top 8) on
     256 tokens in f32 against the same layer on the CPU (routing and kept
     pairs equal, output within 1e-4) and at capacity 8.0 against the dense
@@ -187,10 +191,11 @@ Phases (any failed check raises, and the script exits non-zero):
 23. the hybrid and ssm families (zamba2-7b and xlstm-125m, f32 parameters
     from a seed): (a) zamba2-7b serving at full width and depth (81 Mamba2
     layers, the shared block 13 times): ``make_prefill_step`` on 4 x 4096
-    (first call, the median of 3, tokens/s, peak memory, busy share; the
-    flash kernel launched 13 times, and 13 launches of its hd-112
-    instantiation in the profiler window), 1 x 32768, a ``ServingEngine``
-    draining 16 requests, an f32 forward over 64 tokens (the f32 kernel
+    (first call, the median of 3, tokens/s, peak memory; the flash kernel
+    launched 13 times; the busy share and 13 launches of its hd-112
+    instantiation in a profiler window of a 4 x 1024 prefill), 1 x 32768, a ``ServingEngine``
+    (max_batch 8) draining 16 requests (half of them admitted into freed
+    slots), an f32 forward over 64 tokens (the f32 kernel
     at hd 112) against 64 f32 decode steps (2e-2); (b) one full-width
     Mamba block and the shared block on 256 tokens in f32, card against
     CPU (1e-4), the block's decode against its forward (2e-2); (c)
@@ -224,7 +229,7 @@ Phases (any failed check raises, and the script exits non-zero):
     prefill of 64 frames with 16 decode steps against ``decode_train``
     (2e-3); (c) training at full width and depth, 8 x 4096 frames and 8 x
     512 tokens (global batch cut from 256 to 8) in two microbatches: a
-    warm-up and 3 timed steps, tokens/s, model FLOPs and their share of the
+    warm-up and 2 timed steps, tokens/s, model FLOPs and their share of the
     bf16 peak, peak memory; every loss finite, step 0's equal to
     ``seq2seq_loss`` on the serving path's memory (the bf16 bar), no
     hand-written kernel launched (the train launcher at the smoke config
@@ -236,10 +241,11 @@ Phases (any failed check raises, and the script exits non-zero):
 25. parameter sharding (``training/sharding.py``: FSDP over ``"data"``,
     tensor parallelism over ``"model"``) on a 2x2 grid of four gloo ranks
     sharing the card: (a) llama3.2-1b at full width, depth cut from 16 to
-    4, a global batch of 4 x 1024 in bf16 with remat, a warm-up step and 3
-    timed ones: ms a step, tokens/s, each rank's peak memory, each rank's
-    parameter + moment bytes against the 1x1 run's (equal to the
-    reference's per-device shard bytes), ``all_reduce`` calls and bytes a
+    2, a global batch of 4 x 1024 in bf16 with remat, a warm-up step and 2
+    timed ones (3 before (d) came): ms a step, tokens/s, each rank's peak
+    memory, each rank's parameter + moment bytes against the 1x1 run's
+    (equal to the reference's per-device shard bytes), ``all_reduce``
+    calls and bytes a
     step; every loss finite and equal on every rank, step 0's the 1x1
     loss on the same parameters and batch within the bf16 bar, no
     hand-written kernel launched; (b) in f32 at full width with 2 layers
@@ -248,7 +254,28 @@ Phases (any failed check raises, and the script exits non-zero):
     torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train
     --smoke --deterministic --data 2 --model 2 --dist-backend gloo``
     stopped at 6 and rerun to 9, bitwise an uninterrupted 2x2 run, and its
-    step-6 checkpoint resumed on 4x1 within 1e-4.
+    step-6 checkpoint resumed on 4x1 within 1e-4, its runs beside the
+    build with 21(c)'s (19(e)'s start once the ranks' timed steps of (a)
+    and (d) are done, beside (b), (e) and the checks in this process); (d)
+    in the same ranks,
+    the moe, hybrid, ssm and encdec families at full width (olmoe-1b-7b at
+    2 layers, its experts over ``"model"`` through the differentiable
+    ``all_to_all``; zamba2-7b at one group of 6 Mamba2 blocks and the
+    shared block, split by SSM heads; xlstm-125m at full depth, split by
+    heads; seamless-m4t-large-v2 at 2 encoder + 2 decoder layers), each
+    drawn by the launcher's init, a global batch of 4 x 512 (seamless 4 x
+    512 frames and 4 x 64 tokens) in bf16 with remat, a warm-up and 2 timed
+    steps: ms a step, tokens/s, each rank's peak memory and parameter +
+    moment bytes (exactly the reference's per-device shard bytes,
+    ``dryrun.spec_bytes``), ``all_reduce`` and ``all_to_all`` calls and
+    bytes a step; every loss finite and equal on every rank, step 0's the
+    1x1 loss on the same parameters and batch within atol 1e-2 (bf16), no
+    hand-written kernel launched; (e) in the same ranks, (b) again for
+    olmoe-1b-7b at 2 layers (its experts through the exchange; the 1x1
+    step's experts grouped as the grid's, ``moe_ffn_ep_plain``) and for
+    zamba2-7b at 2 layers with the shared block after each, on 2 x 256
+    tokens in f32: the loss (1e-4 / 1e-5) and every gradient, gathered
+    whole, against the 1x1 step's (1e-3 / 1e-5).
 26. the dry-run on the ``meta`` device (``launch/dryrun.py``,
     ``launch/cost_analysis.py``) against what phases 3/7, 9/11 and 25
     measured, no new card run: (a) phase 3's PubMed fit on ``cuda-bsr``
@@ -261,11 +288,12 @@ Phases (any failed check raises, and the script exits non-zero):
     predicted peak beside phase 9's; (c) phase 25's cell on a fake 2x2
     grid: a rank's parameter + moment bytes and its ``all_reduce`` calls
     and bytes a step equal to phase 25's exactly, the predicted peak
-    beside its ranks'.  Each predicted peak must be within 10% of the
+    beside its ranks'; (d) phase 25(d)'s olmoe-1b-7b cell on a fake 2x2
+    grid the same way, its ``all_to_all`` calls and bytes too.  Each predicted peak must be within 10% of the
     measured one (for (a) and (b) ``analysis.memory_guard``'s of phase
     7's warm-up fit and phase 9's first prefill: ``max_memory_allocated``
     less what was resident before the call, plus the call's argument
-    bytes; for (c) each rank's ``max_memory_allocated``).  The meta
+    bytes; for (c) and (d) each rank's ``max_memory_allocated``).  The meta
     branches launch nothing: the card's launch counts stay as they were.
 27. the analyzer's runtime guards (``repro_torch.analysis.runtime``) on
     the card: (a) ``memory_guard`` of the IR targets ``als[cuda-bsr]`` and
@@ -283,8 +311,10 @@ and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
 device it exits non-zero before printing any result.
 """
 import argparse
+import concurrent.futures
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -360,6 +390,26 @@ SOURCES = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def beside(fn, *args) -> concurrent.futures.Future:
+    """``fn(*args)`` started in a thread beside the caller's work (a run's
+    time limit): for checks that run subprocesses and only wait on them,
+    started only where the caller times nothing.  The future's
+    ``result()`` joins it (and raises what it raised); at exit the
+    interpreter joins it too, so its subprocesses end as it ends them."""
+    return concurrent.futures.ThreadPoolExecutor(1).submit(fn, *args)
+
+
+def once(path, stop, fn, *args):
+    """``fn(*args)`` once the file ``path`` exists; None if ``stop`` (a
+    ``threading.Event``) is set first."""
+    while not os.path.exists(path):
+        if stop.wait(0.2):
+            if not os.path.exists(path):
+                return None
+            break
+    return fn(*args)
 
 
 def close(name, got, want, rtol, atol):
@@ -1713,10 +1763,11 @@ def run_mesh_slice(a_sp, res3, u0, paths, results, device="cuda:0",
     2x2 and 4x1 meshes as four gloo ranks sharing the card; the streamed fit
     on 2x2; a 2x2 fit killed at snapshot 30 and resumed on 4x1; a 2x2x2
     grid (rows over ``("pod", "data")``) of eight gloo ranks against the
-    same ranks as 4x2; the command line under ``torch.distributed.run``.
+    same ranks as 4x2 (the command line under ``torch.distributed.run``,
+    19(e), runs later, beside phase 25's untimed work:
+    :func:`nmf_command_line`).
     (``device="cpu"`` with gloo runs the same phase on the CPU, to debug it
     at a small size.)"""
-    import os
     import shutil
     import tempfile
 
@@ -1962,7 +2013,19 @@ def run_mesh_slice(a_sp, res3, u0, paths, results, device="cuda:0",
                 for n in ("2x2x2", "4x2")} for rec in r222],
         last_err_diff_1x1=d_last, seconds=secs)
 
-    # -- 19(e). the command line under torch.distributed.run ----------------
+    shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[mesh] phase 19 took {out['seconds']:.1f} s (four ranks share one "
+        "card over gloo: the 2x2 / 4x1 times are not a multi-card result)")
+
+
+def nmf_command_line(device):
+    """Phase 19(e), run beside phase 25's untimed work (a run's time
+    limit): ``python -m torch.distributed.run --nproc-per-node 4 -m
+    repro_torch.launch.nmf_run --solver distributed --backend cuda-bsr
+    --mesh 2x2 --dist-backend gloo --small`` exits 0; its fit line."""
+    import os
+
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
                                           / "src"))
     cmd = [sys.executable, "-m", "torch.distributed.run",
@@ -1982,13 +2045,9 @@ def run_mesh_slice(a_sp, res3, u0, paths, results, device="cuda:0",
                 if ln.startswith("solver=")]
     log(f"[mesh] python -m torch.distributed.run --nproc-per-node 4 -m "
         f"repro_torch.launch.nmf_run --solver distributed --backend cuda-bsr"
-        f" --mesh 2x2 --dist-backend gloo --small: exit 0 in {cli_s:.1f} s;"
-        f" {fit_line}")
-    out["cli"] = dict(seconds=cli_s, line=fit_line)
-    shutil.rmtree(root, ignore_errors=True)
-    out["seconds"] = time.perf_counter() - t_phase
-    log(f"[mesh] phase 19 took {out['seconds']:.1f} s (four ranks share one "
-        "card over gloo: the 2x2 / 4x1 times are not a multi-card result)")
+        f" --mesh 2x2 --dist-backend gloo --small: exit 0 in {cli_s:.1f} s"
+        f" (beside phase 25's untimed work); {fit_line}")
+    return dict(seconds=cli_s, line=fit_line)
 
 
 def run_topic_slice(dev, model, new_sp, paths, results):
@@ -2496,10 +2555,11 @@ def run_tile_slice(dev, a_sp, op, res3, u0, paths, results, rows):
 
 #: phase 21: llama3.2-1b training at full width and depth on train_4k's
 #: sequence (4096), the global batch cut from 256 to 8 (one card, a run's
-#: time limit) in two microbatches of 4, 3 timed steps (5 until phase 23
-#: came: the script's time limit); the held checks at full width with 2
+#: time limit) in two microbatches of 4, 2 timed steps (5 until phase 23
+#: came, 3 until phase 25(d): the script's time limit); the held checks at
+#: full width with 2
 #: layers; four gloo ranks for the compressed gradients
-TRAIN = dict(batch=8, microbatches=2, timed=3, check_layers=2,
+TRAIN = dict(batch=8, microbatches=2, timed=2, check_layers=2,
              check_batch=2, check_seq=1024, attn_seq=4096, density=0.25,
              cli=("--batch", "2", "--seq", "32"))
 
@@ -2626,15 +2686,17 @@ def launcher_kill_and_resume(archs, cli, card):
     return result
 
 
-def run_train_slice(dev, paths, results, cfg=None, sizes=TRAIN):
+def run_train_slice(dev, paths, results, cli, cfg=None, sizes=TRAIN):
     """Phase 21: the LM training half.  (a) llama3.2-1b at full width and
     depth: ``make_train_step`` (bf16 compute, remat, two microbatches) on
     train_4k's sequence at a cut batch, a warm-up step and ``timed`` timed
     ones, the launch counts of those steps, peak memory, a profiler window
     and a split of a microbatch's time; (b) the held checks at full width
     with 2 layers; (c) the train launcher killed and resumed in
-    subprocesses; (d) compressed gradients on four gloo ranks sharing the
-    card.  ``cfg`` and ``sizes`` shrink it for a rehearsal on the CPU."""
+    subprocesses (``cli``: the future of the runs :func:`main` started
+    beside the build); (d) compressed gradients on four gloo ranks sharing
+    the card.  ``cfg`` and ``sizes`` shrink it for
+    a rehearsal on the CPU."""
     import math
 
     import torch
@@ -2891,12 +2953,6 @@ def run_train_slice(dev, paths, results, cfg=None, sizes=TRAIN):
         "/ 2e-3)")
     out["held"] = held
 
-    # -- 21(c). the train launcher, killed at 6 steps and resumed to 9, at
-    # the smoke config of this family and of phases 22 and 24's -----------
-    out["cli"] = launcher_kill_and_resume(
-        sizes.get("cli_archs", (LM_ARCH, MOE_ARCH, ENCDEC_ARCH)),
-        sizes["cli"], card)
-
     # -- 21(d). compressed gradients on four gloo ranks -----------------------
     arrays = {"w": np.random.default_rng(0).standard_normal((8, 4))
               .astype(np.float32),
@@ -2931,20 +2987,24 @@ def run_train_slice(dev, paths, results, cfg=None, sizes=TRAIN):
         f"{ranks_s:.1f} s")
     out["compressed"] = dict(conservation=cons, seconds=ranks_s,
                              collectives=rank_out[0][1])
+
+    # -- 21(c). the train launcher, killed at 6 steps and resumed to 9, at
+    # the smoke config of this family and of phases 22 and 24's ----------
+    out["cli"] = cli.result()
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[train] phase 21 took {out['seconds']:.1f} s")
     results["train"] = out
 
 
 #: phase 22: olmoe-1b-7b (src/repro/configs/olmoe_1b_7b.py) at full width:
-#: serving at full depth (4 x 4096 prefill, a 16-request ServingEngine);
+#: serving at full depth (4 x 4096 prefill, an 8-request ServingEngine);
 #: training with the depth cut from 16 to 4 (parameters, AdamW's moments
 #: and the gradient of 16 layers, 6.92e9 x 16 B, would take ~111 GB) on
 #: 2 x 4096 tokens in two microbatches; the checks on one full-width MoE
 #: layer over 256 tokens and on 2 layers over 2 x 1024; expert
 #: parallelism on four gloo ranks sharing the card over 4 x 256 tokens
 MOE_ARCH = "olmoe-1b-7b"
-MOE = dict(prefill_batch=4, prefill_seq=4096, layer_tokens=256,
+MOE = dict(prefill_batch=4, prefill_seq=4096, layer_tokens=256, requests=8,
            check_layers=2, check_batch=2, check_seq=1024,
            train_layers=4, train_batch=2, train_seq=4096, microbatches=2,
            timed=3, ep_batch=4, ep_seq=256, ep_timed=5, ep_seed=7)
@@ -3010,7 +3070,8 @@ def run_moe_slice(dev, paths, results, cfg=None, sizes=MOE):
     """Phase 22: the moe family at full width.  (a) olmoe-1b-7b serving at
     full depth: a 4 x 4096 prefill (first call, then the median of 3;
     tokens/s, peak memory, busy share, flash launches), a ServingEngine
-    draining 16 requests and a decode tick; one full-width MoE layer on
+    draining 8 requests (16 before phase 25(d) came: the script's time
+    limit) and a decode tick; one full-width MoE layer on
     256 tokens in f32 against the same layer on the CPU (routing equal,
     output within 1e-4) and against the dense mixture at capacity 8.0
     (the reference's bar); the flash attention against the plain path at
@@ -3100,7 +3161,7 @@ def run_moe_slice(dev, paths, results, cfg=None, sizes=MOE):
     reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab,
                                                SERVE["prompt"]).tolist(),
                     max_new=SERVE["max_new"])
-            for i in range(SERVE["requests"])]
+            for i in range(sizes["requests"])]
     for r in reqs:
         engine.submit(r)
     sync()
@@ -3322,8 +3383,9 @@ def run_moe_slice(dev, paths, results, cfg=None, sizes=MOE):
 
 #: phase 23: the hybrid (zamba2-7b, src/repro/configs/zamba2_7b.py) and ssm
 #: (xlstm-125m, src/repro/configs/xlstm_125m.py) families at full width:
-#: serving at full depth (4 x 4096 and 1 x 32768 prefills, a 16-request
-#: ServingEngine, an f32 prefill against decode); zamba2 training with the
+#: serving at full depth (4 x 4096 and 1 x 32768 prefills, a ServingEngine
+#: of 8 slots draining 16 requests, an f32 prefill against decode); zamba2
+#: training with the
 #: depth cut from 81 to 15 (two groups of 6 and a tail of 3: parameters,
 #: AdamW's moments and gradients of 81 layers, ~20 B a parameter, would
 #: take ~135 GB) and the global batch cut from 256 to 2; xlstm training at
@@ -3331,14 +3393,17 @@ def run_moe_slice(dev, paths, results, cfg=None, sizes=MOE):
 #: (its sLSTM loop runs 4096 steps a layer a microbatch: a run's time
 #: limit), its profiler window over a 4 x 1024 prefill and its long
 #: prefill cut to 1 x 8192 (the same loop, ~5k launches a 1024 steps;
-#: since phase 25 came); the flash kernel at zamba2's head size 112
+#: since phase 25 came); zamba2's profiler window over a 4 x 1024 prefill
+#: too (since phase 25(e) came: the script's time limit); the flash kernel at
+#: zamba2's head size 112
 RECURRENT = dict(prefill_batch=4, prefill_seq=4096, long_seq=32768,
                  block_tokens=256, decode_check=64, hybrid_train_layers=15,
                  hybrid_train_batch=2, xlstm_train_batch=4, train_seq=4096,
                  microbatches=2, xlstm_microbatches=1, hybrid_timed=1,
                  xlstm_timed=0, xlstm_profile_seq=1024, xlstm_long_seq=8192,
                  long_pos=524287, long_prompt=16, flash_reps=20,
-                 plain_reps=3, hybrid_prompt=8, hybrid_max_new=8)
+                 plain_reps=3, hybrid_prompt=8, hybrid_max_new=8,
+                 hybrid_requests=16, hybrid_profile_seq=1024)
 HYBRID_ARCH, SSM_ARCH = "zamba2-7b", "xlstm-125m"
 #: flash at zamba2's shared block (B, H, Hkv, S, hd) and at olmoe's heads
 FLASH_HD112 = (4, 32, 32, 4096, 112)
@@ -3478,15 +3543,17 @@ def _free(card, what, tag="recurrent"):
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
 
 
-def _drain(name, cfg, model, dev, card, prompt=None, max_new=None):
-    """A ServingEngine (max_batch 8, max_seq 512) draining 16 requests of
-    ``prompt``-token prompts (32), ``max_new`` (32) new tokens each:
-    seconds, tokens/s, ms a decode call."""
+def _drain(name, cfg, model, dev, card, prompt=None, max_new=None,
+           requests=None):
+    """A ServingEngine (max_batch 8, max_seq 512) draining ``requests``
+    (16) requests of ``prompt``-token prompts (32), ``max_new`` (32) new
+    tokens each: seconds, tokens/s, ms a decode call."""
     import torch
 
     from repro_torch.serving import Request, ServingEngine
 
     prompt, max_new = prompt or SERVE["prompt"], max_new or SERVE["max_new"]
+    requests = requests or SERVE["requests"]
     sync = torch.cuda.synchronize if card else (lambda: None)
     rng = np.random.default_rng(2)
     engine = ServingEngine(cfg, model, max_batch=SERVE["max_batch"],
@@ -3502,7 +3569,7 @@ def _drain(name, cfg, model, dev, card, prompt=None, max_new=None):
     reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab,
                                                prompt).tolist(),
                     max_new=max_new)
-            for i in range(SERVE["requests"])]
+            for i in range(requests)]
     for r in reqs:
         engine.submit(r)
     sync()
@@ -3691,7 +3758,8 @@ def run_recurrent_slice(dev, paths, results, rows, cfgs=None,
     match = f"flash_fwd_bf16_wgmma<{hcfg.hd}>"
     a = _serve_model(hcfg.name, hcfg, model, api.make_prefill_step(hcfg),
                      sizes, dev, paths, "hybrid_prefill", card,
-                     profile_expect={match: groups})
+                     profile_expect={match: groups},
+                     profile_seq=sizes["hybrid_profile_seq"])
     a["n_params"] = n_params
     a["long_500k_kv_bytes"] = kv_long
     if card:
@@ -3708,7 +3776,8 @@ def run_recurrent_slice(dev, paths, results, rows, cfgs=None,
             f"{match} a prefill (the shared block's attention at hd "
             f"{hcfg.hd})")
     a["serve"] = _drain(hcfg.name, hcfg, model, dev, card,
-                        sizes["hybrid_prompt"], sizes["hybrid_max_new"])
+                        sizes["hybrid_prompt"], sizes["hybrid_max_new"],
+                        sizes["hybrid_requests"])
 
     # f32 prefill against f32 decode over 64 tokens (the f32 flash kernel
     # at hd 112 on the model's path), the reference's Mamba bar
@@ -3989,7 +4058,7 @@ ENCDEC = dict(prefill_batch=4, prefill_seq=4096, long_seq=32768,
               gen_batch=8, gen_seq=4096, gen_steps=32, d32_batch=8,
               d32_enc=32768, d32_dec=4096, d32_steps=5, block_tokens=256,
               block_dec=32, check_seq=64, check_steps=16, train_batch=8,
-              train_seq=4096, microbatches=2, timed=3, flash_reps=20,
+              train_seq=4096, microbatches=2, timed=2, flash_reps=20,
               plain_reps=3, unembed_reps=50)
 ENCDEC_ARCH = "seamless-m4t-large-v2"
 #: flash at the encoder (B, H, Hkv, Sq, T, hd; not causal) and at the
@@ -4508,22 +4577,41 @@ def run_encdec_slice(dev, paths, results, rows, cfg=None, sizes=ENCDEC):
 
 #: phase 25: parameter sharding (FSDP over "data", tensor parallelism over
 #: "model") on a 2x2 grid of four gloo ranks sharing the card: llama3.2-1b
-#: at full width, depth cut from 16 to 4 (a run's time limit: every gather
+#: at full width, depth cut from 16 to 2 (a run's time limit: every gather
 #: crosses the host under gloo), a global batch of 4 x 1024 in bf16 with
 #: remat; f32 gradients at full width with 2 layers on 2 x 256 tokens; the
-#: launcher at the smoke config under torch.distributed.run
-SHARD = dict(grid=(2, 2), layers=4, batch=4, seq=1024, timed=3,
-             check_layers=2, check_batch=2, check_seq=256)
+#: launcher at the smoke config under torch.distributed.run; then in the
+#: same ranks the moe, hybrid, ssm and encdec families at full width (the
+#: depth of each cut as ``families`` says: olmoe 16 to 2 layers, zamba2 81
+#: to one group of 6 Mamba2 blocks and the shared block, xlstm whole,
+#: seamless 24 + 24 to 2 + 2), a global batch of 4 x 512 (seamless: 4 x 512
+#: frames and 4 x 64 tokens), bf16 with remat, a warm-up and 2 timed steps;
+#: then f32 gradients, as llama's, of olmoe at 2 layers (through the expert
+#: exchange) and of zamba2 at 2 layers with the shared block after each
+#: (two groups of one Mamba2 block: the leaves read in part, the shared
+#: block's gradients added over its uses)
+SHARD = dict(grid=(2, 2), layers=2, batch=4, seq=1024, timed=2,
+             check_layers=2, check_batch=2, check_seq=256,
+             families=(("olmoe-1b-7b", dict(n_layers=2)),
+                       ("zamba2-7b", dict(n_layers=6)),
+                       ("xlstm-125m", {}),
+                       ("seamless-m4t-large-v2",
+                        dict(n_layers=2, n_enc_layers=2))),
+             family_batch=4, family_seq=512, family_timed=2,
+             grad_checks=(("olmoe-1b-7b", dict(n_layers=2)),
+                          ("zamba2-7b", dict(n_layers=2, attn_every=1))))
 
 
-def _shard_rank(rank, sizes, device):
-    """One rank of phase 25(a, b): the sharded train step of llama3.2-1b on
-    the 2x2 grid.  (a) at full width with ``layers`` layers, a warm-up step
-    and ``timed`` timed steps in bf16 (host clock ending in a synchronize),
-    this rank's state bytes, peak memory, collectives and kernel launches;
-    (b) in f32 with ``check_layers`` layers: one step's gradients gathered
-    whole, held on rank 0 against the 1x1 step's on the same parameters
-    and batch."""
+def _shard_rank(rank, sizes, device, untimed=None):
+    """One rank of phase 25(a, b, d, e): the sharded train step of
+    llama3.2-1b on the 2x2 grid.  (a) at full width with ``layers`` layers,
+    a warm-up step and ``timed`` timed steps in bf16 (host clock ending in
+    a synchronize), this rank's state bytes, peak memory, collectives and
+    kernel launches; (d) the other families (:func:`_shard_families`);
+    then, the timed work done (rank 0 creates the file ``untimed``, which
+    the parent's subprocess checks wait for), (b) llama's f32 gradients
+    with ``check_layers`` layers and (e) those of ``grad_checks``
+    (:func:`_grad_check`)."""
     import dataclasses
 
     import torch
@@ -4536,7 +4624,6 @@ def _shard_rank(rank, sizes, device):
     from repro_torch.launch.train import synthetic_batch
     from repro_torch.models import api
     from repro_torch.training import AdamW, sharding
-    from repro_torch.training.optimizer import value_and_grad
 
     dev = torch.device(device)
     card = dev.type == "cuda"
@@ -4579,10 +4666,44 @@ def _shard_rank(rank, sizes, device):
                     plan=(shards.tp_attn, shards.tp_mlp, shards.tp_vocab))
     del model, state, step, batches, loss
 
-    # -- (b) f32 gradients against 1x1 ---------------------------------------
-    cfg = dataclasses.replace(base, n_layers=sizes["check_layers"])
-    shape = ShapeSpec("shard check", sizes["check_seq"],
-                      sizes["check_batch"], "train")
+    # -- (d) the moe, hybrid, ssm and encdec families ------------------------
+    out["d"] = _shard_families(mesh, sizes, dev)
+    mesh.barrier()
+    if rank == 0 and untimed:
+        Path(untimed).touch()
+
+    # -- (b, e) f32 gradients against 1x1 -----------------------------------
+    out["b"] = _grad_check(mesh, dataclasses.replace(
+        base, n_layers=sizes["check_layers"]), sizes, dev)
+    own = sizes.get("grad_cfgs", {})
+    out["e"] = {arch: _grad_check(mesh, own.get(arch) or
+                                  dataclasses.replace(ARCHS[arch], **cut),
+                                  sizes, dev)
+                for arch, cut in sizes["grad_checks"]}
+    return out
+
+
+def _grad_check(mesh, cfg, sizes, dev):
+    """One f32 sharded step's gradients of ``cfg`` on ``check_batch`` x
+    ``check_seq`` tokens (parameters from seed 1), each rank's blocks held
+    against the same blocks of the 1x1 step's gradients on the same
+    parameters and batch, which every rank computes on its own (a moe's
+    1x1 experts group as the grid's do: ``moe_ffn_ep_plain``, at the
+    default capacity).  This rank's record: the two losses, the largest
+    absolute error and the worst error as a share of the bar rtol 1e-3,
+    atol 1e-5."""
+    import functools
+
+    import torch
+
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import api, moe
+    from repro_torch.training import AdamW, sharding
+    from repro_torch.training.optimizer import value_and_grad
+
+    shape = ShapeSpec("shard check", sizes["check_seq"], sizes["check_batch"],
+                      "train")
     batch = synthetic_batch(cfg, shape, 0, dev)
     model = api.init_params(cfg, 1, device=dev)
     shards = sharding.shard_model(model, mesh)
@@ -4594,26 +4715,214 @@ def _shard_rank(rank, sizes, device):
             return params, state
 
     opt = Capture()
-    _, _, loss = sharding.make_train_step(
+    # only the loss is kept: the state returned would stay resident
+    loss = sharding.make_train_step(
         cfg, opt, shards, compute_dtype=torch.float32)(
-        model, opt.init(model), batch)
-    grads = sharding.gather_named(shards, got)
-    del got, model
-    if rank != 0:
-        return out
-    # rank 0 holds the gathered gradients against the 1x1 step's
+        model, opt.init(model), batch)[2]
+    del model
     whole = api.init_params(cfg, 1, device=dev)
-    loss1, want = value_and_grad(api.make_loss_fn(
-        cfg, compute_dtype=torch.float32), whole, batch)
+    plain = moe.moe_ffn_ep
+    if cfg.family == "moe":
+        rows, cols = sizes["grid"]
+        moe.moe_ffn_ep = functools.partial(moe.moe_ffn_ep_plain, dp=rows,
+                                           model=cols)
+    try:
+        loss1, want = value_and_grad(api.make_loss_fn(
+            cfg, compute_dtype=torch.float32), whole, batch)
+    finally:
+        moe.moe_ffn_ep = plain
     del whole
     err, worst = 0.0, 0.0
-    for name, g in grads.items():
-        w = want[name]
+    for name, g in got.items():
+        w = want[name][sharding.block_index(mesh, shards.dims(name))]
         err = max(err, float((g - w).abs().max()))
-        worst = max(worst, float(((g - w).abs() / (1e-5 + 1e-3 * w.abs())
-                                  ).max()))
-    out["b"] = dict(loss=float(loss), loss_1x1=float(loss1), grad_err=err,
-                    grad_worst=worst, leaves=len(grads))
+        worst = max(worst, float(((g - w).abs()
+                                  / (1e-5 + 1e-3 * w.abs())).max()))
+    rec = dict(loss=float(loss), loss_1x1=float(loss1), grad_err=err,
+               grad_worst=worst, leaves=len(got),
+               names=sorted(got) == sorted(want), layers=cfg.n_layers)
+    del got, want
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def family_config(arch, sizes):
+    """The phase-25 (d) config of ``arch``: full width, the depth cut by
+    ``sizes["families"]`` (or a rehearsal's own config from
+    ``sizes["family_cfgs"]``)."""
+    from repro_torch.configs import ARCHS
+
+    cuts = dict(sizes["families"])
+    own = sizes.get("family_cfgs", {})
+    return own.get(arch) or dataclasses.replace(ARCHS[arch], **cuts[arch])
+
+
+def _shard_families(mesh, sizes, dev):
+    """Phase 25(d) on one rank: each family's sharded train step, drawn by
+    the launcher's init (``init_sharded``), a warm-up and ``family_timed``
+    timed steps in bf16 with remat (host clock ending in a synchronize):
+    the losses, this rank's state bytes, peak memory (what the family
+    added to what was resident before its init: ``memory_guard``'s way,
+    its arguments being its own), collectives and kernel launches a
+    step."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import (
+        collective_counts, reset_collective_counts,
+    )
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.training import AdamW, sharding
+
+    card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    shape = ShapeSpec("shard", sizes["family_seq"], sizes["family_batch"],
+                      "train")
+    out = {}
+    for arch, _ in sizes["families"]:
+        cfg = family_config(arch, sizes)
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+        sync()
+        resident = torch.cuda.memory_allocated() if card else 0
+        t0 = time.perf_counter()
+        model, shards = sharding.init_sharded(cfg, mesh, 0, dev)
+        opt = AdamW()
+        state = opt.init(model)
+        sync()
+        init_s = time.perf_counter() - t0
+        step = sharding.make_train_step(cfg, opt, shards)
+        batches = [synthetic_batch(cfg, shape, i, dev)
+                   for i in range(sizes["family_timed"] + 1)]
+        t0 = time.perf_counter()
+        model, state, loss = step(model, state, batches[0])
+        losses = [float(loss)]
+        warm_s = time.perf_counter() - t0
+        if card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_collective_counts()
+        _build.reset_launch_counts()
+        step_s = []
+        for b in batches[1:]:
+            sync()
+            t0 = time.perf_counter()
+            model, state, loss = step(model, state, b)
+            losses.append(float(loss))
+            step_s.append(time.perf_counter() - t0)
+        out[arch] = dict(
+            losses=losses, init_s=init_s, warm_s=warm_s, step_s=step_s,
+            counts=collective_counts(), launches=_build.launch_counts(),
+            peak=(torch.cuda.max_memory_allocated() - resident
+                  if card else 0),
+            resident=resident,
+            state_bytes=sharding.state_bytes(model, state),
+            plan=(shards.tp_attn, shards.tp_mlp, shards.tp_vocab,
+                  shards.tp_ssm, shards.ep))
+        del model, state, step, batches, loss
+    return out
+
+
+def check_shard_families(ranks_d, sizes, dev, paths):
+    """Phase 25(d) in the parent: each family's numbers from its ranks,
+    held against the 1x1 loss on the same parameters and batch (this
+    process joins no group; bf16 bar) and the reference's per-device shard
+    bytes (``dryrun.spec_bytes`` under the launcher's specs), exactly; every
+    loss finite and equal on every rank; no hand-written kernel
+    launched."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import api
+    from repro_torch.training import sharding
+
+    rows, cols = sizes["grid"]
+    grid = {"data": rows, "model": cols}
+    shape = ShapeSpec("shard", sizes["family_seq"], sizes["family_batch"],
+                      "train")
+    timed = sizes["family_timed"]
+    out = {}
+    for arch, _ in sizes["families"]:
+        cfg = family_config(arch, sizes)
+        recs = [r[arch] for r in ranks_d]
+        batch = synthetic_batch(cfg, shape, 0, dev)
+        model = api.init_params(cfg, 0, device=dev)
+        with torch.no_grad():
+            loss1 = float(api.make_loss_fn(cfg)(model, batch))
+        n_params = sum(p.numel() for p in model.parameters())
+        del model
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        meta = api.init_params(cfg, device="meta")
+        specs = api.param_pspecs(cfg, meta, sharding.RULES, grid)
+        per_rank = 3 * sum(dryrun.spec_bytes(p.shape, torch.float32,
+                                             specs[n], grid)
+                           for n, p in meta.named_parameters())
+        # decoder tokens, and an encoder's frames
+        tokens = batch["tokens"].numel() + (
+            math.prod(batch["frame_embeds"].shape[:2])
+            if "frame_embeds" in batch else 0)
+        r0 = recs[0]
+        med = float(np.median(r0["step_s"]))
+        counts = {k: v / timed for k, v in r0["counts"].items()}
+        paths[f"shard_{arch}"] = r0["launches"]
+        log(f"[shard] (d) {arch}: {n_params:,} parameters at full width "
+            f"({cfg.n_layers} layers"
+            + (f" + {cfg.n_enc_layers} encoder" if cfg.n_enc_layers else "")
+            + f"); split over model (attention, MLP, vocabulary, recurrent "
+            f"heads, experts): {r0['plan']}; init {r0['init_s']:.2f} s, "
+            f"warm-up step {r0['warm_s']:.2f} s; {timed} steps "
+            f"{[round(1e3 * x, 1) for x in r0['step_s']]} ms (median "
+            f"{1e3 * med:.1f} ms, {tokens / med:.0f} tokens/s; slowest "
+            f"rank's median "
+            f"{1e3 * max(np.median(r['step_s']) for r in recs):.1f} ms); "
+            f"losses {[round(x, 4) for x in r0['losses']]}; all_reduce a "
+            f"step {counts['all_reduce']:.0f} calls, "
+            f"{counts['bytes'] / 1e6:.1f} MB; all_to_all a step "
+            f"{counts.get('all_to_all', 0):.0f} calls, "
+            f"{counts.get('all_to_all_bytes', 0) / 1e6:.2f} MB (rank 0); "
+            f"peak memory a rank {[round(r['peak'] / 2**30, 2) for r in recs]}"
+            f" GiB above what was resident before its init "
+            f"({[round(r['resident'] / 2**30, 3) for r in recs]} GiB); "
+            f"parameters + mu + nu a rank "
+            f"{[r['state_bytes'] for r in recs]} B (the reference's "
+            f"per-device shard: {per_rank})")
+        if not all(math.isfinite(x) for r in recs for x in r["losses"]):
+            raise AssertionError(f"(d) {arch}: a sharded step's loss is not "
+                                 "finite")
+        if any(r["losses"] != r0["losses"] for r in recs):
+            raise AssertionError(f"(d) {arch}: the ranks disagree on the "
+                                 "loss")
+        if any(r["state_bytes"] != per_rank for r in recs):
+            raise AssertionError(f"(d) {arch}: a rank holds other than the "
+                                 f"reference's per-device shard bytes "
+                                 f"{per_rank}")
+        err = close(f"(d) {arch}: step 0's sharded loss against the 1x1 "
+                    "loss", torch.tensor(r0["losses"][0]),
+                    torch.tensor(loss1), 0.0, 1e-2)
+        log(f"[shard] (d) {arch}: step 0's loss {r0['losses'][0]:.4f} on the "
+            f"grid, {loss1:.4f} at 1x1 on the same parameters and batch "
+            f"(|difference| {err:.2e}; bar atol 1e-2, in bf16)")
+        if any(r0["launches"].values()):
+            raise AssertionError(f"(d) {arch}: the sharded step launched a "
+                                 f"hand-written kernel ({r0['launches']})")
+        out[arch] = dict(n_params=n_params, layers=cfg.n_layers,
+                         losses=r0["losses"], loss_1x1=loss1,
+                         step_s=[r["step_s"] for r in recs],
+                         init_s=r0["init_s"], warm_s=r0["warm_s"],
+                         median_ms=1e3 * med, tokens_per_s=tokens / med,
+                         counts_per_step=counts,
+                         peak_bytes=[r["peak"] for r in recs],
+                         state_bytes=[r["state_bytes"] for r in recs],
+                         per_rank_bytes=per_rank, plan=r0["plan"])
     return out
 
 
@@ -4705,7 +5014,7 @@ def launcher_across_grids(card):
                 max_diff_leaf=top, max_diff_params=params)
 
 
-def run_shard_slice(dev, paths, results, sizes=SHARD):
+def run_shard_slice(dev, paths, results, launcher, sizes=SHARD):
     """Phase 25: parameter sharding on a 2x2 grid of four gloo ranks
     sharing the card.  (a) llama3.2-1b at full width with its depth cut to
     ``layers``: ms a step, tokens/s, each rank's peak memory and state
@@ -4713,10 +5022,18 @@ def run_shard_slice(dev, paths, results, sizes=SHARD):
     every loss finite, step 0's the 1x1 loss on the same parameters and
     batch within the bf16 bar; (b) f32 gradients at full width with 2
     layers, gathered, against 1x1's (1e-3 / 1e-5); (c) the launcher's kill
-    and resume on 2x2 and on 4x1.  ``sizes`` may carry a ``cfg`` to shrink
-    it for a rehearsal on the CPU."""
+    and resume on 2x2 and on 4x1; (d) the moe, hybrid, ssm and encdec
+    families (:func:`check_shard_families`); (e) f32 gradients of
+    ``grad_checks`` as (b)'s.  ``launcher`` is the future of (c)'s runs,
+    which :func:`main` started beside the build; 19(e)'s command line
+    starts here once the ranks' timed steps are done.  ``sizes`` may carry a
+    ``cfg`` and ``family_cfgs`` to shrink it for a rehearsal on the
+    CPU."""
     import dataclasses
     import math
+    import shutil
+    import tempfile
+    import threading
 
     import torch
 
@@ -4740,9 +5057,19 @@ def run_shard_slice(dev, paths, results, sizes=SHARD):
         f"result); global batch {sizes['batch']} x {sizes['seq']}, bf16, "
         "remat")
     device = f"cuda:{dev.index or 0}" if card else "cpu"
+    # 19(e)'s command line goes beside the untimed work (a run's time
+    # limit): it starts once the ranks' timed steps are done, beside (b),
+    # (e) and the checks here
+    root = tempfile.mkdtemp(prefix="chip-smoke-shard-")
+    untimed, stop = os.path.join(root, "untimed"), threading.Event()
+    nmf_cli = beside(once, untimed, stop, nmf_command_line, device)
     t0 = time.perf_counter()
-    recs = spawn_mesh(_shard_rank, rows, cols, backend="gloo", device=device,
-                      args=(sizes, device), timeout=600.0)
+    try:
+        recs = spawn_mesh(_shard_rank, rows, cols, backend="gloo",
+                          device=device, args=(sizes, device, untimed),
+                          timeout=600.0)
+    finally:
+        stop.set()
     spawn_s = time.perf_counter() - t0
 
     # the 1x1 loss on the same parameters and batch (this process joins no
@@ -4788,7 +5115,8 @@ def run_shard_slice(dev, paths, results, sizes=SHARD):
         f"+ mu + nu a rank {[r['state_bytes'] for r in a]} bytes against "
         f"{whole_bytes} at 1x1 ({per_rank / whole_bytes:.4f} of it, the "
         f"reference's per-device shard); launches of the hand-written "
-        f"kernels {a[0]['launches']}; spawn to result {spawn_s:.1f} s")
+        f"kernels {a[0]['launches']}; spawn to result {spawn_s:.1f} s "
+        "((a), (d), (b) and (e); 19(e)'s command line beside (b) and (e))")
     if not all(math.isfinite(x) for r in a for x in r["losses"]):
         raise AssertionError("a sharded step's loss is not finite")
     if any(r["losses"] != losses for r in a):
@@ -4803,17 +5131,35 @@ def run_shard_slice(dev, paths, results, sizes=SHARD):
     if any(a[0]["launches"].values()):
         raise AssertionError("the sharded step launched a hand-written "
                              f"kernel ({a[0]['launches']})")
-    b = recs[0]["b"]
-    log(f"[shard] (b) f32, full width, {sizes['check_layers']} layers, "
-        f"{sizes['check_batch']} x {sizes['check_seq']}: loss {b['loss']:.6f}"
-        f" on the grid, {b['loss_1x1']:.6f} at 1x1; {b['leaves']} gradients "
-        f"gathered whole within rtol 1e-3, atol 1e-5 of 1x1's (max abs err "
-        f"{b['grad_err']:.3e}, {b['grad_worst']:.3f} of the bar at worst)")
-    close("the sharded f32 loss against 1x1's", torch.tensor(b["loss"]),
-          torch.tensor(b["loss_1x1"]), 1e-4, 1e-5)
-    if b["grad_worst"] > 1.0:
-        raise AssertionError("a sharded f32 gradient is not within rtol "
-                             "1e-3, atol 1e-5 of 1x1's")
+    checks = {LM_ARCH: [r["b"] for r in recs]}
+    checks.update({arch: [r["e"][arch] for r in recs]
+                   for arch in recs[0]["e"]})
+    held = {}
+    for arch, per_rank in checks.items():
+        e = dict(per_rank[0],
+                 grad_err=max(r["grad_err"] for r in per_rank),
+                 grad_worst=max(r["grad_worst"] for r in per_rank),
+                 names=all(r["names"] for r in per_rank))
+        part = "(b)" if arch == LM_ARCH else "(e)"
+        log(f"[shard] {part} {arch} f32, full width, {e['layers']} layers, "
+            f"{sizes['check_batch']} x {sizes['check_seq']}: loss "
+            f"{e['loss']:.6f} on the grid, {e['loss_1x1']:.6f} at 1x1"
+            + (" (its experts grouped as the grid's)"
+               if arch == MOE_ARCH else "")
+            + f"; every rank's {e['leaves']} gradient blocks within rtol "
+            f"1e-3, atol 1e-5 of the same blocks of 1x1's (max abs err "
+            f"{e['grad_err']:.3e}, {e['grad_worst']:.3f} of the bar at "
+            "worst)")
+        for r in per_rank:
+            close(f"{part} {arch}: the sharded f32 loss against 1x1's",
+                  torch.tensor(r["loss"]), torch.tensor(r["loss_1x1"]),
+                  1e-4, 1e-5)
+        if not e["names"] or e["grad_worst"] > 1.0:
+            raise AssertionError(f"{part} {arch}: a sharded f32 gradient is "
+                                 "missing or not within rtol 1e-3, atol 1e-5 "
+                                 "of 1x1's")
+        held[arch] = e
+    b = held.pop(LM_ARCH)
     out = dict(n_params=n_params, layers=cfg.n_layers, losses=losses,
                loss_1x1=loss1, step_s=[r["step_s"] for r in a],
                warm_s=a[0]["warm_s"], median_ms=1e3 * med,
@@ -4822,8 +5168,12 @@ def run_shard_slice(dev, paths, results, sizes=SHARD):
                all_reduce_bytes=nbytes, peak_bytes=[r["peak"] for r in a],
                state_bytes=[r["state_bytes"] for r in a],
                whole_state_bytes=whole_bytes, plan=a[0]["plan"],
-               check=b, spawn_s=spawn_s)
-    out["launcher"] = launcher_across_grids(card)
+               check=b, grad_checks=held, spawn_s=spawn_s)
+    out["families"] = check_shard_families([r["d"] for r in recs], sizes,
+                                           dev, paths)
+    out["launcher"] = launcher.result()
+    results["phases"].setdefault("mesh", {})["cli"] = nmf_cli.result()
+    shutil.rmtree(root, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[shard] phase 25 took {out['seconds']:.1f} s")
     results["shard"] = out
@@ -4975,6 +5325,38 @@ def run_dryrun_slice(dev, op, u0, smi, paths, results, rows, sizes=SHARD):
                         peak=peak_check("(c) sharded step, rank 0",
                                         rec["bytes_per_device"],
                                         max(shard["peak_bytes"])))
+
+    # -- (d) phase 25(d)'s olmoe cell on a fake 2x2 grid ----------------------
+    fam = shard["families"]["olmoe-1b-7b"]
+    mo_cfg = family_config("olmoe-1b-7b", sizes)
+    mo_shape = ShapeSpec("shard", sizes["family_seq"], sizes["family_batch"],
+                         "train")
+    with dryrun.fake_world(rows_ * cols_):
+        rec = dryrun.lower_cell(mo_cfg, mo_shape,
+                                make_nmf_mesh(rows_, cols_, device="meta"),
+                                microbatches=1)
+    card = fam["counts_per_step"]
+    want = {"all_reduce": (card["all_reduce"], card["bytes"]),
+            "all_to_all": (card.get("all_to_all", 0),
+                           card.get("all_to_all_bytes", 0))}
+    got = {k: (rec["collectives"].get(k, {}).get("calls", 0),
+               rec["collectives"].get(k, {}).get("bytes", 0)) for k in want}
+    log(f"[dryrun] (d) {mo_cfg.name}, {mo_cfg.n_layers} layers, "
+        f"{sizes['family_batch']} x {sizes['family_seq']} on a fake "
+        f"{rows_}x{cols_} grid: parameters + mu + nu a rank "
+        f"{rec['state_bytes']} B (phase 25(d): {fam['state_bytes'][0]}); "
+        f"(calls, bytes) a step {got} (phase 25(d): {want}); "
+        f"{rec['flops']:.4e} FLOPs a rank a step")
+    if rec["state_bytes"] != fam["state_bytes"][0]:
+        failed.append(f"(d) state bytes {rec['state_bytes']} != phase "
+                      f"25(d)'s {fam['state_bytes'][0]}")
+    if got != want:
+        failed.append(f"(d) collectives {got} != phase 25(d)'s {want}")
+    out["moe_shard"] = dict(state_bytes=rec["state_bytes"], collectives=got,
+                            flops=rec["flops"],
+                            peak=peak_check("(d) olmoe sharded step, rank 0",
+                                            rec["bytes_per_device"],
+                                            max(fam["peak_bytes"])))
     if _build.launch_counts() != card_counts:
         failed.append(f"the dry-runs moved the card's launch counts from "
                       f"{card_counts} to {_build.launch_counts()}")
@@ -5118,6 +5500,16 @@ def main(argv=None) -> int:
     log(f"[card] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     results = {"card": smi, "phases": {}}
 
+    # -- 21(c), 25(c): the train launcher in subprocesses ---------------------
+    # Their smoke configs train on the plain path, which needs no kernel of
+    # this build, so they run beside the build (a run's time limit), which
+    # no metric reads, and end before the corpus is made: no timed window
+    # shares the host with them.  Phases 21 and 25 report them.
+    t_cli = time.perf_counter()
+    train_cli = beside(launcher_kill_and_resume,
+                       (LM_ARCH, MOE_ARCH, ENCDEC_ARCH), TRAIN["cli"], True)
+    grid_cli = beside(launcher_across_grids, True)
+
     # -- 1. build ------------------------------------------------------------
     # a fresh build, so that ptxas reports every kernel of this checkout
     for source in _build.CSRC_DIR.glob("*.cu"):
@@ -5131,8 +5523,14 @@ def main(argv=None) -> int:
             if "ptxas info" in line and ("Used" in line or "spill" in line
                                          or "Compiling" in line):
                 log(f"[build]   {line.strip()}")
-    log(f"[build] CUDA sources built in {build_s:.2f} s")
+    log(f"[build] CUDA sources built in {build_s:.2f} s (beside the train "
+        "launcher's runs of 21(c) and 25(c))")
     results["phases"]["build_s"] = build_s
+    for run in (train_cli, grid_cli):
+        run.exception()
+    log(f"[build] the launcher's runs ended "
+        f"{time.perf_counter() - t_cli:.1f} s after they started, "
+        f"{time.perf_counter() - t0 - build_s:.1f} s after the build")
 
     # -- corpus and operand ---------------------------------------------------
     t0 = time.perf_counter()
@@ -5697,7 +6095,7 @@ def main(argv=None) -> int:
                             ("ms", "library_ms", "plain_ms", "bound_ms",
                              "bound_by")}
     # -- 21. the LM training half ------------------------------------------
-    run_train_slice(dev, paths, results)
+    run_train_slice(dev, paths, results, train_cli)
     # -- 22. the moe family: olmoe-1b-7b served, trained, expert-parallel ---
     run_moe_slice(dev, paths, results)
     # -- 23. the hybrid and ssm families: zamba2-7b and xlstm-125m ----------
@@ -5705,7 +6103,7 @@ def main(argv=None) -> int:
     # -- 24. the encdec family: seamless-m4t-large-v2 -----------------------
     run_encdec_slice(dev, paths, results, rows)
     # -- 25. parameter sharding over a 2x2 grid -----------------------------
-    run_shard_slice(dev, paths, results)
+    run_shard_slice(dev, paths, results, grid_cli)
     # -- 26. the dry-run on meta against phases 3/7, 9/11 and 25 -----------
     run_dryrun_slice(dev, op, u0, smi, paths, results, rows)
     # -- 27. the analyzer's runtime guards on the card -----------------------

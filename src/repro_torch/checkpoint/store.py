@@ -38,7 +38,7 @@ import os
 import shutil
 import threading
 import time
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -139,10 +139,14 @@ def _tree_leaves(tree, prefix: Tuple[str, ...] = (),
     return [(prefix, [tree], ())]
 
 
-def _host_leaves(tree) -> Tuple[List[str], List[np.ndarray], List[str]]:
-    """Names, owned host arrays and dtype names of ``tree``'s leaves."""
+def _host_leaves(tree, family: Optional[str] = None
+                 ) -> Tuple[List[str], List[np.ndarray], List[str]]:
+    """Names, owned host arrays and dtype names of ``tree``'s leaves, a
+    model's parameters in ``family``'s layout (by default the family of the
+    first model in the tree)."""
     names, arrays, dtypes = [], [], []
-    for path, parts, stk in _tree_leaves(tree, family=family_of(tree)):
+    for path, parts, stk in _tree_leaves(tree,
+                                         family=family or family_of(tree)):
         host = [_owned(t) for t in parts]
         names.append("/".join(path))
         arrays.append(np.stack(host).reshape(stk + host[0].shape) if stk
@@ -209,43 +213,56 @@ def load_checkpoint_arrays(ckpt_dir: str, step: int
 
 
 @torch.no_grad()
-def restore_checkpoint(ckpt_dir: str, step: int, like):
+def restore_checkpoint(ckpt_dir: str, step: int, like,
+                       block: Optional[Callable[[torch.Tensor], tuple]] = None):
     """Copy the checkpoint at ``step`` into the tensors of ``like`` (a tree
     of the checkpoint's names, shapes and dtypes: a model and its
     ``AdamState`` as the reference's ``(params, opt_state)``), in place and
-    on their devices, and return ``like``.  Raises ``ValueError`` when the
-    names, shapes or dtypes differ."""
-    arrays, _ = load_checkpoint_arrays(ckpt_dir, step)
+    on their devices, and return ``like``.  The leaves are read one at a
+    time (the npz file's members load one by one), so the host holds at
+    most one of them.  ``block(t)`` gives, for a tensor ``t`` of ``like``
+    that holds a block of its row (a rank of a grid), ``(the row's whole
+    shape, the block's index in it)``; without it each tensor takes its
+    whole row.  Raises ``ValueError`` when the names, shapes or dtypes
+    differ."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
-    dtypes = dict(zip(manifest["names"], manifest["dtypes"]))
+    names = manifest["names"]
+    dtypes = dict(zip(names, manifest["dtypes"]))
+    key = {name: f"a{i}" for i, name in enumerate(names)}
     leaves = [("/".join(p), parts, stk)
               for p, parts, stk in _tree_leaves(like,
                                                 family=family_of(like))]
     want = [name for name, _, _ in leaves]
-    if set(want) != set(arrays):
+    if set(want) != set(names):
         raise ValueError(
             f"checkpoint {path} does not match the tree: missing "
-            f"{sorted(set(want) - set(arrays))}, unexpected "
-            f"{sorted(set(arrays) - set(want))}")
-    for name, parts, stk in leaves:
-        if not all(isinstance(t, torch.Tensor) for t in parts):
-            raise TypeError(f"{name}: restore_checkpoint fills tensors, got "
-                            f"{type(parts[0]).__name__}")
-        a = arrays[name]
-        if dtypes.get(name) == "bfloat16":
-            src = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
-        else:
-            src = torch.from_numpy(a)
-        shape = stk + tuple(parts[0].shape)
-        if tuple(src.shape) != shape or src.dtype != parts[0].dtype:
-            raise ValueError(f"{name}: checkpoint holds {tuple(src.shape)} "
-                             f"{src.dtype}, the tree {shape} "
-                             f"{parts[0].dtype}")
-        rows = src.reshape((-1,) + tuple(parts[0].shape))
-        for i, t in enumerate(parts):
-            t.copy_(rows[i])
+            f"{sorted(set(want) - set(names))}, unexpected "
+            f"{sorted(set(names) - set(want))}")
+    if block is None:
+        def block(t):
+            return tuple(t.shape), ()
+    with np.load(os.path.join(path, "arrays.npz")) as data:
+        for name, parts, stk in leaves:
+            if not all(isinstance(t, torch.Tensor) for t in parts):
+                raise TypeError(f"{name}: restore_checkpoint fills tensors, "
+                                f"got {type(parts[0]).__name__}")
+            a = data[key[name]]
+            if dtypes.get(name) == "bfloat16":
+                src = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+            else:
+                src = torch.from_numpy(a)
+            row = tuple(block(parts[0])[0])
+            if tuple(src.shape) != stk + row or src.dtype != parts[0].dtype:
+                raise ValueError(f"{name}: checkpoint holds "
+                                 f"{tuple(src.shape)} {src.dtype}, the tree "
+                                 f"{stk + row} {parts[0].dtype}")
+            rows = src.reshape((-1,) + row)
+            for i, t in enumerate(parts):
+                t.copy_(rows[i][block(t)[1]])
+            # nothing of this leaf outlives it: the next one is read alone
+            del a, src, rows
     return like
 
 
@@ -262,10 +279,15 @@ class AsyncCheckpointer:
         self._error: Optional[BaseException] = None
         self.stats = {"saves": 0, "copy_s": 0.0, "write_s": 0.0}
 
-    def save(self, step: int, tree, meta: Optional[dict] = None) -> None:
+    def save(self, step: int, tree, meta: Optional[dict] = None,
+             family: Optional[str] = None) -> None:
+        """Copy ``tree`` to the host and start its write.  ``family`` names
+        the layout of a tree whose parameters are dicts keyed by
+        ``named_parameters`` names (a sharded run's gathered state), where
+        no model in it says."""
         self.wait()
         t0 = time.perf_counter()
-        host = _host_leaves(tree)
+        host = _host_leaves(tree, family)
         self.stats["copy_s"] += time.perf_counter() - t0
         self.stats["saves"] += 1
         self._thread = threading.Thread(target=self._run,

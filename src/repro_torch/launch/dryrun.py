@@ -32,13 +32,14 @@ argument divided by the product of the sizes of its spec's axes
 token and the position).
 
 * ``ok`` — the port has the sharded step: rank 0's step ran under the
-  counter.  Today that is ``train_4k`` of the dense and vlm families
+  counter.  Today that is ``train_4k`` of every family
   (``training/sharding.py``, AdamW, remat, 4 microbatches, as the
   reference).  ``bytes_per_device`` is the step's peak of live bytes,
   ``init_bytes`` the peak of the launcher's init
   (``training/sharding.py::init_sharded``: the rank's blocks and one
   whole leaf).
-* ``partial`` — no sharded step in the port yet: the exact
+* ``partial`` — no sharded step in the port yet (the prefill and decode
+  cells): the exact
   ``argument_bytes``, and ``flops_global`` / ``bytes_global`` of the whole
   step run unsharded on ``meta`` at the cell's global batch; ``flops``,
   ``temp_bytes`` and ``bytes_per_device`` are null, and ``reason`` names
@@ -75,7 +76,6 @@ RULES = {"fsdp": "data", "tp": "model", "ep": "model"}
 MICROBATCHES = 4
 
 _SERVING_ITEM = "Sharded serving steps"
-_FAMILIES_ITEM = "Sharding moe, hybrid, ssm and encdec"
 
 
 @contextlib.contextmanager
@@ -198,8 +198,7 @@ def lower_cell(cfg: ArchConfig, shape: ShapeSpec, mesh,
              if shape.kind == "decode" else None)
     rec: Dict[str, Any] = {
         "argument_bytes": argument_bytes(cfg, shape, mesh, model, cache)}
-    sharded = shape.kind == "train" and cfg.family in sharding.FAMILIES
-    if sharded:
+    if shape.kind == "train":
         # the launcher's init (leaf by leaf into the blocks), its peak
         # counted on a whole meta model made outside the counter
         whole, init = _model(cfg, "meta"), CostMode()
@@ -232,17 +231,11 @@ def lower_cell(cfg: ArchConfig, shape: ShapeSpec, mesh,
             state_bytes=tree_bytes((model, state.mu, state.nu)))
         _counted(mode, rec)
         return rec
-    # no sharded step: the whole step, unsharded, at the global batch
+    # no sharded serving step: the whole step, unsharded, at the global
+    # batch
     mode = CostMode()
     with mode:
-        if shape.kind == "train":
-            opt = AdamW()
-            state = opt.init(model)
-            batch = _meta_batch(cfg, shape)
-            mode.track(model, state, batch)
-            api.make_train_step(cfg, opt, microbatches=microbatches)(
-                model, state, batch)
-        elif shape.kind == "prefill":
+        if shape.kind == "prefill":
             batch = _meta_batch(cfg, shape)
             mode.track(model, batch)
             api.make_prefill_step(cfg)(model, batch)
@@ -251,14 +244,13 @@ def lower_cell(cfg: ArchConfig, shape: ShapeSpec, mesh,
                                 device="meta")
             mode.track(model, cache, token)
             api.make_decode_step(cfg)(model, cache, token, shape.seq_len - 1)
-    item = _SERVING_ITEM if shape.kind != "train" else _FAMILIES_ITEM
     rec.update(
         flops=None, bytes_accessed=None, output_bytes=None, temp_bytes=None,
         alias_bytes=None, bytes_per_device=None,
         flops_global=mode.costs.flops, bytes_global=mode.costs.hbm_bytes,
         reason=(f"no sharded {shape.kind} step in the port: ROADMAP queue 1, "
-                f"\"{item}\"; argument_bytes is a rank's, the counts are "
-                "the whole step's, unsharded"))
+                f"\"{_SERVING_ITEM}\"; argument_bytes is a rank's, the "
+                "counts are the whole step's, unsharded"))
     _counted(mode, rec)
     return rec
 

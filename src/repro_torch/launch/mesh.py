@@ -17,8 +17,9 @@ cols)``.  The reference's mesh axes become process groups:
   (:meth:`NMFMesh.row_block`); with one pod it is ``"data"``.
 
 Every reduction goes through :meth:`NMFMesh.all_reduce`, and the
-expert-parallel exchange through :meth:`NMFMesh.all_to_all`; both count
-their calls and bytes (:func:`collective_counts`) and are the identity over
+expert-parallel exchange through :meth:`NMFMesh.all_to_all`, whose
+backward is the same exchange; both count their calls and bytes
+(:func:`collective_counts`), backward included, and are the identity over
 an axis of one rank.  A 1x1 mesh with no process group initialized has no
 groups at all and runs anywhere, the reference's "1x1 runs anywhere": the
 same code, no collective.  gloo takes no collective on CUDA tensors but
@@ -208,7 +209,9 @@ class NMFMesh:
         along dim 0 (``n`` the ranks along ``axis``), part ``g`` sent to the
         g-th of them, and the parts received concatenated along dim 0 in
         the senders' order.  Returns a new tensor; over an axis of one rank
-        it is ``x`` itself.
+        it is ``x`` itself.  Under autograd the gradient goes back through
+        the same exchange (a permutation that is its own inverse, so its
+        own transpose), counted like the forward's.
 
         Under ``nccl`` it is ``all_to_all_single`` on the device.  gloo
         takes no ``all_to_all`` on CUDA tensors, so under ``gloo`` a CUDA
@@ -221,14 +224,8 @@ class NMFMesh:
             raise ValueError(f"all_to_all over {axis!r} splits dim 0 into "
                              f"{n} parts; it has {x.shape[0]} rows")
         group = self._group(_axes(axis))
-        y = x.detach().contiguous()
-        staged = y.is_cuda and dist.get_backend(group) == "gloo"
-        src = y.cpu() if staged else y
-        out = torch.empty_like(src)
-        dist.all_to_all_single(out, src, group=group)
-        _ALL_TO_ALL["calls"] += 1
-        _ALL_TO_ALL["bytes"] += y.numel() * y.element_size()
-        return out.to(x.device) if staged else out
+        staged = x.is_cuda and dist.get_backend(group) == "gloo"
+        return _AllToAll.apply(x, group, staged)
 
     def barrier(self) -> None:
         """Wait for every rank (an ``all_reduce`` of one int, on the
@@ -272,6 +269,31 @@ class NMFMesh:
         out[(slice(None),) * (dim % x.dim()) + (self.block(total, axis),)] = x
         # summed in place: the whole tensor is allocated once
         return self._reduce_(out, axis)
+
+
+def _exchange(x: torch.Tensor, group, staged: bool) -> torch.Tensor:
+    """One tiled exchange of ``x`` over ``group``, through the host when
+    ``staged``; counted."""
+    y = x.detach().contiguous()
+    src = y.cpu() if staged else y
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    _ALL_TO_ALL["calls"] += 1
+    _ALL_TO_ALL["bytes"] += y.numel() * y.element_size()
+    return out.to(x.device) if staged else out
+
+
+class _AllToAll(torch.autograd.Function):
+    """``NMFMesh.all_to_all`` forward and backward (the same exchange)."""
+
+    @staticmethod
+    def forward(ctx, x, group, staged):
+        ctx.group, ctx.staged = group, staged
+        return _exchange(x, group, staged)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group, ctx.staged), None, None
 
 
 def _check_shape(rows: int, cols: int, pods: int = 1) -> Tuple[int, int, int]:

@@ -17,9 +17,10 @@ Runs on the card unless ``--device cpu`` is given.  Fault tolerance:
   embedding's backward otherwise adds with atomics on the card), so a
   resumed run ends bitwise where an uninterrupted one does.
 
-With ``--data D --model M`` above 1x1 the parameters are sharded over a
-``D x M`` grid (``training/sharding.py``: the reference's ``param_pspecs``
-as FSDP over ``"data"`` and tensor parallelism over ``"model"``), one
+With ``--data D --model M`` above 1x1 the parameters of any family are
+sharded over a ``D x M`` grid (``training/sharding.py``: the reference's
+``param_pspecs`` as FSDP over ``"data"``, tensor parallelism over
+``"model"`` and a moe's experts over ``"model"``), one
 process a rank under ``torch.distributed.run``, the transport named by
 ``--dist-backend`` (``nccl``, one card a rank; ``gloo``, which also lets
 several ranks share one card, or runs on the CPU):
@@ -32,12 +33,11 @@ Each rank draws the model leaf by leaf and keeps its blocks
 (``sharding.init_sharded``: bitwise the blocks of the whole model's draw),
 and every rank draws the same batch and takes its block; only rank 0
 prints.
-A world size other than ``D x M`` is refused, and so is a family whose
-layers are not sharded yet (moe, hybrid, ssm, encdec).  Checkpoints hold
-whole leaves under a 1x1 run's names (gathered one leaf at a time, kept
-and written by rank 0), and a resume keeps each rank's block: any grid
-shape, 1x1 included, resumes any other (the reference's elastic
-restart).
+A world size other than ``D x M`` is refused.  Checkpoints hold whole
+leaves under a 1x1 run's names in the family's layout (gathered one leaf
+at a time, kept and written by rank 0), and a resume reads one leaf at a
+time and keeps each rank's block: any grid shape, 1x1 included, resumes
+any other (the reference's elastic restart).
 """
 from __future__ import annotations
 
@@ -104,11 +104,6 @@ def main(argv=None):
     if args.data < 1 or args.model < 1:
         ap.error(f"--data {args.data} --model {args.model}: both must be "
                  "at least 1")
-    if grid > 1 and cfg.family not in sharding.FAMILIES:
-        ap.error(f"--data {args.data} --model {args.model}: sharding the "
-                 f"{cfg.family!r} family over the grid is not ported "
-                 "(ROADMAP queue 1, the item \"sharding moe, hybrid, ssm "
-                 "and encdec\"); run it with --data 1 --model 1")
     if world != grid:
         ap.error(f"--data {args.data} --model {args.model} needs {grid} "
                  f"ranks, have {world}: start them with python -m "
@@ -178,11 +173,11 @@ def main(argv=None):
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
             tree = state()
             if ckpt:
-                ckpt.save(step + 1, tree)
+                ckpt.save(step + 1, tree, family=cfg.family)
     if args.ckpt_dir:
         tree = state()
         if ckpt:
-            ckpt.save(args.steps, tree)
+            ckpt.save(args.steps, tree, family=cfg.family)
             ckpt.wait()
             st = ckpt.stats
             print(f"checkpoints: {st['saves']} saves, "

@@ -48,7 +48,8 @@ if TYPE_CHECKING:  # repro_torch.configs imports this package
 
 __all__ = ["FAMILY", "TensorSpec", "module_for", "input_specs", "make_batch",
            "make_loss_fn", "make_train_step", "make_prefill_step",
-           "make_decode_step", "init_params", "init_decode_cache",
+           "make_decode_step", "init_params", "init_leaves",
+           "init_decode_cache",
            "param_pspecs", "batch_axes_for", "batch_pspecs", "cache_pspecs"]
 
 FAMILY = {
@@ -242,6 +243,15 @@ def init_params(cfg: ArchConfig, seed: Union[int, torch.Generator] = 0,
         raise ValueError(f"generator on {gen.device}, parameters asked for "
                          f"on {dev}")
     return module_for(cfg).init_params(gen, cfg, dtype)
+
+
+def init_leaves(cfg: ArchConfig, generator: Optional[torch.Generator],
+                dtype=torch.float32):
+    """The family's one draw sequence: every parameter of the model as
+    ``(its named_parameters name, value)``, drawn one at a time from
+    ``generator`` on its device (``meta`` for None), the sequence the
+    family's ``init_params`` fills a whole model from."""
+    return module_for(cfg).init_leaves(generator, cfg, dtype)
 
 
 def init_decode_cache(cfg: ArchConfig, shape: ShapeSpec,

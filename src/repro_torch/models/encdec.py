@@ -31,7 +31,7 @@ decode step writes row ``pos`` of the self-attention cache in place.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -41,11 +41,12 @@ from repro_torch.models.common import (
     ArchConfig,
     attention,
     attention_decode,
+    attention_leaves,
     chunked_lm_loss,
     dense_init,
-    init_attention,
-    init_mlp,
+    draw_device,
     mlp,
+    mlp_leaves,
     rmsnorm,
 )
 from repro_torch.models.transformer import (
@@ -54,11 +55,12 @@ from repro_torch.models.transformer import (
     Layer,
     _remat_layer,
     cached_cast,
-    init_layer,
+    fill,
     layer_fwd,
+    layer_leaves,
 )
 
-__all__ = ["DecLayer", "EncDec", "init_params", "encode", "decode_train",
+__all__ = ["DecLayer", "EncDec", "init_leaves", "init_params", "encode", "decode_train",
            "seq2seq_loss", "init_cache", "prefill", "decode_step"]
 
 Weights = Dict[str, torch.Tensor]
@@ -117,23 +119,41 @@ class EncDec(nn.Module):
             self.unembed.to(dtype)))
 
 
+def init_leaves(generator: Optional[torch.Generator], cfg: ArchConfig,
+                dtype=torch.float32) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Every parameter of an :class:`EncDec` as ``(its named_parameters
+    name, value)``, made one at a time in draw order: embed, encoder layers
+    (attention, MLP, norms), decoder layers (self-attention,
+    cross-attention, MLP, norms), unembed, then ``norm_enc`` and
+    ``norm_dec``; norms are ones and draw nothing (the model's one draw
+    sequence, as ``transformer.init_leaves``).  A None ``generator`` gives
+    the leaves on ``meta``."""
+    dev = draw_device(generator)
+    yield "embed", dense_init(generator, (cfg.vocab, cfg.d_model), dtype,
+                              scale=1.0)
+    for i in range(cfg.n_enc_layers or cfg.n_layers):
+        yield from layer_leaves(generator, cfg, dtype, f"enc_layers.{i}.")
+    for i in range(cfg.n_layers):
+        prefix = f"dec_layers.{i}."
+        yield from attention_leaves(generator, cfg, dtype,
+                                    prefix + "self_attn.")
+        yield from attention_leaves(generator, cfg, dtype,
+                                    prefix + "cross_attn.")
+        yield from mlp_leaves(generator, cfg, dtype, prefix + "mlp.")
+        for name in ("norm_self", "norm_cross", "norm_mlp"):
+            yield prefix + name, torch.ones(cfg.d_model, dtype=dtype,
+                                            device=dev)
+    yield "unembed", dense_init(generator, (cfg.d_model, cfg.vocab), dtype)
+    for name in ("norm_enc", "norm_dec"):
+        yield name, torch.ones(cfg.d_model, dtype=dtype, device=dev)
+
+
 def init_params(generator: torch.Generator, cfg: ArchConfig,
                 dtype=torch.float32) -> EncDec:
-    """An :class:`EncDec` on the generator's device, drawn in the order
-    embed, encoder layers (attention, MLP), decoder layers (self-attention,
-    cross-attention, MLP), unembed; norms are ones."""
+    """An :class:`EncDec` on the generator's device, filled from
+    :func:`init_leaves`."""
     model = EncDec(cfg, dtype, generator.device)
-    with torch.no_grad():
-        model.embed.copy_(dense_init(generator, (cfg.vocab, cfg.d_model),
-                                     dtype, scale=1.0))
-        for layer in model.enc_layers:
-            init_layer(generator, cfg, dtype, layer)
-        for layer in model.dec_layers:
-            layer.self_attn.fill(init_attention(generator, cfg, dtype))
-            layer.cross_attn.fill(init_attention(generator, cfg, dtype))
-            layer.mlp.fill(init_mlp(generator, cfg, dtype))
-        model.unembed.copy_(dense_init(generator, (cfg.d_model, cfg.vocab),
-                                       dtype))
+    fill(model, init_leaves(generator, cfg, dtype))
     return model
 
 

@@ -30,7 +30,7 @@ stacks them; a decode step writes them in place.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -41,26 +41,27 @@ from repro_torch.models.common import (
     attention_decode,
     chunked_lm_loss,
     dense_init,
-    init_attention,
-    init_mlp,
+    draw_device,
     mlp,
     rmsnorm,
 )
 from repro_torch.models.mamba import (
     MambaBlock,
-    init_mamba_block,
     init_mamba_state,
     mamba_block,
     mamba_decode,
+    mamba_leaves,
 )
 from repro_torch.models.transformer import (
     Layer,
     _remat_layer,
     cached_cast,
+    fill,
     layer_fwd,
+    layer_leaves,
 )
 
-__all__ = ["Hybrid", "init_params", "forward", "lm_loss", "init_cache",
+__all__ = ["Hybrid", "init_leaves", "init_params", "forward", "lm_loss", "init_cache",
            "decode_step"]
 
 Weights = Dict[str, torch.Tensor]
@@ -109,24 +110,35 @@ class Hybrid(nn.Module):
                        compute_dtype=compute_dtype, unembed=unembed)
 
 
+def init_leaves(generator: Optional[torch.Generator], cfg: ArchConfig,
+                dtype=torch.float32) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Every parameter of a :class:`Hybrid` as ``(its named_parameters
+    name, value)``, made one at a time in draw order: the shared block
+    (attention, MLP, its norms), embed, the groups' blocks, unembed, the
+    tail's blocks, then ``norm_f`` (the reference's keys; the model's one
+    draw sequence, as ``transformer.init_leaves``).  A None ``generator``
+    gives the leaves on ``meta``."""
+    g, e, tail = _split(cfg)
+    yield from layer_leaves(generator, cfg, dtype, "shared.")
+    yield "embed", dense_init(generator, (cfg.vocab, cfg.d_model), dtype,
+                              scale=1.0)
+    for gi in range(g):
+        for ei in range(e):
+            yield from mamba_leaves(generator, cfg, dtype,
+                                    f"groups.{gi}.{ei}.")
+    yield "unembed", dense_init(generator, (cfg.d_model, cfg.vocab), dtype)
+    for ti in range(tail):
+        yield from mamba_leaves(generator, cfg, dtype, f"tail.{ti}.")
+    yield "norm_f", torch.ones(cfg.d_model, dtype=dtype,
+                               device=draw_device(generator))
+
+
 def init_params(generator: torch.Generator, cfg: ArchConfig,
                 dtype=torch.float32) -> Hybrid:
-    """A :class:`Hybrid` on the generator's device, drawn in the order
-    shared attention, shared MLP, embed, groups, unembed, tail (the
-    reference's keys)."""
+    """A :class:`Hybrid` on the generator's device, filled from
+    :func:`init_leaves`."""
     model = Hybrid(cfg, dtype, generator.device)
-    with torch.no_grad():
-        model.shared.attn.fill(init_attention(generator, cfg, dtype))
-        model.shared.mlp.fill(init_mlp(generator, cfg, dtype))
-        model.embed.copy_(dense_init(generator, (cfg.vocab, cfg.d_model),
-                                     dtype, scale=1.0))
-        for grp in model.groups:
-            for blk in grp:
-                blk.fill(init_mamba_block(generator, cfg, dtype))
-        model.unembed.copy_(dense_init(generator, (cfg.d_model, cfg.vocab),
-                                       dtype))
-        for blk in model.tail:
-            blk.fill(init_mamba_block(generator, cfg, dtype))
+    fill(model, init_leaves(generator, cfg, dtype))
     return model
 
 

@@ -20,18 +20,23 @@ the block runs.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.scan import scan
-from repro_torch.models.common import ArchConfig, dense_init, rmsnorm
+from repro_torch.models.common import (
+    ArchConfig,
+    dense_init,
+    draw_device,
+    rmsnorm,
+)
 from repro_torch.models.transformer import _Leaves
 
 __all__ = ["CONV_K", "d_inner", "n_ssm_heads", "mamba_shapes",
-           "init_mamba_block", "MambaBlock", "softplus", "ssd_chunked",
-           "causal_conv", "mamba_block", "init_mamba_state", "mamba_decode"]
+           "mamba_leaves", "init_mamba_block", "MambaBlock", "softplus", "ssd_chunked",
+           "causal_conv", "mamba_mix", "mamba_block", "init_mamba_state", "mamba_decode"]
 
 CONV_K = 4  # depthwise causal conv width
 
@@ -56,20 +61,29 @@ def mamba_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
             "gate_norm": (di,), "out_proj": (di, cfg.d_model)}
 
 
+def mamba_leaves(generator: Optional[torch.Generator], cfg: ArchConfig,
+                 dtype=torch.float32, prefix: str = ""
+                 ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """``(prefix + name, value)`` of one block's parameters, made one at a
+    time in draw order: the projections from :func:`dense_init`
+    (``conv_w`` at scale 0.5), then ``A_log`` and ``dt_bias`` zero, ``D``
+    and the norms one (no draw).  A None ``generator`` gives them on
+    ``meta``."""
+    shapes = mamba_shapes(cfg)
+    for name, scale in (("in_proj", None), ("conv_w", 0.5),
+                        ("out_proj", None)):
+        yield prefix + name, dense_init(generator, shapes[name], dtype,
+                                        scale=scale)
+    for name, value in (("A_log", 0.0), ("D", 1.0), ("dt_bias", 0.0),
+                        ("norm_in", 1.0), ("gate_norm", 1.0)):
+        yield prefix + name, torch.full(shapes[name], value, dtype=dtype,
+                                        device=draw_device(generator))
+
+
 def init_mamba_block(generator: torch.Generator, cfg: ArchConfig,
                      dtype=torch.float32) -> Weights:
-    """The projections from :func:`dense_init` (``conv_w`` at scale 0.5),
-    ``A_log`` and ``dt_bias`` zero, ``D`` and the norms one."""
-    shapes = mamba_shapes(cfg)
-    dev = generator.device
-    out = {"in_proj": dense_init(generator, shapes["in_proj"], dtype),
-           "conv_w": dense_init(generator, shapes["conv_w"], dtype,
-                                scale=0.5),
-           "out_proj": dense_init(generator, shapes["out_proj"], dtype)}
-    for name, fill in (("A_log", 0.0), ("D", 1.0), ("dt_bias", 0.0),
-                       ("norm_in", 1.0), ("gate_norm", 1.0)):
-        out[name] = torch.full(shapes[name], fill, dtype=dtype, device=dev)
-    return out
+    """:func:`mamba_leaves` as a dict."""
+    return dict(mamba_leaves(generator, cfg, dtype))
 
 
 class MambaBlock(_Leaves):
@@ -152,23 +166,36 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return F.silu(out)
 
 
-def mamba_block(p: Weights, x: torch.Tensor, cfg: ArchConfig,
-                chunk: int = 128) -> torch.Tensor:
-    """x: (B, S, d_model) -> (B, S, d_model), residual included."""
-    di, n, h = d_inner(cfg), cfg.ssm_state, n_ssm_heads(cfg)
-    bsz, s, _ = x.shape
-    xn = rmsnorm(x, p["norm_in"], cfg.norm_eps)
+def mamba_mix(p: Weights, xn: torch.Tensor, cfg: ArchConfig,
+              chunk: int = 128, norm=None) -> torch.Tensor:
+    """The block's mixer on the normed input xn (B, S, d_model): the SSM
+    heads of ``p`` (as many as ``A_log`` holds; ``in_proj`` / ``conv_w``
+    / ``gate_norm`` / ``out_proj`` hold their channels), projected back to
+    d_model, no residual.  ``norm(y, w)`` is the gated norm (``rmsnorm``
+    by default)."""
+    n, hp = cfg.ssm_state, cfg.ssm_head_dim
+    h = p["A_log"].shape[0]
+    di = h * hp
+    bsz, s, _ = xn.shape
     proj = xn @ p["in_proj"]
     z, xbc, dt = torch.split(proj, [di, di + 2 * n, h], dim=-1)
     xbc = causal_conv(xbc, p["conv_w"])
     xin, b, c = torch.split(xbc, [di, n, n], dim=-1)
-    xin = xin.reshape(bsz, s, h, cfg.ssm_head_dim)
+    xin = xin.reshape(bsz, s, h, hp)
     dt = dt + p["dt_bias"]
     y = ssd_chunked(xin, dt, p["A_log"], b, c, chunk)
     y = y + p["D"][None, None, :, None] * xin
-    y = y.reshape(bsz, s, di)
-    y = rmsnorm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    return x + y @ p["out_proj"]
+    y = y.reshape(bsz, s, di) * F.silu(z)
+    y = (rmsnorm(y, p["gate_norm"], cfg.norm_eps) if norm is None
+         else norm(y, p["gate_norm"]))
+    return y @ p["out_proj"]
+
+
+def mamba_block(p: Weights, x: torch.Tensor, cfg: ArchConfig,
+                chunk: int = 128) -> torch.Tensor:
+    """x: (B, S, d_model) -> (B, S, d_model), residual included."""
+    xn = rmsnorm(x, p["norm_in"], cfg.norm_eps)
+    return x + mamba_mix(p, xn, cfg, chunk)
 
 
 # ---------------------------------------------------------------------------

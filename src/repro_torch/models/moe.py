@@ -48,7 +48,7 @@ as the dense model's are.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -59,22 +59,25 @@ from repro_torch.models.common import (
     ArchConfig,
     attention,
     attention_decode,
+    attention_leaves,
     chunked_lm_loss,
     dense_init,
-    init_attention,
+    draw_device,
     rmsnorm,
 )
 from repro_torch.models.transformer import (
     Attention,
     _Leaves,
     cached_cast,
+    fill,
     init_cache,
 )
 
 __all__ = ["moe_shapes", "init_moe_ffn", "router_topk", "expert_slots",
            "moe_ffn", "ep_applies", "ep_block", "moe_ffn_ep",
            "moe_ffn_ep_plain", "MoEFFN", "MoELayer", "MoETransformer",
-           "init_layer", "init_params", "layer_fwd", "forward", "lm_loss",
+           "moe_leaves", "layer_leaves", "init_leaves", "init_layer",
+           "init_params", "layer_fwd", "forward", "lm_loss",
            "init_cache", "decode_step"]
 
 Weights = Dict[str, torch.Tensor]
@@ -95,8 +98,7 @@ def init_moe_ffn(generator: torch.Generator, cfg: ArchConfig,
                  dtype=torch.float32) -> Weights:
     """Router and stacked expert weights from :func:`dense_init` (fan-in
     scaled, as the reference's)."""
-    return {name: dense_init(generator, shape, dtype)
-            for name, shape in moe_shapes(cfg).items()}
+    return dict(moe_leaves(generator, cfg, dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -217,7 +219,7 @@ def ep_block(mesh, b: int, s: int) -> Tuple[slice, slice]:
     return mesh.block(b, ("pod", "data")), mesh.block(s, ("model",))
 
 
-def _ep_dispatch(p: Weights, xl: torch.Tensor, cfg: ArchConfig,
+def ep_dispatch(p: Weights, xl: torch.Tensor, cfg: ArchConfig,
                  e_shards: int, capacity_factor: float):
     """One rank's tokens (Bl, Sl, d) routed and dispatched at the body's
     capacity (``max(ceil(Bl * Sl * k / E * capacity_factor), 4)``): the
@@ -235,24 +237,29 @@ def _ep_dispatch(p: Weights, xl: torch.Tensor, cfg: ArchConfig,
                                                           gates, cap)
 
 
-def _ep_experts(p: Weights, recv: torch.Tensor, cfg: ArchConfig, j: int,
-                e_shards: int, cap: int) -> torch.Tensor:
-    """Rank j's expert slab on what it received, (e_shards * E_loc * C, d)
-    in the senders' order: each of its E_loc experts runs the rows of every
-    sender, and the result goes back in the senders' order, (e_shards,
-    E_loc * C, d)."""
-    e_loc = cfg.n_experts // e_shards
+def expert_slab(p: Weights, j: int, e_shards: int) -> Weights:
+    """Rank j's ``E / e_shards`` experts of the stacked expert weights."""
+    e_loc = p["w_gate"].shape[0] // e_shards
+    return {n: p[n][j * e_loc:(j + 1) * e_loc]
+            for n in ("w_gate", "w_up", "w_down")}
+
+
+def ep_experts(slab: Weights, recv: torch.Tensor, e_shards: int,
+               cap: int) -> torch.Tensor:
+    """A rank's expert slab (:func:`expert_slab`) on what it received,
+    (e_shards * E_loc * C, d) in the senders' order: each of its E_loc
+    experts runs the rows of every sender, and the result goes back in the
+    senders' order, (e_shards, E_loc * C, d)."""
+    e_loc = slab["w_gate"].shape[0]
     d = recv.shape[-1]
     recv = recv.reshape(e_shards, e_loc, cap, d).transpose(0, 1).reshape(
         e_loc, e_shards * cap, d)
-    slab = {n: p[n][j * e_loc:(j + 1) * e_loc]
-            for n in ("w_gate", "w_up", "w_down")}
     out = _experts(recv, slab)
     return out.reshape(e_loc, e_shards, cap, d).transpose(0, 1).reshape(
         e_shards, e_loc * cap, d)
 
 
-def _ep_combine(back: torch.Tensor, shape, route, cfg: ArchConfig
+def ep_combine(back: torch.Tensor, shape, route, cfg: ArchConfig
                 ) -> torch.Tensor:
     slot, keep, gates, cap = route
     d = back.shape[-1]
@@ -274,7 +281,7 @@ def moe_ffn_ep(p: Weights, x3d: torch.Tensor, cfg: ArchConfig, mesh=None,
     experts.  Otherwise (no grid, or the reference's shape rules) all B * S
     tokens run through :func:`moe_ffn` as one group, and the whole (B, S,
     d) is returned, on every rank: the reference's choice, made from the
-    shapes alone.  The exchange carries no gradient."""
+    shapes alone.  The exchange's gradient goes back through it."""
     b, s, d = x3d.shape
     dp = 1 if mesh is None else mesh.axis_size(("pod", "data"))
     e_shards = 1 if mesh is None else mesh.axis_size(("model",))
@@ -283,12 +290,12 @@ def moe_ffn_ep(p: Weights, x3d: torch.Tensor, cfg: ArchConfig, mesh=None,
                        capacity_factor)[0].reshape(b, s, d)
     bsl, ssl = ep_block(mesh, b, s)
     xl = x3d[bsl, ssl]
-    buf, route = _ep_dispatch(p, xl, cfg, e_shards, capacity_factor)
+    buf, route = ep_dispatch(p, xl, cfg, e_shards, capacity_factor)
     recv = mesh.all_to_all(buf, "model")
-    out = _ep_experts(p, recv, cfg, mesh.index(("model",)), e_shards,
-                      route[3])
+    out = ep_experts(expert_slab(p, mesh.index(("model",)), e_shards), recv,
+                     e_shards, route[3])
     back = mesh.all_to_all(out, "model")
-    return _ep_combine(back, xl.shape, route, cfg)
+    return ep_combine(back, xl.shape, route, cfg)
 
 
 def moe_ffn_ep_plain(p: Weights, x3d: torch.Tensor, cfg: ArchConfig,
@@ -308,16 +315,17 @@ def moe_ffn_ep_plain(p: Weights, x3d: torch.Tensor, cfg: ArchConfig,
     for r in range(dp):
         blocks = [x3d[r * bl:(r + 1) * bl, j * sl:(j + 1) * sl]
                   for j in range(model)]
-        sent = [_ep_dispatch(p, xl, cfg, model, capacity_factor)
+        sent = [ep_dispatch(p, xl, cfg, model, capacity_factor)
                 for xl in blocks]
         cap = sent[0][1][3]
         bufs = torch.stack([buf for buf, _ in sent])     # (src, dst, ...)
         outs = torch.stack([
-            _ep_experts(p, bufs[:, j].reshape(-1, d), cfg, j, model, cap)
+            ep_experts(expert_slab(p, j, model), bufs[:, j].reshape(-1, d),
+                       model, cap)
             for j in range(model)])                      # (expert rank, src)
         for j, (xl, (_, route)) in enumerate(zip(blocks, sent)):
             back = outs[:, j].reshape(-1, d)
-            y[r * bl:(r + 1) * bl, j * sl:(j + 1) * sl] = _ep_combine(
+            y[r * bl:(r + 1) * bl, j * sl:(j + 1) * sl] = ep_combine(
                 back, xl.shape, route, cfg)
     return y
 
@@ -381,30 +389,61 @@ class MoETransformer(nn.Module):
                        compute_dtype=compute_dtype, unembed=unembed)
 
 
+def moe_leaves(generator: Optional[torch.Generator], cfg: ArchConfig,
+               dtype=torch.float32, prefix: str = ""
+               ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """``(prefix + name, value)`` of one MoE block's parameters from
+    :func:`dense_init`, drawn one at a time (router, then the stacked
+    experts)."""
+    for name, shape in moe_shapes(cfg).items():
+        yield prefix + name, dense_init(generator, shape, dtype)
+
+
+def layer_leaves(generator: Optional[torch.Generator], cfg: ArchConfig,
+                 dtype=torch.float32, prefix: str = ""
+                 ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """One layer's parameters one at a time in draw order: attention, the
+    MoE block, then the norms (ones, which draw nothing)."""
+    yield from attention_leaves(generator, cfg, dtype, prefix + "attn.")
+    yield from moe_leaves(generator, cfg, dtype, prefix + "moe.")
+    for name in ("norm_attn", "norm_mlp"):
+        yield prefix + name, torch.ones(cfg.d_model, dtype=dtype,
+                                        device=draw_device(generator))
+
+
+def init_leaves(generator: Optional[torch.Generator], cfg: ArchConfig,
+                dtype=torch.float32) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Every parameter of a :class:`MoETransformer` as ``(its
+    named_parameters name, value)``, made one at a time in draw order:
+    embed, layers 0..L-1, unembed, then ``norm_f`` (the model's one draw
+    sequence, as ``transformer.init_leaves``); a None ``generator`` gives
+    the leaves on ``meta``."""
+    yield "embed", dense_init(generator, (cfg.vocab, cfg.d_model), dtype,
+                              scale=1.0)
+    for i in range(cfg.n_layers):
+        yield from layer_leaves(generator, cfg, dtype, f"layers.{i}.")
+    yield "unembed", dense_init(generator, (cfg.d_model, cfg.vocab), dtype)
+    yield "norm_f", torch.ones(cfg.d_model, dtype=dtype,
+                               device=draw_device(generator))
+
+
 def init_layer(generator: torch.Generator, cfg: ArchConfig,
                dtype=torch.float32, layer: Optional[MoELayer] = None
                ) -> MoELayer:
-    """Draw one layer's weights (attention, then the MoE block; norms are
-    ones) into ``layer``, or into a new :class:`MoELayer`."""
+    """Draw one layer's weights (:func:`layer_leaves`) into ``layer``, or
+    into a new :class:`MoELayer`."""
     if layer is None:
         layer = MoELayer(cfg, dtype, generator.device)
-    layer.attn.fill(init_attention(generator, cfg, dtype))
-    layer.moe.fill(init_moe_ffn(generator, cfg, dtype))
+    fill(layer, layer_leaves(generator, cfg, dtype))
     return layer
 
 
 def init_params(generator: torch.Generator, cfg: ArchConfig,
                 dtype=torch.float32) -> MoETransformer:
-    """A :class:`MoETransformer` on the generator's device, drawn in the
-    order embed, layers 0..L-1, unembed."""
+    """A :class:`MoETransformer` on the generator's device, filled from
+    :func:`init_leaves`."""
     model = MoETransformer(cfg, dtype, generator.device)
-    with torch.no_grad():
-        model.embed.copy_(dense_init(generator, (cfg.vocab, cfg.d_model),
-                                     dtype, scale=1.0))
-        for layer in model.layers:
-            init_layer(generator, cfg, dtype, layer)
-        model.unembed.copy_(dense_init(generator, (cfg.d_model, cfg.vocab),
-                                       dtype))
+    fill(model, init_leaves(generator, cfg, dtype))
     return model
 
 

@@ -49,7 +49,8 @@ from repro_torch.models.common import (
 )
 
 __all__ = ["Attention", "MLP", "Layer", "Transformer", "layer_leaves",
-           "init_leaves", "init_layer", "init_params", "layer_fwd", "forward",
+           "init_leaves", "fill", "init_layer", "init_params", "layer_fwd",
+           "forward",
            "unembed_matrix", "lm_loss", "init_cache", "decode_step"]
 
 Weights = Dict[str, torch.Tensor]
@@ -185,7 +186,9 @@ def init_leaves(generator: Optional[torch.Generator], cfg: ArchConfig,
                                device=draw_device(generator))
 
 
-def _fill(module: nn.Module, leaves) -> None:
+def fill(module: nn.Module, leaves) -> None:
+    """Copy each ``(name, value)`` of ``leaves`` into the parameter of
+    ``module`` of that name."""
     with torch.no_grad():
         for name, value in leaves:
             module.get_parameter(name).copy_(value)
@@ -197,7 +200,7 @@ def init_layer(generator: torch.Generator, cfg: ArchConfig,
     into a new :class:`Layer` on the generator's device."""
     if layer is None:
         layer = Layer(cfg, dtype, generator.device)
-    _fill(layer, layer_leaves(generator, cfg, dtype))
+    fill(layer, layer_leaves(generator, cfg, dtype))
     return layer
 
 
@@ -206,7 +209,7 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
     """A :class:`Transformer` on the generator's device, filled from
     :func:`init_leaves`."""
     model = Transformer(cfg, dtype, generator.device)
-    _fill(model, init_leaves(generator, cfg, dtype))
+    fill(model, init_leaves(generator, cfg, dtype))
     return model
 
 

@@ -23,8 +23,9 @@ The reference's forward takes ``remat`` and ignores it; so does the port's.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,14 +36,17 @@ from repro_torch.models.common import (
     ArchConfig,
     chunked_lm_loss,
     dense_init,
+    draw_device,
     rmsnorm,
 )
-from repro_torch.models.transformer import _Leaves, cached_cast
+from repro_torch.models.transformer import _Leaves, cached_cast, fill
 
-__all__ = ["MLSTM_CHUNK", "mlstm_shapes", "init_mlstm", "mlstm_parallel",
-           "init_mlstm_state", "mlstm_decode", "slstm_shapes", "init_slstm",
-           "slstm_seq", "init_slstm_state", "MLSTMBlock", "SLSTMBlock",
-           "XLSTM", "init_params", "forward", "lm_loss", "init_state",
+__all__ = ["MLSTM_CHUNK", "mlstm_shapes", "mlstm_leaves", "init_mlstm",
+           "block_out", "mlstm_heads", "mlstm_parallel", "init_mlstm_state", "mlstm_decode",
+           "slstm_shapes", "slstm_leaves", "init_slstm", "slstm_heads",
+           "slstm_seq",
+           "init_slstm_state", "MLSTMBlock", "SLSTMBlock", "XLSTM",
+           "init_leaves", "init_params", "forward", "lm_loss", "init_state",
            "decode_step"]
 
 Weights = Dict[str, torch.Tensor]
@@ -62,20 +66,36 @@ def mlstm_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
             "b_i": (h,), "b_f": (h,), "out_norm": (up,), "w_down": (up, d)}
 
 
+def _leaves(generator: Optional[torch.Generator], shapes, drawn, constant,
+            dtype, prefix: str) -> Iterator[Tuple[str, torch.Tensor]]:
+    """``(prefix + name, value)``: ``drawn`` (name, scale) from
+    :func:`dense_init` in order, then ``constant`` (name, value) filled
+    (no draw); on ``meta`` for a None ``generator``."""
+    for name, scale in drawn:
+        yield prefix + name, dense_init(generator, shapes[name], dtype,
+                                        scale=scale)
+    for name, value in constant:
+        yield prefix + name, torch.full(shapes[name], value, dtype=dtype,
+                                        device=draw_device(generator))
+
+
+def mlstm_leaves(generator: Optional[torch.Generator], cfg: ArchConfig,
+                 dtype=torch.float32, prefix: str = ""
+                 ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """One mLSTM block's parameters one at a time in draw order:
+    projections from :func:`dense_init` (``w_if`` at scale 0.01), then the
+    norms one, ``b_i`` zero, ``b_f`` 3 (a forget gate near 1)."""
+    return _leaves(generator, mlstm_shapes(cfg),
+                   (("w_up", None), ("wq", None), ("wk", None),
+                    ("wv", None), ("w_if", 0.01), ("w_down", None)),
+                   (("norm", 1.0), ("b_i", 0.0), ("b_f", 3.0),
+                    ("out_norm", 1.0)), dtype, prefix)
+
+
 def init_mlstm(generator: torch.Generator, cfg: ArchConfig,
                dtype=torch.float32) -> Weights:
-    """Projections from :func:`dense_init` (``w_if`` at scale 0.01), the
-    norms one, ``b_i`` zero, ``b_f`` 3 (a forget gate near 1)."""
-    shapes = mlstm_shapes(cfg)
-    dev = generator.device
-    out = {name: dense_init(generator, shapes[name], dtype)
-           for name in ("w_up", "wq", "wk", "wv")}
-    out["w_if"] = dense_init(generator, shapes["w_if"], dtype, scale=0.01)
-    out["w_down"] = dense_init(generator, shapes["w_down"], dtype)
-    for name, fill in (("norm", 1.0), ("b_i", 0.0), ("b_f", 3.0),
-                       ("out_norm", 1.0)):
-        out[name] = torch.full(shapes[name], fill, dtype=dtype, device=dev)
-    return out
+    """:func:`mlstm_leaves` as a dict."""
+    return dict(mlstm_leaves(generator, cfg, dtype))
 
 
 def _mlstm_in(p: Weights, x: torch.Tensor, cfg: ArchConfig):
@@ -90,35 +110,46 @@ def _mlstm_in(p: Weights, x: torch.Tensor, cfg: ArchConfig):
     return xi, gate, i_log, f_log
 
 
+def block_out(y: torch.Tensor, out_norm: torch.Tensor, w_down: torch.Tensor,
+              norm, gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The tail of a block, no residual: ``norm(y, out_norm)``, times
+    SiLU(``gate``) where there is one (the mLSTM's), through ``w_down``."""
+    y = norm(y, out_norm)
+    if gate is not None:
+        y = y * F.silu(gate)
+    return y @ w_down
+
+
 def _mlstm_out(p: Weights, x: torch.Tensor, y: torch.Tensor,
                gate: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    y = rmsnorm(y, p["out_norm"], cfg.norm_eps) * F.silu(gate)
-    return x + y @ p["w_down"]
+    return x + block_out(y, p["out_norm"], p["w_down"], functools.partial(
+        rmsnorm, eps=cfg.norm_eps), gate)
 
 
-def mlstm_parallel(p: Weights, x: torch.Tensor, cfg: ArchConfig,
-                   chunk: int = MLSTM_CHUNK) -> torch.Tensor:
-    """The stabilized chunkwise form over x (B, S, d), residual
-    included."""
-    d, h = cfg.d_model, cfg.n_heads
-    up = 2 * d
-    hd = up // h
-    b, s, _ = x.shape
+def mlstm_heads(xi: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+                wv: torch.Tensor, i_log: torch.Tensor, f_log: torch.Tensor,
+                hd: int, chunk: int = MLSTM_CHUNK) -> torch.Tensor:
+    """The stabilized chunkwise recurrence of the heads that ``wq`` /
+    ``wk`` / ``wv`` (up, H * hd) project ``xi`` (B, S, up) onto, their gate
+    logits ``i_log`` / ``f_log`` (B, S, H) in f32: y (B, S, H * hd) in
+    xi's dtype.  Every head is independent (a rank of a grid runs its
+    own)."""
+    b, s, _ = xi.shape
+    h = wq.shape[1] // hd
     q = min(chunk, s)
     while s % q:
         q -= 1
-    xi, gate, i_log, f_log = _mlstm_in(p, x, cfg)
 
     def heads(w):
         return (xi @ w).reshape(b, s, h, hd).float()
 
-    qh, kh, vh = heads(p["wq"]), heads(p["wk"]), heads(p["wv"])
+    qh, kh, vh = heads(wq), heads(wk), heads(wv)
     kh = kh / math.sqrt(hd)
-    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xi.device))
     c_state = torch.zeros((b, h, hd, hd), dtype=torch.float32,
-                          device=x.device)
-    n_state = torch.zeros((b, h, hd), dtype=torch.float32, device=x.device)
-    m_state = torch.full((b, h), _NEG, dtype=torch.float32, device=x.device)
+                          device=xi.device)
+    n_state = torch.zeros((b, h, hd), dtype=torch.float32, device=xi.device)
+    m_state = torch.full((b, h), _NEG, dtype=torch.float32, device=xi.device)
 
     def step(carry, chunk):
         c_state, n_state, m_state = carry
@@ -157,7 +188,16 @@ def mlstm_parallel(p: Weights, x: torch.Tensor, cfg: ArchConfig,
     chunks = zip(*(torch.split(t, q, dim=1)
                    for t in (qh, kh, vh, i_log, f_log)))
     _, ys = scan(step, (c_state, n_state, m_state), chunks, dim=1)
-    y = ys.reshape(b, s, up).to(x.dtype)
+    return ys.reshape(b, s, h * hd).to(xi.dtype)
+
+
+def mlstm_parallel(p: Weights, x: torch.Tensor, cfg: ArchConfig,
+                   chunk: int = MLSTM_CHUNK) -> torch.Tensor:
+    """The stabilized chunkwise form over x (B, S, d), residual
+    included."""
+    hd = 2 * cfg.d_model // cfg.n_heads
+    xi, gate, i_log, f_log = _mlstm_in(p, x, cfg)
+    y = mlstm_heads(xi, p["wq"], p["wk"], p["wv"], i_log, f_log, hd, chunk)
     return _mlstm_out(p, x, y, gate, cfg)
 
 
@@ -212,20 +252,23 @@ def slstm_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
             "b": (4 * d,), "out_norm": (d,), "w_down": (d, d)}
 
 
+def slstm_leaves(generator: Optional[torch.Generator], cfg: ArchConfig,
+                 dtype=torch.float32, prefix: str = ""
+                 ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """One sLSTM block's parameters one at a time in draw order: ``w_in``
+    (the z, i, f, o pre-activations) from :func:`dense_init`, the
+    block-diagonal recurrence ``r`` at scale 0.1, ``w_down``; then the
+    norms one, ``b`` zero."""
+    return _leaves(generator, slstm_shapes(cfg),
+                   (("w_in", None), ("r", 0.1), ("w_down", None)),
+                   (("norm", 1.0), ("b", 0.0), ("out_norm", 1.0)), dtype,
+                   prefix)
+
+
 def init_slstm(generator: torch.Generator, cfg: ArchConfig,
                dtype=torch.float32) -> Weights:
-    """``w_in`` (the z, i, f, o pre-activations) and ``w_down`` from
-    :func:`dense_init`, the block-diagonal recurrence ``r`` at scale 0.1,
-    ``b`` zero, the norms one."""
-    shapes = slstm_shapes(cfg)
-    dev = generator.device
-    return {"w_in": dense_init(generator, shapes["w_in"], dtype),
-            "r": dense_init(generator, shapes["r"], dtype, scale=0.1),
-            "w_down": dense_init(generator, shapes["w_down"], dtype),
-            "norm": torch.ones(shapes["norm"], dtype=dtype, device=dev),
-            "b": torch.zeros(shapes["b"], dtype=dtype, device=dev),
-            "out_norm": torch.ones(shapes["out_norm"], dtype=dtype,
-                                   device=dev)}
+    """:func:`slstm_leaves` as a dict."""
+    return dict(slstm_leaves(generator, cfg, dtype))
 
 
 def init_slstm_state(cfg: ArchConfig, batch: int, device=None
@@ -243,19 +286,21 @@ def init_slstm_state(cfg: ArchConfig, batch: int, device=None
             "h": zeros()}
 
 
-def slstm_seq(p: Weights, x: torch.Tensor, cfg: ArchConfig,
-              state: Optional[Dict[str, torch.Tensor]] = None
-              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The sLSTM over x (B, S, d), one step a token, from ``state`` (a
-    fresh one if None); returns ``(y, the state after the last token)``."""
-    d, h = cfg.d_model, cfg.n_heads
-    hd = d // h
-    b, s, _ = x.shape
-    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
-    pre = (xn @ p["w_in"] + p["b"]).float()                  # (B,S,4d)
+def slstm_heads(pre: torch.Tensor, r: torch.Tensor,
+                state: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The sLSTM recurrence of the heads of ``r`` (H, hd, 4 hd) over their
+    pre-activations ``pre`` (B, S, H * 4 hd) in f32, one step a token, from
+    ``state`` (a fresh one if None): ``(y (B, S, H * hd) in f32, the state
+    after the last token)``.  Every head is independent (a rank of a grid
+    runs its own)."""
+    b = pre.shape[0]
+    h, hd = r.shape[0], r.shape[1]
     if state is None:
-        state = init_slstm_state(cfg, b, device=x.device)
-    r = p["r"].float()                                       # (H,hd,4hd)
+        state = {"c": pre.new_zeros((b, h, hd)),
+                 "n": pre.new_zeros((b, h, hd)),
+                 "m": pre.new_full((b, h), _NEG),
+                 "h": pre.new_zeros((b, h, hd))}
 
     def step(carry, pre_t):
         c, n, m, hprev = carry
@@ -280,9 +325,22 @@ def slstm_seq(p: Weights, x: torch.Tensor, cfg: ArchConfig,
     (c, n, m, hprev), ys = scan(
         step, (state["c"], state["n"], state["m"], state["h"]),
         pre.unbind(1), dim=1)
-    y = ys.reshape(b, s, d).to(x.dtype)
-    y = rmsnorm(y, p["out_norm"], cfg.norm_eps)
-    return x + y @ p["w_down"], {"c": c, "n": n, "m": m, "h": hprev}
+    return ys.reshape(b, pre.shape[1], h * hd), {"c": c, "n": n, "m": m,
+                                                 "h": hprev}
+
+
+def slstm_seq(p: Weights, x: torch.Tensor, cfg: ArchConfig,
+              state: Optional[Dict[str, torch.Tensor]] = None
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The sLSTM over x (B, S, d), one step a token, from ``state`` (a
+    fresh one if None); returns ``(y, the state after the last token)``."""
+    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
+    pre = (xn @ p["w_in"] + p["b"]).float()                  # (B,S,4d)
+    if state is None:
+        state = init_slstm_state(cfg, x.shape[0], device=x.device)
+    ys, state = slstm_heads(pre, p["r"].float(), state)
+    return x + block_out(ys.to(x.dtype), p["out_norm"], p["w_down"],
+                         functools.partial(rmsnorm, eps=cfg.norm_eps)), state
 
 
 # ---------------------------------------------------------------------------
@@ -328,19 +386,29 @@ class XLSTM(nn.Module):
                        compute_dtype=compute_dtype, unembed=unembed)
 
 
+def init_leaves(generator: Optional[torch.Generator], cfg: ArchConfig,
+                dtype=torch.float32) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Every parameter of an :class:`XLSTM` as ``(its named_parameters
+    name, value)``, made one at a time in draw order: layers 0..L-1, embed,
+    unembed, then ``norm_f`` (the model's one draw sequence, as
+    ``transformer.init_leaves``).  A None ``generator`` gives the leaves on
+    ``meta``."""
+    for li in range(cfg.n_layers):
+        leaves = slstm_leaves if li in cfg.slstm_at else mlstm_leaves
+        yield from leaves(generator, cfg, dtype, f"layers.{li}.")
+    yield "embed", dense_init(generator, (cfg.vocab, cfg.d_model), dtype,
+                              scale=1.0)
+    yield "unembed", dense_init(generator, (cfg.d_model, cfg.vocab), dtype)
+    yield "norm_f", torch.ones(cfg.d_model, dtype=dtype,
+                               device=draw_device(generator))
+
+
 def init_params(generator: torch.Generator, cfg: ArchConfig,
                 dtype=torch.float32) -> XLSTM:
-    """An :class:`XLSTM` on the generator's device, drawn in the order
-    layers 0..L-1, embed, unembed."""
+    """An :class:`XLSTM` on the generator's device, filled from
+    :func:`init_leaves`."""
     model = XLSTM(cfg, dtype, generator.device)
-    with torch.no_grad():
-        for li, layer in enumerate(model.layers):
-            init = init_slstm if li in cfg.slstm_at else init_mlstm
-            layer.fill(init(generator, cfg, dtype))
-        model.embed.copy_(dense_init(generator, (cfg.vocab, cfg.d_model),
-                                     dtype, scale=1.0))
-        model.unembed.copy_(dense_init(generator, (cfg.d_model, cfg.vocab),
-                                       dtype))
+    fill(model, init_leaves(generator, cfg, dtype))
     return model
 
 

@@ -1,6 +1,8 @@
 """Rank bodies for the mesh tests (``test_torch_mesh.py``,
 ``test_torch_sharded.py``, ``test_torch_sharded_stream.py``,
-``test_torch_moe_ep.py``, ``test_torch_sharding.py``).
+``test_torch_moe_ep.py``, ``test_torch_sharding.py``,
+``test_torch_sharding_families.py``), and the train launcher started
+under ``torch.distributed.run`` for the sharding tests.
 
 Each function runs in a process started by
 :func:`repro_torch.launch.mesh.spawn_mesh` (one rank of a gloo group on
@@ -366,11 +368,12 @@ def moe_ep(rank, data_path, grids):
 
 def sharded_steps(rank, grids, cases_path):
     """One f32 sharded train step on each ``(data, model)`` grid of these
-    ranks for each ``(key, arch, whole parameters, batch)`` of the pickled
-    list at ``cases_path`` (a file: arguments this large would start the
-    ranks one after another), keyed ``(grid, key)``: the loss (every
-    rank), this rank's bytes of parameters, mu and nu, the blocks that ran
-    split over "model", and on rank 0 the gradients gathered whole and the
+    ranks for each ``(key, arch, whole parameters, batch)`` (and a MoE
+    capacity factor, 1.25 when left out) of the pickled list at
+    ``cases_path`` (a file: arguments this large would start the ranks one
+    after another), keyed ``(grid, key)``: the loss (every rank), this
+    rank's bytes of parameters, mu and nu, the blocks that ran split over
+    "model", and on rank 0 the gradients gathered whole and the
     collectives counted."""
     import pickle
 
@@ -386,7 +389,7 @@ def sharded_steps(rank, grids, cases_path):
     out = {}
     for grid in grids:
         mesh = make_local_mesh(*grid, device="cpu")
-        for key, arch, whole, batch in cases:
+        for key, arch, whole, batch, *cf in cases:
             cfg = smoke_config(ARCHS[arch])
             model = api.init_params(cfg, 0, device="cpu")
             with torch.no_grad():
@@ -404,14 +407,16 @@ def sharded_steps(rank, grids, cases_path):
             state = opt.init(model)
             reset_collective_counts()
             step = sharding.make_train_step(cfg, opt, shards,
-                                            compute_dtype=torch.float32)
+                                            compute_dtype=torch.float32,
+                                            capacity_factor=(cf or [1.25])[0])
             _, _, loss = step(model, state, {k: torch.from_numpy(v)
                                              for k, v in batch.items()})
             counts = collective_counts()
             grads = sharding.gather_named(shards, got)
             rec = out[(grid, key)] = dict(
                 loss=float(loss), bytes=sharding.state_bytes(model, state),
-                plan=(shards.tp_attn, shards.tp_mlp, shards.tp_vocab))
+                plan=(shards.tp_attn, shards.tp_mlp, shards.tp_vocab),
+                split=(shards.tp_ssm, shards.ep))
             if rank == 0:
                 rec.update(grads={n: g.numpy() for n, g in grads.items()},
                            counts=counts)
@@ -460,4 +465,94 @@ def sharded_inits(rank, grids, archs):
                                          (*params.values(), *st.mu.values(),
                                           *st.nu.values())})
             out[(grid, arch)] = rec
+    return out
+
+
+def exchange_grads(rank, data_path):
+    """``moe_ffn_ep`` of the smoke olmoe config on the 2x2 grid of these
+    ranks with ``x`` and the weights of the file requiring gradients: the
+    gradients of ``sum(y * u)`` (``u`` the file's cotangent, cut to this
+    rank's block) summed over the ranks, and the exchanges counted; and
+    the weights' gradients again with ``x`` a constant
+    (``weights_only``)."""
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.launch.mesh import (
+        collective_counts, make_nmf_mesh, reset_collective_counts,
+    )
+    from repro_torch.models.moe import ep_block, moe_ffn_ep
+
+    d = np.load(data_path)
+    cfg = smoke_config(ARCHS["olmoe-1b-7b"])
+    mesh = make_nmf_mesh(2, 2, device="cpu")
+    leaves = {n: torch.from_numpy(d[n]).requires_grad_()
+              for n in ("router", "w_gate", "w_up", "w_down", "x")}
+    x = leaves.pop("x")
+    bsl, ssl = ep_block(mesh, x.shape[0], x.shape[1])
+    reset_collective_counts()
+    y = moe_ffn_ep(leaves, x, cfg, mesh)
+    grads = torch.autograd.grad(
+        (y * torch.from_numpy(d["u"])[bsl, ssl]).sum(),
+        [x, *leaves.values()])
+    counts = collective_counts()
+    summed = [mesh.all_reduce(g, ("data", "model")) for g in grads]
+    y = moe_ffn_ep(leaves, x.detach(), cfg, mesh)
+    weights = torch.autograd.grad(
+        (y * torch.from_numpy(d["u"])[bsl, ssl]).sum(), list(leaves.values()))
+    return dict(counts=counts, grads=dict(zip(["x", *leaves],
+                                              (g.numpy() for g in summed))),
+                weights_only={n: mesh.all_reduce(g, ("data", "model")).numpy()
+                              for n, g in zip(leaves, weights)})
+
+
+def family_runs(rank, grids, cases_path, init_archs, exchange_path):
+    """The sharding tests' one world: :func:`sharded_steps` of the pickled
+    cases and :func:`sharded_inits` of ``init_archs`` on each grid, and
+    :func:`exchange_grads`."""
+    return dict(steps=sharded_steps(rank, grids, cases_path),
+                inits=sharded_inits(rank, grids, init_archs),
+                exchange=exchange_grads(rank, exchange_path))
+
+
+def launch_train(src, arch, ckpt, steps, grid=(2, 2), extra=()):
+    """``python -m torch.distributed.run`` of the train launcher at
+    ``arch``'s smoke config on ``grid`` (one process on 1x1), batch 4 x 32
+    on the CPU, checkpoints every 3 steps in ``ckpt``, deterministic,
+    started with ``src`` on its path; returns its command, environment and
+    process."""
+    import os
+    import subprocess
+    import sys
+
+    data, model = grid
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           arch, "--smoke", "--device", "cpu", "--batch", "4",
+           "--seq", "32", "--steps", str(steps), "--ckpt-dir", str(ckpt),
+           "--ckpt-every", "3", "--deterministic", "--data", str(data),
+           "--model", str(model), *extra]
+    if data * model > 1:
+        cmd[1:3] = ["-m", "torch.distributed.run", "--standalone",
+                    "--nproc-per-node", str(data * model), "-m",
+                    "repro_torch.launch.train"]
+        cmd += ["--dist-backend", "gloo"]
+    env = dict(os.environ, PYTHONPATH=src, OMP_NUM_THREADS="1")
+    return cmd, env, subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)
+
+
+def train_done(run):
+    """A :func:`launch_train` run's output once it exits 0.  A run whose
+    gloo group failed to connect (``connectFullMesh``: the transport's
+    flake on one host, in ``init_process_group``, before any step) is
+    started again, up to twice, as ``spawn_mesh`` starts such a grid
+    again."""
+    import subprocess
+
+    cmd, env, proc = run
+    for _ in range(3):
+        out, err = proc.communicate(timeout=300)
+        if proc.returncode == 0 or "connectFullMesh failed" not in err:
+            break
+        proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+    assert proc.returncode == 0, err[-3000:]
     return out

@@ -23,11 +23,17 @@ Bars, each stated where it is checked:
   scaled ``scan`` counts exactly the FLOPs the fully run loop counts for
   the sLSTM and the SSD (forward and backward), and its bytes (exactly
   forward, within 1e-4 with backward);
+* ``train_4k`` of all ten architectures ``ok`` on 16x16 and 2x16x16 at
+  full width and a few layers of each kind (:func:`_cut`): a rank's
+  argument bytes the reference's, its state bytes three times its
+  parameter blocks', and for the moe, hybrid, ssm and encdec cells the
+  launcher's init peak under the step's peak;
 * each kernel's meta branch: one launch, the kernel's own cost and bound
   exactly ``PERF.md``'s cost and bound columns at the table's shapes
   (``KERNEL_TABLE``), never its plain version, and no launch counted on
   the card's counter.
 """
+import dataclasses
 import functools
 import json
 import math
@@ -120,18 +126,35 @@ def _ref_tree_bytes(tree, specs, sizes) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _ref_params(arch):
-    cfg = REF_ARCHS[arch]
+def _ref_params(arch, cut=False):
+    cfg = _cut(REF_ARCHS[arch]) if cut else REF_ARCHS[arch]
     return jax.eval_shape(
         lambda: ref_api.init_params(cfg, jax.random.PRNGKey(0), jnp.float32))
 
 
-def _ref_argument_bytes(arch, shape_name, sizes) -> int:
+def _cut(cfg):
+    """``cfg`` (either package's) at full width with its depth cut to a
+    few layers of every kind it has: two layers (an xlstm's second its
+    sLSTM; an encdec's two of each stack), a hybrid's one group and a
+    tail of one."""
+    if cfg.family == "hybrid":
+        return dataclasses.replace(cfg, n_layers=cfg.attn_every + 1)
+    if cfg.family == "ssm":
+        return dataclasses.replace(cfg, n_layers=2, slstm_at=(1,))
+    if cfg.family == "encdec":
+        return dataclasses.replace(cfg, n_layers=2, n_enc_layers=2)
+    return dataclasses.replace(cfg, n_layers=2)
+
+
+def _ref_argument_bytes(arch, shape_name, sizes, cut=False) -> int:
     """The reference dry-run's per-device argument bytes
-    (``repro.launch.dryrun.lower_cell``'s in_shardings), from its specs."""
+    (``repro.launch.dryrun.lower_cell``'s in_shardings), from its specs;
+    ``cut``: at :func:`_cut`'s depth."""
     cfg, shape = REF_ARCHS[arch], REF_SHAPES[shape_name]
+    if cut:
+        cfg = _cut(cfg)
     mesh = types.SimpleNamespace(shape=dict(sizes))
-    params = _ref_params(arch)
+    params = _ref_params(arch, cut)
     pspecs = ref_api.param_pspecs(cfg, params, dryrun.RULES, mesh=mesh)
     pb = _ref_tree_bytes(params, pspecs, sizes)
     if shape.kind != "decode":
@@ -703,6 +726,49 @@ def test_sharded_step_microbatches_accumulate_the_whole_step():
     assert losses[2] == pytest.approx(losses[1], rel=1e-5, abs=1e-5)
     for k, g in got[1.0].items():
         torch.testing.assert_close(got[2.0][k], g, rtol=1e-5, atol=1e-6)
+
+
+#: the grids of the reference's production dry-run
+PRODUCTION = {"16x16": False, "2x16x16": True}
+
+
+@pytest.fixture(scope="module")
+def train_cells():
+    """``train_4k`` of every architecture at :func:`_cut`'s depth on both
+    production grids, each grid's cells in one fake world."""
+    out = {}
+    for grid, multi_pod in PRODUCTION.items():
+        with dryrun.fake_world(512 if multi_pod else 256):
+            mesh = make_production_mesh(multi_pod=multi_pod)
+            for arch, cfg in ARCHS.items():
+                out[(grid, arch)] = dryrun.run_cell(
+                    _cut(cfg), SHAPES["train_4k"], mesh, verbose=False)
+    return out
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+@pytest.mark.parametrize("grid", list(PRODUCTION))
+def test_train_cells_are_ok_with_the_reference_bytes(train_cells, grid,
+                                                     arch):
+    """Every family's sharded step runs on the production grids: a rank's
+    argument bytes are the reference's, its parameters, mu and nu three
+    times its f32 parameter blocks; the new families' launcher init peaks
+    under their step's peak."""
+    rec = train_cells[(grid, arch)]
+    assert rec["status"] == "ok", rec.get("error")
+    sizes = MESHES[grid]
+    assert rec["argument_bytes"] == _ref_argument_bytes(
+        arch, "train_4k", sizes, cut=True)
+    cfg = ARCHS[arch]
+    params = _ref_params(arch, cut=True)
+    pspecs = ref_api.param_pspecs(REF_ARCHS[arch], params, dryrun.RULES,
+                                  mesh=types.SimpleNamespace(shape=sizes))
+    assert rec["state_bytes"] == 3 * _ref_tree_bytes(params, pspecs, sizes)
+    assert rec["flops"] > 0 and rec["collectives"]["all_reduce"]["calls"] > 0
+    if cfg.family in ("moe", "hybrid", "ssm", "encdec"):
+        assert 0 < rec["init_bytes"] < rec["bytes_per_device"]
+    if cfg.family == "moe":
+        assert rec["collectives"]["all_to_all"]["calls"] > 0
 
 
 @pytest.mark.parametrize("arch", ["deepseek-coder-33b", "internvl2-76b"])

@@ -29,10 +29,8 @@ step (``training/sharding.py``) and launcher on gloo ranks on the CPU.
   its step-6 checkpoint resumed on 4x1 and on 1x1 within 1e-4 of it.
 """
 import functools
-import os
 import pickle
 import shutil
-import subprocess
 import sys
 import types
 from pathlib import Path
@@ -409,39 +407,10 @@ def test_checkpoint_gathers_one_leaf_at_a_time(grid):
 # ---------------------------------------------------------------------------
 
 def _launch(ckpt, steps, grid=(2, 2)):
-    """``python -m torch.distributed.run`` of the train launcher at the
-    smoke config on ``grid`` (one process on 1x1), started; returns its
-    command, environment and process."""
-    data, model = grid
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-           "llama3.2-1b", "--smoke", "--device", "cpu", "--batch", "4",
-           "--seq", "32", "--steps", str(steps), "--ckpt-dir", str(ckpt),
-           "--ckpt-every", "3", "--deterministic", "--data", str(data),
-           "--model", str(model)]
-    if data * model > 1:
-        cmd[1:3] = ["-m", "torch.distributed.run", "--standalone",
-                    "--nproc-per-node", str(data * model), "-m",
-                    "repro_torch.launch.train"]
-        cmd += ["--dist-backend", "gloo"]
-    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
-    return cmd, env, subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
-                                      stderr=subprocess.PIPE, text=True)
+    return ranks.launch_train(SRC, "llama3.2-1b", ckpt, steps, grid)
 
 
-def _done(run):
-    """The run's output once it exits 0.  A run whose gloo group failed to
-    connect (``connectFullMesh``: the transport's flake on one host, in
-    ``init_process_group``, before any step) is started again, up to
-    twice, as ``spawn_mesh`` starts such a grid again."""
-    cmd, env, proc = run
-    for _ in range(3):
-        out, err = proc.communicate(timeout=300)
-        if proc.returncode == 0 or "connectFullMesh failed" not in err:
-            break
-        proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True)
-    assert proc.returncode == 0, err[-3000:]
-    return out
+_done = ranks.train_done
 
 
 @pytest.fixture(scope="module")
