@@ -56,7 +56,7 @@ Phases (any failed check raises, and the script exits non-zero):
    prefill (finite, peak memory), and an f32 forward over 64 tokens against
    64 f32 decode steps (last-position logits within 2e-3);
 10. serving: a full-width ``ServingEngine`` (max_batch 8, max_seq 512)
-    drains 16 requests of 32-token prompts, max_new 32, and reports
+    drains 16 requests of 16-token prompts, max_new 16, and reports
     tokens/s;
 11. LM timings: the flash kernel, its plain version and
     ``F.scaled_dot_product_attention`` at the prefill shape (and the bf16
@@ -147,7 +147,7 @@ Phases (any failed check raises, and the script exits non-zero):
 21. the LM training half: (a) llama3.2-1b at full width and depth, f32
     parameters from a seed, ``make_train_step`` (bf16 compute, remat, two
     microbatches) on train_4k's sequence of 4096 at a global batch of 8
-    (cut from 256), a warm-up step and 2 timed ones: ms a step, tokens/s,
+    (cut from 256), a warm-up step and 1 timed one: ms a step, tokens/s,
     model FLOPs, peak memory, the card's busy share in a profiler window,
     a microbatch's time split (forward, backward with its recompute, the
     loss chunks, the optimizer); every loss finite, step 0's equal to the
@@ -172,7 +172,8 @@ Phases (any failed check raises, and the script exits non-zero):
     at full width and depth: ``make_prefill_step`` on 4 x 4096 tokens
     (finite, the flash kernel launched n_layers = 16 times, first call and
     the median of 3, tokens/s, peak memory, busy share), a
-    ``ServingEngine`` (max_batch 8, max_seq 512) draining 8 requests and
+    ``ServingEngine`` (max_batch 8, max_seq 512) draining 8 requests
+    (prompts of 16, 16 new tokens each; 32 and 32 until 25(f) came) and
     a decode tick; one full-width MoE layer (d 2048, 64 experts, top 8) on
     256 tokens in f32 against the same layer on the CPU (routing and kept
     pairs equal, output within 1e-4) and at capacity 8.0 against the dense
@@ -191,25 +192,28 @@ Phases (any failed check raises, and the script exits non-zero):
 23. the hybrid and ssm families (zamba2-7b and xlstm-125m, f32 parameters
     from a seed): (a) zamba2-7b serving at full width and depth (81 Mamba2
     layers, the shared block 13 times): ``make_prefill_step`` on 4 x 4096
-    (first call, the median of 3, tokens/s, peak memory; the flash kernel
-    launched 13 times; the busy share and 13 launches of its hd-112
+    (first call, then one timed call (a median of 3 until 25(f) came),
+    tokens/s, peak memory; the flash kernel launched 13 times; the busy share and 13 launches of its hd-112
     instantiation in a profiler window of a 4 x 1024 prefill), 1 x 32768, a ``ServingEngine``
-    (max_batch 8) draining 16 requests (half of them admitted into freed
-    slots), an f32 forward over 64 tokens (the f32 kernel
+    (max_batch 8) draining 16 requests of 8-token prompts and 4 new
+    tokens (8 until 25(f) came; half of them admitted into freed slots), an f32 forward over 64 tokens (the f32 kernel
     at hd 112) against 64 f32 decode steps (2e-2); (b) one full-width
     Mamba block and the shared block on 256 tokens in f32, card against
     CPU (1e-4), the block's decode against its forward (2e-2); (c)
     zamba2-7b training at full width, depth cut to 15 and batch to 2 x
-    4096 (bf16, remat, AdamW, two microbatches: ms a step, tokens/s, model
+    4096 (bf16, remat, AdamW, two microbatches; the first step timed
+    itself: ms a step, tokens/s, model
     FLOPs and their share of the bf16 peak, peak memory; step 0's loss
     against the serving path's cross-entropy, no hand-written kernel
     launched); (d) xlstm-125m serving at full width and depth: prefills
-    at 4 x 4096 (the profiler window at 4 x 1024) and 1 x 8192 with the
-    sLSTM layers' share of the time, the engine, one long_500k decode
+    at 4 x 4096 (the profiler window at 4 x 1024) and 1 x 4096 with the
+    sLSTM layers' share of the time, the engine (prompts of 8, 8 new
+    tokens each), one long_500k decode
     step at position 524,287 (state bytes constant), an mLSTM and an
     sLSTM block card against CPU (1e-4) and the mLSTM decode against its
     parallel form (5e-2); (e) xlstm-125m training at full depth, batch
-    cut to 4 x 4096 in one microbatch; (f) the flash kernel at
+    cut to 4 x 1024 in one microbatch (4 x 4096 until 25(f) came); (f)
+    the flash kernel at
     zamba2's shape (B=4, H=32, S=4096, hd=112) against its bound, its
     plain version and ``scaled_dot_product_attention``, and the last two
     at olmoe's heads (hd 128).
@@ -229,7 +233,7 @@ Phases (any failed check raises, and the script exits non-zero):
     prefill of 64 frames with 16 decode steps against ``decode_train``
     (2e-3); (c) training at full width and depth, 8 x 4096 frames and 8 x
     512 tokens (global batch cut from 256 to 8) in two microbatches: a
-    warm-up and 2 timed steps, tokens/s, model FLOPs and their share of the
+    warm-up and 1 timed step, tokens/s, model FLOPs and their share of the
     bf16 peak, peak memory; every loss finite, step 0's equal to
     ``seq2seq_loss`` on the serving path's memory (the bf16 bar), no
     hand-written kernel launched (the train launcher at the smoke config
@@ -237,12 +241,18 @@ Phases (any failed check raises, and the script exits non-zero):
     shape (B=4, H=Hkv=16, S=T=4096, hd=64, not causal) and at one query
     row against 4096 and 32768 frames of a cache (B=8), each against its
     plain version, its bound and ``scaled_dot_product_attention``, and in
-    f32 with fewer rows.
+    f32 with fewer rows; its log-sum-exp output (``lse=True``) at one
+    query row (B=8, H=16, hd 64; T = 4096 and a 16,384-key slice; bf16 and
+    f32): the output bitwise the one without it, the lse against the plain
+    version's (atol 1e-3 bf16, 1e-5 f32), two launches over the halves of
+    T merged by their lse against one launch over T (rtol 1e-2 / atol 2e-3
+    bf16), the ms with and without it.
 25. parameter sharding (``training/sharding.py``: FSDP over ``"data"``,
     tensor parallelism over ``"model"``) on a 2x2 grid of four gloo ranks
     sharing the card: (a) llama3.2-1b at full width, depth cut from 16 to
-    2, a global batch of 4 x 1024 in bf16 with remat, a warm-up step and 2
-    timed ones (3 before (d) came): ms a step, tokens/s, each rank's peak
+    2, a global batch of 4 x 1024 in bf16 with remat, a warm-up step and 1
+    timed one (3 before (d) came, 2 before (f)): ms a step, tokens/s, each
+    rank's peak
     memory, each rank's parameter + moment bytes against the 1x1 run's
     (equal to the reference's per-device shard bytes), ``all_reduce``
     calls and bytes a
@@ -264,8 +274,9 @@ Phases (any failed check raises, and the script exits non-zero):
     shared block, split by SSM heads; xlstm-125m at full depth, split by
     heads; seamless-m4t-large-v2 at 2 encoder + 2 decoder layers), each
     drawn by the launcher's init, a global batch of 4 x 512 (seamless 4 x
-    512 frames and 4 x 64 tokens) in bf16 with remat, a warm-up and 2 timed
-    steps: ms a step, tokens/s, each rank's peak memory and parameter +
+    512 frames and 4 x 64 tokens) in bf16 with remat, a warm-up and 1 timed
+    step (2 before (f)): ms a step, tokens/s, each rank's peak memory and
+    parameter +
     moment bytes (exactly the reference's per-device shard bytes,
     ``dryrun.spec_bytes``), ``all_reduce`` and ``all_to_all`` calls and
     bytes a step; every loss finite and equal on every rank, step 0's the
@@ -275,7 +286,28 @@ Phases (any failed check raises, and the script exits non-zero):
     step's experts grouped as the grid's, ``moe_ffn_ep_plain``) and for
     zamba2-7b at 2 layers with the shared block after each, on 2 x 256
     tokens in f32: the loss (1e-4 / 1e-5) and every gradient, gathered
-    whole, against the 1x1 step's (1e-3 / 1e-5).
+    whole, against the 1x1 step's (1e-3 / 1e-5).  (d) takes one timed step
+    since (f) came.  (f) in the same ranks, before (b) and (e), the
+    sharded serving steps (``serving/sharding.py``) of llama3.2-1b at 2
+    layers and of (d)'s families at (d)'s depths, full width, bf16, drawn
+    by the launcher's init: a warm-up and a timed prefill of 2 x 4096
+    tokens (seamless 2 x 4096 frames, xlstm 2 x 2048), two timed decode
+    steps at batch 4 from a state drawn from a seed at decode_32k's length
+    of 32,768 (xlstm at long_500k's position 524,287), one at a position
+    in the last ``"model"`` block and one in the first (7): ms a call, a
+    rank's state bytes (exactly the reference's per-device bytes),
+    ``all_reduce`` / ``all_to_all`` calls and bytes, flash launches (every
+    attention layer of a prefill, every cross-attention of an encdec
+    decode step, a slice of keys each, merged by the log-sum-exp), peak
+    memory above what was resident; each rank's logits (encdec prefill:
+    memory) and written KV rows against the unsharded steps on its batch
+    block (whole parameters from the same seed, the block's whole rows of
+    the same state; a moe prefill on the whole batch, its experts grouped
+    as the grid's; a moe's experts pinned to the sharded steps' choices,
+    each within the bar of the unsharded router's own top k) within the
+    bf16 bar (rtol 5e-2, atol 1e-1); xlstm-125m, whose bf16 logits differ
+    from its own f32 logits by more than that bar (printed), in f32 within
+    2e-3 (the same steps again, untimed).
 26. the dry-run on the ``meta`` device (``launch/dryrun.py``,
     ``launch/cost_analysis.py``) against what phases 3/7, 9/11 and 25
     measured, no new card run: (a) phase 3's PubMed fit on ``cuda-bsr``
@@ -289,11 +321,16 @@ Phases (any failed check raises, and the script exits non-zero):
     grid: a rank's parameter + moment bytes and its ``all_reduce`` calls
     and bytes a step equal to phase 25's exactly, the predicted peak
     beside its ranks'; (d) phase 25(d)'s olmoe-1b-7b cell on a fake 2x2
-    grid the same way, its ``all_to_all`` calls and bytes too.  Each predicted peak must be within 10% of the
+    grid the same way, its ``all_to_all`` calls and bytes too; (e) 25(f)'s
+    llama3.2-1b prefill and seamless-m4t-large-v2 decode cells on a fake
+    2x2 grid: collective calls and bytes a call, flash launches and a
+    rank's state bytes equal to 25(f)'s exactly, the predicted peak beside
+    its ranks'.  Each predicted peak must be within 10% of the
     measured one (for (a) and (b) ``analysis.memory_guard``'s of phase
     7's warm-up fit and phase 9's first prefill: ``max_memory_allocated``
     less what was resident before the call, plus the call's argument
-    bytes; for (c) and (d) each rank's ``max_memory_allocated``).  The meta
+    bytes; for (c), (d) and (e) each rank's ``max_memory_allocated``, (d)
+    and (e) above what was resident before the family's init).  The meta
     branches launch nothing: the card's launch counts stay as they were.
 27. the analyzer's runtime guards (``repro_torch.analysis.runtime``) on
     the card: (a) ``memory_guard`` of the IR targets ``als[cuda-bsr]`` and
@@ -339,7 +376,10 @@ LM_ARCH = "llama3.2-1b"
 PREFILL_B, PREFILL_S = 4, 4096
 LONG_S = 32768          # prefill_32k's length (configs/__init__.py:51), B=1
 DECODE_CHECK_S = 64
-SERVE = dict(max_batch=8, max_seq=512, requests=16, prompt=32, max_new=32)
+#: the engine drains (phase 10; the xlstm and zamba2 drains set their own
+#: prompts): prompts of 16 and 16 new tokens (32 and 32 until 25(f) came:
+#: the script's time limit; the tokens/s are host-bound)
+SERVE = dict(max_batch=8, max_seq=512, requests=16, prompt=16, max_new=16)
 #: flash kernel checks: (B, H, Hkv, Sq, T, hd, causal)
 FLASH_CASES = {
     "prefill": (PREFILL_B, 32, 8, PREFILL_S, PREFILL_S, 64, True),
@@ -2555,11 +2595,11 @@ def run_tile_slice(dev, a_sp, op, res3, u0, paths, results, rows):
 
 #: phase 21: llama3.2-1b training at full width and depth on train_4k's
 #: sequence (4096), the global batch cut from 256 to 8 (one card, a run's
-#: time limit) in two microbatches of 4, 2 timed steps (5 until phase 23
-#: came, 3 until phase 25(d): the script's time limit); the held checks at
-#: full width with 2
+#: time limit) in two microbatches of 4, 1 timed step (5 until phase 23
+#: came, 3 until phase 25(d), 2 until 25(f): the script's time limit);
+#: the held checks at full width with 2
 #: layers; four gloo ranks for the compressed gradients
-TRAIN = dict(batch=8, microbatches=2, timed=2, check_layers=2,
+TRAIN = dict(batch=8, microbatches=2, timed=1, check_layers=2,
              check_batch=2, check_seq=1024, attn_seq=4096, density=0.25,
              cli=("--batch", "2", "--seq", "32"))
 
@@ -2997,7 +3037,9 @@ def run_train_slice(dev, paths, results, cli, cfg=None, sizes=TRAIN):
 
 
 #: phase 22: olmoe-1b-7b (src/repro/configs/olmoe_1b_7b.py) at full width:
-#: serving at full depth (4 x 4096 prefill, an 8-request ServingEngine);
+#: serving at full depth (4 x 4096 prefill, an 8-request ServingEngine,
+#: prompts of 16 and 16 new tokens each: 32 and 32 until 25(f) came, the
+#: script's time limit; its tokens/s are host-bound);
 #: training with the depth cut from 16 to 4 (parameters, AdamW's moments
 #: and the gradient of 16 layers, 6.92e9 x 16 B, would take ~111 GB) on
 #: 2 x 4096 tokens in two microbatches; the checks on one full-width MoE
@@ -3005,6 +3047,7 @@ def run_train_slice(dev, paths, results, cli, cfg=None, sizes=TRAIN):
 #: parallelism on four gloo ranks sharing the card over 4 x 256 tokens
 MOE_ARCH = "olmoe-1b-7b"
 MOE = dict(prefill_batch=4, prefill_seq=4096, layer_tokens=256, requests=8,
+           prompt=16, max_new=16,
            check_layers=2, check_batch=2, check_seq=1024,
            train_layers=4, train_batch=2, train_seq=4096, microbatches=2,
            timed=3, ep_batch=4, ep_seq=256, ep_timed=5, ep_seed=7)
@@ -3159,8 +3202,8 @@ def run_moe_slice(dev, paths, results, cfg=None, sizes=MOE):
     engine = ServingEngine(cfg, model, max_batch=SERVE["max_batch"],
                            max_seq=SERVE["max_seq"], device=dev)
     reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab,
-                                               SERVE["prompt"]).tolist(),
-                    max_new=SERVE["max_new"])
+                                               sizes["prompt"]).tolist(),
+                    max_new=sizes["max_new"])
             for i in range(sizes["requests"])]
     for r in reqs:
         engine.submit(r)
@@ -3182,7 +3225,8 @@ def run_moe_slice(dev, paths, results, cfg=None, sizes=MOE):
     ticks = host_ms(lambda: decode(model, cache, tok, 64), 10, sync)
     tick_ms = float(np.median(ticks))
     log(f"[moe] ServingEngine (max_batch {SERVE['max_batch']}, max_seq "
-        f"{SERVE['max_seq']}) drained {len(done)} requests: {emitted} tokens"
+        f"{SERVE['max_seq']}; prompts of {sizes['prompt']}, max_new "
+        f"{sizes['max_new']}) drained {len(done)} requests: {emitted} tokens"
         f" in {serve_s:.3f} s, {emitted / serve_s:.1f} tokens/s; a decode "
         f"tick (batch {SERVE['max_batch']}, one dispatch group of "
         f"{SERVE['max_batch']} tokens) {tick_ms:.3f} ms (median of 10, host "
@@ -3393,17 +3437,25 @@ def run_moe_slice(dev, paths, results, cfg=None, sizes=MOE):
 #: (its sLSTM loop runs 4096 steps a layer a microbatch: a run's time
 #: limit), its profiler window over a 4 x 1024 prefill and its long
 #: prefill cut to 1 x 8192 (the same loop, ~5k launches a 1024 steps;
-#: since phase 25 came); zamba2's profiler window over a 4 x 1024 prefill
+#: since phase 25 came; 1 x 4096 since 25(f)); zamba2's profiler window over a 4 x 1024 prefill
 #: too (since phase 25(e) came: the script's time limit); the flash kernel at
-#: zamba2's head size 112
+#: zamba2's head size 112.  Since 25(f) came (the script's time limit):
+#: one timed prefill after the first call (a median of 3 before; zamba2's
+#: and xlstm's take 2.4-2.9 s each), and xlstm trains on 4 x 1024 tokens
+#: (4 x 4096 before: 15 s in its sLSTM loop), zamba2's first train
+#: step is timed itself (a warm-up and one timed step before), and xlstm's
+#: engine drains prompts of 8 and 8 new tokens (32 and 32 before: its
+#: tokens/s are host-bound)
 RECURRENT = dict(prefill_batch=4, prefill_seq=4096, long_seq=32768,
                  block_tokens=256, decode_check=64, hybrid_train_layers=15,
                  hybrid_train_batch=2, xlstm_train_batch=4, train_seq=4096,
-                 microbatches=2, xlstm_microbatches=1, hybrid_timed=1,
-                 xlstm_timed=0, xlstm_profile_seq=1024, xlstm_long_seq=8192,
+                 microbatches=2, xlstm_microbatches=1, hybrid_timed=0,
+                 xlstm_timed=0, xlstm_profile_seq=1024, xlstm_long_seq=4096,
                  long_pos=524287, long_prompt=16, flash_reps=20,
-                 plain_reps=3, hybrid_prompt=8, hybrid_max_new=8,
-                 hybrid_requests=16, hybrid_profile_seq=1024)
+                 plain_reps=3, hybrid_prompt=8, hybrid_max_new=4,
+                 hybrid_requests=16, hybrid_profile_seq=1024,
+                 prefill_reps=1, xlstm_train_seq=1024, ssm_prompt=8,
+                 ssm_max_new=8)
 HYBRID_ARCH, SSM_ARCH = "zamba2-7b", "xlstm-125m"
 #: flash at zamba2's shared block (B, H, Hkv, S, hd) and at olmoe's heads
 FLASH_HD112 = (4, 32, 32, 4096, 112)
@@ -3443,7 +3495,8 @@ def recurrent_flops(cfg, b, s):
 def _serve_model(name, cfg, model, step, sizes, dev, paths, key, card,
                  profile_expect=None, profile_seq=None, long_seq=None):
     """The prefill of one model at B x S (first call with its launches,
-    then the median of 3), a profiler window of one call (at B x
+    then the median of ``sizes["prefill_reps"]`` (default 3)), a profiler
+    window of one call (at B x
     ``profile_seq`` if given), and one 1 x ``long_seq`` prefill (default
     ``sizes["long_seq"]``); returns the numbers."""
     import torch
@@ -3470,7 +3523,7 @@ def _serve_model(name, cfg, model, step, sizes, dev, paths, key, card,
         raise AssertionError(f"the {name} prefill's logits are not finite "
                              "(B, vocab)")
     runs = []
-    for _ in range(3):
+    for _ in range(sizes.get("prefill_reps", 3)):
         sync()
         t0 = time.perf_counter()
         step(model, batch)
@@ -3597,10 +3650,11 @@ def _drain(name, cfg, model, dev, card, prompt=None, max_new=None,
 
 
 def _train_model(name, cfg, sizes, batch, timed, dev, paths, key, card,
-                 reduced, microbatches=None):
+                 reduced, microbatches=None, seq=None):
     """Warm-up and ``timed`` steps of ``make_train_step`` (bf16, remat,
     AdamW, ``microbatches`` of them, by default ``sizes["microbatches"]``)
-    at a global batch of ``batch`` (``timed`` 0:
+    at a global batch of ``batch`` x ``seq`` (default
+    ``sizes["train_seq"]``) (``timed`` 0:
     the first step alone, timed and counted itself, where a step's
     seconds dwarf its set-up); step 0's loss against the serving path's
     cross-entropy on the same batch; no hand-written kernel launched."""
@@ -3616,7 +3670,8 @@ def _train_model(name, cfg, sizes, batch, timed, dev, paths, key, card,
 
     sync = torch.cuda.synchronize if card else (lambda: None)
     _free(card, f"training {name}")
-    tshape = ShapeSpec("train_4k cut", sizes["train_seq"], batch, "train")
+    tshape = ShapeSpec("train_4k cut", seq or sizes["train_seq"], batch,
+                       "train")
     m = microbatches or sizes["microbatches"]
     model = api.init_params(cfg, 0, device=dev)
     n = sum(p.numel() for p in model.parameters())
@@ -3898,7 +3953,8 @@ def run_recurrent_slice(dev, paths, results, rows, cfgs=None,
     d["layer_ms"] = layer_ms
     d["slstm_share"] = s_ms / sum(layer_ms)
     del h, toks
-    d["serve"] = _drain(xcfg.name, xcfg, model, dev, card)
+    d["serve"] = _drain(xcfg.name, xcfg, model, dev, card,
+                        sizes["ssm_prompt"], sizes["ssm_max_new"])
     # long_500k: one decode step at position 524,287 from a state carried
     # through a prompt; the state is the same size at every position
     states = xlstm.init_state(xcfg, 1, device=dev)
@@ -3970,7 +4026,9 @@ def run_recurrent_slice(dev, paths, results, rows, cfgs=None,
         xcfg.name, xcfg, sizes, sizes["xlstm_train_batch"],
         sizes["xlstm_timed"], dev, paths, "ssm_train", card,
         f"full width and depth; global batch 256 -> "
-        f"{sizes['xlstm_train_batch']}", sizes["xlstm_microbatches"])
+        f"{sizes['xlstm_train_batch']}, sequence 4096 -> "
+        f"{sizes['xlstm_train_seq']}", sizes["xlstm_microbatches"],
+        seq=sizes["xlstm_train_seq"])
     took("e")
 
     # -- 23(f). the flash kernel at the new shapes ----------------------------
@@ -4052,13 +4110,14 @@ def run_recurrent_slice(dev, paths, results, rows, cfgs=None,
 #: batch cut from 32 to 1; a generation of 8 rows x 4096 frames, 32 greedy
 #: decode steps; one decode step at decode_32k's lengths, its batch cut
 #: from 128 to 8: 25.8 GB of cross K / V); card against CPU in f32; training
-#: at full width and depth with train_4k's global batch cut from 256 to 8;
+#: at full width and depth with train_4k's global batch cut from 256 to 8,
+#: one timed step (2 until phase 25(f) came: the script's time limit);
 #: the flash kernel at the encoder's and the cross-attention's shapes
 ENCDEC = dict(prefill_batch=4, prefill_seq=4096, long_seq=32768,
               gen_batch=8, gen_seq=4096, gen_steps=32, d32_batch=8,
               d32_enc=32768, d32_dec=4096, d32_steps=5, block_tokens=256,
               block_dec=32, check_seq=64, check_steps=16, train_batch=8,
-              train_seq=4096, microbatches=2, timed=2, flash_reps=20,
+              train_seq=4096, microbatches=2, timed=1, flash_reps=20,
               plain_reps=3, unembed_reps=50)
 ENCDEC_ARCH = "seamless-m4t-large-v2"
 #: flash at the encoder (B, H, Hkv, Sq, T, hd; not causal) and at the
@@ -4552,6 +4611,69 @@ def run_encdec_slice(dev, paths, results, rows, cfg=None, sizes=ENCDEC):
         *FLASH_TOL["float32"])
     log(f"[encdec] flash in f32 against its plain version: {f32_errs}")
     del q32, k32, v32, qc, kc, vc
+    # the log-sum-exp output (``lse=True``), with which 25(f)'s sharded
+    # decode merges its ranks' slices of the cross K / V: one query row of
+    # seamless's shape, T = 4096 and a 16,384-key slice, bf16 and f32; the
+    # output bitwise the one without it, lse against the plain version's,
+    # and two launches over the halves of T merged against one over T
+    lse_rows = {}
+    for dt_name, dtype in (("bfloat16", torch.bfloat16),
+                           ("float32", torch.float32)):
+        for t2 in (4096, 16384):
+            q, k, v = _cache_views(8, 16, 16, t2, 64, dtype, dev, t2 + 1)
+            name = f"T={t2} {dt_name}"
+            with torch.no_grad():
+                whole = flash_attention(q, k, v, causal=False)
+                got, lse = flash_attention(q, k, v, causal=False, lse=True)
+                if card and not torch.equal(got, whole):
+                    raise AssertionError(f"flash with lse at {name}: the "
+                                         "output is not bitwise the one "
+                                         "without it")
+                _, plain = ref.flash_attention_ref(q, k, v, causal=False,
+                                                   lse=True)
+                item = dict(lse_err=close(
+                    f"flash lse at {name}", lse, plain, 0.0,
+                    1e-3 if dtype == torch.bfloat16 else 1e-5))
+                half = t2 // 2
+                parts = [flash_attention(q, k[:, :, i:i + half],
+                                         v[:, :, i:i + half], causal=False,
+                                         lse=True) for i in (0, half)]
+                top = torch.logsumexp(torch.stack([p_[1] for p_ in parts]),
+                                      0)
+                merged = sum(torch.exp(p_[1] - top)[..., None]
+                             * p_[0].float() for p_ in parts)
+                item["merge_err"] = close(
+                    f"flash halves of T merged by lse at {name}", merged,
+                    whole, *FLASH_TOL[dt_name])
+            del got, lse, plain, parts, top, merged, whole
+            if dtype == torch.bfloat16:
+                flops = flash_flops(8, 16, 1, t2, 64, False)
+                nbytes = 2 * (2 * 8 * 16 * 64 + 2 * 8 * t2 * 16 * 64)
+                item["bound"] = bound_ms(nbytes + 4 * 8 * 16, flops,
+                                         BF16_FLOPS)
+                item["ms"] = timed(lambda: flash_attention(
+                    q, k, v, causal=False), reps=sizes["flash_reps"])
+                item["lse_ms"] = timed(lambda: flash_attention(
+                    q, k, v, causal=False, lse=True),
+                    reps=sizes["flash_reps"])
+                item["plain_ms"] = timed(lambda: ref.flash_attention_ref(
+                    q, k, v, causal=False, lse=True),
+                    reps=sizes["plain_reps"], warmup=1)
+                item["library_ms"] = timed(
+                    lambda: F.scaled_dot_product_attention(q, k, v),
+                    reps=sizes["flash_reps"])
+            lse_rows[name] = item
+            log(f"[encdec] flash with lse at one query row, {name} (B=8, "
+                f"H=16, hd 64): lse against the plain version max abs err "
+                f"{item['lse_err']:.3e} (atol "
+                f"{1e-3 if dtype == torch.bfloat16 else 1e-5}); halves of T "
+                f"merged against one launch {item['merge_err']:.3e}; output "
+                "bitwise the one without lse"
+                + (f"; {item['lse_ms']} ms with lse, {item['ms']} ms without"
+                   f", bound {item['bound'][0]:.4f} ms by "
+                   f"{item['bound'][1]}, plain {item['plain_ms']} ms, SDPA "
+                   f"{item['library_ms']} ms" if "ms" in item else ""))
+            del q, k, v
     e = flash["encoder"]
     rows["flash_attention"].setdefault("extra", {})["encdec"] = dict(
         {nm: {key: (it["bound"][0] if key == "bound" else it[key])
@@ -4561,12 +4683,15 @@ def run_encdec_slice(dev, paths, results, rows, cfg=None, sizes=ENCDEC):
         f32_max_abs_err=f32_errs,
         launches_a_prefill=paths["encdec_prefill"]["flash_attention"],
         launches_a_decode_step=paths["encdec_decode"]["flash_attention"]
-        // sizes["gen_steps"])
+        // sizes["gen_steps"],
+        lse={nm: {key: (it["bound"][0] if key == "bound" else it[key])
+                  for key in it} for nm, it in lse_rows.items()})
     out["flash"] = {nm: {k_: v_ for k_, v_ in it.items() if k_ != "bound"}
                     | {"bound_ms": it["bound"][0],
                        "bound_by": it["bound"][1]}
                     for nm, it in flash.items()}
     out["flash_f32_errs"] = f32_errs
+    out["flash_lse"] = rows["flash_attention"]["extra"]["encdec"]["lse"]
     log(f"[encdec] the encoder's flash {e['ms']} ms against its bound "
         f"{e['bound'][0]:.4f} ms and SDPA {e['library_ms']} ms")
     took("d")
@@ -4585,29 +4710,49 @@ def run_encdec_slice(dev, paths, results, rows, cfg=None, sizes=ENCDEC):
 #: depth of each cut as ``families`` says: olmoe 16 to 2 layers, zamba2 81
 #: to one group of 6 Mamba2 blocks and the shared block, xlstm whole,
 #: seamless 24 + 24 to 2 + 2), a global batch of 4 x 512 (seamless: 4 x 512
-#: frames and 4 x 64 tokens), bf16 with remat, a warm-up and 2 timed steps;
+#: frames and 4 x 64 tokens), bf16 with remat, a warm-up and a timed step;
 #: then f32 gradients, as llama's, of olmoe at 2 layers (through the expert
 #: exchange) and of zamba2 at 2 layers with the shared block after each
 #: (two groups of one Mamba2 block: the leaves read in part, the shared
-#: block's gradients added over its uses)
-SHARD = dict(grid=(2, 2), layers=2, batch=4, seq=1024, timed=2,
+#: block's gradients added over its uses).  (a) and (d) take one timed step
+#: each (two until 25(f) came: the script's time limit).  25(f): the sharded
+#: serving steps of llama3.2-1b at (a)'s 2 layers and of (d)'s four families
+#: at (d)'s depths, full width, bf16: a prefill of 2 x 4096 tokens (one
+#: sequence a "data" rank; seamless 2 x 4096 frames; xlstm 2 x 2048, its
+#: sLSTM loop) and two decode steps at batch 4 against a state drawn from a
+#: seed at decode_32k's length (xlstm at long_500k's position 524,287: its
+#: state does not grow), at a position in the last "model" block and one in
+#: the first; xlstm-125m's are held in f32 at 2e-3 (``check_f32``: its bf16
+#: prefill logits differ from its own f32 ones by more than the bf16 bar)
+SHARD = dict(grid=(2, 2), layers=2, batch=4, seq=1024, timed=1,
              check_layers=2, check_batch=2, check_seq=256,
              families=(("olmoe-1b-7b", dict(n_layers=2)),
                        ("zamba2-7b", dict(n_layers=6)),
                        ("xlstm-125m", {}),
                        ("seamless-m4t-large-v2",
                         dict(n_layers=2, n_enc_layers=2))),
-             family_batch=4, family_seq=512, family_timed=2,
+             family_batch=4, family_seq=512, family_timed=1,
+             serve=(("llama3.2-1b", dict(n_layers=2)),
+                    ("olmoe-1b-7b", dict(n_layers=2)),
+                    ("zamba2-7b", dict(n_layers=6)),
+                    ("xlstm-125m", {}),
+                    ("seamless-m4t-large-v2",
+                     dict(n_layers=2, n_enc_layers=2))),
+             serve_batch=2, serve_seq=4096, serve_seqs={"xlstm-125m": 2048},
+             decode_batch=4, decode_len=32768,
+             decode_lens={"xlstm-125m": 524288}, decode_first=7,
+             check_f32=("xlstm-125m",),
              grad_checks=(("olmoe-1b-7b", dict(n_layers=2)),
                           ("zamba2-7b", dict(n_layers=2, attn_every=1))))
 
 
 def _shard_rank(rank, sizes, device, untimed=None):
-    """One rank of phase 25(a, b, d, e): the sharded train step of
+    """One rank of phase 25(a, b, d, e, f): the sharded train step of
     llama3.2-1b on the 2x2 grid.  (a) at full width with ``layers`` layers,
     a warm-up step and ``timed`` timed steps in bf16 (host clock ending in
     a synchronize), this rank's state bytes, peak memory, collectives and
     kernel launches; (d) the other families (:func:`_shard_families`);
+    (f) every family's sharded serving steps (:func:`_serve_families`);
     then, the timed work done (rank 0 creates the file ``untimed``, which
     the parent's subprocess checks wait for), (b) llama's f32 gradients
     with ``check_layers`` layers and (e) those of ``grad_checks``
@@ -4668,6 +4813,10 @@ def _shard_rank(rank, sizes, device, untimed=None):
 
     # -- (d) the moe, hybrid, ssm and encdec families ------------------------
     out["d"] = _shard_families(mesh, sizes, dev)
+    # -- (f) the sharded serving steps, every family -------------------------
+    t0 = time.perf_counter()
+    out["f"] = _serve_families(mesh, sizes, dev)
+    out["f_s"] = time.perf_counter() - t0
     mesh.barrier()
     if rank == 0 and untimed:
         Path(untimed).touch()
@@ -4824,6 +4973,451 @@ def _shard_families(mesh, sizes, dev):
             plan=(shards.tp_attn, shards.tp_mlp, shards.tp_vocab,
                   shards.tp_ssm, shards.ep))
         del model, state, step, batches, loss
+    return out
+
+
+def serve_config(arch, sizes):
+    """The 25(f) config of ``arch``: full width, the depth cut by
+    ``sizes["serve"]`` (or a rehearsal's own from ``sizes["serve_cfgs"]``)."""
+    from repro_torch.configs import ARCHS
+
+    own = sizes.get("serve_cfgs", {})
+    return own.get(arch) or dataclasses.replace(
+        ARCHS[arch], **dict(sizes["serve"])[arch])
+
+
+def serve_shapes(arch, cfg, sizes):
+    """25(f)'s prefill and decode cells of ``arch``, and its two decode
+    positions: one in the last "model" block, one in the first."""
+    from repro_torch.configs import ShapeSpec
+
+    seq = sizes["serve_seqs"].get(arch, sizes["serve_seq"])
+    length = sizes["decode_lens"].get(arch, sizes["decode_len"])
+    return (ShapeSpec("serve", seq, sizes["serve_batch"], "prefill"),
+            ShapeSpec("serve", length, sizes["decode_batch"], "decode"),
+            (length - 1, sizes["decode_first"]))
+
+
+def _tree_like(tree, value):
+    """``tree``'s structure (dicts, lists, None) with ``value`` at every
+    leaf."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _tree_like(v, value) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_like(v, value) for v in tree]
+    return value
+
+
+def _kv_rows(cache_blocks, specs, shapes, mesh, positions):
+    """This rank's written rows of every KV leaf (``k``, ``v``) at each
+    position (clamped to the leaf's rows, as the step writes them) that
+    falls in its block of rows: ``{(name, pos): (L, B_loc, Hkv, hd)}``."""
+    out = {}
+    for name in ("k", "v"):
+        if name not in cache_blocks:
+            continue
+        t = shapes[name][2]
+        rows = (mesh.block(t, specs[name][2]) if specs[name][2]
+                else slice(0, t))
+        for pos in positions:
+            row = min(max(pos, 0), t - 1)
+            if rows.start <= row < rows.stop:
+                out[(name, pos)] = cache_blocks[name][:, :, row - rows.start]
+    return out
+
+
+class _Routes:
+    """``moe.router_topk`` that records each call's expert choices and can
+    replay them: an unsharded step then routes every token as the sharded
+    step did.  In bf16 the two steps' router logits differ by rounding, so
+    a token whose k-th and (k+1)-th logits nearly tie may pick another
+    expert on each side, and its output then differs by far more than the
+    bar; pinned, the rest of the computation is held at the bar.  A replay
+    records ``gap``, the most a pinned choice falls below the unsharded
+    logits' own k-th (0 where the choices agree), and ``flips``, the
+    (token, k) pairs chosen otherwise."""
+
+    def __init__(self, plain):
+        self.plain, self.calls, self.replay = plain, [], None
+        self.gap, self.flips = 0.0, 0
+
+    def __call__(self, x, router, k):
+        import torch
+
+        if self.replay is None:
+            gates, sel = self.plain(x, router, k)
+            self.calls.append(sel)
+            return gates, sel
+        sel = next(self.replay)
+        logits = x @ router
+        vals = logits.gather(-1, sel)
+        own = torch.sort(logits, dim=-1, descending=True, stable=True)
+        kth = own.values[..., k - 1:k].float()
+        self.gap = max(self.gap, float(
+            (kth - vals.float()).clamp_min(0).max()))
+        self.flips += int((~(sel[..., :, None] == own.indices[
+            ..., None, :k]).any(-1)).sum())
+        return torch.softmax(vals.float(), dim=-1).to(x.dtype), sel
+
+
+def _serve_families(mesh, sizes, dev):
+    """Phase 25(f) on one rank: each family's sharded serving steps
+    (``serving/sharding.py``) on its blocks drawn by ``init_sharded``, in
+    bf16: a warm-up and a timed prefill of the whole batch (each rank its
+    block), two timed decode steps against a state drawn from a seed
+    (``init_sharded_cache``), at a position in the last "model" block and
+    one in the first; host clock ending in a synchronize; collectives and
+    kernel launches of the timed calls, this rank's state bytes, peak
+    memory above what was resident before the family's init.  Then,
+    untimed, the unsharded steps (``api.make_prefill_step`` /
+    ``make_decode_step``) on this rank's batch block alone (a moe prefill
+    on the whole batch, its experts grouped as the grid's,
+    ``moe_ffn_ep_plain``): the whole parameters from the same seed, the
+    whole rows of the block of the same drawn state; the largest errors of
+    the logits (an encdec prefill: the memory) and of the written KV
+    rows."""
+    import functools
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import (
+        collective_counts, reset_collective_counts,
+    )
+    from repro_torch.models import api, moe
+    from repro_torch.serving import sharding as serving
+    from repro_torch.training import sharding
+
+    card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    out = {}
+    for arch, _ in sizes["serve"]:
+        cfg = serve_config(arch, sizes)
+        pshape, dshape, positions = serve_shapes(arch, cfg, sizes)
+        batch = api.make_batch(cfg, pshape, seed=1, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        token = torch.randint(0, cfg.vocab, (dshape.global_batch,),
+                              generator=gen, device=dev, dtype=torch.int32)
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+        sync()
+        resident = torch.cuda.memory_allocated() if card else 0
+        t0 = time.perf_counter()
+        model, shards = sharding.init_sharded(cfg, mesh, 0, dev)
+        sync()
+        init_s = time.perf_counter() - t0
+        rec = dict(init_s=init_s, resident=resident,
+                   plan=(shards.tp_attn, shards.tp_mlp, shards.tp_vocab,
+                         shards.tp_ssm, shards.ep))
+
+        # -- the prefill: a warm-up and one timed call --------------------
+        prefill = serving.make_prefill_step(cfg, shards)
+        t0 = time.perf_counter()
+        prefill(model, batch)
+        sync()
+        warm_s = time.perf_counter() - t0
+        if card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_collective_counts()
+        _build.reset_launch_counts()
+        routes = {"prefill": _Routes(moe.router_topk),
+                  "decode": _Routes(moe.router_topk)}
+        if cfg.family == "moe":
+            moe.router_topk = routes["prefill"]
+        sync()
+        t0 = time.perf_counter()
+        try:
+            logits = prefill(model, batch)
+            sync()
+        finally:
+            moe.router_topk = routes["prefill"].plain
+        rec["prefill"] = dict(
+            warm_s=warm_s, ms=1e3 * (time.perf_counter() - t0),
+            counts=collective_counts(), launches=_build.launch_counts(),
+            peak=(torch.cuda.max_memory_allocated() - resident
+                  if card else 0),
+            shape=tuple(logits.shape),
+            finite=bool(torch.isfinite(logits.float()).all()))
+        got_prefill = logits
+        del logits
+
+        # -- the decode: two timed steps from a drawn state ---------------
+        t0 = time.perf_counter()
+        cache = serving.init_sharded_cache(cfg, dshape, mesh, dev, seed=2)
+        sync()
+        cache_s = time.perf_counter() - t0
+        decode = serving.make_decode_step(cfg, shards)
+        if card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_collective_counts()
+        _build.reset_launch_counts()
+        got_decode, step_ms = [], []
+        if cfg.family == "moe":
+            moe.router_topk = routes["decode"]
+        try:
+            for pos in positions:
+                sync()
+                t0 = time.perf_counter()
+                lg, _ = decode(model, cache, token, pos)
+                sync()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                got_decode.append(lg)
+        finally:
+            moe.router_topk = routes["decode"].plain
+        rec["decode"] = dict(
+            cache_s=cache_s, step_ms=step_ms, positions=positions,
+            counts=collective_counts(), launches=_build.launch_counts(),
+            peak=(torch.cuda.max_memory_allocated() - resident
+                  if card else 0),
+            state_bytes=serving.cache_bytes(cache),
+            shape=tuple(got_decode[0].shape),
+            finite=all(bool(torch.isfinite(x).all()) for x in got_decode))
+        written = _kv_rows(cache.blocks, cache.specs, cache.shapes, mesh,
+                           positions)
+        # a family whose bf16 logits differ from its own f32 logits by more
+        # than the bf16 bar is held in f32: the same sharded steps again,
+        # untimed, from the same state
+        check_dt = (torch.float32 if arch in sizes.get("check_f32", ())
+                    else None)
+        # f32: the reference's bar between two orders of one f32 function
+        # (prefill against decode, tests/test_models_smoke.py:90-91)
+        bar = (2e-3, 2e-3) if check_dt else (5e-2, 1e-1)
+        bf16_prefill = got_prefill
+        if check_dt is not None:
+            got_prefill = serving.make_prefill_step(
+                cfg, shards, check_dt, capacity_factor=1.25)(model, batch)
+            del cache
+            cache = serving.init_sharded_cache(cfg, dshape, mesh, dev,
+                                               seed=2)
+            step32 = serving.make_decode_step(cfg, shards, check_dt)
+            got_decode = [step32(model, cache, token, pos)[0]
+                          for pos in positions]
+            written = _kv_rows(cache.blocks, cache.specs, cache.shapes, mesh,
+                               positions)
+        del model, cache, decode, prefill
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+
+        # -- the check: the unsharded steps on this rank's batch block -----
+        whole = api.init_params(cfg, 0, device=dev)
+        b_axes = api.batch_axes_for(pshape.global_batch, mesh,
+                                    sharding.BATCH_AXES)
+        rows = (mesh.block(pshape.global_batch, b_axes) if b_axes
+                else slice(0, pshape.global_batch))
+        plain = moe.moe_ffn_ep
+        if cfg.family == "moe":
+            # every rank's expert choices of the prefill, in the order the
+            # plain body routes the blocks: (layer, batch block, "model")
+            r_, c_ = sizes["grid"]
+            own = torch.stack(routes["prefill"].calls)       # (L, 1, T, k)
+            blocks = torch.zeros((own.shape[0], r_, c_) + own.shape[1:],
+                                 dtype=own.dtype, device=own.device)
+            blocks[:, mesh.index("data"), mesh.index("model")] = own
+            blocks = mesh.all_reduce(blocks, ("data", "model"))
+            routes["prefill"].replay = iter(
+                blocks.reshape((-1,) + own.shape[1:]))
+            moe.moe_ffn_ep = functools.partial(moe.moe_ffn_ep_plain, dp=r_,
+                                               model=c_)
+            moe.router_topk = routes["prefill"]
+        try:
+            if cfg.family == "moe":
+                want = api.make_prefill_step(cfg, check_dt)(whole,
+                                                            batch)[rows]
+            else:
+                want = api.make_prefill_step(cfg, check_dt)(
+                    whole, {k: v[rows] for k, v in batch.items()})
+        finally:
+            moe.moe_ffn_ep = plain
+            moe.router_topk = routes["prefill"].plain
+        errs = dict(prefill=close(
+            f"25(f) {arch}: the sharded prefill against the unsharded one"
+            + (" (f32)" if check_dt else ""), got_prefill, want, *bar))
+        if check_dt is not None:
+            # what the bf16 bar would have met: the sharded bf16 prefill
+            # against the unsharded bf16 one, and that against its f32
+            want16 = api.make_prefill_step(cfg)(
+                whole, {k: v[rows] for k, v in batch.items()})
+            rec["bf16_gaps"] = dict(
+                sharded_vs_unsharded=float(
+                    (bf16_prefill.float() - want16.float()).abs().max()),
+                unsharded_bf16_vs_f32=float(
+                    (want16.float() - want.float()).abs().max()))
+            del want16
+        del want, got_prefill, bf16_prefill, batch
+        d_axes = api.batch_axes_for(dshape.global_batch, mesh,
+                                    sharding.BATCH_AXES)
+        d_rows = (mesh.block(dshape.global_batch, d_axes) if d_axes
+                  else slice(0, dshape.global_batch))
+        state = serving.drawn_cache(cfg, dshape, 2, dev, rows=d_rows)
+        step1 = api.make_decode_step(cfg, check_dt)
+        if cfg.family == "moe":
+            # one group of the global batch: this rank's tokens' choices
+            routes["decode"].replay = iter(
+                [sel[:, d_rows] for sel in routes["decode"].calls])
+            moe.router_topk = routes["decode"]
+        try:
+            for pos, got in zip(positions, got_decode):
+                want, _ = step1(whole, state, token[d_rows], pos)
+                errs[f"decode {pos}"] = close(
+                    f"25(f) {arch}: the sharded decode step at {pos} "
+                    "against the unsharded one", got, want, *bar)
+        finally:
+            moe.router_topk = routes["decode"].plain
+        if cfg.family == "moe":
+            rec["routes"] = {k: dict(gap=r.gap, flips=r.flips,
+                                     calls=len(r.calls))
+                             for k, r in routes.items()}
+            for kind, r in routes.items():
+                if r.gap > 0.1:
+                    raise AssertionError(
+                        f"25(f) {arch}: the sharded {kind} chose an expert "
+                        f"{r.gap:.3e} below the unsharded router logits' "
+                        "own k-th (bar atol 1e-1)")
+        for (name, pos), blk in written.items():
+            t = state[name].shape[2]
+            errs[f"row {name} {pos}"] = close(
+                f"25(f) {arch}: the row {name}[{pos}] the sharded step "
+                "wrote against the unsharded one's", blk,
+                state[name][:, :, min(pos, t - 1)], *bar)
+        rec["errs"] = errs
+        rec["rows_held"] = sorted({pos for _, pos in written})
+        del whole, state, written, got_decode
+        out[arch] = rec
+    return out
+
+
+def check_serve_families(ranks_f, sizes, dev, paths):
+    """Phase 25(f) in the parent: each family's numbers from its ranks;
+    every output finite and of the rank's batch block; each rank's state
+    bytes exactly the reference's per-device bytes (``dryrun.spec_bytes``
+    under ``api.cache_pspecs``); the flash kernel launched by every
+    attention layer of a prefill and by every cross-attention of an encdec
+    decode step; the rows a step wrote held by some rank."""
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.models import api
+
+    rows, cols = sizes["grid"]
+    grid = {"data": rows, "model": cols}
+    out = {}
+    for arch, _ in sizes["serve"]:
+        cfg = serve_config(arch, sizes)
+        pshape, dshape, positions = serve_shapes(arch, cfg, sizes)
+        recs = [r[arch] for r in ranks_f]
+        r0 = recs[0]
+        meta = api.init_decode_cache(cfg, dshape, device="meta")
+        specs = api.cache_pspecs(cfg, dshape, grid, meta)
+
+        def spec_total(tree, spec):
+            if tree is None:
+                return 0
+            if isinstance(tree, dict):
+                return sum(spec_total(v, spec[k]) for k, v in tree.items())
+            if isinstance(tree, list):
+                return sum(spec_total(v, sp) for v, sp in zip(tree, spec))
+            return dryrun.spec_bytes(tree.shape, tree.dtype, spec, grid)
+
+        per_rank = spec_total(meta, specs)
+        whole = spec_total(meta, _tree_like(meta, None))
+        attn_layers = {"dense": cfg.n_layers, "vlm": cfg.n_layers,
+                       "moe": cfg.n_layers, "encdec": cfg.n_enc_layers,
+                       "hybrid": cfg.n_layers // max(cfg.attn_every, 1),
+                       "ssm": 0}[cfg.family]
+        cross = cfg.n_layers if cfg.family == "encdec" else 0
+        pre, dec = r0["prefill"], r0["decode"]
+        errs = {}
+        for r in recs:
+            for k, e in r["errs"].items():
+                errs[k] = max(errs.get(k, 0.0), e)
+        n_steps = len(positions)
+        d_counts = {k: v / n_steps for k, v in dec["counts"].items()}
+        paths[f"serve_prefill_{arch}"] = pre["launches"]
+        paths[f"serve_decode_{arch}"] = dec["launches"]
+        b_loc = pshape.global_batch // rows
+        tokens = pshape.global_batch * pshape.seq_len
+        log(f"[shard] (f) {arch} ({cfg.n_layers} layers"
+            + (f" + {cfg.n_enc_layers} encoder" if cfg.n_enc_layers else "")
+            + f", full width, bf16) split over model (attention, MLP, "
+            f"vocabulary, recurrent heads, experts): {r0['plan']}; init "
+            f"{r0['init_s']:.2f} s; prefill {pshape.global_batch} x "
+            f"{pshape.seq_len} (warm-up {pre['warm_s']:.2f} s): "
+            f"{pre['ms']:.1f} ms on rank 0 (slowest rank "
+            f"{max(r['prefill']['ms'] for r in recs):.1f} ms; "
+            f"{tokens / pre['ms'] * 1e3:.0f} tokens/s), all_reduce "
+            f"{pre['counts']['all_reduce']} calls, "
+            f"{pre['counts']['bytes'] / 1e6:.1f} MB, all_to_all "
+            f"{pre['counts'].get('all_to_all', 0)} calls, "
+            f"{pre['counts'].get('all_to_all_bytes', 0) / 1e6:.1f} MB; "
+            f"flash launches {pre['launches']['flash_attention']}; peak "
+            f"a rank {[round(r['prefill']['peak'] / 2**30, 3) for r in recs]}"
+            f" GiB above what was resident; decode batch "
+            f"{dshape.global_batch} at length {dshape.seq_len}: state drawn "
+            f"in {dec['cache_s']:.2f} s, steps at {positions} "
+            f"{[round(x, 1) for x in dec['step_ms']]} ms (rank 0; slowest "
+            f"rank {max(max(r['decode']['step_ms']) for r in recs):.1f}); "
+            f"a step all_reduce {d_counts['all_reduce']:.0f} calls, "
+            f"{d_counts['bytes'] / 1e6:.1f} MB; flash launches a step "
+            f"{dec['launches']['flash_attention'] / n_steps:.0f}; state "
+            f"bytes a rank {[r['decode']['state_bytes'] for r in recs]} "
+            f"(the reference's per-device bytes {per_rank}; whole "
+            f"{whole}); peak a rank "
+            f"{[round(r['decode']['peak'] / 2**30, 3) for r in recs]} GiB; "
+            f"against the unsharded step on each rank's block (bar rtol "
+            f"5e-2, atol 1e-1): max abs err {errs}"
+            + (f"; held in f32 (its bf16 logits: sharded against "
+               f"unsharded, unsharded against its f32, max abs "
+               f"{[r['bf16_gaps'] for r in recs]})"
+               if "bf16_gaps" in r0 else "")
+            + (f"; experts pinned to the sharded steps' choices: "
+               f"{r0['routes']} (gap: how far a pinned choice falls below "
+               "the unsharded router's own k-th logit)"
+               if "routes" in r0 else ""))
+        if any(r["decode"]["state_bytes"] != per_rank for r in recs):
+            raise AssertionError(f"(f) {arch}: a rank holds other than the "
+                                 f"reference's per-device state bytes "
+                                 f"{per_rank}")
+        want_p = ((b_loc, pshape.seq_len, cfg.d_model)
+                  if cfg.family == "encdec" else (b_loc, cfg.vocab))
+        for r in recs:
+            if not (r["prefill"]["finite"] and r["decode"]["finite"]):
+                raise AssertionError(f"(f) {arch}: a sharded output is not "
+                                     "finite")
+            if (r["prefill"]["shape"] != want_p or r["decode"]["shape"]
+                    != (dshape.global_batch // rows, cfg.vocab)):
+                raise AssertionError(f"(f) {arch}: a rank's output is not "
+                                     "its batch block")
+        flash = pre["launches"]["flash_attention"]
+        if dev.type == "cuda" and (
+                flash != attn_layers
+                or dec["launches"]["flash_attention"] != cross * n_steps):
+            raise AssertionError(f"(f) {arch}: flash launched {flash} times "
+                                 f"a prefill, {dec['launches']} in "
+                                 f"{n_steps} decode steps, not "
+                                 f"{attn_layers} and {cross} a step")
+        held = sorted({p for r in recs for p in r["rows_held"]})
+        if "k" in meta and held != sorted(set(positions)):
+            raise AssertionError(f"(f) {arch}: the rows written at "
+                                 f"{positions} are held at {held}")
+        out[arch] = dict(
+            layers=cfg.n_layers, plan=r0["plan"], init_s=r0["init_s"],
+            prefill_ms=[r["prefill"]["ms"] for r in recs],
+            prefill_warm_s=pre["warm_s"], prefill_counts=pre["counts"],
+            prefill_launches=pre["launches"],
+            prefill_peak=[r["prefill"]["peak"] for r in recs],
+            decode_ms=[r["decode"]["step_ms"] for r in recs],
+            positions=list(positions), decode_counts_per_step=d_counts,
+            decode_launches=dec["launches"],
+            decode_peak=[r["decode"]["peak"] for r in recs],
+            state_bytes=[r["decode"]["state_bytes"] for r in recs],
+            per_rank_state_bytes=per_rank, whole_state_bytes=whole,
+            errs=errs, routes=[r.get("routes") for r in recs],
+            bf16_gaps=[r.get("bf16_gaps") for r in recs])
     return out
 
 
@@ -5171,6 +5765,12 @@ def run_shard_slice(dev, paths, results, launcher, sizes=SHARD):
                check=b, grad_checks=held, spawn_s=spawn_s)
     out["families"] = check_shard_families([r["d"] for r in recs], sizes,
                                            dev, paths)
+    out["serving"] = check_serve_families([r["f"] for r in recs], sizes,
+                                          dev, paths)
+    out["serving_s"] = [r["f_s"] for r in recs]
+    log(f"[shard] (f) the sharded serving steps took "
+        f"{[round(x, 1) for x in out['serving_s']]} s a rank (inits, "
+        "prefills, decode steps and each rank's unsharded checks)")
     out["launcher"] = launcher.result()
     results["phases"].setdefault("mesh", {})["cli"] = nmf_cli.result()
     shutil.rmtree(root, ignore_errors=True)
@@ -5181,6 +5781,66 @@ def run_shard_slice(dev, paths, results, launcher, sizes=SHARD):
 
 #: a predicted peak against the measured one (phase 26)
 PEAK_RTOL = 0.10
+
+
+def dryrun_serving_cells(serve, sizes, peak_check, failed):
+    """Phase 26(e): 25(f)'s llama3.2-1b prefill and seamless-m4t-large-v2
+    decode cells by ``lower_cell`` on a fake 2x2 grid on ``meta``, held
+    against 25(f)'s records ``serve``: collective calls and bytes a call,
+    flash launches and a rank's state bytes exactly (a disagreement is
+    appended to ``failed``), the predicted peak by ``peak_check``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_nmf_mesh
+
+    rows_, cols_ = sizes["grid"]
+    out = {}
+    for arch, kind in (("llama3.2-1b", "prefill"),
+                       ("seamless-m4t-large-v2", "decode")):
+        s_cfg = serve_config(arch, sizes)
+        pshape, dshape, positions = serve_shapes(arch, s_cfg, sizes)
+        with dryrun.fake_world(rows_ * cols_):
+            rec = dryrun.lower_cell(s_cfg, pshape if kind == "prefill"
+                                    else dshape,
+                                    make_nmf_mesh(rows_, cols_,
+                                                  device="meta"))
+        fam = serve[arch]
+        if kind == "prefill":
+            card = fam["prefill_counts"]
+            flash_card = fam["prefill_launches"]["flash_attention"]
+            measured = max(fam["prefill_peak"])
+        else:
+            card = fam["decode_counts_per_step"]
+            flash_card = (fam["decode_launches"]["flash_attention"]
+                          / len(positions))
+            measured = max(fam["decode_peak"])
+        want = {"all_reduce": (card["all_reduce"], card["bytes"]),
+                "all_to_all": (card.get("all_to_all", 0),
+                               card.get("all_to_all_bytes", 0))}
+        got = {k: (rec["collectives"].get(k, {}).get("calls", 0),
+                   rec["collectives"].get(k, {}).get("bytes", 0))
+               for k in want}
+        flash_meta = rec["launches"].get("flash_attention", 0)
+        log(f"[dryrun] (e) {arch} {kind} ({s_cfg.n_layers} layers) on a "
+            f"fake {rows_}x{cols_} grid: (calls, bytes) a call {got} "
+            f"(phase 25(f): {want}); flash launches {flash_meta} (25(f): "
+            f"{flash_card}); state bytes a rank {rec.get('state_bytes')} "
+            f"(25(f): {fam['state_bytes'][0] if kind == 'decode' else None})"
+            f"; {rec['flops']:.4e} FLOPs a rank")
+        if got != want:
+            failed.append(f"(e) {arch} {kind}: collectives {got} != phase "
+                          f"25(f)'s {want}")
+        if flash_meta != flash_card:
+            failed.append(f"(e) {arch} {kind}: {flash_meta} flash launches "
+                          f"predicted, 25(f) launched {flash_card}")
+        if kind == "decode" and rec["state_bytes"] != fam["state_bytes"][0]:
+            failed.append(f"(e) {arch}: state bytes {rec['state_bytes']} != "
+                          f"25(f)'s {fam['state_bytes'][0]}")
+        out[f"{arch} {kind}"] = dict(
+            collectives=got, flash=flash_meta, flops=rec["flops"],
+            state_bytes=rec.get("state_bytes"),
+            peak=peak_check(f"(e) {arch} sharded {kind}, rank 0",
+                            rec["bytes_per_device"], measured))
+    return out
 
 
 def run_dryrun_slice(dev, op, u0, smi, paths, results, rows, sizes=SHARD):
@@ -5357,6 +6017,12 @@ def run_dryrun_slice(dev, op, u0, smi, paths, results, rows, sizes=SHARD):
                             peak=peak_check("(d) olmoe sharded step, rank 0",
                                             rec["bytes_per_device"],
                                             max(fam["peak_bytes"])))
+    # -- (e) 25(f)'s serving cells on a fake 2x2 grid --------------------------
+    t0 = time.perf_counter()
+    out["serving"] = dryrun_serving_cells(shard["serving"], sizes,
+                                          peak_check, failed)
+    out["serving_s"] = time.perf_counter() - t0
+    log(f"[dryrun] 26(e) took {out['serving_s']:.1f} s")
     if _build.launch_counts() != card_counts:
         failed.append(f"the dry-runs moved the card's launch counts from "
                       f"{card_counts} to {_build.launch_counts()}")

@@ -21,7 +21,12 @@ the reference package:
   ``EncDec`` (the stacked ``enc_layers`` and ``dec_layers`` unstacked);
 * :func:`adam_state_from_reference` — the reference's ``AdamState`` for
   those parameters as the port's, so that both optimizers start from one
-  state.
+  state;
+* :func:`cache_from_reference` — a decode state of the reference
+  (``jax.tree.map(np.asarray, cache)``) as the port's: the same tree of
+  dicts and lists (a hybrid's stacked ``groups`` / ``tail`` states, an
+  xlstm's list of per-layer dicts), each leaf a tensor of its dtype (bf16
+  included), checked against ``cfg``'s ``api.init_decode_cache``.
 
 The leaves are placed by ``repro_torch.layout``, the one map from the
 port's parameter names to the reference's stacked leaves.
@@ -48,7 +53,8 @@ from repro_torch.nmf.estimator import EnforcedNMF
 from repro_torch.training.optimizer import AdamState
 
 __all__ = ["bsr_from_reference", "estimator_from_reference",
-           "model_from_reference", "adam_state_from_reference"]
+           "model_from_reference", "adam_state_from_reference",
+           "cache_from_reference"]
 
 #: the port's model class of each family
 _MODELS = {"dense": Transformer, "vlm": Transformer, "moe": MoETransformer,
@@ -199,3 +205,63 @@ def _filled(model, params, cfg: ArchConfig):
         for name, p in model.named_parameters():
             p.copy_(torch.from_numpy(leaves[name]))
     return model
+
+
+def _tensor(x, device: torch.device) -> torch.Tensor:
+    """A numpy leaf as a tensor of its dtype; bf16 (ml_dtypes) crosses as
+    its bits."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(a).view(np.int16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def cache_from_reference(cache, cfg: ArchConfig, device: DeviceLike = None):
+    """The port's decode state holding the reference's ``cache`` (its tree
+    with numpy leaves, as its ``init_decode_cache`` / ``prefill`` /
+    ``decode_step`` make it): the same tree, each leaf a tensor of the
+    leaf's dtype on ``device``.  Raises ``ValueError`` when the tree is not
+    one of ``cfg``'s decode states (its structure and shapes against
+    ``api.init_decode_cache`` at the batch and length it holds)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.models import api
+
+    dev = resolve_device(device)
+    got = _flatten(cache)
+    if cfg.family == "ssm":
+        b = int(np.shape(got["0/m"])[0]) if "0/m" in got else 0
+        t = 1
+    else:
+        kv = got.get("ck" if cfg.family == "encdec" else "k")
+        if kv is None:
+            raise ValueError(f"not a decode state of {cfg.name}: no "
+                             "KV leaf")
+        b, t = int(np.shape(kv)[1]), int(np.shape(kv)[2])
+    want = _flatten(api.init_decode_cache(cfg, ShapeSpec("reference", t, b,
+                                                         "decode"),
+                                          device="meta"))
+    if set(got) != set(want):
+        raise ValueError(
+            f"decode state does not match {cfg.name}: missing "
+            f"{sorted(set(want) - set(got))}, unexpected "
+            f"{sorted(set(got) - set(want))}")
+    for path, leaf in want.items():
+        if (leaf is None) != (got[path] is None):
+            raise ValueError(f"{path}: {cfg.name} needs "
+                             f"{'no leaf' if leaf is None else 'a leaf'}")
+        if leaf is not None and \
+                tuple(np.shape(got[path])) != tuple(leaf.shape):
+            raise ValueError(f"{path}: shape {tuple(np.shape(got[path]))}, "
+                             f"{cfg.name} needs {tuple(leaf.shape)}")
+
+    def convert(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [convert(v) for v in node]
+        return _tensor(node, dev)
+
+    return convert(cache)

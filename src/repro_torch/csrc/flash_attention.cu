@@ -62,7 +62,10 @@
 //    from registers and B = V from shared memory, MN-major (transpose bit).
 //  * Epilogue: acc / max(l, 1e-30), rounded to bf16, stored through the
 //    output's strides.  No atomics and no split over keys: two calls give
-//    bitwise the same output.
+//    bitwise the same output.  When asked (a non-null lse), lane 0 of each
+//    quad also writes its two rows' log-sum-exp, m ln 2 + ln l (m is kept in
+//    the log2 domain), so that a caller can merge launches over slices of
+//    the keys exactly.
 //
 // f32: flash_fwd_kernel, on the CUDA cores (f32 FMAs; tensor-core f32 would
 // be TF32, and the port's f32 kernels compute in IEEE f32).
@@ -85,6 +88,7 @@
 //    result is bitwise the same.  Query tiles are launched last-first.
 //  * Any Sq and T: rows past Sq are computed on zeros and not written; keys
 //    past T score -1e30 and read zero V.
+//  * When asked, lane 0 of each warp writes its rows' log-sum-exp m + ln l.
 //
 // The scale is the caller's (hd^-0.5 of the true head size), never derived
 // from a template size.
@@ -98,6 +102,7 @@
 #include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>  // CUDART_INF_F
 #include <stdint.h>
 
 namespace {
@@ -145,7 +150,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  int groups, int causal, float scale, long long qsb,
                  long long qsh, long long qss, long long ksb, long long ksh,
                  long long kss, long long vsb, long long vsh, long long vss,
-                 long long osb, long long osh, long long oss) {
+                 long long osb, long long osh, long long oss,
+                 float* __restrict__ lse) {
   constexpr int kDPerLane = (D + 31) / 32;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                // [kRows][D]
@@ -286,6 +292,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int row = q0 + r0 + r;
     if (row >= sq) continue;
+    if (lse != nullptr && lane == 0)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * sq + row] =
+          l[r] > 0.f ? m[r] + logf(l[r]) : -CUDART_INF_F;
     const float den = fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < kDPerLane; ++j) {
@@ -298,7 +307,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int h, int sq, int t, int groups, int causal, float scale,
-           const long long* st, cudaStream_t stream) {
+           const long long* st, cudaStream_t stream, float* lse) {
   constexpr size_t smem = smem_bytes<D>();
   static bool attr_set = false;
   if (!attr_set) {
@@ -314,29 +323,30 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
       static_cast<const float*>(v), static_cast<float*>(o), sq, t, groups,
       causal,
       scale, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11]);
+      st[9], st[10], st[11], lse);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
                 int b, int h, int sq, int t, int groups, int causal,
-                float scale, const long long* st, cudaStream_t stream) {
+                float scale, const long long* st, cudaStream_t stream,
+                float* lse) {
   switch (hd) {
     case 16:
       return launch<16>(q, k, v, o, b, h, sq, t, groups, causal, scale, st,
-                        stream);
+                        stream, lse);
     case 32:
       return launch<32>(q, k, v, o, b, h, sq, t, groups, causal, scale, st,
-                        stream);
+                        stream, lse);
     case 64:
       return launch<64>(q, k, v, o, b, h, sq, t, groups, causal, scale, st,
-                        stream);
+                        stream, lse);
     case 112:
       return launch<112>(q, k, v, o, b, h, sq, t, groups, causal, scale, st,
-                         stream);
+                         stream, lse);
     case 128:
       return launch<128>(q, k, v, o, b, h, sq, t, groups, causal, scale, st,
-                         stream);
+                         stream, lse);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -356,6 +366,7 @@ constexpr int kConsumers = 256;   // two warpgroups of 64 rows each
 constexpr int kThreads = kConsumers + 32;  // and one producer warp
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared-memory geometry of a tile of head size D: panels of kPanelCols
 // columns, each row of a panel kSwizzle bytes, swizzled in kSwizzle bytes.
@@ -648,7 +659,7 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
                      __nv_bfloat16* __restrict__ o, int sq, int t,
                      int groups, int causal, float scale_log2, long long osb,
                      long long osh, long long oss, int perm_q, int perm_k,
-                     int perm_v) {
+                     int perm_v, float* __restrict__ lse) {
   using G = Geom<D>;
   __shared__ __align__(8) uint64_t bars[2 * kStages + 1];
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -802,6 +813,14 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
       l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
       l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
     }
+    if (lse != nullptr && (lane & 3) == 0) {
+      // m is in the log2 domain: lse = ln(2^m l) = m ln 2 + ln l
+      float* lb = lse + (static_cast<long long>(b) * gridDim.y + h) * sq;
+      if (row_lo < sq)
+        lb[row_lo] = l_lo > 0.f ? m_lo * kLn2 + logf(l_lo) : -CUDART_INF_F;
+      if (row_hi < sq)
+        lb[row_hi] = l_hi > 0.f ? m_hi * kLn2 + logf(l_hi) : -CUDART_INF_F;
+    }
     const float den_lo = fmaxf(l_lo, 1e-30f);
     const float den_hi = fmaxf(l_hi, 1e-30f);
     __nv_bfloat16* ob = o + b * osb + h * osh;
@@ -891,7 +910,7 @@ int encode(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int rows,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int h, int sq, int t, int groups, int causal, float scale,
-           const long long* st, cudaStream_t stream) {
+           const long long* st, cudaStream_t stream, float* lse) {
   using G = Geom<D>;
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -918,29 +937,30 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid((sq + kRows - 1) / kRows, h, b);
   flash_fwd_bf16_wgmma<D><<<grid, kThreads, G::kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), sq, t, groups, causal,
-      scale * kLog2e, st[9], st[10], st[11], perm_q, perm_k, perm_v);
+      scale * kLog2e, st[9], st[10], st[11], perm_q, perm_k, perm_v, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch_hd(int hd, const void* q, const void* k, const void* v,
                 void* o, int b, int h, int sq, int t, int groups, int causal,
-                float scale, const long long* st, cudaStream_t stream) {
+                float scale, const long long* st, cudaStream_t stream,
+                float* lse) {
   switch (hd) {
     case 16:
       return launch<16>(q, k, v, o, b, h, sq, t, groups, causal, scale, st,
-                        stream);
+                        stream, lse);
     case 32:
       return launch<32>(q, k, v, o, b, h, sq, t, groups, causal, scale, st,
-                        stream);
+                        stream, lse);
     case 64:
       return launch<64>(q, k, v, o, b, h, sq, t, groups, causal, scale, st,
-                        stream);
+                        stream, lse);
     case 112:
       return launch<112>(q, k, v, o, b, h, sq, t, groups, causal, scale, st,
-                         stream);
+                         stream, lse);
     case 128:
       return launch<128>(q, k, v, o, b, h, sq, t, groups, causal, scale, st,
-                         stream);
+                         stream, lse);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -952,20 +972,24 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core
 // kernel).  strides: 12 element strides, the (batch, head, row) strides of
-// q, k, v and out in that order.
+// q, k, v and out in that order.  lse: null, or a contiguous (B, H, Sq) f32
+// buffer that takes each row's natural-log log-sum-exp of its scaled
+// scores, m + ln l (-inf for a row with no kept key); the output is the
+// same with or without it.
 extern "C" int flash_attention_fwd(int dtype, int hd, const void* q,
                                    const void* k, const void* v, void* o,
                                    int b, int h, int sq, int t, int groups,
                                    int causal, float scale,
-                                   const long long* strides, void* stream) {
+                                   const long long* strides, void* stream,
+                                   void* lse) {
   if (b <= 0 || h <= 0 || sq <= 0 || t <= 0 || groups <= 0 || h % groups)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return simt::dispatch_hd(hd, q, k, v, o, b, h, sq, t, groups, causal,
-                             scale, strides, s);
+                             scale, strides, s, static_cast<float*>(lse));
   if (dtype == 1)
     return tc::dispatch_hd(hd, q, k, v, o, b, h, sq, t, groups, causal,
-                           scale, strides, s);
+                           scale, strides, s, static_cast<float*>(lse));
   return static_cast<int>(cudaErrorInvalidValue);
 }

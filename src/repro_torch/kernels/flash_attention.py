@@ -45,7 +45,8 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_fwd.argtypes = [i, i, p, p, p, p, i, i, i, i, i, i,
                                         ctypes.c_float,
-                                        ctypes.POINTER(ctypes.c_longlong), p]
+                                        ctypes.POINTER(ctypes.c_longlong), p,
+                                        p]
     lib.flash_attention_fwd.restype = i
     return lib
 
@@ -91,11 +92,12 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         causal: bool = True) -> tuple:
+         causal: bool = True, lse: bool = False) -> tuple:
     """``(flops, bytes)`` of the attention function: 4 hd FLOPs (Q K^T and
     P V, a multiply-add each) for every (row, key) pair the mask keeps
     (row i keeps keys 0..min(i, T - 1) when causal: S (S + 1) / 2 pairs at
-    S = T), every head; q, k, v read once and the output written once."""
+    S = T), every head; q, k, v read once and the output written once
+    (and with ``lse`` the (B, H, Sq) f32 log-sum-exp)."""
     b, h, sq, hd = q.shape
     t = k.shape[2]
     if causal:
@@ -104,23 +106,33 @@ def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         pairs = sq * t
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    if lse:
+        nbytes += 4 * b * h * sq
     return 4.0 * b * h * hd * pairs, float(nbytes)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, groups: int = 1) -> torch.Tensor:
+                    causal: bool = True, groups: int = 1, lse: bool = False):
     """Attention of q (B, H, Sq, hd) over k, v (B, Hkv, T, hd); query head
-    h reads KV head ``h // groups``.  Returns (B, H, Sq, hd) in q's dtype."""
+    h reads KV head ``h // groups``.  Returns (B, H, Sq, hd) in q's dtype;
+    with ``lse`` also each row's log-sum-exp of its scaled scores, (B, H,
+    Sq) in f32 (natural log; -inf for a row with no kept key), so that
+    launches over slices of the keys merge exactly.  Without ``lse`` the
+    output and the launch are as they were before it existed."""
     where = _build.on_card(q, k, v)
     if where is _build.META:
         check_operands(q, k, v, groups)
         b, h, sq, hd = q.shape
         out = torch.empty((b, sq, h, hd), dtype=q.dtype,
                           device=q.device).transpose(1, 2)
-        record_kernel("flash_attention", *cost(q, k, v, causal))
+        record_kernel("flash_attention", *cost(q, k, v, causal, lse))
+        if lse:
+            return out, torch.empty((b, h, sq), dtype=torch.float32,
+                                    device=q.device)
         return out
     if not where:
-        return ref.flash_attention_ref(q, k, v, causal=causal, groups=groups)
+        return ref.flash_attention_ref(q, k, v, causal=causal, groups=groups,
+                                       lse=lse)
     check_operands(q, k, v, groups)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         raise NotImplementedError("the flash kernel has no backward; run "
@@ -129,14 +141,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     t = k.shape[2]
     out = torch.empty((b, sq, h, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    rows = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+            if lse else None)
     if out.numel() == 0:
-        return out
+        return (out, rows) if lse else out
     strides = (ctypes.c_longlong * 12)(*(
         s for x in (q, k, v, out) for s in x.stride()[:3]))
     rc = _lib().flash_attention_fwd(
         _DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), b, h, sq, t, groups, int(causal), hd ** -0.5,
-        strides, _build.stream_ptr(q.device))
+        strides, _build.stream_ptr(q.device),
+        None if rows is None else rows.data_ptr())
     _build.check_rc(rc, "flash_attention")
     _build.count_launch("flash_attention")
-    return out
+    return (out, rows) if lse else out

@@ -9,6 +9,7 @@ compares the widened entries with f32 midpoints.
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -91,19 +92,28 @@ _FLASH_REF_ROWS = 256
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, groups: int = 1) -> torch.Tensor:
+                        causal: bool = True, groups: int = 1,
+                        lse: bool = False):
     """The flash kernel's function in plain PyTorch, ``_FLASH_REF_ROWS``
     query rows at a time: f32 scores times
     ``hd**-0.5``, masked to -1e30 where key > row (absolute indices), the
     unnormalised ``p = exp(s - max)`` summed in f32, ``p`` cast to v's dtype
     before ``P @ V`` in f32, and ``acc / max(l, 1e-30)`` cast to q's dtype.
-    Query head h reads KV head ``h // groups``."""
+    Query head h reads KV head ``h // groups``.  With ``lse`` also returns
+    each row's ``max + log(sum p)`` (B, H, Sq) in f32, the kernel's
+    log-sum-exp: -inf for a row with no key (T = 0, whose output is
+    zero)."""
     b, h, sq, hd = q.shape
     hkv, t = k.shape[1], k.shape[2]
+    out = torch.empty((b, h, sq, hd), dtype=q.dtype, device=q.device)
+    rows = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if t == 0:
+        out.zero_()
+        rows.fill_(-math.inf)
+        return (out, rows) if lse else out
     kf = k.float()[:, :, None]                           # (B, Hkv, 1, T, hd)
     vf = v.float()[:, :, None]
     kpos = torch.arange(t, device=q.device)
-    out = torch.empty((b, h, sq, hd), dtype=q.dtype, device=q.device)
     for s0 in range(0, sq, _FLASH_REF_ROWS):
         qc = q[:, :, s0:s0 + _FLASH_REF_ROWS].float()
         c = qc.shape[2]
@@ -112,11 +122,14 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if causal:
             qpos = torch.arange(s0, s0 + c, device=q.device)
             s = s.masked_fill(qpos[:, None] < kpos[None, :], FLASH_NEG_INF)
-        p = torch.exp(s - s.amax(-1, keepdim=True))
-        den = p.sum(-1, keepdim=True).clamp_min(1e-30)
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(-1, keepdim=True)
+        den = l.clamp_min(1e-30)
         acc = p.to(v.dtype).float() @ vf
         out[:, :, s0:s0 + c] = (acc / den).reshape(b, h, c, hd).to(q.dtype)
-    return out
+        rows[:, :, s0:s0 + c] = (m + torch.log(l)).reshape(b, h, c)
+    return (out, rows) if lse else out
 
 
 def project_mask_ref(x: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:

@@ -31,19 +31,15 @@ argument divided by the product of the sizes of its spec's axes
 (parameters, AdamW's μ / ν / count, the batch; or the decode state, the
 token and the position).
 
-* ``ok`` — the port has the sharded step: rank 0's step ran under the
-  counter.  Today that is ``train_4k`` of every family
+* ``ok`` — rank 0's sharded step ran under the counter: ``train_4k``
   (``training/sharding.py``, AdamW, remat, 4 microbatches, as the
-  reference).  ``bytes_per_device`` is the step's peak of live bytes,
-  ``init_bytes`` the peak of the launcher's init
-  (``training/sharding.py::init_sharded``: the rank's blocks and one
-  whole leaf).
-* ``partial`` — no sharded step in the port yet (the prefill and decode
-  cells): the exact
-  ``argument_bytes``, and ``flops_global`` / ``bytes_global`` of the whole
-  step run unsharded on ``meta`` at the cell's global batch; ``flops``,
-  ``temp_bytes`` and ``bytes_per_device`` are null, and ``reason`` names
-  the ROADMAP item that finishes it.
+  reference; ``init_bytes`` is the peak of the launcher's init,
+  ``training/sharding.py::init_sharded``: the rank's blocks and one whole
+  leaf), ``prefill_32k`` and the decode cells (``serving/sharding.py``:
+  the rank's parameter blocks, batch block and decode-state blocks; a
+  decode step donates its state, as the reference's ``donate_argnums=(1,)``,
+  so the state counts among the outputs that alias arguments).
+  ``bytes_per_device`` is the step's peak of live bytes.
 * ``skipped`` — the reference's undefined cells (``cell_supported``).
 * ``error`` — an exception, as in the reference.
 """
@@ -74,8 +70,6 @@ __all__ = ["RULES", "fake_world", "spec_bytes", "argument_bytes",
 RULES = {"fsdp": "data", "tp": "model", "ep": "model"}
 #: microbatches of a train step, as the reference's dry-run
 MICROBATCHES = 4
-
-_SERVING_ITEM = "Sharded serving steps"
 
 
 @contextlib.contextmanager
@@ -231,26 +225,39 @@ def lower_cell(cfg: ArchConfig, shape: ShapeSpec, mesh,
             state_bytes=tree_bytes((model, state.mu, state.nu)))
         _counted(mode, rec)
         return rec
-    # no sharded serving step: the whole step, unsharded, at the global
-    # batch
-    mode = CostMode()
-    with mode:
-        if shape.kind == "prefill":
-            batch = _meta_batch(cfg, shape)
-            mode.track(model, batch)
-            api.make_prefill_step(cfg)(model, batch)
-        else:
-            token = torch.empty((shape.global_batch,), dtype=torch.int32,
-                                device="meta")
-            mode.track(model, cache, token)
-            api.make_decode_step(cfg)(model, cache, token, shape.seq_len - 1)
+    from repro_torch.serving import sharding as serving
+
+    shards = sharding.shard_model(model, mesh)
+    if shape.kind == "prefill":
+        batch = _meta_batch(cfg, shape)
+        block = _batch_bytes(cfg, shape, mesh)
+        step = serving.make_prefill_step(cfg, shards)
+        mode = CostMode()
+        with mode:
+            args = mode.track(model) + mode.track_as(batch, block)
+            out = tree_bytes(step(model, batch))
+        alias = 0
+    else:
+        state = serving.init_sharded_cache(cfg, shape, mesh, "meta")
+        token = torch.empty((shape.global_batch,), dtype=torch.int32,
+                            device="meta")
+        tok_block = spec_bytes(token.shape, token.dtype,
+                               (_batch_axes(shape, mesh),), mesh)
+        step = serving.make_decode_step(cfg, shards)
+        mode = CostMode()
+        with mode:
+            args = (mode.track(model, state.blocks)
+                    + mode.track_as(token, tok_block))
+            logits, _ = step(model, state, token, shape.seq_len - 1)
+            out = tree_bytes(logits)
+        # the state is updated in place (the reference donates it)
+        alias = serving.cache_bytes(state)
+        rec["state_bytes"] = alias
     rec.update(
-        flops=None, bytes_accessed=None, output_bytes=None, temp_bytes=None,
-        alias_bytes=None, bytes_per_device=None,
-        flops_global=mode.costs.flops, bytes_global=mode.costs.hbm_bytes,
-        reason=(f"no sharded {shape.kind} step in the port: ROADMAP queue 1, "
-                f"\"{_SERVING_ITEM}\"; argument_bytes is a rank's, the "
-                "counts are the whole step's, unsharded"))
+        flops=mode.costs.flops, bytes_accessed=mode.costs.hbm_bytes,
+        output_bytes=out + alias, alias_bytes=alias,
+        temp_bytes=max(mode.peak_bytes - args - out, 0),
+        bytes_per_device=mode.peak_bytes)
     _counted(mode, rec)
     return rec
 
@@ -267,7 +274,7 @@ def run_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, verbose: bool = True
         return rec
     try:
         rec.update(lower_cell(cfg, shape, mesh))
-        rec["status"] = "ok" if rec["flops"] is not None else "partial"
+        rec["status"] = "ok"
     except Exception as e:  # a cell's failure is its record (the reference's)
         rec["status"] = "error"
         rec["error"] = f"{type(e).__name__}: {e}"
@@ -279,13 +286,11 @@ def run_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, verbose: bool = True
         line = f"  argument {gib:.2f} GiB/device"
         if rec["status"] == "ok":
             line += (f", peak {rec['bytes_per_device'] / 2 ** 30:.2f} "
-                     f"GiB/device (init "
-                     f"{rec['init_bytes'] / 2 ** 30:.2f}), "
-                     f"flops={rec['flops']:.3e} "
+                     "GiB/device"
+                     + (f" (init {rec['init_bytes'] / 2 ** 30:.2f})"
+                        if "init_bytes" in rec else "")
+                     + f", flops={rec['flops']:.3e} "
                      f"bytes={rec['bytes_accessed']:.3e}")
-        else:
-            line += (f"; whole step flops={rec['flops_global']:.3e} "
-                     f"bytes={rec['bytes_global']:.3e}")
         print(f"{line} ({rec['wall_s']:.1f} s)", flush=True)
     return rec
 
@@ -334,15 +339,13 @@ def main(argv=None) -> int:
             records.append(rec)
             print(f"  -> {rec['status']}"
                   + (f" ({rec.get('reason', '')})"
-                     if rec["status"] in ("skipped", "partial") else ""),
-                  flush=True)
+                     if rec["status"] == "skipped" else ""), flush=True)
             if args.out:
                 with open(args.out, "a") as f:
                     f.write(json.dumps(rec) + "\n")
     n_err = sum(r["status"] == "error" for r in records)
     print(f"\n{len(records)} cells: "
           f"{sum(r['status'] == 'ok' for r in records)} ok, "
-          f"{sum(r['status'] == 'partial' for r in records)} partial, "
           f"{sum(r['status'] == 'skipped' for r in records)} skipped, "
           f"{n_err} errors")
     return 1 if n_err else 0

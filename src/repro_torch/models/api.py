@@ -196,32 +196,39 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, remat: bool = True,
     return train_step
 
 
-def make_prefill_step(cfg: ArchConfig) -> Callable:
+def make_prefill_step(cfg: ArchConfig, compute_dtype=None) -> Callable:
     """``prefill_step(params, batch)`` -> next-token logits (B, vocab) in
-    f32: the full forward in bf16 without autograd, last position.  For
-    ``encdec`` it is the encoder memory (B, S, d) in bf16, as the
-    reference's."""
+    f32: the full forward without autograd, last position, in
+    ``compute_dtype`` (None: the family's default, the reference's bf16;
+    f32 for checks at the reference's f32 bars).  For ``encdec`` it is the
+    encoder memory (B, S, d) in the compute dtype, as the reference's.  The
+    sharded step is ``serving.sharding.make_prefill_step``."""
     mod = module_for(cfg)
+    kw = {} if compute_dtype is None else {"compute_dtype": compute_dtype}
 
     def prefill_step(params, batch):
         with torch.no_grad():
             if cfg.family == "encdec":
                 return mod.encode(params, batch["frame_embeds"], cfg,
-                                  remat=False)
+                                  remat=False, **kw)
             logits = mod.forward(params, batch["tokens"], cfg,
-                                 extra_embeds=batch.get("patch_embeds"))
+                                 extra_embeds=batch.get("patch_embeds"),
+                                 **kw)
             return logits[:, -1, :].clone()   # frees the (B, S, vocab) rest
 
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig) -> Callable:
+def make_decode_step(cfg: ArchConfig, compute_dtype=None) -> Callable:
     """``decode_step(params, cache, token, pos)`` -> (logits, cache), without
-    autograd; the cache is updated in place."""
+    autograd, in ``compute_dtype`` (None: the family's default); the cache
+    is updated in place.  The sharded step is
+    ``serving.sharding.make_decode_step``."""
     mod = module_for(cfg)
+    kw = {} if compute_dtype is None else {"compute_dtype": compute_dtype}
 
     def decode_step(params, cache, token, pos):
-        return mod.decode_step(params, cache, token, pos, cfg)
+        return mod.decode_step(params, cache, token, pos, cfg, **kw)
 
     return decode_step
 

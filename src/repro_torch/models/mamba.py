@@ -36,7 +36,8 @@ from repro_torch.models.transformer import _Leaves
 
 __all__ = ["CONV_K", "d_inner", "n_ssm_heads", "mamba_shapes",
            "mamba_leaves", "init_mamba_block", "MambaBlock", "softplus", "ssd_chunked",
-           "causal_conv", "mamba_mix", "mamba_block", "init_mamba_state", "mamba_decode"]
+           "causal_conv", "mamba_mix", "mamba_block", "init_mamba_state", "ssm_step",
+           "mamba_decode"]
 
 CONV_K = 4  # depthwise causal conv width
 
@@ -213,6 +214,25 @@ def init_mamba_state(cfg: ArchConfig, batch: int, dtype=torch.float32,
                                 device=device)}
 
 
+def ssm_step(p: Weights, xin: torch.Tensor, dt: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, ssm: torch.Tensor, dtype
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One token of the SSM heads of ``p`` (as many as ``A_log`` holds, with
+    ``D`` and ``dt_bias``): ``xin`` (B, H, P) after the conv, ``dt`` (B, H)
+    before its bias, ``b`` and ``c`` (B, N), the f32 state ``ssm`` (B, H, P,
+    N).  Returns ``(y (B, H, P) in ``dtype``, D skip included; the new
+    state)``.  Every head is independent (a rank of a grid runs its
+    own)."""
+    dt = softplus((dt + p["dt_bias"]).float())                  # (B,H)
+    a = -torch.exp(p["A_log"].float())
+    decay = torch.exp(a * dt)                                   # (B,H)
+    xdt = (xin * dt[..., None].to(xin.dtype)).float()
+    upd = xdt[..., None] * b.float()[:, None, None, :]          # (B,H,P,N)
+    s_new = ssm * decay[..., None, None] + upd
+    y = (s_new @ c.float()[:, None, :, None])[..., 0].to(dtype)
+    return y + p["D"][None, :, None] * xin, s_new
+
+
 def mamba_decode(p: Weights, x: torch.Tensor, state: Dict[str, torch.Tensor],
                  cfg: ArchConfig
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -230,14 +250,8 @@ def mamba_decode(p: Weights, x: torch.Tensor, state: Dict[str, torch.Tensor],
     new_conv = win[:, 1:, :].to(state["conv"].dtype)
     xin, b, c = torch.split(conv_out, [di, n, n], dim=-1)
     xin = xin.reshape(bsz, h, cfg.ssm_head_dim)
-    dt = softplus((dt[:, 0] + p["dt_bias"]).float())            # (B,H)
-    a = -torch.exp(p["A_log"].float())
-    decay = torch.exp(a * dt)                                   # (B,H)
-    xdt = (xin * dt[..., None].to(xin.dtype)).float()
-    upd = xdt[..., None] * b[:, 0].float()[:, None, None, :]    # (B,H,P,N)
-    s_new = state["ssm"] * decay[..., None, None] + upd
-    y = (s_new @ c[:, 0].float()[:, None, :, None])[..., 0].to(x.dtype)
-    y = y + p["D"][None, :, None] * xin
+    y, s_new = ssm_step(p, xin, dt[:, 0], b[:, 0], c[:, 0], state["ssm"],
+                        x.dtype)
     y = y.reshape(bsz, 1, di).to(x.dtype)
     y = rmsnorm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
     return (x + y @ p["out_proj"]).to(x.dtype), {"ssm": s_new,

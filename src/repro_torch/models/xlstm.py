@@ -42,7 +42,8 @@ from repro_torch.models.common import (
 from repro_torch.models.transformer import _Leaves, cached_cast, fill
 
 __all__ = ["MLSTM_CHUNK", "mlstm_shapes", "mlstm_leaves", "init_mlstm",
-           "block_out", "mlstm_heads", "mlstm_parallel", "init_mlstm_state", "mlstm_decode",
+           "block_out", "mlstm_heads", "mlstm_parallel", "init_mlstm_state",
+           "mlstm_decode_heads", "mlstm_decode",
            "slstm_shapes", "slstm_leaves", "init_slstm", "slstm_heads",
            "slstm_seq",
            "init_slstm_state", "MLSTMBlock", "SLSTMBlock", "XLSTM",
@@ -213,20 +214,21 @@ def init_mlstm_state(cfg: ArchConfig, batch: int, device=None
                             device=device)}
 
 
-def mlstm_decode(p: Weights, x: torch.Tensor, state: Dict[str, torch.Tensor],
-                 cfg: ArchConfig
-                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One-token recurrent step, x (B, 1, d); returns ``(y, new
-    state)``."""
-    d, h = cfg.d_model, cfg.n_heads
-    up = 2 * d
-    hd = up // h
-    b = x.shape[0]
-    xi, gate, i_log, f_log = _mlstm_in(p, x, cfg)
-    xi1, i_log, f_log = xi[:, 0], i_log[:, 0], f_log[:, 0]   # (B,H) gates
-    q = (xi1 @ p["wq"]).reshape(b, h, hd).float()
-    k = (xi1 @ p["wk"]).reshape(b, h, hd).float()
-    v = (xi1 @ p["wv"]).reshape(b, h, hd).float()
+def mlstm_decode_heads(xi1: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+                       wv: torch.Tensor, i_log: torch.Tensor,
+                       f_log: torch.Tensor, state: Dict[str, torch.Tensor],
+                       hd: int, dtype
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The one-token recurrent step of the heads whose columns ``wq`` /
+    ``wk`` / ``wv`` hold (``hd`` wide each) on ``xi1`` (B, up), their f32
+    gate logits ``i_log`` / ``f_log`` (B, h) and their ``state``: ``(y (B,
+    1, h * hd) in ``dtype``, new state)``.  Every head is independent (a
+    rank of a grid runs its own)."""
+    b = xi1.shape[0]
+    h = wq.shape[1] // hd
+    q = (xi1 @ wq).reshape(b, h, hd).float()
+    k = (xi1 @ wk).reshape(b, h, hd).float()
+    v = (xi1 @ wv).reshape(b, h, hd).float()
     m_new = torch.maximum(f_log + state["m"], i_log)
     fs = torch.exp(f_log + state["m"] - m_new)
     is_ = torch.exp(i_log - m_new)
@@ -236,9 +238,20 @@ def mlstm_decode(p: Weights, x: torch.Tensor, state: Dict[str, torch.Tensor],
     n_new = state["n"] * fs[..., None] + is_[..., None] * k / math.sqrt(hd)
     num = (c_new @ q[..., None])[..., 0]                       # (B,H,hd)
     den = torch.maximum((n_new * q).sum(-1).abs(), torch.exp(-m_new))
-    y = (num / den[..., None]).reshape(b, 1, up).to(x.dtype)
-    return _mlstm_out(p, x, y, gate, cfg), {"C": c_new, "n": n_new,
-                                            "m": m_new}
+    y = (num / den[..., None]).reshape(b, 1, h * hd).to(dtype)
+    return y, {"C": c_new, "n": n_new, "m": m_new}
+
+
+def mlstm_decode(p: Weights, x: torch.Tensor, state: Dict[str, torch.Tensor],
+                 cfg: ArchConfig
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token recurrent step, x (B, 1, d); returns ``(y, new
+    state)``."""
+    hd = 2 * cfg.d_model // cfg.n_heads
+    xi, gate, i_log, f_log = _mlstm_in(p, x, cfg)
+    y, new = mlstm_decode_heads(xi[:, 0], p["wq"], p["wk"], p["wv"],
+                                i_log[:, 0], f_log[:, 0], state, hd, x.dtype)
+    return _mlstm_out(p, x, y, gate, cfg), new
 
 
 # ---------------------------------------------------------------------------

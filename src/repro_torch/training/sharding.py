@@ -126,9 +126,14 @@ from repro_torch.models.api import batch_axes_for, param_pspecs
 from repro_torch.models.common import ArchConfig, attention, mlp, rmsnorm
 from repro_torch.training.optimizer import AdamState, AdamW
 
-__all__ = ["RULES", "FAMILIES", "Shards", "shard_model", "init_sharded",
-           "gather_leaf", "gather_named", "gather_state", "restore_state",
-           "state_bytes", "make_train_step"]
+__all__ = ["RULES", "FAMILIES", "BATCH_AXES", "Shards", "Step",
+           "block_index", "shard_model", "init_sharded", "gather_leaf",
+           "gather_named", "gather_state", "restore_state", "state_bytes",
+           "split_rmsnorm", "attention_leaves", "attention_block",
+           "mlp_block", "dense_layer", "whole_leaves", "moe_block",
+           "moe_layer", "mamba_layer", "mlstm_layer", "slstm_layer",
+           "dec_layer", "embed_tokens", "unembed_matrix", "seq_positions",
+           "make_train_step"]
 
 #: the reference launcher's rules (``repro.launch.train``)
 RULES = {"fsdp": "data", "tp": "model", "ep": "model"}
@@ -449,16 +454,19 @@ class _Gather(torch.autograd.Function):
 
 
 @dataclasses.dataclass(frozen=True)
-class _Step:
+class Step:
     """What one step's layers read: the placement, the batch axes the
-    gradients are summed over, the compute dtype, the MoE capacity
-    factor."""
+    gradients are summed over (the batch is split over them), the compute
+    dtype, the MoE capacity factor, and the attention path: the flash
+    kernel (``flash``: the serving steps, ``serving/sharding.py``) or the
+    differentiable plain path (the train step)."""
 
     cfg: ArchConfig
     shards: Shards
     sum_axes: Tuple[str, ...]
     dtype: torch.dtype
     capacity_factor: float = 1.25
+    flash: bool = False
 
     @property
     def mesh(self) -> NMFMesh:
@@ -505,8 +513,8 @@ def _run(remat: bool, fn: Callable, *args):
     return fn(*args)
 
 
-def _split_rmsnorm(step: _Step, x: torch.Tensor, w: torch.Tensor,
-                   n: int) -> torch.Tensor:
+def split_rmsnorm(step: Step, x: torch.Tensor, w: torch.Tensor,
+                  n: int) -> torch.Tensor:
     """``rmsnorm`` over ``n`` channels of which ``x`` holds this rank's
     (``w`` cut alike): the sum of squares summed over ``"model"``."""
     x32 = x.float()
@@ -519,14 +527,11 @@ def _split_rmsnorm(step: _Step, x: torch.Tensor, w: torch.Tensor,
 # Blocks
 # ---------------------------------------------------------------------------
 
-def _attention(step: _Step, attn: nn.Module, prefix: str, hn: torch.Tensor,
-               positions, causal: bool = True,
-               memory: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """An attention block (``attn``, its leaves named ``prefix`` + leaf)
-    on the normed input ``hn``, its output summed over ``"model"`` when it
-    runs split: whole, or this rank's heads (its biases, replicated, cut to
-    its heads behind the conjugate of their use).  ``memory`` is a
-    cross-attention's encoder memory (already behind the conjugate)."""
+def attention_leaves(step: Step, attn: nn.Module, prefix: str
+                     ) -> Dict[str, torch.Tensor]:
+    """An attention block's leaves in the compute dtype: whole, or this
+    rank's heads (its biases, replicated, cut to its heads behind the
+    conjugate of their use) when attention runs split."""
     tp = step.shards.tp_attn
     a = {}
     for leaf, p in attn.named_parameters(recurse=False):
@@ -534,42 +539,56 @@ def _attention(step: _Step, attn: nn.Module, prefix: str, hn: torch.Tensor,
         if tp and w.dim() == 1:
             w = step.to_model(w, True)[step.model_slice(w.shape[0])]
         a[leaf] = w
+    return a
+
+
+def attention_block(step: Step, attn: nn.Module, prefix: str,
+                    hn: torch.Tensor, positions, causal: bool = True,
+                    memory: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """An attention block (``attn``, its leaves named ``prefix`` + leaf)
+    on the normed input ``hn``, its output summed over ``"model"`` when it
+    runs split: whole, or this rank's heads (its biases, replicated, cut to
+    its heads behind the conjugate of their use).  ``memory`` is a
+    cross-attention's encoder memory (already behind the conjugate)."""
+    tp = step.shards.tp_attn
+    a = attention_leaves(step, attn, prefix)
     acfg = step.heads_cfg()
     kv = None if memory is None else encdec._cross_kv(a, memory, acfg)
     out = attention(a, step.to_model(hn, tp), acfg, positions, causal=causal,
-                    kv=kv, flash=False)
+                    kv=kv, flash=step.flash)
     return step.from_model(out, tp)
 
 
-def _mlp(step: _Step, block: nn.Module, prefix: str, hn: torch.Tensor
-         ) -> torch.Tensor:
+def mlp_block(step: Step, block: nn.Module, prefix: str, hn: torch.Tensor
+              ) -> torch.Tensor:
     tp = step.shards.tp_mlp
     w = {leaf: step.use(p, prefix + leaf, keep_model=tp)
          for leaf, p in block.named_parameters(recurse=False)}
     return step.from_model(mlp(w, step.to_model(hn, tp)), tp)
 
 
-def _layer(x: torch.Tensor, layer: nn.Module, prefix: str, step: _Step,
-           positions: torch.Tensor, causal: bool = True) -> torch.Tensor:
+def dense_layer(x: torch.Tensor, layer: nn.Module, prefix: str, step: Step,
+                positions: torch.Tensor, causal: bool = True
+                ) -> torch.Tensor:
     """One dense layer (``transformer.layer_fwd``) on the grid: a decoder
     layer, an encoder layer (not causal), a hybrid's shared block."""
     eps = step.cfg.norm_eps
     hn = rmsnorm(x, step.leaf(layer, prefix, "norm_attn"), eps)
-    h = x + _attention(step, layer.attn, prefix + "attn.", hn, positions,
-                       causal)
+    h = x + attention_block(step, layer.attn, prefix + "attn.", hn,
+                            positions, causal)
     hn = rmsnorm(h, step.leaf(layer, prefix, "norm_mlp"), eps)
-    return h + _mlp(step, layer.mlp, prefix + "mlp.", hn)
+    return h + mlp_block(step, layer.mlp, prefix + "mlp.", hn)
 
 
-def _whole(step: _Step, block: nn.Module, prefix: str
-           ) -> Dict[str, torch.Tensor]:
+def whole_leaves(step: Step, block: nn.Module, prefix: str
+                 ) -> Dict[str, torch.Tensor]:
     """Every leaf of ``block`` gathered whole in the compute dtype."""
     return {leaf: step.use(p, prefix + leaf)
             for leaf, p in block.named_parameters(recurse=False)}
 
 
-def _moe(step: _Step, block: nn.Module, prefix: str, x: torch.Tensor
-         ) -> torch.Tensor:
+def moe_block(step: Step, block: nn.Module, prefix: str, x: torch.Tensor
+              ) -> torch.Tensor:
     """The MoE block (``moe.moe_ffn_ep``) on this rank's batch block ``x``
     (B_loc, S, d), the same on every ``"model"`` rank: expert-parallel
     where the reference's shape rules (``moe.ep_applies``) hold, else every
@@ -591,7 +610,7 @@ def _moe(step: _Step, block: nn.Module, prefix: str, x: torch.Tensor
         y = moe.ep_combine(mesh.all_to_all(out, "model"), xs.shape,
                            route, cfg)
         return _Gather.apply(y, mesh, s, "model", 1)
-    w = _whole(step, block, prefix)
+    w = whole_leaves(step, block, prefix)
     if dp > 1:
         x = _Gather.apply(x, mesh, b * dp, step.sum_axes, 0)
     y = moe.moe_ffn(w, x.reshape(1, -1, d), cfg,
@@ -599,23 +618,23 @@ def _moe(step: _Step, block: nn.Module, prefix: str, x: torch.Tensor
     return y[mesh.block(b * dp, step.sum_axes)] if dp > 1 else y
 
 
-def _moe_layer(x: torch.Tensor, layer: nn.Module, prefix: str, step: _Step,
-               positions: torch.Tensor) -> torch.Tensor:
+def moe_layer(x: torch.Tensor, layer: nn.Module, prefix: str, step: Step,
+              positions: torch.Tensor) -> torch.Tensor:
     """One MoE layer (``moe.layer_fwd``) on the grid."""
     eps = step.cfg.norm_eps
     hn = rmsnorm(x, step.leaf(layer, prefix, "norm_attn"), eps)
-    h = x + _attention(step, layer.attn, prefix + "attn.", hn, positions)
+    h = x + attention_block(step, layer.attn, prefix + "attn.", hn, positions)
     hn = rmsnorm(h, step.leaf(layer, prefix, "norm_mlp"), eps)
-    return h + _moe(step, layer.moe, prefix + "moe.", hn)
+    return h + moe_block(step, layer.moe, prefix + "moe.", hn)
 
 
-def _mamba(x: torch.Tensor, block: nn.Module, prefix: str, step: _Step
-           ) -> torch.Tensor:
+def mamba_layer(x: torch.Tensor, block: nn.Module, prefix: str, step: Step
+                ) -> torch.Tensor:
     """One Mamba2 block (``mamba.mamba_block``) on the grid: whole, or this
     rank's SSM heads (see the module's docstring)."""
     cfg = step.cfg
     if not step.shards.tp_ssm:
-        return mamba.mamba_block(_whole(step, block, prefix), x, cfg)
+        return mamba.mamba_block(whole_leaves(step, block, prefix), x, cfg)
     di, n = mamba.d_inner(cfg), cfg.ssm_state
     hp = cfg.ssm_head_dim
     hs = step.model_slice(mamba.n_ssm_heads(cfg))
@@ -637,17 +656,17 @@ def _mamba(x: torch.Tensor, block: nn.Module, prefix: str, step: _Step
          "out_proj": step.leaf(block, prefix, "out_proj", keep_model=True)}
     xn = rmsnorm(x, step.leaf(block, prefix, "norm_in"), cfg.norm_eps)
     out = mamba.mamba_mix(p, step.to_model(xn, True), cfg,
-                          norm=functools.partial(_split_rmsnorm, step, n=di))
+                          norm=functools.partial(split_rmsnorm, step, n=di))
     return x + step.from_model(out, True)
 
 
-def _mlstm(x: torch.Tensor, block: nn.Module, prefix: str, step: _Step
-           ) -> torch.Tensor:
+def mlstm_layer(x: torch.Tensor, block: nn.Module, prefix: str, step: Step
+                ) -> torch.Tensor:
     """One mLSTM block (``xlstm.mlstm_parallel``) on the grid: whole, or
     this rank's heads (see the module's docstring)."""
     cfg = step.cfg
     if not step.shards.tp_ssm:
-        return xlstm.mlstm_parallel(_whole(step, block, prefix), x, cfg)
+        return xlstm.mlstm_parallel(whole_leaves(step, block, prefix), x, cfg)
     up = 2 * cfg.d_model
     hd = up // cfg.n_heads
     hs = step.model_slice(cfg.n_heads)
@@ -662,17 +681,21 @@ def _mlstm(x: torch.Tensor, block: nn.Module, prefix: str, step: _Step
                           step.to_model(f_log, True)[..., hs], hd)
     out_norm = step.leaf(block, prefix, "out_norm", sum_model=True)[cs]
     y = xlstm.block_out(y, out_norm, w["w_down"], functools.partial(
-        _split_rmsnorm, step, n=up), step.to_model(gate, True)[..., cs])
+        split_rmsnorm, step, n=up), step.to_model(gate, True)[..., cs])
     return x + step.from_model(y, True)
 
 
-def _slstm(x: torch.Tensor, block: nn.Module, prefix: str, step: _Step
-           ) -> torch.Tensor:
-    """One sLSTM block (``xlstm.slstm_seq`` from a fresh state) on the
-    grid: whole, or this rank's heads (see the module's docstring)."""
+def slstm_layer(x: torch.Tensor, block: nn.Module, prefix: str, step: Step,
+                state: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One sLSTM block (``xlstm.slstm_seq``) on the grid from ``state`` (a
+    fresh one if None; else the state of the heads this rank runs): whole,
+    or this rank's heads (see the module's docstring).  Returns ``(x, the
+    state after the last token)``."""
     cfg = step.cfg
     if not step.shards.tp_ssm:
-        return xlstm.slstm_seq(_whole(step, block, prefix), x, cfg)[0]
+        return xlstm.slstm_seq(whole_leaves(step, block, prefix), x, cfg,
+                               state)
     hd = cfg.d_model // cfg.n_heads
     hs = step.model_slice(cfg.n_heads)
     cs = slice(hs.start * hd, hs.stop * hd)
@@ -682,34 +705,39 @@ def _slstm(x: torch.Tensor, block: nn.Module, prefix: str, step: _Step
     bias = step.leaf(block, prefix, "b", sum_model=True)[c4]
     pre = (step.to_model(xn, True) @ w_in + bias).float()
     r = step.leaf(block, prefix, "r", sum_model=True)[hs].float()
-    ys, _ = xlstm.slstm_heads(pre, r)
+    ys, state = xlstm.slstm_heads(pre, r, state)
     out_norm = step.leaf(block, prefix, "out_norm", sum_model=True)[cs]
     w_down = step.leaf(block, prefix, "w_down", keep_model=True)
     y = xlstm.block_out(ys.to(x.dtype), out_norm, w_down, functools.partial(
-        _split_rmsnorm, step, n=cfg.d_model))
-    return x + step.from_model(y, True)
+        split_rmsnorm, step, n=cfg.d_model))
+    return x + step.from_model(y, True), state
 
 
-def _dec_layer(x: torch.Tensor, memory: torch.Tensor, layer: nn.Module,
-               prefix: str, step: _Step, positions: torch.Tensor
+def _slstm_out(x: torch.Tensor, block: nn.Module, prefix: str, step: Step
                ) -> torch.Tensor:
+    return slstm_layer(x, block, prefix, step)[0]
+
+
+def dec_layer(x: torch.Tensor, memory: torch.Tensor, layer: nn.Module,
+              prefix: str, step: Step, positions: torch.Tensor
+              ) -> torch.Tensor:
     """One decoder layer (``encdec.dec_layer_fwd``) on the grid."""
     eps = step.cfg.norm_eps
     hn = rmsnorm(x, step.leaf(layer, prefix, "norm_self"), eps)
-    h = x + _attention(step, layer.self_attn, prefix + "self_attn.", hn,
-                       positions)
+    h = x + attention_block(step, layer.self_attn, prefix + "self_attn.",
+                            hn, positions)
     hn = rmsnorm(h, step.leaf(layer, prefix, "norm_cross"), eps)
-    h = h + _attention(step, layer.cross_attn, prefix + "cross_attn.", hn,
-                       positions, causal=False, memory=memory)
+    h = h + attention_block(step, layer.cross_attn, prefix + "cross_attn.",
+                            hn, positions, causal=False, memory=memory)
     hn = rmsnorm(h, step.leaf(layer, prefix, "norm_mlp"), eps)
-    return h + _mlp(step, layer.mlp, prefix + "mlp.", hn)
+    return h + mlp_block(step, layer.mlp, prefix + "mlp.", hn)
 
 
 # ---------------------------------------------------------------------------
 # The embeddings and the vocabulary-parallel loss
 # ---------------------------------------------------------------------------
 
-def _embed(step: _Step, model: nn.Module, tokens: torch.Tensor):
+def embed_tokens(step: Step, model: nn.Module, tokens: torch.Tensor):
     """The token embeddings in the compute dtype: a lookup in the whole
     table, or a masked lookup in this rank's rows of it, summed over
     ``"model"``."""
@@ -724,7 +752,7 @@ def _embed(step: _Step, model: nn.Module, tokens: torch.Tensor):
     return step.from_model(rows.masked_fill(~inside[..., None], 0), True)
 
 
-def _unembed(step: _Step, model: nn.Module) -> torch.Tensor:
+def unembed_matrix(step: Step, model: nn.Module) -> torch.Tensor:
     """(d, vocab) in the compute dtype, or (d, this rank's vocabulary)
     when the vocabulary is split: ``unembed``, or with tied embeddings
     ``embed.T * d_model**-0.5`` (``transformer.unembed_matrix``)."""
@@ -736,7 +764,7 @@ def _unembed(step: _Step, model: nn.Module) -> torch.Tensor:
 
 
 def _chunk_nll(xc: torch.Tensor, w: torch.Tensor, yc: torch.Tensor,
-               mc: torch.Tensor, lo: int, step: _Step) -> torch.Tensor:
+               mc: torch.Tensor, lo: int, step: Step) -> torch.Tensor:
     """Summed masked NLL of one sequence chunk against the logits of this
     rank's vocabulary ``[lo, lo + w.shape[1])`` (``common._chunk_nll``):
     ``max + log(sum(exp(logits - max)))`` minus the label's logit, the max
@@ -755,7 +783,7 @@ def _chunk_nll(xc: torch.Tensor, w: torch.Tensor, yc: torch.Tensor,
     return torch.sum((mx + torch.log(s) - ll) * mc[None, :])
 
 
-def _vocab_loss(step: _Step, hidden: torch.Tensor, w: torch.Tensor,
+def _vocab_loss(step: Step, hidden: torch.Tensor, w: torch.Tensor,
                 labels: torch.Tensor, count: int,
                 n_chunks: int = 8) -> torch.Tensor:
     """``common.chunked_lm_loss`` over this rank's vocabulary, its sum
@@ -778,83 +806,84 @@ def _vocab_loss(step: _Step, hidden: torch.Tensor, w: torch.Tensor,
     return total / count
 
 
-def _positions(x: torch.Tensor) -> torch.Tensor:
+def seq_positions(x: torch.Tensor) -> torch.Tensor:
     b, s = x.shape[0], x.shape[1]
     return torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
 
 
-def _final(step: _Step, model: nn.Module, x: torch.Tensor, norm: str,
+def _final(step: Step, model: nn.Module, x: torch.Tensor, norm: str,
            labels: torch.Tensor, count: int) -> torch.Tensor:
     x = rmsnorm(x, step.use(getattr(model, norm), norm), step.cfg.norm_eps)
     x = x[:, x.shape[1] - labels.shape[1]:, :]
-    return _vocab_loss(step, x, _unembed(step, model), labels, count)
+    return _vocab_loss(step, x, unembed_matrix(step, model), labels, count)
 
 
 # ---------------------------------------------------------------------------
 # Each family's loss
 # ---------------------------------------------------------------------------
 
-def lm_loss(model: nn.Module, batch: Dict[str, torch.Tensor], step: _Step,
+def lm_loss(model: nn.Module, batch: Dict[str, torch.Tensor], step: Step,
             count: int, remat: bool = True) -> torch.Tensor:
     """This rank's part of a dense, vlm or moe ``lm_loss`` on its block of
     the batch: its positions' summed cross-entropy divided by ``count``, on
     the plain attention path, each layer gathered (and under ``remat``
     recomputed, gathers included) in backward."""
-    x = _embed(step, model, batch["tokens"])
+    x = embed_tokens(step, model, batch["tokens"])
     if batch.get("patch_embeds") is not None:
         x = torch.cat([batch["patch_embeds"].to(step.dtype), x], dim=1)
-    positions = _positions(x)
-    body = _moe_layer if step.cfg.family == "moe" else _layer
+    positions = seq_positions(x)
+    body = moe_layer if step.cfg.family == "moe" else dense_layer
     for i, layer in enumerate(model.layers):
         x = _run(remat, body, x, layer, f"layers.{i}.", step, positions)
     return _final(step, model, x, "norm_f", batch["labels"], count)
 
 
 def hybrid_loss(model: nn.Module, batch: Dict[str, torch.Tensor],
-                step: _Step, count: int, remat: bool = True) -> torch.Tensor:
+                step: Step, count: int, remat: bool = True) -> torch.Tensor:
     """A hybrid's ``lm_loss``: each Mamba2 block and each use of the shared
     block under its own checkpoint, as ``hybrid.forward``."""
-    x = _embed(step, model, batch["tokens"])
-    positions = _positions(x)
+    x = embed_tokens(step, model, batch["tokens"])
+    positions = seq_positions(x)
     for gi, grp in enumerate(model.groups):
         for ei, blk in enumerate(grp):
-            x = _run(remat, _mamba, x, blk, f"groups.{gi}.{ei}.", step)
-        x = _run(remat, _layer, x, model.shared, "shared.", step, positions)
+            x = _run(remat, mamba_layer, x, blk, f"groups.{gi}.{ei}.", step)
+        x = _run(remat, dense_layer, x, model.shared, "shared.", step,
+                 positions)
     for ti, blk in enumerate(model.tail):
-        x = _run(remat, _mamba, x, blk, f"tail.{ti}.", step)
+        x = _run(remat, mamba_layer, x, blk, f"tail.{ti}.", step)
     return _final(step, model, x, "norm_f", batch["labels"], count)
 
 
 def xlstm_loss(model: nn.Module, batch: Dict[str, torch.Tensor],
-               step: _Step, count: int, remat: bool = True) -> torch.Tensor:
+               step: Step, count: int, remat: bool = True) -> torch.Tensor:
     """An xlstm's ``lm_loss`` (the reference's forward takes no remat; the
     values are the same with it)."""
-    x = _embed(step, model, batch["tokens"])
+    x = embed_tokens(step, model, batch["tokens"])
     for li, blk in enumerate(model.layers):
-        body = _slstm if li in step.cfg.slstm_at else _mlstm
+        body = _slstm_out if li in step.cfg.slstm_at else mlstm_layer
         x = _run(remat, body, x, blk, f"layers.{li}.", step)
     return _final(step, model, x, "norm_f", batch["labels"], count)
 
 
 def seq2seq_loss(model: nn.Module, batch: Dict[str, torch.Tensor],
-                 step: _Step, count: int, remat: bool = True
+                 step: Step, count: int, remat: bool = True
                  ) -> torch.Tensor:
     """``encdec.seq2seq_loss``: the encoder (dense layers, not causal) on
     the rank's frames, then the decoder on its tokens against the
     memory."""
     x = batch["frame_embeds"].to(step.dtype)
-    positions = _positions(x)
+    positions = seq_positions(x)
     for i, layer in enumerate(model.enc_layers):
-        x = _run(remat, _layer, x, layer, f"enc_layers.{i}.", step,
+        x = _run(remat, dense_layer, x, layer, f"enc_layers.{i}.", step,
                  positions, False)
     memory = rmsnorm(x, step.use(model.norm_enc, "norm_enc"),
                      step.cfg.norm_eps)
     # every decoder layer's cross K / V reads it by heads
     memory = step.to_model(memory, step.shards.tp_attn)
-    x = _embed(step, model, batch["tokens"])
-    positions = _positions(x)
+    x = embed_tokens(step, model, batch["tokens"])
+    positions = seq_positions(x)
     for i, layer in enumerate(model.dec_layers):
-        x = _run(remat, _dec_layer, x, memory, layer, f"dec_layers.{i}.",
+        x = _run(remat, dec_layer, x, memory, layer, f"dec_layers.{i}.",
                  step, positions)
     return _final(step, model, x, "norm_dec", batch["labels"], count)
 
@@ -890,7 +919,7 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, shards: Shards,
         if axes:
             rows = mesh.block(b, axes)
             batch = {k: v[rows] for k, v in batch.items()}
-        step = _Step(cfg, shards, axes, compute_dtype, capacity_factor)
+        step = Step(cfg, shards, axes, compute_dtype, capacity_factor)
         named = dict(model.named_parameters())
         if m == 1:
             loss = loss_fn(model, batch, step, b * (s - 1), remat)

@@ -556,3 +556,136 @@ def train_done(run):
                                 stderr=subprocess.PIPE, text=True)
     assert proc.returncode == 0, err[-3000:]
     return out
+
+
+def serving_runs(rank, grids, cases_path):
+    """The sharded serving steps (``serving/sharding.py``) in f32 on each
+    ``(pods, data, model)`` grid of these ranks for each pickled case
+    ``(arch, whole parameters, prefill batch, whole decode state, token
+    column, positions, moe capacity factor)``, keyed ``(grid, arch)``:
+    this rank's prefill block, and for each position (from the whole
+    state, sharded afresh) its logits block, its state blocks after the
+    step, its state bytes and the collectives; the zero state of
+    ``init_sharded_cache`` against the same state cut; the placement
+    plan."""
+    import pickle
+
+    from repro_torch.configs import ARCHS, ShapeSpec, smoke_config
+    from repro_torch.convert import cache_from_reference
+    from repro_torch.launch.mesh import (
+        collective_counts, make_nmf_mesh, reset_collective_counts,
+    )
+    from repro_torch.models import api
+    from repro_torch.serving import sharding as serving
+    from repro_torch.training import sharding
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return {f"{k}/{p}" if p else str(k): t
+                    for k, v in tree.items() for p, t in leaves(v).items()}
+        if isinstance(tree, list):
+            return {f"{i}/{p}" if p else str(i): t
+                    for i, v in enumerate(tree) for p, t in leaves(v).items()}
+        return {} if tree is None else {"": tree}
+
+    with open(cases_path, "rb") as f:
+        cases = pickle.load(f)
+    out = {}
+    for pods, rows, cols in grids:
+        mesh = make_nmf_mesh(rows, cols, device="cpu", pods=pods)
+        for arch, whole, batch, state, token, positions, cf in cases:
+            cfg = smoke_config(ARCHS[arch])
+            model = api.init_params(cfg, 0, device="cpu")
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    p.copy_(torch.from_numpy(whole[name]))
+            shards = sharding.shard_model(model, mesh)
+            batch_t = {k: torch.from_numpy(v) for k, v in batch.items()}
+            prefill = serving.make_prefill_step(
+                cfg, shards, torch.float32, capacity_factor=cf)(model,
+                                                                batch_t)
+            rec = dict(prefill=prefill.numpy(), decode={},
+                       plan=(shards.tp_attn, shards.tp_vocab, shards.tp_ssm))
+            b = token.shape[0]
+            t = (state["ck"].shape[2] if cfg.family == "encdec" else
+                 1 if cfg.family == "ssm" else state["k"].shape[2])
+            shape = ShapeSpec("serving", t, b, "decode")
+            whole_state = cache_from_reference(state, cfg, "cpu")
+            step = serving.make_decode_step(cfg, shards, torch.float32,
+                                            capacity_factor=cf)
+            for pos in positions:
+                cache = serving.shard_cache(whole_state, cfg, shape, mesh)
+                reset_collective_counts()
+                logits, back = step(model, cache, torch.from_numpy(token),
+                                    pos)
+                rec["decode"][pos] = dict(
+                    logits=logits.numpy(), same=back is cache,
+                    blocks={k: v.numpy()
+                            for k, v in leaves(cache.blocks).items()},
+                    bytes=serving.cache_bytes(cache),
+                    counts=collective_counts())
+            zero = serving.init_sharded_cache(cfg, shape, mesh, "cpu",
+                                              dtype=torch.float32)
+            want = serving.shard_cache(api.init_decode_cache(
+                cfg, shape, dtype=torch.float32, device="cpu"), cfg, shape,
+                mesh)
+            got_z, want_z = leaves(zero.blocks), leaves(want.blocks)
+            rec["zero_ok"] = got_z.keys() == want_z.keys() and all(
+                torch.equal(got_z[k], want_z[k]) for k in got_z)
+            out[((pods, rows, cols), arch)] = rec
+    return out
+
+
+def serving_counts(rank, cells):
+    """Each ``(arch, seq, batch, kind)`` cell's sharded serving step of the
+    smoke config on the 2x2 grid of these ranks, in bf16 (the steps'
+    default) from seed 0: the collectives, the flash wrapper's calls and
+    this rank's state bytes (a decode at ``seq - 1``, as the dry-run
+    steps)."""
+    from repro_torch.configs import ARCHS, ShapeSpec, smoke_config
+    from repro_torch.launch.mesh import (
+        collective_counts, make_nmf_mesh, reset_collective_counts,
+    )
+    from repro_torch.models import api
+    from repro_torch.serving import sharding as serving
+    from repro_torch.training import sharding
+
+    mesh = make_nmf_mesh(2, 2, device="cpu")
+    calls = {"flash_attention": 0}
+    plain = serving.flash_attention
+
+    def counted(*args, **kwargs):
+        calls["flash_attention"] += 1
+        return plain(*args, **kwargs)
+
+    serving.flash_attention = counted
+    from repro_torch.models import common
+    common_plain = common.flash_attention
+    common.flash_attention = counted
+    out = {}
+    try:
+        for arch, seq, b, kind in cells:
+            cfg = smoke_config(ARCHS[arch])
+            shape = ShapeSpec("cell", seq, b, kind)
+            model, shards = sharding.init_sharded(cfg, mesh, 0, "cpu")
+            calls["flash_attention"] = 0
+            if kind == "prefill":
+                batch = api.make_batch(cfg, shape, 0, device="cpu")
+                step = serving.make_prefill_step(cfg, shards)
+                reset_collective_counts()
+                step(model, batch)
+                state = 0
+            else:
+                cache = serving.init_sharded_cache(cfg, shape, mesh, "cpu",
+                                                   seed=1)
+                token = torch.zeros((b,), dtype=torch.int32)
+                step = serving.make_decode_step(cfg, shards)
+                reset_collective_counts()
+                step(model, cache, token, seq - 1)
+                state = serving.cache_bytes(cache)
+            out[(arch, kind)] = dict(counts=collective_counts(),
+                                     launches=dict(calls), state=state)
+    finally:
+        serving.flash_attention = plain
+        common.flash_attention = common_plain
+    return out

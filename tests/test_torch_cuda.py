@@ -329,6 +329,55 @@ def test_prefill_on_card_matches_cpu(card):
     torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=5e-2, atol=1e-1)
 
 
+@pytest.mark.parametrize("b,h,hkv,s,t,hd,causal,dtype,strided", [
+    (8, 16, 16, 1, 4096, 64, False, torch.bfloat16, "cache"),
+    (8, 16, 16, 1, 4096, 64, False, torch.float32, "cache"),
+    (2, 8, 2, 300, 300, 64, True, torch.bfloat16, True),
+    (1, 4, 4, 130, 250, 112, False, torch.float32, False),
+    (1, 4, 2, 200, 200, 112, True, torch.bfloat16, False),
+    (2, 4, 4, 70, 70, 16, True, torch.float32, False),
+])
+def test_flash_kernel_lse_matches_plain_version(card, b, h, hkv, s, t, hd,
+                                                causal, dtype, strided):
+    """With ``lse`` the kernel's output is bitwise its output without, and
+    its log-sum-exp (B, H, Sq) f32 is the plain version's: atol 1e-3 in
+    bf16 (scores from bf16 operands, the max in the log2 domain), 1e-5 in
+    f32."""
+    q, k, v = _qkv_on_card(card, b, h, hkv, s, t, hd, dtype, strided,
+                           seed=s + t + hd + 1)
+    plain = flash_attention(q, k, v, causal=causal, groups=h // hkv)
+    _build.reset_launch_counts()
+    out, lse = flash_attention(q, k, v, causal=causal, groups=h // hkv,
+                               lse=True)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["flash_attention"] == 1
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    assert torch.equal(out, plain)
+    _, want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                      groups=h // hkv, lse=True)
+    atol = 1e-5 if dtype == torch.float32 else 1e-3
+    torch.testing.assert_close(lse, want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_halves_of_keys_merge_to_the_whole(card, dtype):
+    """Two launches over the halves of T, merged by their log-sum-exps,
+    against one launch over T (seamless's cross-attention at one query
+    row)."""
+    q, k, v = _qkv_on_card(card, 8, 16, 16, 1, 4096, 64, dtype, "cache",
+                           seed=5)
+    whole = flash_attention(q, k, v, causal=False, groups=1)
+    parts = [flash_attention(q, k[:, :, i:i + 2048], v[:, :, i:i + 2048],
+                             causal=False, groups=1, lse=True)
+             for i in (0, 2048)]
+    lse = torch.stack([p[1] for p in parts])
+    top = torch.logsumexp(lse, 0)
+    merged = sum(torch.exp(p[1] - top)[..., None] * p[0].float()
+                 for p in parts)
+    rtol, atol = (1e-4, 1e-5) if dtype == torch.float32 else (1e-2, 2e-3)
+    torch.testing.assert_close(merged, whole.float(), rtol=rtol, atol=atol)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_at_hd_112_leaves_the_next_head_alone(card, dtype):
     """The kernel stores columns 0-111 only: launched (through its C
@@ -352,7 +401,7 @@ def test_flash_at_hd_112_leaves_the_next_head_alone(card, dtype):
     rc = fa._lib().flash_attention_fwd(
         fa._DTYPE_CODES[dtype], 112, sub[0].data_ptr(), sub[1].data_ptr(),
         sub[2].data_ptr(), view.data_ptr(), 1, 2, 128, 128, 1, 1,
-        112 ** -0.5, strides, _build.stream_ptr(card))
+        112 ** -0.5, strides, _build.stream_ptr(card), None)
     torch.cuda.synchronize()
     assert rc == 0
     assert bool((buf[:, :, 1] == 7.0).all())

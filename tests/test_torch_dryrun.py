@@ -67,9 +67,14 @@ from repro_torch.kernels.gram import gram
 from repro_torch.kernels.project_mask import project_mask, relu_topk
 from repro_torch.launch import dryrun, nmf_run
 from repro_torch.launch.cost_analysis import CostMode, bound_ms
-from repro_torch.launch.mesh import make_nmf_mesh, make_production_mesh
+from repro_torch.launch.mesh import (
+    make_nmf_mesh, make_production_mesh, spawn_mesh,
+)
 from repro_torch.models import mamba, xlstm
 from repro_torch.scan import scan, tensors
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import _torch_mesh_ranks as ranks  # noqa: E402
 
 SRC = str(Path(__file__).resolve().parents[1] / "src")
 
@@ -403,20 +408,61 @@ def test_command_line(args, tmp_path):
                                          "prefill_32k"),
                                         ("llama3.2-1b", "long_500k")])
 def test_cells_without_a_sharded_step(arch, shape):
-    """``partial`` with the ROADMAP item that finishes it, or the
-    reference's skip; never ``error``."""
+    """The serving cells that had no sharded step before
+    ``serving/sharding.py`` are ``ok`` (or the reference's skip; never
+    ``error``): a rank's argument bytes the reference's, finite FLOPs, a
+    rank's peak under the card's 80 GB."""
     with dryrun.fake_world(256):
         rec = dryrun.run_cell(ARCHS[arch], SHAPES[shape],
                               make_production_mesh(), verbose=False)
     if not cell_supported(ARCHS[arch], SHAPES[shape])[0]:
         assert rec["status"] == "skipped"
         return
-    assert rec["status"] == "partial", rec
-    assert rec["flops"] is None and rec["temp_bytes"] is None
-    assert rec["flops_global"] > 0 and rec["bytes_global"] > 0
-    assert "Sharded serving steps" in rec["reason"]
+    assert rec["status"] == "ok", rec
+    assert math.isfinite(rec["flops"]) and rec["flops"] > 0
+    assert 0 < rec["bytes_per_device"] < 80e9
+    assert rec["temp_bytes"] >= 0
     assert rec["argument_bytes"] == _ref_argument_bytes(
         arch, shape, MESHES["16x16"])
+
+
+#: serving cells of the smoke configs on a 2x2 grid: (arch, seq, batch,
+#: kind)
+SERVING_CELLS = [("seamless-m4t-large-v2", 32, 4, "decode"),
+                 ("olmoe-1b-7b", 16, 4, "prefill"),
+                 ("zamba2-7b", 16, 4, "decode"),
+                 ("xlstm-125m", 16, 4, "decode")]
+
+
+@pytest.fixture(scope="module")
+def serving_ranks():
+    """:data:`SERVING_CELLS` run on four gloo ranks of the CPU."""
+    out = spawn_mesh(ranks.serving_counts, 2, 2, backend="gloo",
+                     device="cpu", args=(SERVING_CELLS,), timeout=300.0,
+                     threads=1)
+    return out[0]
+
+
+@pytest.mark.parametrize("arch,seq,b,kind", SERVING_CELLS)
+def test_serving_cell_counts_equal_the_ranks(serving_ranks, arch, seq, b,
+                                             kind):
+    """A serving cell's meta counts on a fake 2x2 (``lower_cell``) are rank
+    0's on four gloo ranks running the same sharded step: the collectives'
+    calls and bytes, the flash kernel's launches (its wrapper's calls
+    there), the state's bytes."""
+    cfg = smoke_config(ARCHS[arch])
+    shape = ShapeSpec("cell", seq, b, kind)
+    with dryrun.fake_world(4):
+        rec = dryrun.lower_cell(cfg, shape, make_nmf_mesh(2, 2,
+                                                          device="meta"))
+    got = serving_ranks[(arch, kind)]
+    assert rec["collectives"]["all_reduce"]["calls"] == \
+        got["counts"]["all_reduce"]
+    assert rec["collectives"]["all_reduce"]["bytes"] == \
+        got["counts"]["bytes"]
+    assert rec["launches"].get("flash_attention", 0) == \
+        got["launches"]["flash_attention"]
+    assert rec.get("state_bytes", 0) == got["state"]
 
 
 # ---------------------------------------------------------------------------

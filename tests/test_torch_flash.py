@@ -208,3 +208,77 @@ def test_check_operands_leaves_f32_strides_to_the_cuda_core_kernel():
     q = torch.zeros((2, 4, 8, 68))[..., :64]
     kv = torch.zeros((2, 2, 8, 64))
     check_operands(q, kv, kv, 2)
+
+
+# ---------------------------------------------------------------------------
+# the log-sum-exp output (``lse=True``)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,h,hkv,s,t,hd,causal", [
+    (2, 4, 2, 40, 40, 32, True), (1, 2, 2, 1, 300, 64, False),
+    (2, 4, 4, 70, 130, 16, True)])
+def test_plain_lse_is_logsumexp_of_the_scaled_scores(b, h, hkv, s, t, hd,
+                                                     causal):
+    """``lse`` is ``torch.logsumexp`` of the scores times ``hd**-0.5``
+    over the kept keys, in f32; the output is the one without ``lse``."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(s + t, b, h, hkv, s, t, hd))
+    out, lse = flash_attention(q, k, v, causal=causal, groups=h // hkv,
+                               lse=True)
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal,
+                                            groups=h // hkv))
+    kf = k.repeat_interleave(h // hkv, dim=1)
+    scores = (q @ kf.transpose(-1, -2)) * hd ** -0.5
+    if causal:
+        keep = torch.ones(s, t, dtype=torch.bool).tril()
+        scores = scores.masked_fill(~keep, -torch.inf)
+    torch.testing.assert_close(lse, torch.logsumexp(scores, -1), rtol=1e-6,
+                               atol=1e-5)
+
+
+def test_plain_lse_of_a_row_with_no_key_is_minus_inf():
+    q = torch.randn((2, 4, 3, 16))
+    k = v = torch.zeros((2, 2, 0, 16))
+    out, lse = ref.flash_attention_ref(q, k, v, causal=False, groups=2,
+                                       lse=True)
+    assert bool(torch.isneginf(lse).all()) and not bool(out.any())
+    # it weighs nothing in a combine with a slice that has keys
+    q1, k1, v1 = (torch.from_numpy(x) for x in _qkv(4, 2, 4, 2, 3, 20, 16))
+    o1, l1 = ref.flash_attention_ref(q1, k1, v1, causal=False, groups=2,
+                                     lse=True)
+    top = torch.logsumexp(torch.stack([l1, lse]), 0)
+    merged = torch.exp(l1 - top)[..., None] * o1 + \
+        torch.exp(lse - top)[..., None] * out
+    torch.testing.assert_close(merged, o1, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("parts", [2, 4])
+def test_halves_of_keys_merged_by_lse_are_the_whole(dtype, parts):
+    """Launches over slices of T merged by ``out = sum_r exp(lse_r - LSE)
+    out_r`` (``LSE = logsumexp_r lse_r``) against one launch over T: one
+    query row of seamless's cross-attention shape, cut small."""
+    q, k, v = (torch.from_numpy(x).to(dtype)
+               for x in _qkv(9, 2, 4, 4, 1, 256, 64))
+    whole = flash_attention(q, k, v, causal=False, groups=1)
+    step = 256 // parts
+    got = [flash_attention(q, k[:, :, i:i + step], v[:, :, i:i + step],
+                           causal=False, groups=1, lse=True)
+           for i in range(0, 256, step)]
+    top = torch.logsumexp(torch.stack([g[1] for g in got]), 0)
+    merged = sum(torch.exp(g[1] - top)[..., None] * g[0].float() for g in got)
+    rtol, atol = (1e-5, 1e-6) if dtype == torch.float32 else (1e-2, 2e-3)
+    torch.testing.assert_close(merged, whole.float(), rtol=rtol, atol=atol)
+
+
+def test_meta_lse_counts_its_bytes():
+    from repro_torch.kernels.flash_attention import cost
+
+    q = torch.empty((2, 4, 8, 32), device="meta")
+    k = torch.empty((2, 2, 64, 32), device="meta")
+    f0, b0 = cost(q, k, k, causal=False)
+    f1, b1 = cost(q, k, k, causal=False, lse=True)
+    assert f1 == f0 and b1 == b0 + 4 * 2 * 4 * 8
+    out, lse = flash_attention(q, k, k, causal=False, groups=2, lse=True)
+    assert out.shape == q.shape and lse.shape == (2, 4, 8)
+    assert lse.device.type == "meta" and lse.dtype == torch.float32
