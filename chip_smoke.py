@@ -112,12 +112,16 @@ Phases (any failed check raises, and the script exits non-zero):
     ``cuda-bsr`` on a 1x1 mesh under NCCL (world 1), 50 iterations, held
     to the reference's bars against phase 3 (``bsr_spmm_gram`` 2 * iters
     + 1, no ``relu_topk``); (b) the same fit on 2x2 and 4x1 as four gloo
-    ranks sharing the card, each rank's launches, ``all_reduce`` calls and
+    ranks sharing the card (one set of ranks holds both grids, each rank
+    at its share of the host's cores), with the share of the host's
+    cores the ranks kept busy and the load average around each set,
+    each rank's launches, ``all_reduce`` calls and
     bytes, peak memory, ms an iteration, NNZ beside the population of
     tau's histogram bin, held to the same bars against (a), and a
     5-iteration ``torch-csr`` 2x2 fit within 1e-4 of ``cuda-bsr``; (c) a
     streamed 2x2 fit (8 chunks through ``PackedChunk`` prefetch) bitwise
-    equal with prefetch off; (d) a 2x2 fit checkpointed every 10
+    equal with prefetch off (5 passes a chunk, 10 until phase 28 came);
+    (d) a 2x2 fit checkpointed every 10
     iterations, killed at snapshot 30 and resumed on 4x1, within 1e-4 of
     the uninterrupted 2x2 trace; (e) ``python -m torch.distributed.run
     --nproc-per-node 4 -m repro_torch.launch.nmf_run --solver distributed
@@ -127,7 +131,8 @@ Phases (any failed check raises, and the script exits non-zero):
     2x2x2 (pod, data, model) grid of eight gloo ranks sharing the card,
     rows over ``("pod", "data")`` through ``make_sharded_als``, bitwise
     the same ranks' 4x2 fit (one row group of the ranks that share a
-    column), its last error within 0.02 of (a)'s, ``bsr_spmm_gram`` 2 *
+    column), 20 iterations (50 until phase 28 came), its last error
+    within 0.02 of (a)'s at the same iteration, ``bsr_spmm_gram`` 2 *
     iters a rank, ms an iteration and ``all_reduce`` calls;
 20. the tile ledger, bf16 and the fused half-step past k = 32: (a)
     ``autotune`` on the card into a temporary ledger at PubMed's shape, at
@@ -342,6 +347,37 @@ Phases (any failed check raises, and the script exits non-zero):
     (b) a second identical fit under ``recompile_guard()``: zero ``nvcc``
     builds, its kernels launched.  No kernel is added: the ``kernels``
     line is unchanged.
+28. the paper's Wikipedia configuration (``NMF_CONFIGS["wikipedia"]``:
+    143,462 terms x 12,439 pages, k = 5, 50 iterations, t_u = 14,346 and
+    t_v = 1,243, 2% of each factor), its synthetic corpus made beside the
+    build and the train launchers (its 13.3 GB padded ``SpCSR`` dropped
+    there, its scipy CSR kept): (a) the host ingest of both orientations
+    (seconds, peak RSS above the input against the tiles' bytes, the
+    host's ``MemTotal``), one copy to the card (seconds, bytes); the
+    whole-batch ``cuda-bsr`` fit from an explicit u0 with
+    ``bsr_spmm_gram`` 2 * iters + 1 and ``relu_topk`` 2 * iters launches
+    and no other mask launch, NNZ within the budgets up to ties, its
+    error and residual traces within 1e-4 of a ``torch-dense`` fit on the
+    card from the same u0; a ``transform`` of the corpus (one ``bsr_spmm``,
+    one ``relu_topk``) within 1e-4 of the dense fold-in; (b) the streamed
+    fit (resident chunks, the default 8, prefetch on): its launches, each
+    pass's host ingest (``Prefetcher`` stats of the factor, fold-in and
+    seed passes), within 1e-4 of the same streamed fit on ``torch-dense``
+    carved from (a)'s dense operand (traces; U relative to its largest
+    entry), and the bytes a
+    ``write_corpus`` spill would take (not written); (c) ``python -m
+    repro_torch.launch.nmf_run --config wikipedia --backend cuda-bsr
+    --iters 3 --sparsity frac_u=0.02,frac_v=0.02`` exits 0 with a finite
+    error and NNZ within the budgets, run beside the build and the train
+    launchers' runs once the corpus above is made (its kernels' first use
+    waits for the build); (d) ms an iteration and the busy share (a
+    profiler window of 5 iterations), the meta planner's peak within 10%
+    of the card's (``memory_guard``), ``bsr_spmm`` and the fused launch in
+    each orientation against their plain versions (1e-4), their bounds
+    over the occupied tiles, ``torch.sparse.mm`` on a BSR tensor and the
+    fused kernel's ``[tail]``, ``relu_topk`` on both pre-epilogue factors
+    bitwise its plain version, and the error path's ``bsr_dot_uv`` (every
+    slot of A) as a share of an iteration.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -441,6 +477,13 @@ def beside(fn, *args) -> concurrent.futures.Future:
     return concurrent.futures.ThreadPoolExecutor(1).submit(fn, *args)
 
 
+def after(first, fn, *args):
+    """``fn(*args)`` once the future ``first`` is done, whatever it gave
+    (its caller collects that)."""
+    first.exception()
+    return fn(*args)
+
+
 def once(path, stop, fn, *args):
     """``fn(*args)`` once the file ``path`` exists; None if ``stop`` (a
     ``threading.Event``) is set first."""
@@ -450,6 +493,28 @@ def once(path, stop, fn, *args):
                 return None
             break
     return fn(*args)
+
+
+def host_cpu():
+    """CPU seconds of this process and of its reaped children
+    (``os.times``), the wall clock and the host's one-minute load average:
+    two readings around a window give the share of the host's cores this
+    script and its ranks kept busy in it, beside the load of every task
+    on the host (``/proc/stat``'s totals stand still on the card's
+    machine)."""
+    t = os.times()
+    return dict(ours=t.user + t.system + t.children_user + t.children_system,
+                wall=time.monotonic(), load=os.getloadavg()[0])
+
+
+def host_share(before, after):
+    """``host_cpu`` readings around a window: its seconds, the share of
+    the host's cores this script and its ranks used, the load average at
+    its end."""
+    wall = max(after["wall"] - before["wall"], 1e-9)
+    cores = os.cpu_count() or 1
+    return dict(seconds=wall, cores=cores, load=after["load"],
+                ours=(after["ours"] - before["ours"]) / (wall * cores))
 
 
 def close(name, got, want, rtol, atol):
@@ -1693,7 +1758,11 @@ def _mesh_rank(rank, data_dir, device, jobs):
     a_sp = scipy.sparse.load_npz(Path(data_dir) / "a.npz")
     u0 = np.load(Path(data_dir) / "u0.npy")
     out = {}
+    # each job's start on this rank's clock, and the loop's end: the jobs'
+    # seconds, by group, when several grids share one spawn
+    starts = []
     for name, kw in jobs:
+        starts.append((name, time.perf_counter()))
         kw = dict(kw)
         kill_at = kw.pop("kill_at", None)
         resume = kw.pop("resume", None)
@@ -1738,6 +1807,8 @@ def _mesh_rank(rank, data_dir, device, jobs):
         if r.stream_stats is not None:
             rec["stream_stats"] = r.stream_stats
         out[name] = rec
+    ends = [t for _, t in starts[1:]] + [time.perf_counter()]
+    out["job_s"] = {name: end - t for (name, t), end in zip(starts, ends)}
     return out
 
 
@@ -1796,6 +1867,19 @@ def _pod_rank(rank, data_dir, device, iters):
     return out
 
 
+#: inner passes a chunk of 19(c)'s streamed 2x2 fit (10 before the
+#: Wikipedia phase came: the script's time limit), and iterations of
+#: 19(f)'s 2x2x2 and 4x2 engine fits (50 before it)
+MESH_STREAM_INNER, POD_ITERS = 5, 20
+
+
+def rank_threads(world):
+    """Intra-op threads of each of ``world`` ranks that share this host: its
+    cores split between them (the ranks' default, every core each,
+    oversubscribes the host ``world`` times)."""
+    return max(1, (os.cpu_count() or 1) // world)
+
+
 def run_mesh_slice(a_sp, res3, u0, paths, results, device="cuda:0",
                    one_rank_backend="nccl"):
     """Phase 19: the mesh engines on the card.  Every rank is a process
@@ -1824,11 +1908,17 @@ def run_mesh_slice(a_sp, res3, u0, paths, results, device="cuda:0",
     fit = dict(k=K, iters=ITERS, solver="distributed", backend="cuda-bsr")
 
     def spawn(shape, backend, jobs):
-        t0 = time.perf_counter()
+        t0, cpu0 = time.perf_counter(), host_cpu()
         recs = spawn_mesh(_mesh_rank, *shape, backend=backend,
                           device=device, timeout=600.0,
                           init_file=str(Path(root) / f"store-{shape}"),
-                          args=(root, device, jobs))
+                          args=(root, device, jobs),
+                          threads=rank_threads(shape[0] * shape[1]))
+        load = host_share(cpu0, host_cpu())
+        out.setdefault("host", {})["x".join(map(str, shape))] = load
+        log(f"[mesh] {shape[0]}x{shape[1]} spawn: this script and its "
+            f"ranks kept {100 * load['ours']:.1f}% of the host's "
+            f"{load['cores']} cores busy; load average {load['load']:.1f}")
         return recs, time.perf_counter() - t0
 
     def bars(name, rec, want, what):
@@ -1875,9 +1965,11 @@ def run_mesh_slice(a_sp, res3, u0, paths, results, device="cuda:0",
             if rec["err"] != recs[0]["err"]:
                 raise AssertionError(f"{name}: ranks disagree on the trace")
 
-    def report(name, recs, secs, timed):
+    def report(name, recs, secs, timed, spawn_s=None):
         """Each rank's fit (launches, collectives, peak memory, wall time
-        with its ingest) and its engine timed without the ingest."""
+        with its ingest) and its engine timed without the ingest; ``secs``
+        from spawn to result, or, where grids share a spawn of
+        ``spawn_s`` seconds, this grid's jobs on the slowest rank."""
         for rank, (rec, t) in enumerate(zip(recs, timed)):
             c = rec["collectives"]
             rec["engine"] = t
@@ -1899,10 +1991,19 @@ def run_mesh_slice(a_sp, res3, u0, paths, results, device="cuda:0",
         log(f"[mesh] {name}: final error {rec['err'][-1]:.6f}, NNZ(U) "
             f"{rec['nnz_u'][-1]} (t_u {T_U}, tau's bin holds "
             f"{rec['pop_u']}), NNZ(V) {rec['nnz_v'][-1]} (t_v {T_V}, tau's "
-            f"bin holds {rec['pop_v']}); spawn to result {secs:.1f} s")
+            f"bin holds {rec['pop_v']}); "
+            + (f"spawn to result {secs:.1f} s" if spawn_s is None else
+               f"its jobs {secs:.1f} s of the shared spawn's "
+               f"{spawn_s:.1f} s"))
         out[name] = dict(
             ranks=[{k: v for k, v in r.items() if k not in ("u", "v")}
                    for r in recs], seconds=secs)
+        if spawn_s is not None:
+            out[name]["spawn_s"] = spawn_s
+
+    def jobs_s(recs, names):
+        """The seconds of the jobs ``names`` on the slowest rank."""
+        return max(sum(r["job_s"][n] for n in names) for r in recs)
 
     phase3 = dict(err=res3.error.tolist(), res=res3.residual.tolist())
     # -- 19(a). 1x1 under NCCL (world 1) -------------------------------------
@@ -1917,22 +2018,31 @@ def run_mesh_slice(a_sp, res3, u0, paths, results, device="cuda:0",
         f"{d[1]:.3e}")
     paths["mesh_fit_1x1"] = a1["fit"]["launches"]
 
-    # -- 19(b)-(d). 2x2: the fit, torch-csr, the streamed fit, the kill ------
-    stream = dict(k=K, iters=10, solver="streaming", backend="cuda-bsr",
-                  mesh_shape=(2, 2))
+    # -- 19(b)-(d). 2x2: the fit, torch-csr, the streamed fit, the kill; then
+    # 4x1 in the same four ranks (a world holds a mesh of each shape), and
+    # the 2x2 kill resumed there ---------------------------------------------
+    stream = dict(k=K, iters=MESH_STREAM_INNER, solver="streaming",
+                  backend="cuda-bsr", mesh_shape=(2, 2))
     jobs = [("fit", dict(fit, mesh_shape=(2, 2))), timed((2, 2)),
             ("csr", dict(fit, mesh_shape=(2, 2), iters=UNFUSED_ITERS,
                          backend="torch-csr")),
             ("stream", stream),
             ("stream_off", dict(stream, prefetch=False)),
             ("kill", dict(fit, mesh_shape=(2, 2), checkpoint_dir=ckpt,
-                          checkpoint_every=10, kill_at=30))]
+                          checkpoint_every=10, kill_at=30)),
+            ("fit41", dict(fit, mesh_shape=(4, 1))),
+            ("engine41", timed((4, 1))[1]),
+            ("resumed", dict(fit, mesh_shape=(4, 1), checkpoint_dir=ckpt,
+                             checkpoint_every=10, resume=True))]
     r22, secs = spawn((2, 2), "gloo", jobs)
     fits = [r["fit"] for r in r22]
     check_ranks("2x2 gloo", fits, 2 * ITERS + 1)
     p22 = bars("2x2 gloo", fits[0], phase3, "phase 3")
     d22 = same_engine("2x2 gloo", fits[0], a1["fit"], "19(a)")
-    report("2x2 gloo", fits, secs, [r["engine"] for r in r22])
+    grid41 = ("fit41", "engine41", "resumed")
+    report("2x2 gloo", fits,
+           jobs_s(r22, [n for n, _ in jobs if n not in grid41]),
+           [r["engine"] for r in r22], spawn_s=secs)
     paths["mesh_fit"] = fits[0]["launches"]
     csr_err = np.asarray(r22[0]["csr"]["err"])
     csr_diff = float(np.max(np.abs(
@@ -1942,7 +2052,8 @@ def run_mesh_slice(a_sp, res3, u0, paths, results, device="cuda:0",
                              f"by {csr_diff:.3e}")
     streams = [r["stream"] for r in r22]
     n_chunks = streams[0]["n_iter"]
-    check_ranks("2x2 stream", streams, 2 * 10 * n_chunks, relu_topk=1)
+    check_ranks("2x2 stream", streams, 2 * MESH_STREAM_INNER * n_chunks,
+                relu_topk=1)
     for rank, r in enumerate(r22):
         on, off = r["stream"], r["stream_off"]
         same = all(on[key] == off[key] for key in ("err", "res", "nnz_u",
@@ -1974,21 +2085,17 @@ def run_mesh_slice(a_sp, res3, u0, paths, results, device="cuda:0",
     out["csr_diff"] = csr_diff
     paths["mesh_stream"] = streams[0]["launches"]
 
-    # -- 19(b), (d). 4x1, and the 2x2 kill resumed there --------------------
-    r41, secs = spawn((4, 1), "gloo",
-                      [("fit", dict(fit, mesh_shape=(4, 1))), timed((4, 1)),
-                       ("resumed", dict(fit, mesh_shape=(4, 1),
-                                        checkpoint_dir=ckpt,
-                                        checkpoint_every=10, resume=True))])
-    fits41 = [r["fit"] for r in r41]
+    # -- 19(b), (d). 4x1 (the same ranks), and the 2x2 kill resumed there ---
+    fits41 = [r["fit41"] for r in r22]
     check_ranks("4x1 gloo", fits41, 2 * ITERS + 1)
     p41 = bars("4x1 gloo", fits41[0], phase3, "phase 3")
     d41 = same_engine("4x1 gloo", fits41[0], a1["fit"], "19(a)")
-    report("4x1 gloo", fits41, secs, [r["engine"] for r in r41])
+    report("4x1 gloo", fits41, jobs_s(r22, grid41),
+           [r["engine41"] for r in r22], spawn_s=secs)
     log(f"[mesh] 4x1 against phase 3: error {p41[0]:.3e}, residual "
         f"{p41[1]:.3e}; against 19(a): error {d41[0]:.3e}, residual "
         f"{d41[1]:.3e}")
-    resumed = [r["resumed"] for r in r41]
+    resumed = [r["resumed"] for r in r22]
     check_ranks("resumed 2x2 -> 4x1", resumed, 2 * (ITERS - 30) + 1)
     d_res = float(np.max(np.abs(np.asarray(resumed[0]["err"])
                                 - np.asarray(fits[0]["err"]))))
@@ -2008,11 +2115,16 @@ def run_mesh_slice(a_sp, res3, u0, paths, results, device="cuda:0",
                           launches=resumed[0]["launches"])
 
     # -- 19(f). 2x2x2: rows over ("pod", "data"), eight gloo ranks ---------
-    t0 = time.perf_counter()
+    t0, cpu0 = time.perf_counter(), host_cpu()
     r222 = spawn_mesh(_pod_rank, 2, 2, pods=2, backend="gloo", device=device,
                       init_file=str(Path(root) / "store-2x2x2"),
-                      args=(root, device, ITERS), timeout=600.0)
+                      args=(root, device, POD_ITERS), timeout=600.0,
+                      threads=rank_threads(8))
     secs = time.perf_counter() - t0
+    out.setdefault("host", {})["2x2x2"] = load = host_share(cpu0, host_cpu())
+    log(f"[mesh] 2x2x2 spawn: this script and its ranks kept "
+        f"{100 * load['ours']:.1f}% of the host's {load['cores']} cores "
+        f"busy; load average {load['load']:.1f}")
     for rank, rec in enumerate(r222):
         pod, flat = rec["2x2x2"], rec["4x2"]
         same = all(pod[key] == flat[key] for key in ("err", "res", "nnz_u",
@@ -2023,12 +2135,15 @@ def run_mesh_slice(a_sp, res3, u0, paths, results, device="cuda:0",
                                  "the same ranks' 4x2 fit")
         if pod["health"] != -1 or not pod["finite"]:
             raise AssertionError(f"2x2x2 rank {rank} is unhealthy")
-        if device != "cpu" and pod["launches"]["bsr_spmm_gram"] != 2 * ITERS:
+        if (device != "cpu"
+                and pod["launches"]["bsr_spmm_gram"] != 2 * POD_ITERS):
             raise AssertionError(f"2x2x2 rank {rank}: bsr_spmm_gram "
                                  f"{pod['launches']['bsr_spmm_gram']} (want "
-                                 f"{2 * ITERS})")
+                                 f"{2 * POD_ITERS})")
     pod = r222[0]["2x2x2"]
-    d_last = abs(pod["err"][-1] - a1["fit"]["err"][-1])
+    # the 1x1 fit's error at the same iteration
+    err_1x1 = a1["fit"]["err"][POD_ITERS - 1]
+    d_last = abs(pod["err"][-1] - err_1x1)
     if d_last >= 0.02:
         raise AssertionError(f"2x2x2: last error {pod['err'][-1]:.6f} is "
                              f"{d_last:.3e} from the 1x1 fit's (bar 0.02)")
@@ -2036,16 +2151,17 @@ def run_mesh_slice(a_sp, res3, u0, paths, results, device="cuda:0",
         for rank, rec in enumerate(r222):
             c = rec[name]["collectives"]
             log(f"[mesh] {name} rank {rank}: {rec[name]['iter_ms']:.3f} ms "
-                f"an iteration (the engine, {ITERS} iterations, ingest "
+                f"an iteration (the engine, {POD_ITERS} iterations, ingest "
                 f"excluded), launches {rec[name]['launches']}, all_reduce "
-                f"{c['all_reduce'] / ITERS:.0f} calls / "
-                f"{c['bytes'] / ITERS:.0f} bytes an iteration, peak "
+                f"{c['all_reduce'] / POD_ITERS:.0f} calls / "
+                f"{c['bytes'] / POD_ITERS:.0f} bytes an iteration, peak "
                 f"{rec[name]['peak_mb']:.1f} MiB")
     log(f"[mesh] 2x2x2 (rows over (pod, data); eight gloo ranks share one "
         f"card: host round trips, not a multi-card result): traces, NNZ and "
         f"factors bitwise the same ranks' 4x2 fit on every rank; final "
-        f"error {pod['err'][-1]:.6f}, {d_last:.3e} from the 1x1 fit's "
-        f"{a1['fit']['err'][-1]:.6f} (bar 0.02); NNZ(U) {pod['nnz_u'][-1]}, "
+        f"error {pod['err'][-1]:.6f} after {POD_ITERS} iterations, "
+        f"{d_last:.3e} from the 1x1 fit's {err_1x1:.6f} at the same "
+        f"iteration (bar 0.02); NNZ(U) {pod['nnz_u'][-1]}, "
         f"NNZ(V) {pod['nnz_v'][-1]}; spawn to result {secs:.1f} s")
     paths["mesh_fit_2x2x2"] = pod["launches"]
     out["2x2x2"] = dict(
@@ -6122,11 +6238,594 @@ def run_analysis_slice(dev, a_sp, op, u0, smi, results):
                              + "; ".join(failed))
 
 
+#: the paper's Wikipedia configuration (``NMF_CONFIGS["wikipedia"]``, Table
+#: 1 / Fig. 7): 143,462 terms x 12,439 pages, k = 5, 50 iterations; 2% of
+#: each dense factor kept, as phase 3 keeps at PubMed
+WIKI_TERMS, WIKI_DOCS = 143462, 12439
+WIKI_T_U, WIKI_T_V = WIKI_TERMS * K // 50, WIKI_DOCS * K // 50  # 14346, 1243
+#: the reference's host ingest of this corpus (a float64 copy of A's whole
+#: tile volume), measured on another host (8 cores, no card) before the
+#: lean ingest: seconds and peak RSS, printed for orientation only;
+#: ``tools/ingest_ab.py`` times both ingests on one host
+WIKI_OLD_INGEST_S, WIKI_OLD_INGEST_PEAK_GB = 38.7, 36.0
+#: the card's host link, PCIe 5.0 x16, one direction (bytes/s): the bound
+#: of a copy from host memory
+PCIE_BYTES_PER_S = 64e9
+
+
+def rss_bytes():
+    """This process's resident set (``/proc/self/status``, ``VmRSS``)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def mem_total_bytes():
+    """The host's memory (``/proc/meminfo``, ``MemTotal``)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemTotal:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def chunk_coverage(sub, bm, bk):
+    """Which blocks of ``bm`` terms and of ``bk`` documents of the chunk
+    ``sub`` (terms x its documents, scipy CSR) hold an entry: a block
+    with none is referenced by no slot of the chunk's transposed (terms)
+    or own (documents) BSR orientation, and each fused product on that
+    orientation adds the Gram of those rows in a ``gram`` launch
+    (``kernels/fused.py``).  Block 0 counts as held: padding slots point
+    there.  Two boolean arrays, over the term and the document blocks."""
+    n, w = sub.shape
+    terms = np.zeros(-(-n // bm), bool)
+    terms[np.flatnonzero(np.diff(sub.indptr)) // bm] = True
+    docs = np.zeros(-(-w // bk), bool)
+    docs[np.unique(sub.indices) // bk] = True
+    terms[0] = docs[0] = True
+    return terms, docs
+
+
+class RssPeak:
+    """The largest ``VmRSS`` of this process inside a ``with`` block,
+    sampled every 20 ms on a thread (the kernel's own high-water mark,
+    ``VmHWM``, covers the process's whole life), and the RSS before it."""
+
+    def __enter__(self):
+        import threading
+
+        self.base = self.peak = rss_bytes()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.02):
+                self.peak = max(self.peak, rss_bytes())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, rss_bytes())
+        return False
+
+
+def wikipedia_corpus():
+    """The synthetic corpus of the Wikipedia configuration, made as the
+    command line makes it (seed 0, 5 journals), kept as its scipy CSR
+    (~7 MB): the padded ``SpCSR`` the generator returns (13.3 GB, its
+    width the head term's ~11,600 documents) is dropped here, before any
+    timed window."""
+    from repro_torch.data import synthetic_journal_corpus
+    from repro_torch.sparse import to_scipy
+
+    t0 = time.perf_counter()
+    corpus, _ = synthetic_journal_corpus(n_terms=WIKI_TERMS,
+                                         n_docs=WIKI_DOCS, n_journals=5)
+    gen_s = time.perf_counter() - t0
+    padded = (corpus.values.numel() * corpus.values.element_size()
+              + corpus.cols.numel() * corpus.cols.element_size())
+    rss = rss_bytes()
+    a_sp = to_scipy(corpus).tocsr()
+    del corpus
+    return dict(a_sp=a_sp, gen_s=gen_s, seconds=time.perf_counter() - t0,
+                padded_bytes=padded, rss_with_padded=rss)
+
+
+def wikipedia_command_line(card):
+    """Phase 28(c): ``python -m repro_torch.launch.nmf_run --config
+    wikipedia --backend cuda-bsr --iters 3 --sparsity
+    frac_u=0.02,frac_v=0.02`` exits 0 and prints a fit line: a finite
+    error, NNZ within the budgets.  Run beside untimed work only (the
+    build and the train launchers' runs)."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.nmf_run", "--config",
+           "wikipedia", "--backend", "cuda-bsr", "--iters", "3",
+           "--sparsity", "frac_u=0.02,frac_v=0.02"] + (
+               [] if card else ["--device", "cpu", "--small"])
+    t0 = time.perf_counter()
+    cli = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=600)
+    secs = time.perf_counter() - t0
+    if cli.returncode != 0:
+        raise AssertionError(f"nmf_run --config wikipedia exited "
+                             f"{cli.returncode}: {cli.stderr[-3000:]}")
+    got = re.search(r"final error (\S+), residual \S+, NNZ\(U\)=(\d+), "
+                    r"NNZ\(V\)=(\d+)", cli.stdout)
+    if got is None:
+        raise AssertionError(f"nmf_run --config wikipedia printed no fit "
+                             f"line: {cli.stdout[-2000:]}")
+    from repro_torch.configs import NMF_CONFIGS
+
+    err, nnz_u, nnz_v = float(got[1]), int(got[2]), int(got[3])
+    wiki = NMF_CONFIGS["wikipedia"]
+    n, m = wiki["n_terms"], wiki["n_docs"]
+    if not card:
+        n, m = n // 8, m // 8
+    t_u, t_v = int(n * K * 0.02), int(m * K * 0.02)
+    if not (np.isfinite(err) and nnz_u <= t_u + max(2, t_u // 100)
+            and nnz_v <= t_v + max(2, t_v // 100)):
+        raise AssertionError(f"nmf_run --config wikipedia: error {err}, "
+                             f"NNZ(U) {nnz_u} (t_u {t_u}), NNZ(V) {nnz_v} "
+                             f"(t_v {t_v})")
+    line = [ln for ln in cli.stdout.splitlines() if ln.startswith("solver=")]
+    return dict(seconds=secs, line=line, error=err, nnz_u=nnz_u,
+                nnz_v=nnz_v, t_u=t_u, t_v=t_v)
+
+
+def run_wikipedia_slice(dev, wiki, cli, smi, paths, results, rows):
+    """Phase 28: the paper's Wikipedia configuration on the card (see the
+    module's docstring).  ``wiki`` is :func:`wikipedia_corpus`'s result,
+    made while the script waited for the train launchers; ``cli`` the
+    future of (c)'s command line, started beside them."""
+    import gc
+
+    import torch
+
+    from repro_torch.analysis import memory_guard
+    from repro_torch.backend import get_backend
+    from repro_torch.convert import estimator_from_reference
+    from repro_torch.core.nmf import init_u0, solve_gram
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.bsr import bsr_dot_uv, bsr_operand
+    from repro_torch.kernels.bsr_spmm import bsr_spmm
+    from repro_torch.kernels.fused import bsr_spmm_gram
+    from repro_torch.kernels.gram import gram
+    from repro_torch.kernels.project_mask import relu_topk
+    from repro_torch.nmf import (
+        EnforcedNMF, NMFConfig, Sparsity, default_chunk_docs,
+    )
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = results["wikipedia"] = {}
+    a_sp = wiki["a_sp"]
+    n, m = a_sp.shape
+    mem_total = mem_total_bytes()
+    log(f"[wiki] Wikipedia-shaped corpus {n} x {m}, nnz {a_sp.nnz}: "
+        f"generated in {wiki['gen_s']:.2f} s ({wiki['seconds']:.2f} s with "
+        f"its scipy copy) while the train launchers ran; its padded SpCSR "
+        f"{wiki['padded_bytes'] / 1e9:.2f} GB (RSS "
+        f"{wiki['rss_with_padded'] / 1e9:.2f} GB with it) dropped before "
+        f"any timed window; this "
+        f"process's RSS now {rss_bytes() / 1e9:.2f} GB of the host's "
+        f"{mem_total / 1e9:.1f} GB")
+    out["corpus"] = {k: v for k, v in wiki.items() if k != "a_sp"} | dict(
+        shape=[n, m], nnz=int(a_sp.nnz), mem_total=mem_total)
+
+    # -- (a) the host ingest, then one copy to the card -----------------------
+    be = get_backend("cuda-bsr")
+    tiles = be.tile_config(n, m, device=dev)
+    with RssPeak() as rss:
+        t0 = time.perf_counter()
+        host_op = bsr_operand(a_sp, bm=tiles.bm, bk=tiles.bk, device="cpu")
+        ingest_s = time.perf_counter() - t0
+    tile_bytes = sum(b.tiles.numel() * b.tiles.element_size()
+                     for b in (host_op.bsr, host_op.bsr_t))
+    occ = {"A": host_op.bsr.occupied, "At": host_op.bsr_t.occupied}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    op = host_op.to(dev)
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    del host_op
+    dev_bytes = sum(t.numel() * t.element_size() for b in (op.bsr, op.bsr_t)
+                    for t in (b.tiles, b.block_cols, b.gram_flags))
+    above = rss.peak - rss.base
+    ingest = dict(seconds=ingest_s, rss_base=rss.base, rss_peak=rss.peak,
+                  above_input=above, tile_bytes=tile_bytes,
+                  h2d_s=h2d_s, h2d_bound_s=tile_bytes / PCIE_BYTES_PER_S,
+                  device_bytes=dev_bytes, occupied=occ,
+                  nrb=[op.bsr.nrb, op.bsr_t.nrb],
+                  bcap=[op.bsr.bcap, op.bsr_t.bcap],
+                  tiles=[tiles.bm, tiles.bk])
+    out["ingest"] = ingest
+    log(f"[wiki] host ingest (bsr_operand of the scipy corpus, both "
+        f"orientations at {tiles.bm} x {tiles.bk}): {ingest_s:.2f} s, RSS "
+        f"peak {rss.peak / 1e9:.2f} GB, {above / 1e9:.2f} GB above its "
+        f"input ({above / tile_bytes:.3f}x the two orientations' "
+        f"{tile_bytes / 1e9:.2f} GB of tiles; target <= 1.15x); the "
+        f"float64 ingest took {WIKI_OLD_INGEST_S} s / "
+        f"{WIKI_OLD_INGEST_PEAK_GB} GB peak on another host (8 cores, no "
+        f"card; tools/ingest_ab.py times both on one); A: nrb "
+        f"{op.bsr.nrb}, bcap {op.bsr.bcap}, A^T: nrb {op.bsr_t.nrb}, bcap "
+        f"{op.bsr_t.bcap}, "
+        f"occupied tiles {occ['A']} / {occ['At']} of "
+        f"{op.bsr.nrb * op.bsr.bcap} / {op.bsr_t.nrb * op.bsr_t.bcap} slots "
+        f"({100 * occ['A'] / (op.bsr.nrb * op.bsr.bcap):.1f}% / "
+        f"{100 * occ['At'] / (op.bsr_t.nrb * op.bsr_t.bcap):.1f}%), "
+        f"{100 * a_sp.nnz / (occ['A'] * tiles.bm * tiles.bk):.3f}% of an "
+        f"occupied tile's entries stored; to the card {h2d_s:.2f} s for "
+        f"{dev_bytes / 1e9:.2f} GB on the card (bound "
+        f"{ingest['h2d_bound_s']:.3f} s at PCIe 5.0 x16, one direction)")
+
+    # -- (a) the whole-batch Alg. 2 fit on cuda-bsr ------------------------
+    gen = torch.Generator().manual_seed(0)
+    u0 = init_u0(gen, n, K, device=dev)
+    cfg = NMFConfig(k=K, iters=ITERS, solver="enforced", backend="cuda-bsr",
+                    sparsity=Sparsity(t_u=WIKI_T_U, t_v=WIKI_T_V))
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = EnforcedNMF(cfg, device=dev).fit(op, u0=u0)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    paths["wiki_fit"] = counts = _build.launch_counts()
+    res = model.result_
+    nu, nv = res.final_nnz_u, res.final_nnz_v
+    log(f"[wiki] cuda-bsr fit, {ITERS} iterations: {fit_s:.2f} s (the "
+        f"first, set-up included), final error {res.final_error:.6f}, "
+        f"NNZ(U) {nu} (t_u {WIKI_T_U}), NNZ(V) {nv} (t_v {WIKI_T_V}), health "
+        f"{int(res.health)}, launches {counts}")
+    if (int(res.health) != -1 or not bool(torch.isfinite(model.u_).all())
+            or not bool(torch.isfinite(model.v_).all())):
+        raise AssertionError("the Wikipedia fit is unhealthy")
+    for nnz, t in ((nu, WIKI_T_U), (nv, WIKI_T_V)):
+        if nnz > t + max(2, t // 100):
+            raise AssertionError(f"Wikipedia fit: NNZ {nnz} is over {t} "
+                                 "beyond ties")
+    if (counts["bsr_spmm_gram"] != 2 * ITERS + 1
+            or counts["relu_topk"] != 2 * ITERS
+            or counts["project_mask"] != 0):
+        raise AssertionError(f"Wikipedia fit launches {counts}: want "
+                             f"bsr_spmm_gram {2 * ITERS + 1}, relu_topk "
+                             f"{2 * ITERS}, no other mask launch")
+    t0 = time.perf_counter()
+    dense_a = get_backend("torch-dense").prepare(a_sp, device=dev)
+    torch.cuda.synchronize()
+    dense_prep_s = time.perf_counter() - t0
+    dense = EnforcedNMF(cfg.replace(backend="torch-dense"),
+                        device=dev).fit(dense_a, u0=u0)
+    diffs = {f: float((getattr(dense.result_, f) - getattr(res, f)
+                       ).abs().max()) for f in ("error", "residual")}
+    log(f"[wiki] torch-dense fit on the card from the same u0 (dense A "
+        f"{dense_a.numel() * 4 / 1e9:.2f} GB, made in {dense_prep_s:.2f} s): "
+        f"traces against cuda-bsr within {diffs} (bar 1e-4); its final "
+        f"error {dense.result_.final_error:.6f}")
+    if max(diffs.values()) > 1e-4:
+        raise AssertionError(f"Wikipedia: cuda-bsr and torch-dense traces "
+                             f"differ by {diffs} > 1e-4")
+    del dense
+    _build.reset_launch_counts()
+    v_fold = model.transform(op)
+    torch.cuda.synchronize()
+    paths["wiki_transform"] = fold = _build.launch_counts()
+    dense_model = estimator_from_reference(
+        model.u_.cpu().numpy(), model.v_.cpu().numpy(), m,
+        cfg.replace(backend="torch-dense"), device=dev)
+    fold_diff = float((v_fold - dense_model.transform(dense_a)).abs().max())
+    log(f"[wiki] transform of the corpus: launches {fold}, V "
+        f"{tuple(v_fold.shape)} within {fold_diff:.3e} of the dense fold-in "
+        "(bar 1e-4)")
+    if fold["bsr_spmm"] != 1 or fold["relu_topk"] != 1 or fold_diff > 1e-4:
+        raise AssertionError(f"Wikipedia transform: launches {fold}, "
+                             f"{fold_diff:.3e} from the dense fold-in")
+    del dense_model, v_fold
+    out["fit"] = dict(first_s=fit_s, launches=counts, nnz_u=nu, nnz_v=nv,
+                      error=res.error.tolist(),
+                      residual=res.residual.tolist(), dense_diffs=diffs,
+                      dense_prep_s=dense_prep_s, transform=fold,
+                      fold_diff=fold_diff)
+
+    # -- (b) the streamed fit, resident chunks, prefetch on ---------------
+    scfg = cfg.replace(solver="streaming")
+    width = default_chunk_docs(m)
+    chunks = -(-m // width)
+    inner = min(ITERS, 10)
+    cap, cover = 0, []
+    for lo in range(0, m, width):
+        sub = a_sp[:, lo:lo + width].tocsr()
+        cap = max(cap, int(np.diff(sub.indptr).max()))
+        # the tiles stage_chunk ingests the chunk at (on the host)
+        ct = be.tile_config(*sub.shape, device="cpu")
+        cover.append(chunk_coverage(sub, ct.bm, ct.bk))
+    disk = chunks * n * cap * (4 + 4)
+    # each pass's A_c^T U and A_c V_c add a gram launch where the chunk
+    # leaves a block of terms or documents unreferenced
+    want_gram = inner * sum((not t.all()) + (not d.all()) for t, d in cover)
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on = EnforcedNMF(scfg, device=dev).fit(a_sp, u0=u0)
+    torch.cuda.synchronize()
+    on_s = time.perf_counter() - t0
+    paths["wiki_stream"] = scounts = _build.launch_counts()
+    speak = torch.cuda.max_memory_allocated()
+    sres = on.result_
+    want = 2 * inner * chunks
+    if (scounts["bsr_spmm_gram"] != want or scounts["relu_topk"] != want + 1
+            or scounts["bsr_spmm"] != 2 * chunks
+            or scounts["gram"] != want_gram):
+        raise AssertionError(f"Wikipedia streamed fit launches {scounts}: "
+                             f"want bsr_spmm_gram {want}, relu_topk "
+                             f"{want + 1}, bsr_spmm {2 * chunks}, gram "
+                             f"{want_gram}")
+    if int(sres.health) != -1 or not bool(torch.isfinite(on.u_).all()):
+        raise AssertionError("the Wikipedia streamed fit is unhealthy")
+    passes = {p: sres.stream_stats[p] for p in ("fit", "fold_in", "seed")}
+    # the oracle: the same streamed fit on torch-dense, carved from the
+    # dense operand of (a) (no padded SpCSR of its own)
+    t0 = time.perf_counter()
+    oracle = EnforcedNMF(scfg.replace(backend="torch-dense"),
+                         device=dev).fit(dense_a, u0=u0)
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    sdiffs = {f: float((getattr(oracle.result_, f) - getattr(sres, f)
+                        ).abs().max()) for f in ("residual", "error")}
+    sdiffs["u_rel"] = float((oracle.u_ - on.u_).abs().max()
+                            / on.u_.abs().max())
+    log(f"[wiki] streamed cuda-bsr fit, {chunks} chunks of <= {width} "
+        f"documents, {inner} passes a chunk, prefetch on: {on_s:.2f} s, "
+        f"launches {scounts} (gram on the U rows of the "
+        f"{sum(not t.all() for t, _ in cover)} chunks that leave a term "
+        f"block unreferenced, and the V_c rows of the "
+        f"{sum(not d.all() for _, d in cover)} that leave a document block"
+        f"), device peak {speak / 1e9:.2f} GB; each pass's "
+        f"host ingest (Prefetcher pack / consumer stall, s): "
+        + ", ".join(f"{p} {st['pack_s']:.2f} / {st['stall_s']:.2f}"
+                    for p, st in passes.items())
+        + f"; the torch-dense streamed fit {oracle_s:.2f} s, within {sdiffs} "
+        f"(U relative to its largest entry; bar 1e-4); not spilled: a "
+        f"write_corpus directory would hold {chunks} x {n} x {cap} slots, "
+        f"{disk / 1e9:.2f} GB")
+    if max(sdiffs.values()) > 1e-4:
+        raise AssertionError(f"Wikipedia streamed cuda-bsr and torch-dense "
+                             f"differ: {sdiffs}")
+    out["stream"] = dict(seconds=on_s, chunks=chunks, width=width,
+                         inner=inner, launches=scounts, passes=passes,
+                         uncovered_terms=[bool(not t.all()) for t, _ in cover],
+                         uncovered_docs=[bool(not d.all()) for _, d in cover],
+                         device_peak=speak, oracle_s=oracle_s,
+                         diffs=sdiffs,
+                         chunk_cap=cap, disk_bytes=disk,
+                         error=sres.error.tolist())
+    del on, oracle, dense_a
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (d) an iteration, its busy share, the planner's peak ----------------
+    timed = EnforcedNMF(cfg, device=dev)
+    card = memory_guard(timed.fit, op, u0=u0)
+    t0 = time.perf_counter()
+    timed.fit(op, u0=u0)
+    torch.cuda.synchronize()
+    per_iter_ms = 1e3 * (time.perf_counter() - t0) / ITERS
+    prof_cfg = cfg.replace(iters=5)
+    prof = profiled("Wikipedia 5-iteration fit (set-up included)",
+                    lambda: EnforcedNMF(prof_cfg, device=dev).fit(op, u0=u0))
+    busy_ms = prof["device_busy_us"] / 1e3 / 5
+    u0_meta = torch.empty_like(u0, device="meta")
+    plan = memory_guard(EnforcedNMF(cfg, device="meta").fit, op.to("meta"),
+                        u0=u0_meta)
+    ratio = plan.peak_bytes / card.peak_bytes
+    log(f"[wiki] cuda-bsr fit: {per_iter_ms:.3f} ms an iteration (host "
+        f"clock, {ITERS} iterations, the operand ingested), device busy "
+        f"{busy_ms:.3f} ms an iteration in a 5-iteration profiler window "
+        f"({prof['kernels_per_call'] / 5:.0f} kernels an iteration); the "
+        f"meta planner's peak {plan.peak_bytes / 2**30:.3f} GiB against the "
+        f"card's {card.peak_bytes / 2**30:.3f} GiB (memory_guard: "
+        f"{ratio:.4f} of it, bar {PEAK_RTOL:.0%}) on {smi}")
+    if abs(ratio - 1.0) > PEAK_RTOL:
+        raise AssertionError(f"Wikipedia fit: the planner's peak "
+                             f"{plan.peak_bytes} B is not within "
+                             f"{PEAK_RTOL:.0%} of the card's "
+                             f"{card.peak_bytes} B")
+    out["iteration"] = dict(ms=per_iter_ms, busy_ms=busy_ms,
+                            busy_share=busy_ms / per_iter_ms,
+                            profile=prof, card_peak=card.peak_bytes,
+                            card_args=card.argument_bytes,
+                            meta_peak=plan.peak_bytes, peak_ratio=ratio)
+    del timed
+
+    # -- (d) the kernels at this shape, against their plain versions ---------
+    u_fit, v_fit = model.u_, model.v_
+    kern = {}
+    for o, b, w, tiles_o, sp in (
+            ("A@V", op.bsr, v_fit, occ["A"], a_sp),
+            ("A^T@U", op.bsr_t, u_fit, occ["At"], a_sp.T.tocsr())):
+        y, g = bsr_spmm_gram(b, w)
+        if not torch.equal(y, bsr_spmm(b, w)):
+            raise AssertionError(f"Wikipedia {o}: the fused product is not "
+                                 "bitwise bsr_spmm's")
+        y_ref, g_ref = ref.bsr_spmm_gram_ref(b, w)
+        err = max(close(f"Wikipedia bsr_spmm {o}", y, y_ref, 1e-4, 1e-4),
+                  close(f"Wikipedia bsr_spmm_gram gram {o}", g, g_ref, 1e-5,
+                        1e-4))
+        del y, g, y_ref, g_ref
+        flops = 2.0 * tiles_o * b.bm * b.bk * K
+        flagged = int((b.gram_flags != 0).sum())
+        call, lib = _lib_spmm(b, w, sp, dev)
+        item = dict(
+            max_abs_err=err,
+            spmm_ms=cuda_ms(lambda: bsr_spmm(b, w), reps=10),
+            fused_ms=cuda_ms(lambda: bsr_spmm_gram(b, w), reps=10),
+            plain_ms=cuda_ms(lambda: ref.bsr_spmm_ref(b, w), reps=3,
+                             warmup=1),
+            fused_plain_ms=cuda_ms(lambda: ref.bsr_spmm_gram_ref(b, w),
+                                   reps=3, warmup=1),
+            library_call=call, library_ms=cuda_ms(lib, reps=5, warmup=1),
+            spmm_bound=bound_ms(_spmm_bytes(b, w, tiles_o, K), flops),
+            fused_bound=bound_ms(_spmm_bytes(b, w, tiles_o, K, True),
+                                 flops + 2.0 * flagged * b.bk * K * K),
+            flagged=flagged)
+        del lib
+        st = torch.zeros((b.plan.runs, 2), dtype=torch.int64, device=dev)
+        bsr_spmm_gram(b, w, stamps=st)
+        torch.cuda.synchronize()
+        t = st.cpu().numpy()
+        end = (t[:, 1] - t[:, 0].min()) / 1e3
+        item["tail_us"] = dict(min=float(end.min()),
+                               median=float(np.median(end)),
+                               mean=float(end.mean()), max=float(end.max()))
+        kern[o] = item
+        shares = [100 * item[f"{key}_bound"][0] / item[f"{key}_ms"]
+                  for key in ("spmm", "fused")]
+        log(f"[wiki] {o}: bsr_spmm {item['spmm_ms']:.4f} ms, fused "
+            f"{item['fused_ms']:.4f} ms (bounds {item['spmm_bound'][0]:.4f}"
+            f" / {item['fused_bound'][0]:.4f} ms by {item['spmm_bound'][1]},"
+            f" the occupied tiles; {shares[0]:.1f}% / {shares[1]:.1f}% of "
+            f"the bound), plain {item['plain_ms']:.3f} / "
+            f"{item['fused_plain_ms']:.3f} ms, "
+            f"{call} {item['library_ms']:.4f} ms; {flagged} slots carry a "
+            f"first-occurrence Gram flag; max abs err against the plain "
+            f"version {err:.3e}")
+        tail = item["tail_us"]
+        log(f"[tail] Wikipedia bsr_spmm_gram {o}: {b.plan.runs} blocks end "
+            f"{tail['min']:.1f} / {tail['median']:.1f} / {tail['mean']:.1f} "
+            f"/ {tail['max']:.1f} us (min / median / mean / max); the mean "
+            f"end is {100 * (1 - tail['mean'] / max(tail['max'], 1e-9)):.1f}"
+            "% short of the last")
+    # the two epilogues on the fitted factors' pre-epilogue products, A V
+    # (V^T V)^-1 and A^T U (U^T U)^-1
+    av, gv = be.matmul_with_gram(op, v_fit)
+    x_u = solve_gram(gv, av)
+    x_v = solve_gram(u_fit.T @ u_fit, be.matmul_t(op, u_fit))
+    del av, gv
+    epi = {}
+
+    def bits(x):
+        return x.contiguous().view(torch.int32)
+
+    for name, x, t in (("U", x_u, WIKI_T_U), ("V", x_v, WIKI_T_V)):
+        got, tau = relu_topk(x, t)
+        want, want_tau = ref.relu_topk_ref(x, t)
+        if not (torch.equal(bits(got), bits(want))
+                and torch.equal(bits(tau), bits(want_tau))):
+            raise AssertionError(f"Wikipedia relu_topk {name}: not bitwise "
+                                 "the plain version")
+        n_el = x.numel()
+        epi[name] = dict(
+            shape=list(x.shape), t=t,
+            ms=cuda_ms(lambda: relu_topk(x, t), reps=50),
+            plain_ms=cuda_ms(lambda: ref.relu_topk_ref(x, t), reps=5),
+            bound=bound_ms(4 * (2 * n_el + 1), (NUM_STEPS + 2.0) * n_el))
+        log(f"[wiki] relu_topk {name} ({x.shape[0]} x {K}, t {t}): "
+            f"{epi[name]['ms']:.5f} ms, plain {epi[name]['plain_ms']:.4f} ms,"
+            f" bound {epi[name]['bound'][0]:.6f} ms by "
+            f"{epi[name]['bound'][1]}; bitwise the plain version")
+    del x_u, x_v
+    # gram at the streamed fit's shape: the Gram of the U rows (143,462 x
+    # 5, the others zeroed) that the first chunk leaving a term block
+    # unreferenced holds, from that chunk's operand as stage_chunk builds it
+    gram_item = None
+    c = next((i for i, (t, _) in enumerate(cover) if not t.all()), None)
+    if c is not None:
+        sub = a_sp[:, c * width:(c + 1) * width].tocsr()
+        bt = be.prepare(sub, device="cpu").bsr_t
+        unc = bt.uncovered_rows.numpy()
+        if not np.array_equal(unc, ~cover[c][0][np.arange(n) // bt.bk]):
+            raise AssertionError(f"Wikipedia chunk {c}: its operand's "
+                                 "unreferenced term rows are not those "
+                                 "chunk_coverage counted")
+        x = ref.unreferenced_rows(dataclasses.replace(
+            bt, uncovered_rows=bt.uncovered_rows.to(dev)), u_fit)
+        del bt, sub
+        g1 = gram(x)
+        if not torch.equal(gram(x), g1):
+            raise AssertionError("Wikipedia gram is not bitwise repeatable")
+        gram_item = dict(
+            chunk=c, shape=list(x.shape), rows=int(unc.sum()),
+            max_abs_err=close("Wikipedia gram", g1, ref.gram_ref(x), 1e-4,
+                              1e-3),
+            ms=cuda_ms(lambda: gram(x), reps=200),
+            plain_ms=cuda_ms(lambda: ref.gram_ref(x), reps=50),
+            library_ms=cuda_ms(lambda: x.T @ x, reps=200),
+            bound=bound_ms(4 * (n * K + K * K), gram_flops(n, K)))
+        log(f"[wiki] gram of chunk {c}'s unreferenced U rows ({unc.sum()} "
+            f"of {n} kept, {n} x {K}): {gram_item['ms']:.5f} ms, plain "
+            f"{gram_item['plain_ms']:.5f} ms, u.T @ u "
+            f"{gram_item['library_ms']:.5f} ms, bound "
+            f"{gram_item['bound'][0]:.6f} ms by {gram_item['bound'][1]}; "
+            f"max abs err against the plain version "
+            f"{gram_item['max_abs_err']:.3e}, bitwise repeatable")
+        del x, g1
+    dot_ms = cuda_ms(lambda: bsr_dot_uv(op.bsr, u_fit, v_fit), reps=10)
+    dot_bound = bound_ms(4 * (op.bsr.nrb * op.bsr.bcap * op.bsr.bm
+                              * op.bsr.bk + (n + m) * K),
+                         2.0 * op.bsr.nrb * op.bsr.bcap * op.bsr.bm
+                         * op.bsr.bk * K)
+    log(f"[wiki] the error path's <A, U V^T> (bsr_dot_uv, every one of A's "
+        f"{op.bsr.nrb * op.bsr.bcap} slots): {dot_ms:.4f} ms, "
+        f"{100 * dot_ms / per_iter_ms:.1f}% of an iteration (bound "
+        f"{dot_bound[0]:.4f} ms over all slots)")
+    out["kernels"] = dict(bsr=kern, relu_topk={
+        k: {kk: vv for kk, vv in v.items() if kk != "bound"}
+        | {"bound_ms": v["bound"][0]} for k, v in epi.items()},
+        dot_ms=dot_ms, dot_share=dot_ms / per_iter_ms,
+        dot_bound_ms=dot_bound[0], gram=gram_item and (
+            {k: v for k, v in gram_item.items() if k != "bound"}
+            | {"bound_ms": gram_item["bound"][0]}))
+    for name, key in (("bsr_spmm", "spmm"), ("bsr_spmm_gram", "fused")):
+        rows[name].setdefault("extra", {})["wikipedia"] = dict(
+            ms=float(np.mean([kern[o][f"{key}_ms"] for o in kern])),
+            bound_ms=float(np.mean([kern[o][f"{key}_bound"][0]
+                                    for o in kern])),
+            plain_ms=float(np.mean([kern[o][("plain_ms" if key == "spmm"
+                                             else "fused_plain_ms")]
+                                    for o in kern])),
+            library_ms=(float(np.mean([kern[o]["library_ms"] for o in kern]))
+                        if key == "spmm" else None),
+            launches=(paths["wiki_transform"]["bsr_spmm"] if key == "spmm"
+                      else counts["bsr_spmm_gram"]))
+    if gram_item is not None:
+        rows["gram"].setdefault("extra", {})["wikipedia"] = dict(
+            ms=gram_item["ms"], bound_ms=gram_item["bound"][0],
+            plain_ms=gram_item["plain_ms"],
+            library_ms=gram_item["library_ms"], launches=scounts["gram"])
+    rows["project_mask"].setdefault("extra", {})["wikipedia"] = dict(
+        ms=float(np.mean([e["ms"] for e in epi.values()])),
+        bound_ms=float(np.mean([e["bound"][0] for e in epi.values()])),
+        plain_ms=float(np.mean([e["plain_ms"] for e in epi.values()])),
+        library_ms=None, launches=counts["relu_topk"])
+    del model, u_fit, v_fit, op
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (c) the command line, run beside the train launchers -----------------
+    c = cli.result()
+    log(f"[wiki] python -m repro_torch.launch.nmf_run --config wikipedia "
+        f"--backend cuda-bsr --iters 3 --sparsity frac_u=0.02,frac_v=0.02: "
+        f"exit 0 in {c['seconds']:.1f} s (beside the build and the train "
+        f"launchers' runs);"
+        f" {c['line']}")
+    out["cli"] = c
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[wiki] phase 28 took {out['seconds']:.1f} s on {smi}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write every measured number to this JSON file")
     args = ap.parse_args(argv)
+    t_script = time.perf_counter()
 
     import torch
 
@@ -6165,6 +6864,13 @@ def main(argv=None) -> int:
         check=True, capture_output=True, text=True).stdout.strip()
     log(f"[card] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     results = {"card": smi, "phases": {}}
+    clocks = results["phases"]["clock"] = {}
+
+    def clock(label):
+        """Seconds since the script started, at the start of ``label``
+        (what each phase costs of the run's time limit)."""
+        clocks[label] = time.perf_counter() - t_script
+        log(f"[clock] {label} at {clocks[label]:.1f} s")
 
     # -- 21(c), 25(c): the train launcher in subprocesses ---------------------
     # Their smoke configs train on the plain path, which needs no kernel of
@@ -6175,6 +6881,12 @@ def main(argv=None) -> int:
     train_cli = beside(launcher_kill_and_resume,
                        (LM_ARCH, MOE_ARCH, ENCDEC_ARCH), TRAIN["cli"], True)
     grid_cli = beside(launcher_across_grids, True)
+    # -- 28: the Wikipedia corpus, made beside the build and the launchers
+    # (this thread only waits there), its padded SpCSR dropped at once;
+    # then 28(c)'s command line, which makes its own (the two corpora's
+    # peaks never share the host) and waits for this build's kernels
+    wiki_corpus = beside(wikipedia_corpus)
+    wiki_cli = beside(after, wiki_corpus, wikipedia_command_line, True)
 
     # -- 1. build ------------------------------------------------------------
     # a fresh build, so that ptxas reports every kernel of this checkout
@@ -6192,13 +6904,16 @@ def main(argv=None) -> int:
     log(f"[build] CUDA sources built in {build_s:.2f} s (beside the train "
         "launcher's runs of 21(c) and 25(c))")
     results["phases"]["build_s"] = build_s
-    for run in (train_cli, grid_cli):
+    for run in (train_cli, grid_cli, wiki_corpus, wiki_cli):
         run.exception()
     log(f"[build] the launcher's runs ended "
         f"{time.perf_counter() - t_cli:.1f} s after they started, "
-        f"{time.perf_counter() - t0 - build_s:.1f} s after the build")
+        f"{time.perf_counter() - t0 - build_s:.1f} s after the build (with "
+        f"them, the Wikipedia corpus in {wiki_corpus.result()['seconds']:.1f}"
+        f" s and its command line in {wiki_cli.result()['seconds']:.1f} s)")
 
     # -- corpus and operand ---------------------------------------------------
+    clock("phases 2-7")
     t0 = time.perf_counter()
     corpus, _ = synthetic_journal_corpus(n_terms=N_TERMS, n_docs=N_DOCS,
                                          n_journals=5)
@@ -6675,6 +7390,7 @@ def main(argv=None) -> int:
     results["timing"] = timing
 
     # -- 8.-11. the LM serving slice ----------------------------------------------
+    clock("phases 8-11")
     run_lm_slice(dev, paths, checks, rows, results)
 
     # -- 12. the epilogue's timings -------------------------------------------
@@ -6686,6 +7402,7 @@ def main(argv=None) -> int:
     # plain epilogue (the bisection launched op by op, as FusedReluTopK ran
     # before this kernel); and, for orientation only, torch.topk of the
     # relu'd factor (exactly t, no ties: not the same function)
+    clock("phase 12")
     rounds = 1 + max(1, -(-NUM_STEPS // STEPS_PER_ROUND))
     for name in ("Wikipedia U", "beyond on-chip"):
         n, k, t = EPILOGUE_SHAPES[name]
@@ -6741,10 +7458,12 @@ def main(argv=None) -> int:
         mask_only_ms=float(np.mean([i["mask_ms"] for i in items])))
 
     # -- 13.-16. the streamed and sequential solvers, k = 256 ---------------
+    clock("phases 13-16")
     keep = {}
     gram_k256 = run_stream_slice(dev, corpus, a_sp, op, model, new_sp, u0,
                                  paths, results, keep)
     # -- 17.-18. fault tolerance and the TopicServer ---------------------------
+    clock("phases 17-18")
     t0 = time.perf_counter()
     run_fault_slice(dev, a_sp, op, model, u0, paths, results, keep)
     run_topic_slice(dev, model, new_sp, paths, results)
@@ -6752,8 +7471,10 @@ def main(argv=None) -> int:
     log(f"[fault] phases 17-18 took {results['phases']['fault_topic_s']:.1f} "
         "s")
     # -- 19. the mesh engines ------------------------------------------------
+    clock("phase 19")
     run_mesh_slice(a_sp, res, u0, paths, results)
     # -- 20. the tile sweep, bf16, the fused half-step past k = 32 ---------
+    clock("phase 20")
     run_tile_slice(dev, a_sp, op, res, u0, paths, results, rows)
     rows["gram"]["k_range"] = ("any k: one output tile up to k = 224, "
                                "128 x 128 tiles above")
@@ -6761,19 +7482,31 @@ def main(argv=None) -> int:
                             ("ms", "library_ms", "plain_ms", "bound_ms",
                              "bound_by")}
     # -- 21. the LM training half ------------------------------------------
+    clock("phase 21")
     run_train_slice(dev, paths, results, train_cli)
     # -- 22. the moe family: olmoe-1b-7b served, trained, expert-parallel ---
+    clock("phase 22")
     run_moe_slice(dev, paths, results)
     # -- 23. the hybrid and ssm families: zamba2-7b and xlstm-125m ----------
+    clock("phase 23")
     run_recurrent_slice(dev, paths, results, rows)
     # -- 24. the encdec family: seamless-m4t-large-v2 -----------------------
+    clock("phase 24")
     run_encdec_slice(dev, paths, results, rows)
     # -- 25. parameter sharding over a 2x2 grid -----------------------------
+    clock("phase 25")
     run_shard_slice(dev, paths, results, grid_cli)
     # -- 26. the dry-run on meta against phases 3/7, 9/11 and 25 -----------
+    clock("phase 26")
     run_dryrun_slice(dev, op, u0, smi, paths, results, rows)
     # -- 27. the analyzer's runtime guards on the card -----------------------
+    clock("phase 27")
     run_analysis_slice(dev, a_sp, op, u0, smi, results)
+    # -- 28. the paper's Wikipedia configuration -----------------------------
+    clock("phase 28")
+    del model, op
+    run_wikipedia_slice(dev, wiki_corpus.result(), wiki_cli, smi, paths,
+                        results, rows)
 
     owner = {"project_mask": "fit", "bsr_spmm_gram": "fit",
              "bsr_spmm": "transform", "gram": "unfused_fit",
@@ -6806,6 +7539,7 @@ def main(argv=None) -> int:
             "path")
     results["kernels"] = kernels
     results["rows"] = rows
+    clock("the end")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(results, indent=1))

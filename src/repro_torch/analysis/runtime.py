@@ -62,7 +62,8 @@ def recompile_guard(max_compiles: int = 0) -> Iterator[CompilationCounter]:
     Yields the :class:`CompilationCounter` so callers can also assert
     exact counts or see which sources were built.  The builds are counted
     by wrapping ``kernels._build._start_build`` for the block (a build is
-    a call that returns a process; an already-built library returns None),
+    a call that returns its started ``nvcc``; an already-built library
+    returns None),
     so only this process's builds count.  The check runs at block exit; an
     exception already propagating wins over the guard's own error.
     """

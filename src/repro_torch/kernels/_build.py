@@ -20,6 +20,7 @@ running the plain version; for a mix it raises.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -124,28 +125,47 @@ def _target(source: Path) -> Path:
     return BUILD_DIR / f"lib{source.stem}-{digest}.so"
 
 
-def _start_build(source: Path) -> subprocess.Popen | None:
+def _start_build(source: Path):
     """Start ``nvcc`` for one source unless its library is already built;
-    it writes to a temporary name that :func:`_finish_build` renames."""
+    it writes to a temporary name that :func:`_finish_build` renames.
+    Processes sharing the build directory (the ranks of one launch, a
+    command line started beside a build) compile a source once: each
+    holds an exclusive ``flock`` on the library's ``.lock`` file from here
+    until the rename, and a caller that waited for it takes the library
+    the holder renamed into place.  The kernel drops the lock of a process
+    that dies, so a lock file left behind holds no one up.  Returns
+    ``None`` or ``(nvcc process, held lock file)``."""
     out = _target(source)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    return subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lock = open(out.with_suffix(".lock"), "w")
+    try:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            lock.close()
+            return None
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        return subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), lock
+    except BaseException:
+        lock.close()
+        raise
 
 
-def _finish_build(source: Path, proc: subprocess.Popen | None) -> str:
-    if proc is None:
+def _finish_build(source: Path, started) -> str:
+    if started is None:
         return ""
-    log, _ = proc.communicate()
-    out = _target(source)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {source.name}:\n{log}")
-    os.replace(tmp, out)
+    proc, lock = started
+    with lock:
+        log, _ = proc.communicate()
+        out = _target(source)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {source.name}:\n{log}")
+        os.replace(tmp, out)
     return log
 
 

@@ -13,9 +13,19 @@ two orientations.
 
 Ingest is numpy work on the host, step for step the reference's, so the
 ``tiles`` / ``block_cols`` arrays are bitwise the reference's, ``bcap``
-truncation included.  The tensors move to the device once, at the end of
-ingest.  numpy has no bf16: a bf16 operand is ingested in f32 on the host
-and its tiles are cast on the device (round to nearest even).  Ingest also
+truncation included.  Unlike the reference, it never holds a float64 copy
+of a whole tile volume, nor every kept tile gathered at once.  The
+per-tile float64 squared norms, which only a ``bcap`` truncation reads
+(to rank tiles), run a slab of row-blocks at a time by the reference's
+own expression, so each is bitwise the same.  Which tiles a transpose
+keeps (those of a positive norm) and which hold an entry come from the
+stored entries of a scipy input (O(nnz)), else from each slab's max and
+min (:func:`_slot_masks`).  Kept tiles move a slab at a time, within
+:data:`SLAB_BYTES` of temporaries.  A scipy input then peaks at about
+the two orientations' tile bytes above it.  The tensors move to the
+device once, at the end of ingest.  numpy has no bf16: a bf16 operand is
+ingested in f32 on the host and its tiles are cast on the device (round
+to nearest even).  Ingest also
 fixes, per orientation, what the fused spmm + Gram kernel needs to know
 about Gram coverage (the reference's
 ``kernels/fused.py::_coverage``, which ran on the device every call): the
@@ -50,6 +60,13 @@ __all__ = ["BSR", "BSROperand", "SplitPlan", "bsr_from_dense",
 #: count); only the tests read it, and moving the operand to a card
 #: re-plans for that card
 DEFAULT_RUNS = 132
+
+#: host bytes of one slab's temporaries at ingest: the float64 squares of
+#: a slab of row-blocks' tiles (one row-block at least), or a slab of kept
+#: tiles on their way to their slots; small enough to stay in the host's
+#: caches, large enough that a slab's numpy calls dwarf the loop (tests
+#: patch it to run many slabs)
+SLAB_BYTES = 32 << 20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,10 +238,11 @@ def _occupied(tiles: torch.Tensor) -> int:
 
 
 def _make_bsr(tiles: np.ndarray, bcols: np.ndarray, shape: Tuple[int, int],
-              device, dtype: Optional[torch.dtype] = None) -> BSR:
+              device, dtype: Optional[torch.dtype] = None,
+              occupied: Optional[int] = None) -> BSR:
     """Wrap host arrays as a device :class:`BSR`, with its coverage and its
-    occupied-tile count; given ``dtype``, the tiles are cast to it on the
-    device."""
+    occupied-tile count (``occupied`` when the caller counted it at
+    ingest); given ``dtype``, the tiles are cast to it on the device."""
     bk = tiles.shape[3]
     m = shape[1]
     ncb = -(-m // bk)
@@ -239,7 +257,8 @@ def _make_bsr(tiles: np.ndarray, bcols: np.ndarray, shape: Tuple[int, int],
         t = t.to(dtype)
     return BSR(t, torch.from_numpy(bcols).to(device), shape,
                torch.from_numpy(flags).to(device), unc,
-               _make_plan(nrb, bcap, device), _occupied(host))
+               _make_plan(nrb, bcap, device),
+               _occupied(host) if occupied is None else occupied)
 
 
 def replan(a: BSR, runs: int) -> BSR:
@@ -277,18 +296,90 @@ def _ingest_dtypes(dtype):
     return np.dtype(dtype), None
 
 
+def _slabs(total: int, item_bytes: int):
+    """``(start, stop)`` ranges over ``total`` items of ``item_bytes``
+    each, every range within :data:`SLAB_BYTES` (one item at least)."""
+    step = max(1, SLAB_BYTES // max(int(item_bytes), 1))
+    for start in range(0, total, step):
+        yield start, min(total, start + step)
+
+
+def _tile_sqnorms(blocks: np.ndarray) -> np.ndarray:
+    """Per-tile float64 squared Frobenius norms of ``blocks`` (nrb, c, bm,
+    bk), a slab of row-blocks at a time, each by the reference's expression
+    ``(x.astype(np.float64) ** 2).sum(axis=(2, 3))`` on its slab: bitwise
+    the whole volume's, with float64 temporaries of one slab (two at once:
+    the copy and its square).  Only a ``bcap`` truncation reads their
+    values (to rank tiles); everything else needs :func:`_slot_masks`."""
+    nrb, c, bm, bk = blocks.shape
+    out = np.empty((nrb, c), np.float64)
+    for i0, i1 in _slabs(nrb, 2 * 8 * c * bm * bk):
+        out[i0:i1] = (blocks[i0:i1].astype(np.float64) ** 2).sum(axis=(2, 3))
+    return out
+
+
+def _slot_masks(blocks: np.ndarray):
+    """Two (nrb, c) masks over the tiles of ``blocks`` (nrb, c, bm, bk): the
+    slots that hold a nonzero entry (:func:`_occupied`'s count, NaN
+    included) and the slots whose float64 squared norm is positive (the
+    reference's ``tile_sq > 0``: the tiles a transpose or a block pass
+    keeps).  Each comes from a slab's max and min (no temporaries) where
+    that is exact: a square of any entry but a float64 one is positive
+    exactly when the entry is nonzero, and a NaN anywhere makes the norm
+    NaN, which is not positive.  Float64 tiles take the norms."""
+    nrb, c, bm, bk = blocks.shape
+    any_nz = np.empty((nrb, c), bool)
+    pos = np.empty((nrb, c), bool)
+    wide = blocks.dtype.kind == "f" and blocks.dtype.itemsize > 4
+    for i0, i1 in _slabs(nrb, (16 if wide else 1) * c * bm * bk):
+        x = blocks[i0:i1]
+        hi, lo = x.max(axis=(2, 3)), x.min(axis=(2, 3))
+        any_nz[i0:i1] = (hi != 0) | (lo != 0)
+        if wide:
+            pos[i0:i1] = (x.astype(np.float64) ** 2).sum(axis=(2, 3)) > 0
+        else:
+            pos[i0:i1] = (hi > 0) | (lo < 0)
+    return any_nz, pos
+
+
+def _ranking(sq: Optional[np.ndarray], i: np.ndarray, j: np.ndarray):
+    """The sort key of the kept items, the squared norms where a
+    truncation needs them; without a truncation every item is kept and
+    the key is never read for a choice."""
+    return sq[i, j] if sq is not None else np.zeros(len(i), np.float64)
+
+
+def _move_tiles(dst: np.ndarray, dst_at, src: np.ndarray, src_at,
+                transpose: bool = False) -> None:
+    """``dst[dst_at] = src[src_at]`` over (row-block, slot) index pairs,
+    each tile transposed when asked, a slab of tiles at a time: the same
+    bytes as numpy's one fancy assignment, without gathering every tile
+    at once, and copied by torch on every core."""
+    dst_t, src_t = torch.from_numpy(dst), torch.from_numpy(src)
+    tile = src.itemsize * src.shape[-2] * src.shape[-1]
+    for t0, t1 in _slabs(len(src_at[0]), tile):
+        x = src_t[tuple(torch.from_numpy(i[t0:t1]) for i in src_at)]
+        dst_t[tuple(torch.from_numpy(i[t0:t1]) for i in dst_at)] = (
+            x.transpose(1, 2) if transpose else x)
+
+
 def _from_dense_np(a: np.ndarray, bm: int, bk: int, bcap: int | None):
+    """The reference's dense ingest: ``(tiles, bcols, shape, any_nz,
+    pos)``, the last two :func:`_slot_masks`' of the tiles (here every
+    kept tile has a positive norm: both are the filled slots)."""
     n, m = a.shape
     ap = np.pad(a, ((0, (-n) % bm), (0, (-m) % bk)))
     nrb, ncb = ap.shape[0] // bm, ap.shape[1] // bk
     blocked = ap.reshape(nrb, bm, ncb, bk).transpose(0, 2, 1, 3)
-    block_sq = (blocked.astype(np.float64) ** 2).sum(axis=(2, 3))
-    occ_i, occ_j = np.nonzero(block_sq > 0)
+    # the norms rank blocks only where bcap may truncate
+    block_sq = _tile_sqnorms(blocked) if bcap is not None else None
+    occ = block_sq > 0 if block_sq is not None else _slot_masks(blocked)[1]
+    occ_i, occ_j = np.nonzero(occ)
     cap = bcap
     if cap is None:
         cap = max(int(np.bincount(occ_i, minlength=nrb).max(initial=1)), 1)
     keep, slots, counts = _keep_top_per_group(
-        occ_i, block_sq[occ_i, occ_j], nrb, cap)
+        occ_i, _ranking(block_sq, occ_i, occ_j), nrb, cap)
     if (counts > cap).any():
         warnings.warn(
             f"bsr_from_dense: {int((counts > cap).sum())} row-blocks exceed "
@@ -299,9 +390,11 @@ def _from_dense_np(a: np.ndarray, bm: int, bk: int, bcap: int | None):
     tiles = np.zeros((nrb, cap, bm, bk), dtype=a.dtype)
     bcols = np.zeros((nrb, cap), dtype=np.int32)
     i_k, j_k, s_k = occ_i[keep], occ_j[keep], slots[keep]
-    tiles[i_k, s_k] = blocked[i_k, j_k]
+    _move_tiles(tiles, (i_k, s_k), blocked, (i_k, j_k))
     bcols[i_k, s_k] = j_k
-    return tiles, bcols, (n, m)
+    filled = np.zeros((nrb, cap), bool)
+    filled[i_k, s_k] = True
+    return tiles, bcols, (n, m), filled, filled
 
 
 def bsr_from_dense(a, bm: int = 128, bk: int = 128, bcap: int | None = None,
@@ -309,7 +402,7 @@ def bsr_from_dense(a, bm: int = 128, bk: int = 128, bcap: int | None = None,
     """Host-side conversion of a dense matrix (numpy or tensor).  An explicit
     ``bcap`` below a row-block's occupancy keeps its ``bcap``
     largest-Frobenius-norm blocks and warns."""
-    return _make_bsr(*_from_dense_np(_host(a), bm, bk, bcap), device,
+    return _make_bsr(*_from_dense_np(_host(a), bm, bk, bcap)[:3], device,
                      torch.bfloat16 if _is_bf16(a) else None)
 
 
@@ -335,6 +428,9 @@ def _keep_top_per_group(group_ids, sqnorms, ngroups: int, cap: int):
 
 
 def _from_scipy_np(sp_matrix, bm: int, bk: int, bcap: int | None, dtype):
+    """The reference's scipy ingest: ``(tiles, bcols, shape, any_nz,
+    pos)``, the last two :func:`_slot_masks`' of the tiles, read off the
+    stored entries (a kept block's tile holds exactly its entries)."""
     coo = sp_matrix.tocoo()
     coo.sum_duplicates()
     coo.eliminate_zeros()
@@ -368,9 +464,25 @@ def _from_scipy_np(sp_matrix, bm: int, bk: int, bcap: int | None, dtype):
     e_slot = slot[inv[kept_uniq]]
     e_r = (coo.row[kept_uniq] % bm).astype(np.int64)
     e_c = (coo.col[kept_uniq] % bk).astype(np.int64)
-    np.add.at(tiles, (e_bi, e_slot, e_r, e_c), data[kept_uniq])
+    e_val = data[kept_uniq]
+    np.add.at(tiles, (e_bi, e_slot, e_r, e_c), e_val)
     bcols[ubi[keep_block], slot[keep_block]] = ubj[keep_block]
-    return tiles, bcols, (n, m)
+    # per kept block: an entry that is nonzero (NaN too), one whose float64
+    # square is positive, one that is NaN
+    e_blk = inv[kept_uniq]
+    e_sq = e_val.astype(np.float64) ** 2
+
+    def some(flags):
+        return np.bincount(e_blk, weights=flags, minlength=len(uniq)) > 0
+
+    blk_any = some(e_val != 0)
+    blk_pos = some(e_sq > 0) & ~some(np.isnan(e_sq))
+    at = (ubi[keep_block], slot[keep_block])
+    any_nz = np.zeros((nrb, cap), bool)
+    pos = np.zeros((nrb, cap), bool)
+    any_nz[at] = blk_any[keep_block]
+    pos[at] = blk_pos[keep_block]
+    return tiles, bcols, (n, m), any_nz, pos
 
 
 def bsr_from_scipy(sp_matrix, bm: int = 128, bk: int = 128,
@@ -378,7 +490,8 @@ def bsr_from_scipy(sp_matrix, bm: int = 128, bk: int = 128,
     """Direct ``scipy.sparse -> BSR`` ingest, never materializing the dense
     matrix; row-blocks over ``bcap`` keep their largest-norm blocks and
     warn."""
-    return _make_bsr(*_from_scipy_np(sp_matrix, bm, bk, bcap, dtype), device)
+    return _make_bsr(*_from_scipy_np(sp_matrix, bm, bk, bcap, dtype)[:3],
+                     device)
 
 
 def bsr_dot_uv(a: BSR, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -422,17 +535,26 @@ def bsr_to_dense(a: BSR) -> torch.Tensor:
 
 
 def _transpose_np(tiles: np.ndarray, bcols: np.ndarray,
-                  shape: Tuple[int, int], bcap: int | None):
+                  shape: Tuple[int, int], bcap: int | None,
+                  pos: Optional[np.ndarray] = None):
+    """The transposed-format host arrays of ``(tiles, bcols, shape)``;
+    ``pos`` is the tiles' positive-norm mask (:func:`_slot_masks`) where
+    the caller has it.  Only a ``bcap`` truncation needs the norms
+    themselves."""
     nrb, _, bm, bk = tiles.shape
     n, m = shape
     ncb = -(-m // bk)
-    tile_sq = (tiles.astype(np.float64) ** 2).sum(axis=(2, 3))
-    occ_i, occ_s = np.nonzero(tile_sq > 0)
+    tile_sq = _tile_sqnorms(tiles) if bcap is not None else None
+    if tile_sq is not None:
+        pos = tile_sq > 0
+    elif pos is None:
+        pos = _slot_masks(tiles)[1]
+    occ_i, occ_s = np.nonzero(pos)
     occ_j = bcols[occ_i, occ_s].astype(np.int64)
     if bcap is None:
         bcap = max(int(np.bincount(occ_j, minlength=ncb).max(initial=1)), 1)
     keep, slots, counts = _keep_top_per_group(
-        occ_j, tile_sq[occ_i, occ_s], ncb, bcap)
+        occ_j, _ranking(tile_sq, occ_i, occ_s), ncb, bcap)
     if (counts > bcap).any():
         warnings.warn(
             f"bsr_transpose: {int((counts > bcap).sum())} row-blocks of the "
@@ -442,9 +564,9 @@ def _transpose_np(tiles: np.ndarray, bcols: np.ndarray,
         )
     tiles_t = np.zeros((ncb, bcap, bk, bm), dtype=tiles.dtype)
     bcols_t = np.zeros((ncb, bcap), dtype=np.int32)
-    i_o, s_o, j_o = occ_i[keep], occ_s[keep], occ_j[keep]
-    tiles_t[j_o, slots[keep]] = tiles[i_o, s_o].transpose(0, 2, 1)
-    bcols_t[j_o, slots[keep]] = i_o
+    i_o, s_o, j_o, d_o = occ_i[keep], occ_s[keep], occ_j[keep], slots[keep]
+    _move_tiles(tiles_t, (j_o, d_o), tiles, (i_o, s_o), transpose=True)
+    bcols_t[j_o, d_o] = i_o
     return tiles_t, bcols_t, (m, n)
 
 
@@ -471,7 +593,9 @@ def bsr_operand(a, bm: int = 128, bk: int = 128, bcap: int | None = None,
     if dtype is None and _is_bf16(a.tiles if isinstance(a, BSR) else a):
         dev_dtype = torch.bfloat16
     if isinstance(a, BSR):
-        host = (_host(a.tiles), a.block_cols.cpu().numpy(), a.shape)
+        tiles = _host(a.tiles)
+        host = (tiles, a.block_cols.cpu().numpy(), a.shape,
+                *_slot_masks(tiles))
     elif hasattr(a, "tocoo"):  # scipy sparse, without a hard scipy import
         host = _from_scipy_np(a, bm, bk, bcap, host_dtype)
     else:
@@ -479,6 +603,12 @@ def bsr_operand(a, bm: int = 128, bk: int = 128, bcap: int | None = None,
         if host_dtype is not None:
             a = a.astype(host_dtype)
         host = _from_dense_np(a, bm, bk, bcap)
-    host_t = _transpose_np(*host, None)
-    return BSROperand(_make_bsr(*host, device, dev_dtype),
-                      _make_bsr(*host_t, device, dev_dtype), host[2])
+    tiles, bcols, shape, any_nz, pos = host
+    # the transpose keeps every tile of a positive norm (no bcap), and
+    # each holds an entry: its occupied count is theirs
+    host_t = _transpose_np(tiles, bcols, shape, None, pos)
+    return BSROperand(
+        _make_bsr(tiles, bcols, shape, device, dev_dtype,
+                  int(np.count_nonzero(any_nz))),
+        _make_bsr(*host_t, device, dev_dtype, int(np.count_nonzero(pos))),
+        shape)

@@ -224,18 +224,22 @@ class EnforcedNMF:
         if result.seed_stats is not None:
             stats = result.seed_stats
         elif isinstance(a, ChunkSource):
-            stats = self._seed_stats_streamed(a)
+            stats, seed_pass = self._seed_stats_streamed(a)
+            if result.stream_stats is not None:
+                result.stream_stats["seed"] = seed_pass
         else:
             stats = seed_online_stats(a, self.v_, backend=cfg.backend)
         self._av_acc, self._gv_acc = stats.av, stats.gv
         return self
 
-    def _seed_stats_streamed(self, source) -> OnlineStats:
+    def _seed_stats_streamed(self, source):
         """Full-corpus statistics ``(A V, V^T V)`` from a chunk source, one
         chunk resident at a time: each chunk adds ``A_c V_c`` with its rows
         of the fitted loadings.  The chunks come through the streaming
         solver's packer, prefetched per ``config.prefetch`` (on a mesh, this
-        rank's blocks, whose products are summed over the grid)."""
+        rank's blocks, whose products are summed over the grid).  Returns
+        the statistics and the pass's ``Prefetcher.stats`` (``fit`` keeps
+        them as ``result_.stream_stats["seed"]``)."""
         from repro_torch.data.corpus import Prefetcher
         from repro_torch.nmf.solvers import _make_packer
 
@@ -252,7 +256,7 @@ class EnforcedNMF:
                 av = part if av is None else av + part
         if self._mesh_streaming():
             av = self._mesh().gather(av, self.n_features_, "data")
-        return OnlineStats(av=av, gv=v.T @ v)
+        return OnlineStats(av=av, gv=v.T @ v), stream.stats
 
     def _chunk_matmul(self, staged, v_chunk: torch.Tensor) -> torch.Tensor:
         """``A_c @ V_c`` of a staged chunk; on a mesh this rank's rows of

@@ -41,7 +41,9 @@ class FitResult:
     health: Optional[torch.Tensor] = None
     error_granularity: str = "iteration"   # "iteration" | "block" | "chunk"
     #: a streamed fit's host-side packing: the ``Prefetcher.stats`` of its
-    #: factor pass (``"fit"``) and of its fold-in pass (``"fold_in"``)
+    #: factor pass (``"fit"``), of its fold-in pass (``"fold_in"``) and,
+    #: once the estimator has seeded the streaming statistics chunk by
+    #: chunk, of that pass (``"seed"``)
     stream_stats: Optional[dict] = None
     #: a checkpointed fit's ``FitCheckpointer.stats`` (saves, seconds,
     #: bytes written)

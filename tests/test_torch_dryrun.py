@@ -560,6 +560,13 @@ def _meta_bsr(n, m, nrb, bcap, bm, bk, dtype=torch.float32, *, occupied):
 PUBMED_BSR = {"A @ V": (20112, 7510, 158, 59), "A^T @ U": (7510, 20112, 59,
                                                            158)}
 PUBMED_OCCUPIED = 9241
+#: the Wikipedia-shaped operand (``NMF_CONFIGS["wikipedia"]``, 143,462 x
+#: 12,439) at 128 x 128 tiles: 109,858 slots of A and 72,324 of A^T hold
+#: the same 67,455 occupied tiles (the head term reaches every column
+#: block, so A^T's row-blocks run to bcap 738)
+WIKI_BSR = {"A @ V": (143462, 12439, 1121, 98),
+            "A^T @ U": (12439, 143462, 98, 738)}
+WIKI_OCCUPIED = 67455
 BF16 = torch.bfloat16
 
 
@@ -569,10 +576,11 @@ def _flash_case(b, h, hkv, sq, t, hd, causal):
         _meta(b, hkv, t, hd, dtype=BF16), causal=causal, groups=h // hkv)
 
 
-def _bsr_case(orient, k, fn, dtype=torch.float32):
-    n, m, nrb, bcap = PUBMED_BSR[orient]
+def _bsr_case(orient, k, fn, dtype=torch.float32, wiki=False):
+    n, m, nrb, bcap = (WIKI_BSR if wiki else PUBMED_BSR)[orient]
     return lambda: fn(_meta_bsr(n, m, nrb, bcap, 128, 128, dtype,
-                                occupied=PUBMED_OCCUPIED),
+                                occupied=WIKI_OCCUPIED if wiki
+                                else PUBMED_OCCUPIED),
                       _meta(m, k, dtype=dtype))
 
 
@@ -595,10 +603,19 @@ KERNEL_TABLE = {
                                               751),
                          BF16, 1577100, 150202, 4.483641791044776e-05,
                          "bytes"),
+    "relu_topk Wikipedia U": (1, lambda: relu_topk(_meta(143462, 5), 14346),
+                              torch.float32, 30127020, 5738484,
+                              0.0017129802985074627, "bytes"),
+    "relu_topk Wikipedia V": (1, lambda: relu_topk(_meta(12439, 5), 1243),
+                              torch.float32, 2612190, 497564,
+                              0.0001485265671641791, "bytes"),
     "gram U k5": (2, lambda: gram(_meta(20112, 5)), torch.float32, 603360,
                   402340, 0.00012010149253731343, "bytes"),
     "gram V k5": (2, lambda: gram(_meta(7510, 5)), torch.float32, 225300,
                   150300, 4.4865671641791044e-05, "bytes"),
+    "gram Wikipedia U k5": (2, lambda: gram(_meta(143462, 5)),
+                            torch.float32, 4303860, 2869340,
+                            0.0008565194029850746, "bytes"),
     "gram k256": (2, lambda: gram(_meta(20112, 256)), torch.float32,
                   1323208704, 20856832, 0.019749383641791046, "operations"),
     "gram U k5 bf16": (2, lambda: gram(_meta(20112, 5, dtype=BF16)), BF16,
@@ -619,6 +636,14 @@ KERNEL_TABLE = {
                                          BF16),
                             BF16, 1514045440, 303122596,
                             0.09048435701492538, "bytes"),
+    "bsr_spmm Wikipedia A @ V": (3, _bsr_case("A @ V", 5, spmm_mod.bsr_spmm,
+                                              wiki=True),
+                                 torch.float32, 11051827200, 4424288332,
+                                 1.3206830841791044, "bytes"),
+    "bsr_spmm Wikipedia A^T @ U": (3, _bsr_case("A^T @ U", 5,
+                                                spmm_mod.bsr_spmm, wiki=True),
+                                   torch.float32, 11051827200, 4424138196,
+                                   1.3206382674626866, "bytes"),
     "bsr_spmm_gram A @ V": (4, _bsr_case("A @ V", 5, bsr_spmm_gram),
                             torch.float32, 1514270740, 606208004,
                             0.18095761313432837, "bytes"),
@@ -629,6 +654,15 @@ KERNEL_TABLE = {
                                               BF16),
                                  BF16, 1514270740, 303122696,
                                  0.09048438686567165, "bytes"),
+    "bsr_spmm_gram Wikipedia A @ V": (4, _bsr_case("A @ V", 5, bsr_spmm_gram,
+                                                   wiki=True),
+                                      torch.float32, 11052200370, 4424288432,
+                                      1.3206831140298507, "bytes"),
+    "bsr_spmm_gram Wikipedia A^T @ U": (4, _bsr_case("A^T @ U", 5,
+                                                     bsr_spmm_gram, wiki=True),
+                                        torch.float32, 11056131060,
+                                        4424138296, 1.3206382973134327,
+                                        "bytes"),
     "flash llama3.2-1b": (5, _flash_case(4, 32, 8, 4096, 4096, 64, True),
                           BF16, 274945015808, 167772160,
                           0.27800304935085945, "operations"),

@@ -144,3 +144,65 @@ def test_cpu_wrappers_count_no_launches():
     gram(u)
     project_mask(u, torch.tensor(0.5))
     assert _build.launch_counts() == {name: 0 for name in _build.KERNELS}
+
+
+def _fake_source(tmp_path, monkeypatch):
+    """A source and an empty build directory of its own; starting ``nvcc``
+    raises (the CPU has none), recording whether the library's lock was
+    held by the caller at that moment."""
+    import fcntl
+
+    source = tmp_path / "k.cu"
+    source.write_text("// kernel\n")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    _build.BUILD_DIR.mkdir()
+    out = _build._target(source)
+    seen = []
+
+    def no_nvcc(*a, **k):
+        with open(out.with_suffix(".lock"), "w") as probe:
+            try:
+                fcntl.flock(probe, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                seen.append("unlocked")
+            except BlockingIOError:
+                seen.append("locked")
+        raise AssertionError("nvcc started")
+
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "Popen", no_nvcc)
+    return source, out, seen
+
+
+def test_a_build_waits_for_another_live_build(tmp_path, monkeypatch):
+    """Processes that share the build directory compile a source once: a
+    second caller waits while another holds the library's lock, then
+    takes the library it renamed into place."""
+    import fcntl
+    import threading
+
+    source, out, seen = _fake_source(tmp_path, monkeypatch)
+    holder = open(out.with_suffix(".lock"), "w")
+    fcntl.flock(holder, fcntl.LOCK_EX)
+
+    def land():
+        out.write_bytes(b"library")
+        holder.close()
+
+    threading.Timer(0.5, land).start()
+    assert _build._start_build(source) is None
+    assert out.read_bytes() == b"library" and not seen
+
+
+def test_a_dead_builds_marker_is_passed_over(tmp_path, monkeypatch):
+    """A process that died building leaves its lock file, but not its
+    lock: the caller builds, holding the lock while ``nvcc`` starts and
+    letting it go once that fails."""
+    import fcntl
+
+    source, out, seen = _fake_source(tmp_path, monkeypatch)
+    out.with_suffix(".lock").write_text("")
+    with pytest.raises(AssertionError, match="nvcc started"):
+        _build._start_build(source)
+    assert seen == ["locked"]
+    with open(out.with_suffix(".lock"), "w") as probe:
+        fcntl.flock(probe, fcntl.LOCK_EX | fcntl.LOCK_NB)
