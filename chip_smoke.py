@@ -99,7 +99,8 @@ Phases (any failed check raises, and the script exits non-zero):
     with the BSR fingerprint's time and host bytes; phase 13's streamed fit
     killed at chunk 4 and resumed (bitwise phase 13's), then poisoned at
     chunk 3 and rolled back; the command line killed (exit 73) and resumed
-    in subprocesses, printing the uninterrupted run's numbers;
+    in subprocesses, printing the uninterrupted run's numbers (run beside
+    the build since phase 29 came, its kernels waiting on the build);
 18. a ``TopicServer`` over phase 3's model serving phase 5's 751
     documents, 32 a tick: each request within 1e-4 of a CPU copy of the
     model, one ``bsr_spmm`` and one ``relu_topk`` a tick, ms a tick split
@@ -172,7 +173,8 @@ Phases (any failed check raises, and the script exits non-zero):
     build (phase 1), which no metric reads (a run's time limit; they need
     no kernel of it and end before the corpus is made); (d)
     ``make_compressed_grad_fn`` on four gloo ranks sharing the card at
-    density 0.25, conservation within 1e-5.
+    density 0.25, conservation within 1e-5 (the ranks run beside the build
+    since phase 29 came).
 22. the moe family (olmoe-1b-7b, f32 parameters from a seed): (a) serving
     at full width and depth: ``make_prefill_step`` on 4 x 4096 tokens
     (finite, the flash kernel launched n_layers = 16 times, first call and
@@ -378,6 +380,25 @@ Phases (any failed check raises, and the script exits non-zero):
     fused kernel's ``[tail]``, ``relu_topk`` on both pre-epilogue factors
     bitwise its plain version, and the error path's ``bsr_dot_uv`` (every
     slot of A) as a share of an iteration.
+29. the port's examples (``examples/torch_*.py``): (a) each as a
+    subprocess, as its docstring runs it and with no ``--device`` (the
+    card): ``torch_quickstart.py``, ``torch_topic_modeling_pipeline.py`` at
+    its defaults and with ``--stream`` (each into a fresh ``--ckpt``),
+    ``torch_serving.py``, ``torch_lm_training.py --arch llama3.2-1b --steps
+    20`` and ``--arch olmoe-1b-7b --compress``: exit 0, every stage's line
+    with finite numbers, the card named; the LM ones beside the build (they
+    need no kernel), the NMF ones started with it (their kernels wait on
+    its locks), all ended before the corpus is made; (b) in this process
+    the pipeline's ``main`` at the docstring's PubMed size (``--terms 20112
+    --docs 7510 --iters 200``), in batch mode from a fresh ``--ckpt``
+    seeded with a ``factors.npz`` of a known U, and with ``--stream``:
+    ``bsr_spmm_gram``, ``relu_topk``, ``bsr_spmm`` and ``gram`` launched
+    exactly as worked out from the code (:func:`pipeline_launches`), all
+    64 requests answered and folded back by ``refresh``, each stage's
+    seconds; the batch checkpoint against the same rounds replayed on
+    ``torch-dense`` from the same U: V within 1e-4, U within 1e-4 of its
+    largest entry (as phase 13 holds a streamed fit's U), each round's final
+    error and residual within 1e-4.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -1378,13 +1399,70 @@ def _sync_count(fn):
                     for x in w)
 
 
-def run_fault_slice(dev, a_sp, op, model, u0, paths, results, keep):
+def command_line_kill_and_resume(card):
+    """Phase 17(f): ``python -m repro_torch.launch.nmf_run --config pubmed
+    --small --backend cuda-bsr --iters 20`` with a snapshot every 5
+    iterations, killed at 10 (exit ``KILL_EXIT``) and rerun with
+    ``--resume``, beside an uninterrupted run: the resumed run prints the
+    uninterrupted run's numbers.  Run beside untimed work only (the build:
+    its kernels' first use waits on the build's lock of each library)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.robustness import KILL_EXIT
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-cli-")
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    base = ["--config", "pubmed", "--small", "--backend", "cuda-bsr",
+            "--iters", "20"] + ([] if card else ["--device", "cpu"])
+    argv = base + ["--checkpoint-dir", root, "--checkpoint-every", "5"]
+    kill_code = ("import sys\n"
+                 "from repro_torch.launch import nmf_run\n"
+                 "from repro_torch.robustness import faults\n"
+                 "faults.install('kill', key=10)\n"
+                 "nmf_run.main(sys.argv[1:])\n"
+                 "raise SystemExit('the kill fault never fired')\n")
+    module = [sys.executable, "-m", "repro_torch.launch.nmf_run"]
+    t0 = time.perf_counter()
+    run = lambda cmd: subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True)
+    procs = [run([sys.executable, "-c", kill_code] + argv),
+             run(module + base)]
+    outs = []
+    for p in procs:
+        try:
+            o, e = p.communicate(timeout=300)
+        finally:
+            p.kill()
+        outs.append((p.returncode, o, e))
+    resumed_cli = subprocess.run(module + argv + ["--resume"], env=env,
+                                 capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    (kill_rc, _, kill_err), (full_rc, full_out, full_err) = outs
+    if kill_rc != KILL_EXIT:
+        raise AssertionError(f"the killed command line exited {kill_rc}, "
+                             f"not {KILL_EXIT}: {kill_err[-2000:]}")
+    if full_rc != 0 or resumed_cli.returncode != 0:
+        raise AssertionError(f"command line: uninterrupted exit {full_rc}, "
+                             f"resumed {resumed_cli.returncode}: "
+                             f"{full_err[-1000:]} {resumed_cli.stderr[-1000:]}")
+    got, want = (_fit_numbers(resumed_cli.stdout), _fit_numbers(full_out))
+    if got != want:
+        raise AssertionError(f"the resumed command line printed {got!r}, "
+                             f"the uninterrupted one {want!r}")
+    return dict(kill_exit=kill_rc, numbers=got, seconds=cli_s)
+
+
+def run_fault_slice(dev, a_sp, op, model, u0, paths, results, keep, cli):
     """Phase 17: fault tolerance at PubMed size on cuda-bsr: a checkpointed
     fit killed at snapshot 30 and resumed (bitwise phase 3), its costs, a
     poisoned iteration rolled back, the raise and give-up paths, a
     mismatched resume, the streamed fit killed and resumed (bitwise phase
-    13) and poisoned, and the command line killed (exit 73) and resumed."""
-    import os
+    13) and poisoned, and the command line killed (exit 73) and resumed
+    (``cli``: the future of :func:`command_line_kill_and_resume`, started
+    beside the build)."""
     import shutil
     import tempfile
     import warnings
@@ -1394,7 +1472,7 @@ def run_fault_slice(dev, a_sp, op, model, u0, paths, results, keep):
     from repro_torch.kernels import _build
     from repro_torch.nmf import EnforcedNMF, NMFConfig, Sparsity
     from repro_torch.robustness import (
-        KILL_EXIT, CheckpointMismatchError, FitHealthError, faults,
+        CheckpointMismatchError, FitHealthError, faults,
     )
     from repro_torch.robustness.snapshot import data_fingerprint
 
@@ -1598,51 +1676,12 @@ def run_fault_slice(dev, a_sp, op, model, u0, paths, results, keep):
                          warning=smsgs[0], launches=paths["resumed_stream"])
     del sres, spois
 
-    # -- 17(f). the command line, killed and resumed -------------------------
-    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
-                                          / "src"))
-    argv = ["--config", "pubmed", "--small", "--backend", "cuda-bsr",
-            "--iters", "20", "--checkpoint-dir", fresh(),
-            "--checkpoint-every", "5"]
-    kill_code = ("import sys\n"
-                 "from repro_torch.launch import nmf_run\n"
-                 "from repro_torch.robustness import faults\n"
-                 "faults.install('kill', key=10)\n"
-                 "nmf_run.main(sys.argv[1:])\n"
-                 "raise SystemExit('the kill fault never fired')\n")
-    module = [sys.executable, "-m", "repro_torch.launch.nmf_run"]
-    t0 = time.perf_counter()
-    run = lambda cmd: subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
-                                       stderr=subprocess.PIPE, text=True)
-    procs = [run([sys.executable, "-c", kill_code] + argv),
-             run(module + argv[:-4])]
-    outs = []
-    for p in procs:
-        try:
-            o, e = p.communicate(timeout=300)
-        finally:
-            p.kill()
-        outs.append((p.returncode, o, e))
-    resumed_cli = subprocess.run(module + argv + ["--resume"], env=env,
-                                 capture_output=True, text=True, timeout=300)
-    cli_s = time.perf_counter() - t0
-    (kill_rc, _, kill_err), (full_rc, full_out, full_err) = outs
-    if kill_rc != KILL_EXIT:
-        raise AssertionError(f"the killed command line exited {kill_rc}, "
-                             f"not {KILL_EXIT}: {kill_err[-2000:]}")
-    if full_rc != 0 or resumed_cli.returncode != 0:
-        raise AssertionError(f"command line: uninterrupted exit {full_rc}, "
-                             f"resumed {resumed_cli.returncode}: "
-                             f"{full_err[-1000:]} {resumed_cli.stderr[-1000:]}")
-    got, want = (_fit_numbers(resumed_cli.stdout), _fit_numbers(full_out))
-    if got != want:
-        raise AssertionError(f"the resumed command line printed {got!r}, "
-                             f"the uninterrupted one {want!r}")
+    # -- 17(f). the command line, killed and resumed (run beside the build) --
+    c = out["cli"] = cli.result()
     log(f"[fault] command line (pubmed --small, cuda-bsr, 20 iterations, "
-        f"every 5): killed at 10, exit {kill_rc}; --resume exit 0 and "
-        f"prints the uninterrupted run's numbers: {got}; three processes "
-        f"{cli_s:.1f} s")
-    out["cli"] = dict(kill_exit=kill_rc, numbers=got, seconds=cli_s)
+        f"every 5): killed at 10, exit {c['kill_exit']}; --resume exit 0 "
+        f"and prints the uninterrupted run's numbers: {c['numbers']}; three "
+        f"processes {c['seconds']:.1f} s (beside the build)")
     shutil.rmtree(root, ignore_errors=True)
 
 
@@ -2767,6 +2806,29 @@ def _compress_rank(rank, arrays, device, density):
     return out, collective_counts()
 
 
+def compressed_grads_on_ranks(card, density):
+    """Phase 21(d)'s ranks: :func:`_compress_rank` on four gloo ranks (on
+    the card, sharing it, unless ``card`` is false).  It needs no kernel and
+    times nothing a metric reads, so it runs beside the build (a run's
+    time limit).  Returns the problem, each rank's result and the
+    seconds."""
+    from repro_torch.launch.mesh import spawn_mesh
+
+    # the least-squares problem of tests/test_distributed.py:108-141
+    arrays = {"w": np.random.default_rng(0).standard_normal((8, 4))
+              .astype(np.float32),
+              "x": np.random.default_rng(1).standard_normal((16, 8))
+              .astype(np.float32),
+              "y": np.random.default_rng(2).standard_normal((16, 4))
+              .astype(np.float32)}
+    device = "cuda:0" if card else "cpu"
+    t0 = time.perf_counter()
+    rank_out = spawn_mesh(_compress_rank, 4, 1, backend="gloo",
+                          device=device, args=(arrays, device, density),
+                          timeout=300.0)
+    return arrays, rank_out, time.perf_counter() - t0
+
+
 def launcher_kill_and_resume(archs, cli, card):
     """For each of ``archs``: ``python -m repro_torch.launch.train --arch
     ARCH --smoke --deterministic`` stopped at 6 steps (checkpoints every 3)
@@ -2842,7 +2904,8 @@ def launcher_kill_and_resume(archs, cli, card):
     return result
 
 
-def run_train_slice(dev, paths, results, cli, cfg=None, sizes=TRAIN):
+def run_train_slice(dev, paths, results, cli, compress, cfg=None,
+                    sizes=TRAIN):
     """Phase 21: the LM training half.  (a) llama3.2-1b at full width and
     depth: ``make_train_step`` (bf16 compute, remat, two microbatches) on
     train_4k's sequence at a cut batch, a warm-up step and ``timed`` timed
@@ -2851,7 +2914,8 @@ def run_train_slice(dev, paths, results, cli, cfg=None, sizes=TRAIN):
     with 2 layers; (c) the train launcher killed and resumed in
     subprocesses (``cli``: the future of the runs :func:`main` started
     beside the build); (d) compressed gradients on four gloo ranks sharing
-    the card.  ``cfg`` and ``sizes`` shrink it for
+    the card (``compress``: the future of :func:`compressed_grads_on_ranks`,
+    started beside the build too).  ``cfg`` and ``sizes`` shrink it for
     a rehearsal on the CPU."""
     import math
 
@@ -2860,7 +2924,6 @@ def run_train_slice(dev, paths, results, cli, cfg=None, sizes=TRAIN):
     from repro_torch.configs import ARCHS, SHAPES, ShapeSpec
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.launch.mesh import spawn_mesh
     from repro_torch.launch.train import synthetic_batch
     from repro_torch.models import api, common, transformer
     from repro_torch.training import AdamW
@@ -3109,20 +3172,9 @@ def run_train_slice(dev, paths, results, cli, cfg=None, sizes=TRAIN):
         "/ 2e-3)")
     out["held"] = held
 
-    # -- 21(d). compressed gradients on four gloo ranks -----------------------
-    arrays = {"w": np.random.default_rng(0).standard_normal((8, 4))
-              .astype(np.float32),
-              "x": np.random.default_rng(1).standard_normal((16, 8))
-              .astype(np.float32),
-              "y": np.random.default_rng(2).standard_normal((16, 4))
-              .astype(np.float32)}
-    device = "cuda:0" if card else "cpu"
-    t0 = time.perf_counter()
-    rank_out = spawn_mesh(_compress_rank, 4, 1, backend="gloo",
-                          device=device, args=(arrays, device,
-                                               sizes["density"]),
-                          timeout=300.0)
-    ranks_s = time.perf_counter() - t0
+    # -- 21(d). compressed gradients on four gloo ranks (run beside the
+    # build) -------------------------------------------------------------------
+    arrays, rank_out, ranks_s = compress.result()
     w = torch.from_numpy(arrays["w"]).to(dev).requires_grad_()
     lfull = torch.mean((torch.from_numpy(arrays["x"]).to(dev) @ w
                         - torch.from_numpy(arrays["y"]).to(dev)) ** 2)
@@ -3140,7 +3192,7 @@ def run_train_slice(dev, paths, results, cli, cfg=None, sizes=TRAIN):
         f"{[f'{c:.3e}' for c in cons]} over two calls (bar 1e-5); loss "
         f"{rank_out[0][0][0]['loss']:.6f} (full batch "
         f"{float(lfull.detach()):.6f}); collectives a rank {rank_out[0][1]}; "
-        f"{ranks_s:.1f} s")
+        f"{ranks_s:.1f} s (beside the build)")
     out["compressed"] = dict(conservation=cons, seconds=ranks_s,
                              collectives=rank_out[0][1])
 
@@ -6820,6 +6872,297 @@ def run_wikipedia_slice(dev, wiki, cli, smi, paths, results, rows):
     log(f"[wiki] phase 28 took {out['seconds']:.1f} s on {smi}")
 
 
+# ---------------------------------------------------------------------------
+# phase 29: the port's examples on the card
+# ---------------------------------------------------------------------------
+
+#: 29(a): each example as its docstring runs it (no ``--device``: the card;
+#: the pipeline into a fresh ``--ckpt``), and the lines it must print:
+#: (pattern, how many lines at least); every one must also name the card
+EXAMPLE_RUNS = {
+    "quickstart": (["torch_quickstart.py"], [
+        (r"^term/document matrix: \(2000, 1000\), nnz=\d+$", 1),
+        (r"^device +: cuda", 1),
+        (r"^final relative error +: ", 1), (r"^final residual +: ", 1),
+        (r"^NNZ\(U\)=\d+  NNZ\(V\)=\d+  max stored=\d+", 1),
+        (r"^clustering accuracy +: ", 1),
+        (r"^fold-in +: 100 new docs -> topics ", 1),
+        (r"^topic [0-4]: terms \[", 5)]),
+    "pipeline": (["torch_topic_modeling_pipeline.py"], [
+        (r"^== stage [1-5]: ", 5), (r"^   round [1-4]/4: err=", 4),
+        (r"clustering accuracy \(Eq\. 3\.3\): ", 1),
+        (r"memory: stored NNZ \d+ vs dense", 1),
+        (r"served 64 docs in ", 1), (r"\d+/64 documents assigned", 1),
+        (r"folded 64 served docs", 1)]),
+    "pipeline --stream": (["torch_topic_modeling_pipeline.py", "--stream"], [
+        (r"^== stage [1-5]: ", 5), (r"^   chunk [1-8]/8 \(\d+ docs\)", 8),
+        (r"^   ckpt=\d+KB", 1),
+        (r"clustering accuracy \(Eq\. 3\.3\): ", 1),
+        (r"served 64 docs in ", 1), (r"\d+/64 documents assigned", 1),
+        (r"folded 64 served docs", 1)]),
+    "serving": (["torch_serving.py"], [
+        (r"^8 requests submitted; engine slots: 4$", 1),
+        (r"^tick +\d+: req\d+->\d+", 2), (r"^drained in \d+ ticks", 1)]),
+    "lm_training llama3.2-1b": (
+        ["torch_lm_training.py", "--arch", "llama3.2-1b", "--steps", "20"], [
+            (r"^llama3\.2-1b: [\d.]+M params \(reduced config\)$", 1),
+            (r"^step +\d+ loss \S+ \([\d.]+s\)$", 20)]),
+    "lm_training olmoe-1b-7b --compress": (
+        ["torch_lm_training.py", "--arch", "olmoe-1b-7b", "--compress"], [
+            (r"^olmoe-1b-7b: [\d.]+M params \(reduced config\)$", 1),
+            (r"^step +\d+ loss \S+ \(top-5% compressed grads, [\d.]+s\)$",
+             20)]),
+}
+#: 29(a)'s two waves: the LM examples need no kernel and start beside the
+#: build; the NMF examples start with it and wait, at their first kernel,
+#: on the build's lock of each library (``kernels/_build.py``)
+LM_EXAMPLES = ("serving", "lm_training llama3.2-1b",
+               "lm_training olmoe-1b-7b --compress")
+NMF_EXAMPLES = ("quickstart", "pipeline", "pipeline --stream")
+#: 29(b): the pipeline at the docstring's PubMed size, in this process
+PIPELINE_ARGV = ["--terms", str(N_TERMS), "--docs", str(N_DOCS), "--iters",
+                 "200"]
+
+
+def example_runs(names, card_name):
+    """Phase 29(a): the examples ``names`` one after another, each a
+    subprocess run as its docstring runs it, on the card: exit 0, every
+    line of :data:`EXAMPLE_RUNS`, no NaN or inf in what it printed, and the
+    card (``card_name``) named.  Run beside untimed work only (the build
+    and the train launchers).  Returns each one's seconds and output."""
+    import shutil
+    import tempfile
+
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"))
+    out = {}
+    for name in names:
+        argv, lines = EXAMPLE_RUNS[name]
+        ckpt = tempfile.mkdtemp(prefix="chip-smoke-example-")
+        cmd = [sys.executable, str(repo / "examples" / argv[0]), *argv[1:]]
+        if "pipeline" in name:
+            cmd += ["--ckpt", ckpt]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                             timeout=600)
+        secs = time.perf_counter() - t0
+        shutil.rmtree(ckpt, ignore_errors=True)
+        if run.returncode != 0:
+            raise AssertionError(f"example {name} exited {run.returncode}: "
+                                 f"{run.stderr[-3000:]}")
+        text = run.stdout.splitlines()
+        for pattern, count in lines:
+            got = sum(1 for ln in text if re.search(pattern, ln))
+            if got < count:
+                raise AssertionError(f"example {name} printed {got} lines "
+                                     f"matching {pattern!r}, not {count}: "
+                                     f"{run.stdout[-2000:]}")
+        if re.search(r"\b(nan|inf)\b", run.stdout, re.IGNORECASE):
+            raise AssertionError(f"example {name} printed a non-finite "
+                                 f"number: {run.stdout[-2000:]}")
+        if card_name not in run.stdout:
+            raise AssertionError(f"example {name} does not name the card "
+                                 f"{card_name!r}: {run.stdout[:500]}")
+        out[name] = dict(seconds=secs, lines=len(text), stdout=run.stdout)
+    return out
+
+
+def _example(name):
+    """The example script ``examples/<name>.py`` as a module."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def pipeline_launches(dev, a_sp, full_cover, new_sp, args, stream):
+    """The kernel launches of the pipeline example's ``main`` worked out
+    from the code: a fit of i iterations is 2 i + 1 ``bsr_spmm_gram`` (the
+    +1 the streaming statistics' seed) and 2 i ``relu_topk``; a
+    ``partial_fit`` pass (min(iters, 10) of them a chunk) two of each; each
+    fused product adds one ``gram`` where its operand leaves a block of
+    rows unreferenced (``kernels/fused.py``); a ``transform`` and a
+    ``TopicServer`` tick one ``bsr_spmm`` and one ``relu_topk``.
+    ``full_cover`` says whether A's two orientations (A: the documents'
+    blocks, A^T: the terms') leave a block unreferenced."""
+    from repro_torch.backend import get_backend
+
+    be = get_backend("cuda-bsr")
+    iters = args.iters // args.rounds
+    passes = min(iters, 10)
+    want = dict(bsr_spmm_gram=0, relu_topk=0, bsr_spmm=0, gram=0,
+                project_mask=0)
+
+    def add(n_iters, cover, seed=False):
+        docs_gap, terms_gap = cover
+        want["bsr_spmm_gram"] += 2 * n_iters + seed
+        want["relu_topk"] += 2 * n_iters
+        want["gram"] += n_iters * (docs_gap + terms_gap) + seed * docs_gap
+
+    def cover(sub):
+        ct = be.tile_config(*sub.shape, device=dev)
+        terms, docs = chunk_coverage(sub.tocsr(), ct.bm, ct.bk)
+        return (not docs.all(), not terms.all())
+
+    if stream:
+        cols = a_sp.tocsc()
+        m = cols.shape[1]
+        n_chunks = 2 * args.rounds
+        w = -(-m // n_chunks)
+        for i in range(n_chunks):
+            add(passes, cover(cols[:, i * w:min((i + 1) * w, m)]))
+        want["bsr_spmm"] += 1          # the transform of the corpus
+        want["relu_topk"] += 1
+    else:
+        for _ in range(args.rounds):
+            add(iters, full_cover, seed=True)
+    ticks = -(-new_sp.shape[1] // 16)
+    want["bsr_spmm"] += ticks
+    want["relu_topk"] += ticks
+    add(passes, cover(new_sp))        # the refresh: one partial_fit
+    return want
+
+
+def run_examples_slice(dev, a_sp, full_cover, smi, paths, results, lm_runs,
+                       nmf_runs):
+    """Phase 29: the port's examples.  (a) ``lm_runs`` / ``nmf_runs``, the
+    futures of :func:`example_runs`, started beside the build; (b) the
+    pipeline's ``main`` at PubMed size in this process, batch (resumed from
+    a checkpoint of a known U, replayed on ``torch-dense``) and
+    ``--stream``, its launches against :func:`pipeline_launches`."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.backend import get_backend
+    from repro_torch.checkpoint import (
+        restore_nmf_factors_sparse, save_nmf_factors_sparse,
+    )
+    from repro_torch.core.nmf import init_u0
+    from repro_torch.kernels import _build
+    from repro_torch.nmf import EnforcedNMF
+
+    t_phase = time.perf_counter()
+    out = results["examples"] = {}
+    pipe = _example("torch_topic_modeling_pipeline")
+    args = pipe.parse_args(PIPELINE_ARGV)
+    new_sp, _, _ = pipe.make_corpus(args.terms, pipe.NEW_DOCS, args.topics,
+                                    seed=pipe.NEW_SEED)
+    root = tempfile.mkdtemp(prefix="chip-smoke-pipeline-")
+
+    def main(argv, stream):
+        """The example's ``main`` at PubMed size with its launches read
+        around it (and its printed lines kept)."""
+        text = io.StringIO()
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            got = pipe.main(PIPELINE_ARGV + argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        want = pipeline_launches(dev, a_sp, full_cover, new_sp, args, stream)
+        for line in text.getvalue().splitlines():
+            log(f"[pipeline]{' --stream' if stream else ''} {line}")
+        differ = {k: (counts[k], v) for k, v in want.items()
+                  if counts[k] != v}
+        if differ:
+            raise AssertionError(f"the pipeline's launches (got, worked out "
+                                 f"from the code): {differ}")
+        if not (got["answered"] == got["served"] == pipe.NEW_DOCS
+                and got["refresh"]["folded"] == pipe.NEW_DOCS):
+            raise AssertionError(f"the pipeline answered {got['answered']} "
+                                 f"of {pipe.NEW_DOCS} requests and folded "
+                                 f"{got['refresh']['folded']}")
+        if not np.isfinite(got["accuracy"]):
+            raise AssertionError("the pipeline's accuracy is not finite")
+        log(f"[pipeline]{' --stream' if stream else ''} main({' '.join(argv)}"
+            f") at PubMed size in {secs:.2f} s; stages "
+            f"{ {k: round(v, 3) for k, v in got['stages'].items()} } s; "
+            f"{got['served']} requests answered ({got['hits']} assigned a "
+            f"topic) in {got['serve_s']:.3f} s, {got['refresh']['folded']} "
+            f"folded back; launches {counts}, as worked out from the code")
+        return got, dict(seconds=secs, launches=counts, stages=got["stages"])
+
+    # -- (b) batch: resumed from a checkpoint of a known U --------------------
+    gen = torch.Generator().manual_seed(29)
+    u_known = init_u0(gen, args.terms, args.topics, device="cpu")
+    v_known = init_u0(gen, args.docs, args.topics, device="cpu")
+    batch_dir = str(Path(root) / "batch")
+    save_nmf_factors_sparse(str(Path(batch_dir) / "factors.npz"), u_known,
+                            v_known)
+    got, out["batch"] = main(["--ckpt", batch_dir], False)
+    paths["pipeline"] = out["batch"]["launches"]
+    if not got["resumed"]:
+        raise AssertionError("the pipeline did not resume from the seeded "
+                             "checkpoint")
+    # the same rounds on torch-dense from the same U: each round's final
+    # error and residual within 1e-4 (the reference's trace bar), V within
+    # 1e-4, U within 1e-4 of its largest entry (U is not normalized: phase
+    # 13 holds a streamed fit's U so)
+    t0 = time.perf_counter()
+    dense_cfg = pipe.make_config(args).replace(backend="torch-dense")
+    a_dense = get_backend("torch-dense").prepare(a_sp, device=dev)
+    replay = EnforcedNMF(dense_cfg, device=dev)
+    u0 = torch.clamp_min(u_known.to(dev), 0.0) + 1e-6
+    traces = []
+    for _ in range(args.rounds):
+        replay.fit(a_dense, u0=u0)
+        u0 = replay.u_
+        traces.append((replay.result_.final_error,
+                       replay.result_.final_residual))
+    u_ck, v_ck = restore_nmf_factors_sparse(got["ckpt"], device=dev)
+    du = float((u_ck - replay.u_).abs().max())
+    dv = float((v_ck - replay.v_).abs().max())
+    scale = float(replay.u_.abs().max())
+    d_trace = max(max(abs(r["err"] - e), abs(r["resid"] - q))
+                  for r, (e, q) in zip(got["rounds"], traces))
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    log(f"[pipeline] the checkpoint's factors against {args.rounds} rounds "
+        f"of {dense_cfg.iters} iterations on torch-dense from the same U: "
+        f"max abs diff U {du:.3e} ({du / scale:.3e} of max |U| "
+        f"{scale:.4g}), V {dv:.3e}, each round's final error and residual "
+        f"{d_trace:.3e} (bars 1e-4); NNZ(U) "
+        f"{int((u_ck != 0).sum())} / {int((replay.u_ != 0).sum())}; replay "
+        f"{replay_s:.2f} s")
+    if du > 1e-4 * scale or dv > 1e-4 or d_trace > 1e-4:
+        raise AssertionError(f"the pipeline's checkpoint differs from the "
+                             f"torch-dense replay: U by {du:.3e} (max |U| "
+                             f"{scale:.4g}), V by {dv:.3e}, the traces by "
+                             f"{d_trace:.3e}")
+    out["batch"].update(dense_diff_u=du, dense_diff_v=dv, u_max=scale,
+                        dense_diff_trace=d_trace, replay_s=replay_s)
+    del a_dense, replay, u0, u_ck, v_ck
+
+    # -- (b) --stream ----------------------------------------------------------
+    _, out["stream"] = main(["--stream", "--ckpt",
+                             str(Path(root) / "stream")], True)
+    paths["pipeline_stream"] = out["stream"]["launches"]
+    shutil.rmtree(root, ignore_errors=True)
+    out["b_seconds"] = time.perf_counter() - t_phase
+
+    # -- (a) the examples as their docstrings run them ------------------------
+    for runs in (lm_runs, nmf_runs):
+        for name, r in runs.result().items():
+            log(f"[examples] {name}: exit 0 in {r['seconds']:.1f} s, "
+                f"{r['lines']} lines, every stage's line, finite, the card "
+                f"named (beside the build); its last line: "
+                f"{r['stdout'].splitlines()[-1]!r}")
+            out.setdefault("runs", {})[name] = {
+                k: v for k, v in r.items() if k != "stdout"}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[examples] phase 29 took {out['seconds']:.1f} s ((b) "
+        f"{out['b_seconds']:.1f} s) on {smi}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -6881,6 +7224,11 @@ def main(argv=None) -> int:
     train_cli = beside(launcher_kill_and_resume,
                        (LM_ARCH, MOE_ARCH, ENCDEC_ARCH), TRAIN["cli"], True)
     grid_cli = beside(launcher_across_grids, True)
+    # -- 21(d) and 29(a): the compressed gradients' ranks and the LM
+    # examples need no kernel either, and time nothing a metric reads
+    compress = beside(compressed_grads_on_ranks, True, TRAIN["density"])
+    card_name = torch.cuda.get_device_name(0)
+    lm_examples = beside(example_runs, LM_EXAMPLES, card_name)
     # -- 28: the Wikipedia corpus, made beside the build and the launchers
     # (this thread only waits there), its padded SpCSR dropped at once;
     # then 28(c)'s command line, which makes its own (the two corpora's
@@ -6892,6 +7240,12 @@ def main(argv=None) -> int:
     # a fresh build, so that ptxas reports every kernel of this checkout
     for source in _build.CSRC_DIR.glob("*.cu"):
         _build._target(source).unlink(missing_ok=True)
+    # -- 17(f) and 29(a): the NMF command line's kill and resume and the NMF
+    # examples, started with the build: each one's first kernel waits on
+    # the build's lock of that library, taken below before any of them has
+    # imported torch
+    fault_cli = beside(command_line_kill_and_resume, True)
+    nmf_examples = beside(example_runs, NMF_EXAMPLES, card_name)
     t0 = time.perf_counter()
     report = _build.build_all()
     build_s = time.perf_counter() - t0
@@ -6904,13 +7258,24 @@ def main(argv=None) -> int:
     log(f"[build] CUDA sources built in {build_s:.2f} s (beside the train "
         "launcher's runs of 21(c) and 25(c))")
     results["phases"]["build_s"] = build_s
-    for run in (train_cli, grid_cli, wiki_corpus, wiki_cli):
+    beside_runs = {"the train launchers": train_cli,
+                   "the grid launchers": grid_cli,
+                   "the Wikipedia corpus": wiki_corpus,
+                   "its command line": wiki_cli,
+                   "21(d)'s ranks": compress, "17(f)'s command line": fault_cli,
+                   "the LM examples": lm_examples,
+                   "the NMF examples": nmf_examples}
+    ends = {}
+    for name, run in beside_runs.items():
         run.exception()
-    log(f"[build] the launcher's runs ended "
+        ends[name] = time.perf_counter() - t_cli
+    log(f"[build] the runs beside the build had all ended "
         f"{time.perf_counter() - t_cli:.1f} s after they started, "
-        f"{time.perf_counter() - t0 - build_s:.1f} s after the build (with "
-        f"them, the Wikipedia corpus in {wiki_corpus.result()['seconds']:.1f}"
-        f" s and its command line in {wiki_cli.result()['seconds']:.1f} s)")
+        f"{time.perf_counter() - t0 - build_s:.1f} s after the build (each "
+        f"joined at {', '.join(f'{n} {v:.1f} s' for n, v in ends.items())};"
+        f" the Wikipedia corpus took {wiki_corpus.result()['seconds']:.1f}"
+        f" s and its command line {wiki_cli.result()['seconds']:.1f} s)")
+    results["phases"]["beside_build_s"] = dict(ends, build=build_s)
 
     # -- corpus and operand ---------------------------------------------------
     clock("phases 2-7")
@@ -7465,7 +7830,8 @@ def main(argv=None) -> int:
     # -- 17.-18. fault tolerance and the TopicServer ---------------------------
     clock("phases 17-18")
     t0 = time.perf_counter()
-    run_fault_slice(dev, a_sp, op, model, u0, paths, results, keep)
+    run_fault_slice(dev, a_sp, op, model, u0, paths, results, keep,
+                    fault_cli)
     run_topic_slice(dev, model, new_sp, paths, results)
     results["phases"]["fault_topic_s"] = time.perf_counter() - t0
     log(f"[fault] phases 17-18 took {results['phases']['fault_topic_s']:.1f} "
@@ -7483,7 +7849,7 @@ def main(argv=None) -> int:
                              "bound_by")}
     # -- 21. the LM training half ------------------------------------------
     clock("phase 21")
-    run_train_slice(dev, paths, results, train_cli)
+    run_train_slice(dev, paths, results, train_cli, compress)
     # -- 22. the moe family: olmoe-1b-7b served, trained, expert-parallel ---
     clock("phase 22")
     run_moe_slice(dev, paths, results)
@@ -7504,9 +7870,18 @@ def main(argv=None) -> int:
     run_analysis_slice(dev, a_sp, op, u0, smi, results)
     # -- 28. the paper's Wikipedia configuration -----------------------------
     clock("phase 28")
+    # whether A's orientations leave a block of rows unreferenced (the
+    # pipeline's ingest of the same corpus is the same), for phase 29
+    full_cover = (op.bsr.uncovered_rows is not None,
+                  op.bsr_t.uncovered_rows is not None)
     del model, op
     run_wikipedia_slice(dev, wiki_corpus.result(), wiki_cli, smi, paths,
                         results, rows)
+
+    # -- 29. the port's examples -------------------------------------------
+    clock("phase 29")
+    run_examples_slice(dev, a_sp, full_cover, smi, paths, results,
+                       lm_examples, nmf_examples)
 
     owner = {"project_mask": "fit", "bsr_spmm_gram": "fit",
              "bsr_spmm": "transform", "gram": "unfused_fit",

@@ -13,7 +13,8 @@ from typing import Union
 
 import torch
 
-__all__ = ["default_device", "resolve_device", "configure_numerics", "move"]
+__all__ = ["default_device", "resolve_device", "configure_numerics", "move",
+           "device_name", "synchronize"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -66,3 +67,20 @@ def move(t: torch.Tensor, device, non_blocking: bool = False
             and torch.device(device).type == "cuda" and not t.is_pinned()):
         t = t.pin_memory()
     return t.to(device, non_blocking=non_blocking)
+
+
+def device_name(device: DeviceLike) -> str:
+    """``device`` with the card's name (``cuda:0 (NVIDIA H100 80GB
+    HBM3)``), or ``cpu``: what a script prints beside its numbers."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return f"{dev} ({torch.cuda.get_device_name(dev)})"
+    return str(dev)
+
+
+def synchronize(device: DeviceLike) -> None:
+    """Wait for the work queued on ``device`` (nothing off the card), so a
+    host clock read after it times that work."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

@@ -309,3 +309,62 @@ def test_moe_entry_points_raise_without_a_card(monkeypatch):
         serve.main(["--arch", "olmoe-1b-7b", "--requests", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--arch", "olmoe-1b-7b", "--smoke", "--steps", "1"])
+
+
+EXAMPLE_FILES = sorted((REPO / "examples").glob("torch_*.py"))
+
+
+def _example(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"_example_{name}", REPO / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_the_port_has_its_examples():
+    assert {p.name for p in EXAMPLE_FILES} >= {
+        "torch_quickstart.py", "torch_topic_modeling_pipeline.py",
+        "torch_serving.py", "torch_lm_training.py"}
+
+
+@pytest.mark.parametrize("path", EXAMPLE_FILES, ids=lambda p: p.name)
+def test_examples_import_neither_jax_nor_reference(path):
+    for name in _imports(path):
+        assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), (
+            f"{path.relative_to(REPO)} imports {name}")
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("torch_quickstart", []),
+    ("torch_topic_modeling_pipeline", ["--terms", "60", "--docs", "30",
+                                       "--iters", "4", "--rounds", "2",
+                                       "--t-u", "30", "--t-v", "40"]),
+    ("torch_topic_modeling_pipeline", ["--terms", "60", "--docs", "30",
+                                       "--iters", "4", "--rounds", "2",
+                                       "--t-u", "30", "--t-v", "40",
+                                       "--stream"]),
+    ("torch_serving", []),
+    ("torch_lm_training", ["--steps", "1"]),
+    ("torch_lm_training", ["--steps", "1", "--arch", "olmoe-1b-7b",
+                           "--compress"]),
+], ids=["quickstart", "pipeline", "pipeline-stream", "serving", "training",
+        "training-compress"])
+def test_examples_raise_without_a_card_unless_asked_for_the_cpu(
+        monkeypatch, tmp_path, capsys, name, argv):
+    """Each example's ``main`` needs the card; ``--device cpu`` runs it on
+    the plain versions, launching no kernel."""
+    mod = _example(name)
+    if name == "torch_topic_modeling_pipeline":
+        argv = argv + ["--ckpt", str(tmp_path)]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main(argv)
+    assert not (tmp_path / "factors.npz").exists()
+    _build.reset_launch_counts()
+    got = mod.main(argv + ["--device", "cpu"])
+    assert got["device"] == "cpu"
+    assert sum(_build.launch_counts().values()) == 0
+    assert "cpu" in capsys.readouterr().out
